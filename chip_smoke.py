@@ -1,0 +1,539 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure exits non-zero without the
+final ``ok`` line:
+
+  env       torch / CUDA versions, the card and its power limit
+  build     nvcc builds of the CUDA kernels (sm_90a), seconds taken
+  kernels   each kernel against its plain PyTorch version on the card at
+            main-path shapes (B=8, H=16, Hkv=8, d=128, bf16 storage),
+            with its time, the plain version's time, the HBM bound and,
+            for flash_decode, scaled_dot_product_attention as a yardstick
+  engine_paged_ring   full-width qwen3-0.6b (random weights, bf16) served
+            in paged + hot-ring mode; each kernel must launch
+            n_layers x decode steps times
+  engine_paged_ring_full   the same with retrieval sparsity off, so
+            every token past the ring is read through flash_decode_paged
+  engine_dense_pam    the same model in dense PAM mode (flash_decode
+            through masked_decode_attention)
+  profile   torch.profiler over 4 steady paged + ring decode steps: device
+            time by kernel, the device's idle share
+  parity    full-width qwen3-0.6b in fp32: teacher-forced decode steps
+            through the engine's kernel-backed attention vs attention
+            built from plain tensor code, logits compared
+
+Imports nothing of JAX or of the reference package ``repro``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
+FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+KERNEL_TOL = dict(rtol=1e-4, atol=1e-3)
+PARITY_TOL = 1e-3                # max |dlogit| / max(1, max |logit|)
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+# ---------------------------------------------------------------- timing
+def _time_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
+    """Mean ms per call on the card: CUDA events around each call, the
+    50 MB L2 flushed before each (the engine's 28 layers never find
+    their KV in L2)."""
+    import torch
+    scratch = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        scratch.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def _device_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
+    """Mean device time (ms) per call of the port's own CUDA kernels
+    (symbols in namespace ``pam``) launched by ``fn``, from
+    torch.profiler; L2 flushed before each call as in ``_time_ms``. The
+    wrapper's argument preparation is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    scratch = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            scratch.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if "pam::" in ev.key)
+    return us / iters / 1e3
+
+
+def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def _compare(got, ref) -> tuple[float, bool]:
+    import torch
+    err, ok = 0.0, True
+    for g, r in zip(got, ref):
+        err = max(err, float((g - r).abs().max()))
+        ok = ok and bool(torch.allclose(g, r, **KERNEL_TOL))
+    return err, ok
+
+
+# ---------------------------------------------------------------- phases
+def phase_env() -> dict:
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return dict(torch=torch.__version__, cuda=torch.version.cuda,
+                python=sys.version.split()[0],
+                device=torch.cuda.get_device_name(0),
+                count=torch.cuda.device_count(),
+                nvidia_smi=smi[0] if smi else "")
+
+
+def phase_build() -> dict:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    per = build.build_all()
+    regs = {}
+    for name in build.SOURCES:
+        lines = build.build_log(name).splitlines()
+        for i, line in enumerate(lines):
+            if "Li128ELi2E" in line and "bfloat16" in line \
+                    and "Compiling entry" in line:
+                used = [x for x in lines[i:i + 6] if "Used" in x]
+                regs[name] = used[0].split(":", 1)[1].strip() if used else ""
+    return dict(build_s=time.perf_counter() - t0, per_library=per,
+                bf16_d128_rep2=regs)
+
+
+def _dense_case(S, seed, dead_split):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, Hkv, d = 8, 16, 8, 128
+    q = torch.randn((B, H, d), generator=g, device="cuda")
+    k = torch.randn((B, Hkv, S, d), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, Hkv, S, d), generator=g, device="cuda").bfloat16()
+    mask = torch.rand((B, S), generator=g, device="cuda") < 0.5
+    if dead_split:
+        mask[0, 512:1024] = False                 # one split of row 0
+    lens = torch.randint(S // 4, S + 1, (B,), generator=g, device="cuda")
+    lens[-1] = 0                                  # an all-dead row
+    return q, k, v, mask, lens
+
+
+def _sdpa_ms(q, k, v, mask, lens) -> float:
+    """One PyTorch call computing the same attention (the yardstick
+    ``library_ms``; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    S = k.shape[2]
+    qq = q.bfloat16()[:, :, None]
+    am = (mask & (torch.arange(S, device="cuda")[None] < lens[:, None]))
+    am = am[:, None, None, :]
+    return _time_ms(lambda: F.scaled_dot_product_attention(
+        qq, k, v, attn_mask=am, enable_gqa=True))
+
+
+def kernel_flash_decode(S: int) -> dict:
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v, mask, lens = _dense_case(S, seed=S, dead_split=S > 512)
+    B, H, d = q.shape
+    Hkv = k.shape[1]
+    got = fd.flash_decode(q, k, v, mask, kv_lens=lens)
+    # the wrapper's own argument preparation, then its plain version
+    live = (mask & (torch.arange(S, device="cuda")[None] < lens[:, None]))
+    m8 = live.to(torch.int8).contiguous()
+    block_s = min(fd.DEFAULT_BLOCK_S, max(S, 8))
+    nsplit = -(-S // block_s)
+    scale = 1.0 / d ** 0.5
+    ref = fd._flash_decode_plain(q, k, v, m8, S, scale, block_s, nsplit)
+    torch.cuda.synchronize()
+    err, ok = _compare(got, ref)
+    n_live = int(live.sum())
+    nbytes = (n_live * Hkv * d * 2 * 2 + q.numel() * 4 + m8.numel()
+              + B * 4 + sum(t.numel() * 4 for t in got))
+    flops = n_live * H * d * 4
+    bound, by = _bound_ms(nbytes, flops)
+    return dict(name="flash_decode", S=S, nsplit=nsplit, ok=ok,
+                max_abs_err=err, tol=KERNEL_TOL,
+                ms=_time_ms(lambda: fd.flash_decode(q, k, v, mask,
+                                                    kv_lens=lens)),
+                kernel_device_ms=_device_ms(lambda: fd.flash_decode(
+                    q, k, v, mask, kv_lens=lens)),
+                plain_ms=_time_ms(lambda: fd._flash_decode_plain(
+                    q, k, v, m8, S, scale, block_s, nsplit)),
+                bound_ms=bound, bound_by=by, bytes=nbytes,
+                live_tokens=n_live, library_ms=_sdpa_ms(q, k, v, mask, lens))
+
+
+def kernel_flash_decode_paged() -> dict:
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    g = torch.Generator(device="cuda").manual_seed(7)
+    B, H, Hkv, d, bs, nb, NB = 8, 16, 8, 128, 16, 128, 1024
+    q = torch.randn((B, H, d), generator=g, device="cuda")
+    kp = torch.randn((NB + 1, bs, Hkv, d), generator=g,
+                     device="cuda").bfloat16()
+    vp = torch.randn((NB + 1, bs, Hkv, d), generator=g,
+                     device="cuda").bfloat16()
+    table = torch.randperm(NB, generator=g, device="cuda")[:B * nb]
+    table = table.reshape(B, nb).to(torch.int32)
+    table[:, 100:] = NB                          # unmapped -> sentinel
+    live_blk = torch.rand((B, nb), generator=g, device="cuda") < 0.25
+    live_blk[:, 100:] = False
+    mask = (torch.rand((B, nb * bs), generator=g, device="cuda") < 0.6)
+    mask = mask & live_blk.repeat_interleave(bs, 1)
+    got = fd.flash_decode_paged(q, kp, vp, table, mask, block_live=live_blk)
+    tbl = torch.where(live_blk, table, torch.full_like(table, NB)).long()
+    m8 = mask.to(torch.int8).contiguous()
+    bl = live_blk.to(torch.int32).contiguous()
+    scale = 1.0 / d ** 0.5
+    ref = fd._flash_decode_paged_plain(q, kp, vp, tbl, bl, m8, scale)
+    torch.cuda.synchronize()
+    err, ok = _compare(got, ref)
+    n_live = int(mask.sum())
+    nbytes = (n_live * Hkv * d * 2 * 2 + q.numel() * 4 + m8.numel()
+              + 2 * table.numel() * 4 + sum(t.numel() * 4 for t in got))
+    flops = n_live * H * d * 4
+    bound, by = _bound_ms(nbytes, flops)
+    return dict(name="flash_decode_paged", ok=ok, max_abs_err=err,
+                tol=KERNEL_TOL, live_blocks=int(live_blk.sum()),
+                ms=_time_ms(lambda: fd.flash_decode_paged(
+                    q, kp, vp, table, mask, block_live=live_blk)),
+                kernel_device_ms=_device_ms(lambda: fd.flash_decode_paged(
+                    q, kp, vp, table, mask, block_live=live_blk)),
+                plain_ms=_time_ms(lambda: fd._flash_decode_paged_plain(
+                    q, kp, vp, tbl, bl, m8, scale)),
+                bound_ms=bound, bound_by=by, bytes=nbytes,
+                live_tokens=n_live, library_ms=None)
+
+
+def _model(dtype: str):
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import get_config
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype=dtype)
+    return cfg, tf.init_params(cfg, 0, device="cuda")
+
+
+def _pam(max_len: int, **kw):
+    from repro_torch.serving import PAMManagerConfig
+    return PAMManagerConfig(max_tokens=max_len, hot_capacity=256,
+                            warm_capacity=768, compression=8,
+                            recency_window=32, schedule_interval=4, **kw)
+
+
+def _engine(cfg, params, n_req: int, new: int, pam_kw=None, **scfg_kw):
+    """An engine with ``n_req`` requests of 512-1024 prompt tokens (seeded
+    numpy draws) submitted."""
+    import numpy as np
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    scfg = ServingConfig(pam=_pam(scfg_kw["max_len"], **(pam_kw or {})),
+                         **scfg_kw)
+    eng = ServingEngine(cfg, params, scfg, device="cuda")
+    rng = np.random.default_rng(0)
+    for i in range(n_req):
+        plen = int(rng.integers(512, 1025))
+        eng.submit(Request(i, rng.integers(0, cfg.vocab, plen), new))
+    return eng
+
+
+def run_engine(cfg, params, *, n_req: int, new: int, pam_kw=None,
+               **scfg_kw) -> dict:
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    eng = _engine(cfg, params, n_req, new, pam_kw, **scfg_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd.flash_decode.launches = 0            # counts of this run only
+    fd.flash_decode_paged.launches = 0
+    summ = eng.run()
+    launches = {"flash_decode": fd.flash_decode.launches,
+                "flash_decode_paged": fd.flash_decode_paged.launches}
+    lens = [len(eng.requests[i].outputs) for i in range(n_req)]
+    assert lens == [new] * n_req, f"outputs per request {lens}"
+    return dict(summary=summ, launches=launches,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_engine_paged(cfg, params) -> dict:
+    r = run_engine(cfg, params, n_req=8, new=64, max_batch=8,
+                   max_len=2048, block_size=16, hot_window=256)
+    steps = r["summary"]["decode_device_steps"]
+    want = cfg.n_layers * steps
+    for name, n in r["launches"].items():
+        assert n == want, f"{name}: {n} launches, want {want}"
+    return _engine_line(r, want)
+
+
+def phase_engine_paged_full(cfg, params) -> dict:
+    """Paged + ring with retrieval sparsity off: every token outside the
+    256-slot ring is read from the pool, so ``flash_decode_paged`` walks
+    live blocks on every step (with sparsity on, the working set stays
+    inside the ring and the pool partial is all identity)."""
+    r = run_engine(cfg, params, n_req=8, new=16, max_batch=8,
+                   max_len=2048, block_size=16, hot_window=256,
+                   pam_kw=dict(use_sparsity=False))
+    s = r["summary"]
+    want = cfg.n_layers * s["decode_device_steps"]
+    for name, n in r["launches"].items():
+        assert n == want, f"{name}: {n} launches, want {want}"
+    assert s["blocks_touched_per_step"] > 0, s
+    assert s["tier_reads"][1] + s["tier_reads"][2] > 0, s["tier_reads"]
+    return _engine_line(r, want)
+
+
+def phase_profile(cfg, params) -> dict:
+    """Where a paged + ring decode step's time goes: torch.profiler over
+    4 steady decode steps of the main-path engine (device time by kernel
+    name, the device's busy share of the window's wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    eng = _engine(cfg, params, 8, 16, max_batch=8, max_len=2048,
+                  block_size=16, hot_window=256)
+    for _ in range(3):                       # admission + warm decode
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []                   # device-side events only (kernels, copies)
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            rows.append((ev.self_device_time_total, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    if not rows:
+        return dict(steps=4, wall_s=wall, device_time="not measured")
+    return dict(steps=4, wall_s=wall, step_ms=wall / 4 * 1e3,
+                device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
+                kernel_launches=sum(r[2] for r in rows),
+                top=[dict(name=k[:80], device_ms=us / 1e3, count=n,
+                          us_per_launch=us / max(n, 1))
+                     for us, k, n in rows[:12]],
+                ported=[dict(name=k[:80], device_ms=us / 1e3, count=n,
+                             us_per_launch=us / max(n, 1))
+                        for us, k, n in rows if "pam::" in k])
+
+
+def phase_engine_dense(cfg, params) -> dict:
+    r = run_engine(cfg, params, n_req=4, new=32, max_batch=4,
+                   max_len=2048)
+    steps = r["summary"]["decode_device_steps"]
+    want = cfg.n_layers * steps
+    assert r["launches"]["flash_decode"] == want, r["launches"]
+    assert r["launches"]["flash_decode_paged"] == 0, r["launches"]
+    return _engine_line(r, want)
+
+
+def _engine_line(r: dict, want: int) -> dict:
+    s = r["summary"]
+    keep = ("finished", "total_tokens", "steps", "decode_device_steps",
+            "decode_time_s", "decode_tok_s", "wall_time_s",
+            "p50_tpot_s", "p99_tpot_s", "tier_reads", "moved_tokens",
+            "blocks_touched_per_step", "blocks_window_per_step",
+            "pool_occupancy_peak", "hot_bytes_per_slot")
+    return dict({k: s[k] for k in keep if k in s}, launches=r["launches"],
+                launches_expected=want, peak_mem_gb=r["peak_mem_gb"])
+
+
+def _plain_paged_attn(hot_m, pgd_m, table, scale):
+    """Decode attention of the paged + ring layout from plain tensor code
+    (the reference's non-kernel formulation): grouped scores over the
+    ring and over the pool's logical gather, merged exactly."""
+    import torch
+    from repro_torch.core import online_softmax as osm
+    from repro_torch.core.pam_interface import paged_gather_logical
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import (ring_gather_mask,
+                                                  ring_position_map)
+
+    def d_fn(q, kc, vc, pk, pv, kv_lens):
+        smax = hot_m.shape[1]
+        live = torch.arange(smax, device=q.device)[None] < kv_lens[:, None]
+        ring_pos, valid = ring_position_map(kv_lens, kc.shape[2])
+        hot_ring = ring_gather_mask(hot_m & live, ring_pos, valid)
+        part_h = ops._grouped_partial_from_scores(
+            ops._grouped_scores(q, kc, scale), vc, hot_ring)
+        part_p = ops._grouped_partial_from_scores(
+            ops._grouped_scores(q, paged_gather_logical(pk, table), scale),
+            paged_gather_logical(pv, table), pgd_m & live)
+        out = osm.finalize(osm.merge_partials(part_h, part_p), q.dtype)
+        return out, torch.zeros(q.shape[0], smax, device=q.device)
+
+    return d_fn
+
+
+def phase_parity() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.tiers import clamp_hot_to_window
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (Request, ServingConfig, ServingEngine,
+                                     pam_manager as pm)
+    cfg, params = _model("float32")
+    W, bs, smax = 256, 16, 1024
+    # retrieval sparsity off: every token past the ring is a pool read,
+    # so both partials of the merge carry work
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_batch=2, max_len=smax, block_size=bs, hot_window=W,
+        pam=_pam(smax, use_sparsity=False)), device="cuda")
+    rng = np.random.default_rng(1)
+    for i, plen in enumerate((700, 333)):
+        eng.submit(Request(i, rng.integers(0, cfg.vocab, plen), 16))
+    eng.step()                             # admission + one decode step
+    cache, st = eng.cache, eng.pam_state
+    tokens = eng.tokens_dev.clone()
+    scale = 1.0 / cfg.head_dim ** 0.5
+    worst = 0.0
+    for _ in range(3):                     # teacher-forced steps
+        lengths = cache.lengths + 1
+        part = pm.participation_mask(eng.pam_cfg, st.importance, lengths)
+        tier = clamp_hot_to_window(st.tier, lengths, W)
+        hot_m, pgd_m, live = pm.paged_participation_split(
+            part, tier, lengths, bs, W)
+        assert bool(live.any()), "no pool block read"
+        table = torch.where(live, st.block_table,
+                            torch.full_like(st.block_table, eng.sentinel))
+        pos = cache.lengths
+        dst = st.block_table[torch.arange(2, device="cuda"),
+                             (pos // bs).long()]
+        append = (dst.to(torch.int32), (pos % bs).to(torch.int32))
+        outs = []
+        for d_fn in (pm.make_paged_decode_attn(hot_m, pgd_m, table, live),
+                     _plain_paged_attn(hot_m, pgd_m, table, scale)):
+            c = tf.DecodeCache(*(t.clone() for t in cache))
+            logits, c2, _ = tf.decode_step(cfg, params, tokens, c,
+                                           decode_attn_fn=d_fn,
+                                           paged_append=append)
+            outs.append((logits, c2))
+        (lk, ck), (lp, _) = outs
+        assert lk.shape == (2, cfg.vocab) and bool(torch.isfinite(lk).all())
+        rel = float((lk - lp).abs().max()) / max(1.0, float(lp.abs().max()))
+        worst = max(worst, rel)
+        assert rel <= PARITY_TOL, f"logits differ: {rel}"
+        tokens = torch.argmax(lk, dim=-1).to(torch.int32)
+        cache = ck
+    return dict(steps=3, max_rel_logit_diff=worst, tol=PARITY_TOL,
+                dtype="float32", tf32=False)
+
+
+# ------------------------------------------------------------------ main
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    failed: list[str] = []
+    results: dict = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            res = fn(*args)
+            results[name] = res
+            emit(name, ok=True, seconds=time.perf_counter() - t0, **res)
+            return res
+        except Exception as exc:           # report the phase, go on
+            failed.append(name)
+            emit(name, ok=False, error=repr(exc),
+                 trace=traceback.format_exc()[-2000:])
+            return None
+
+    env = run("env", phase_env)
+    run("build", phase_build)
+    kernels = run("kernels", lambda: dict(
+        flash_decode_ring=kernel_flash_decode(256),
+        flash_decode_2048=kernel_flash_decode(2048),
+        flash_decode_paged=kernel_flash_decode_paged()))
+    if kernels is not None:
+        bad = [k for k, v in kernels.items() if not v["ok"]]
+        if bad:
+            failed.append("kernels")
+            emit("kernels", ok=False, error=f"outside tolerance: {bad}")
+    model = None
+    try:
+        model = _model("bfloat16")
+    except Exception as exc:
+        failed.append("model")
+        emit("model", ok=False, error=repr(exc))
+    if model is not None:
+        run("engine_paged_ring", phase_engine_paged, *model)
+        run("engine_paged_ring_full", phase_engine_paged_full, *model)
+        run("engine_dense_pam", phase_engine_dense, *model)
+        run("profile", phase_profile, *model)
+        del model
+        torch.cuda.empty_cache()
+    run("parity", phase_parity)
+
+    if failed:
+        print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
+        return 1
+    paged_run = results["engine_paged_ring"]["launches"]
+    rows = []
+    for key, src, line in (
+            ("flash_decode_ring", "flash_decode.cu", 98),
+            ("flash_decode_paged", "flash_decode_paged.cu", 202)):
+        k = kernels[key]
+        rows.append(dict(
+            name=k["name"], route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=f"src/repro/kernels/flash_decode.py:{line}",
+            launches=paged_run[k["name"]], max_abs_err=k["max_abs_err"],
+            ms=k["ms"], kernel_device_ms=k["kernel_device_ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    print(env["nvidia_smi"])
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

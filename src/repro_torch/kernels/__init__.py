@@ -1,0 +1,1 @@
+"""Decode-attention kernels (CUDA sources in ``csrc/``) and their ops."""

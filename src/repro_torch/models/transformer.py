@@ -1,0 +1,224 @@
+"""Model assembly for the dense family: init, bucketed prefill, decode.
+
+Counterpart of ``repro.models.transformer`` (dense GQA family). Layer
+parameters are stacked on a leading axis exactly as in the JAX pytree —
+``params["layers"]["attn"]["wq"]`` is (L, d, H*dh) in the ``x @ W``
+orientation — so ``repro_torch.bridge`` moves weights as plain copies;
+the layer loop is a Python loop over that axis. Other families raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (init_embedding, init_linear,
+                                       rms_norm, swiglu)
+
+Params = dict[str, Any]
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            f"(ROADMAP Queue 1 item 7, the other families)")
+
+
+# ============================================================ init
+def init_params(cfg: ModelConfig, seed: int = 0, *,
+                device: str | torch.device | None = None) -> Params:
+    """Random weights at the reference's init scales, drawn from an
+    explicit ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = torch_dtype(cfg)
+    d, L, dh = cfg.d_model, cfg.n_layers, cfg.head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+
+    def lin(d_in, d_out):
+        return torch.stack([init_linear(gen, d_in, d_out, dtype, dev)
+                            for _ in range(L)])
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    nd = dh if cfg.qk_norm else 0
+    params: Params = {
+        "embed": init_embedding(gen, cfg.vocab, d, dtype, dev),
+        "final_norm": ones(d),
+        "layers": {
+            "ln1": ones(L, d), "ln2": ones(L, d),
+            "attn": {"wq": lin(d, H * dh), "wk": lin(d, Hkv * dh),
+                     "wv": lin(d, Hkv * dh), "wo": lin(H * dh, d),
+                     "q_norm": ones(L, nd), "k_norm": ones(L, nd)},
+            "mlp": {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
+                    "down": lin(cfg.d_ff, d)},
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_linear(gen, d, cfg.vocab, dtype, dev)
+    return params
+
+
+def _attn_params(params: Params, i: int) -> attn_mod.AttnParams:
+    a = params["layers"]["attn"]
+    qn, kn = a["q_norm"][i], a["k_norm"][i]
+    return attn_mod.AttnParams(a["wq"][i], a["wk"][i], a["wv"][i],
+                               a["wo"][i], qn if qn.numel() else None,
+                               kn if kn.numel() else None)
+
+
+def _mlp(params: Params, i: int, h: torch.Tensor) -> torch.Tensor:
+    m = params["layers"]["mlp"]
+    return swiglu(h, m["gate"][i], m["up"][i], m["down"][i])
+
+
+def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ============================================================ decode cache
+class DecodeCache(NamedTuple):
+    """Stacked per-layer decode state of the dense family.
+
+    ``k``/``v`` are the hot-tier buffers — a ring of W slots when the
+    engine runs a hot window (position p at slot ``p % W``), else W =
+    Smax. ``pk``/``pv`` are the paged warm/cold pools (final physical
+    block a write sentinel), size-0 unless created with paged blocks.
+    Decode appends write these tensors in place.
+    """
+    k: torch.Tensor          # (L, B, Hkv, W, dh)
+    v: torch.Tensor
+    pk: torch.Tensor         # (L, NB+1, bs, Hkv, dh) or size 0
+    pv: torch.Tensor
+    lengths: torch.Tensor    # (B,) int32 tokens already cached
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                      paged_blocks: int = 0, block_size: int = 0,
+                      hot_window: int = 0,
+                      device: str | torch.device | None = None
+                      ) -> DecodeCache:
+    """Zero decode cache for ``batch`` sequences of up to ``max_len``
+    tokens; ``paged_blocks`` > 0 adds the pools, ``hot_window`` > 0
+    shrinks ``k``/``v`` to a ring (which needs the pools)."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+    L, Hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if hot_window and not paged_blocks:
+        raise ValueError("a hot-window ring cache needs paged pools to "
+                         "back evicted tokens (paged_blocks > 0)")
+    kv_len = min(hot_window, max_len) if hot_window else max_len
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if paged_blocks:
+        pk = z(L, paged_blocks + 1, block_size, Hkv, dh)
+        pv = z(L, paged_blocks + 1, block_size, Hkv, dh)
+    else:
+        pk, pv = z(0), z(0)
+    return DecodeCache(k=z(L, batch, Hkv, kv_len, dh),
+                       v=z(L, batch, Hkv, kv_len, dh), pk=pk, pv=pv,
+                       lengths=torch.zeros(batch, dtype=torch.int32,
+                                           device=dev))
+
+
+# ============================================================ prefill
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            max_len: int, *, true_len: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, DecodeCache]:
+    """Batched prompt processing: next-token logits and a filled decode
+    cache padded to ``max_len``.
+
+    tokens: (B, S). ``true_len`` ((B,) or scalar) is the real prompt
+    length when ``tokens`` is right-padded to a pow-2 bucket: causality
+    keeps the first ``true_len`` positions exact, logits come from
+    position ``true_len - 1`` and the padded K/V past it is dead.
+    """
+    _require_dense(cfg)
+    B, S = tokens.shape
+    assert S <= max_len, (max_len, S)
+    cache = init_decode_cache(cfg, B, max_len, device=tokens.device)
+    if true_len is None:
+        lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    else:
+        lens = torch.as_tensor(true_len, dtype=torch.int32,
+                               device=tokens.device).expand(B).clone()
+    x = params["embed"][tokens]
+    lyr = params["layers"]
+    for i in range(cfg.n_layers):
+        hn = rms_norm(x, lyr["ln1"][i], cfg.rms_eps)
+        attn_out, k, v = attn_mod.attention_prefill(
+            _attn_params(params, i), hn, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=cfg.causal,
+            rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps)
+        cache.k[i, :, :, :S] = k
+        cache.v[i, :, :, :S] = v
+        x = x + attn_out
+        x = x + _mlp(params, i, rms_norm(x, lyr["ln2"][i], cfg.rms_eps))
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    if true_len is None:
+        last = x[:, -1]
+    else:   # last REAL token of each (possibly bucket-padded) prompt
+        last = x[torch.arange(B, device=x.device), (lens - 1).long()]
+    logits = last @ _head(cfg, params)
+    return logits, cache._replace(lengths=lens)
+
+
+# ============================================================ decode
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                cache: DecodeCache, *,
+                decode_attn_fn: Optional[Callable] = None,
+                paged_append: Optional[tuple] = None
+                ) -> tuple[torch.Tensor, DecodeCache, torch.Tensor]:
+    """One autoregressive step. tokens: (B,) int. Returns (logits (B, V),
+    cache with lengths + 1, scores (B, Smax)) — ``scores`` is the
+    layer-mean per-token attention mass feeding the importance EMA.
+
+    The cache tensors are updated in place. When the cache carries pools,
+    ``paged_append=(dst_block, dst_slot)`` ((B,) physical coordinates,
+    sentinel for inactive rows) must be given; each layer then mirrors
+    its appended K/V into the pool and ``decode_attn_fn`` is called with
+    the layer's pool slices ``(q, k_cache, v_cache, pk, pv, kv_lens)``.
+    """
+    _require_dense(cfg)
+    d_fn = decode_attn_fn or attn_mod.dense_decode_attn
+    use_paged = cache.pk.numel() > 0
+    if use_paged and paged_append is None:
+        raise ValueError("cache has paged KV pools; decode_step requires "
+                         "paged_append=(dst_block, dst_slot)")
+    lens = cache.lengths
+    x = params["embed"][tokens]                           # (B, d)
+    lyr = params["layers"]
+    masses = []
+    for i in range(cfg.n_layers):
+        hn = rms_norm(x, lyr["ln1"][i], cfg.rms_eps)
+        paged = ((cache.pk[i], cache.pv[i]) + tuple(paged_append)
+                 if use_paged else None)
+        res = attn_mod.attention_decode(
+            _attn_params(params, i), hn, cache.k[i], cache.v[i], lens,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+            rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
+            decode_attn_fn=d_fn, paged=paged)
+        x = x + res[0]
+        masses.append(res[1])
+        x = x + _mlp(params, i, rms_norm(x, lyr["ln2"][i], cfg.rms_eps))
+    scores = torch.mean(torch.stack(masses), dim=0)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = x @ _head(cfg, params)
+    return logits, cache._replace(lengths=lens + 1), scores
