@@ -22,9 +22,35 @@ final ``ok`` line:
             through masked_decode_attention)
   profile   torch.profiler over 4 steady paged + ring decode steps: device
             time by kernel, the device's idle share
+  train     full-width qwen3-0.6b (random weights from seed 0, bf16)
+            trained 10 steps on SyntheticLM batches of 4 x 2048 through
+            the train CLI's step builder (attention through the
+            flash_attention kernels, forward and backward); each of the
+            two must launch n_layers x steps times and the loss must fall
+  profile_train   torch.profiler over 2 train steps: device time by
+            kernel, the device's idle share
+  train_parity    full-width qwen3-0.6b in fp32 (TF32 off), B 2, S 500:
+            loss and gradients through the kernels vs through the plain
+            chunked attention
   parity    full-width qwen3-0.6b in fp32: teacher-forced decode steps
             through the engine's kernel-backed attention vs attention
             built from plain tensor code, logits compared
+
+Tolerances (each kernel against its plain version on the same inputs):
+  flash_decode, flash_decode_paged (fp32 partials from bf16 K/V): rtol
+      1e-4, atol 1e-3 (summation order only)
+  flash_attention forward and backward, bf16 operands: rtol 2e-2, atol
+      2e-2 on the bf16 outputs (both sides compute in fp32 and round once
+      to bf16, so they may differ by one bf16 step, 2^-8 relative); the
+      forward's fp32 log-sum-exp at rtol 1e-4, atol 1e-3
+  train_parity: loss relative difference <= 1e-5, and per gradient leaf
+      max |kernel - plain| / max |plain| <= 1e-3
+  parity: max |dlogit| / max(1, max |logit|) <= 1e-3
+
+Bounds: bytes over 3.35 TB/s (HBM3), and operations over 67 TFLOP/s
+(fp32, CUDA cores) for the decode kernels or 989 TFLOP/s (bf16 dense
+tensor cores) for flash_attention, whose bf16 work a tensor-core kernel
+could do; NVIDIA's H100 SXM data sheet.
 
 Imports nothing of JAX or of the reference package ``repro``.
 """
@@ -42,8 +68,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM bf16 dense tensor cores
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-3)
+ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 PARITY_TOL = 1e-3                # max |dlogit| / max(1, max |logit|)
+TRAIN_LOSS_TOL = 1e-5            # relative loss difference
+TRAIN_GRAD_TOL = 1e-3            # per leaf: max |diff| / max |plain|
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 10, 4, 2048
 
 
 def emit(phase: str, **kw) -> None:
@@ -92,19 +123,21 @@ def _device_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
     return us / iters / 1e3
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, flops: float,
+              peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
 
-def _compare(got, ref) -> tuple[float, bool]:
+def _compare(got, ref, tol=KERNEL_TOL) -> tuple[float, bool]:
     import torch
     err, ok = 0.0, True
     for g, r in zip(got, ref):
+        g, r = g.float(), r.float()
         err = max(err, float((g - r).abs().max()))
-        ok = ok and bool(torch.allclose(g, r, **KERNEL_TOL))
+        ok = ok and bool(torch.allclose(g, r, **tol))
     return err, ok
 
 
@@ -123,19 +156,26 @@ def phase_env() -> dict:
 
 
 def phase_build() -> dict:
+    import re
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     per = build.build_all()
-    regs = {}
+    regs = {}                  # bf16, head dim 128, group 2 instantiations
     for name in build.SOURCES:
         lines = build.build_log(name).splitlines()
         for i, line in enumerate(lines):
-            if "Li128ELi2E" in line and "bfloat16" in line \
-                    and "Compiling entry" in line:
-                used = [x for x in lines[i:i + 6] if "Used" in x]
-                regs[name] = used[0].split(":", 1)[1].strip() if used else ""
+            if "Compiling entry" in line and "bfloat16" in line \
+                    and "Li128E" in line and "Li1E" not in line:
+                kern = re.search(r"pam\d+(\w+?kernel)", line)
+                info = []
+                for x in lines[i + 1:]:
+                    if "Compiling entry" in x:
+                        break
+                    if "Used" in x or "spill" in x:
+                        info.append(x.split(":", 1)[-1].strip())
+                regs[kern.group(1) if kern else name] = "; ".join(info)
     return dict(build_s=time.perf_counter() - t0, per_library=per,
-                bf16_d128_rep2=regs)
+                libraries=sorted(build.SOURCES), bf16_d128_rep2=regs)
 
 
 def _dense_case(S, seed, dead_split):
@@ -239,6 +279,90 @@ def kernel_flash_decode_paged() -> dict:
                     q, kp, vp, tbl, bl, m8, scale)),
                 bound_ms=bound, bound_by=by, bytes=nbytes,
                 live_tokens=n_live, library_ms=None)
+
+
+def _attn_case(S: int, causal: bool, seed: int):
+    """bf16 q, k, v, dO at the training path's heads (B 4, H 16, Hkv 8,
+    d 128) and sequence ``S``."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, Hkv, d = TRAIN_B, 16, 8, 128
+    return [torch.randn(shape, generator=g, device="cuda").bfloat16()
+            for shape in ((B, H, S, d), (B, Hkv, S, d), (B, Hkv, S, d),
+                          (B, H, S, d))]
+
+
+def _attn_work(q, k, causal: bool) -> tuple[int, int]:
+    """(live (query, key) pairs over all heads, head dim): a causal row
+    attends qpos + 1 keys."""
+    B, H, S, d = q.shape
+    Sk = k.shape[2]
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    return B * H * pairs, d
+
+
+def kernel_flash_attention(S: int, causal: bool) -> dict:
+    """Forward and backward kernels against their plain versions on the
+    same inputs (the backward fed the kernel forward's o and lse), with
+    their times, bounds and the SDPA yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _attn_case(S, causal, seed=S)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ref_o, ref_lse = fa._fwd_plain(q, k, v, causal, scale)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ref_g = fa._bwd_plain(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    err_o, ok_o = _compare([o], [ref_o], ATTN_BF16_TOL)
+    err_l, ok_l = _compare([lse], [ref_lse])
+    err_g, ok_g = _compare(grads, ref_g, ATTN_BF16_TOL)
+    del ref_o, ref_lse, ref_g
+    pairs, d = _attn_work(q, k, causal)
+    el = 2                                        # bf16 bytes
+    fwd_bytes = (q.numel() * 2 + k.numel() * 2) * el + lse.numel() * 4
+    bwd_bytes = ((q.numel() * 3 + k.numel() * 2) * el + lse.numel() * 4
+                 + (q.numel() + k.numel() * 2) * el)
+    fwd_bound, fwd_by = _bound_ms(fwd_bytes, 4 * d * pairs, BF16_FLOPS)
+    bwd_bound, bwd_by = _bound_ms(bwd_bytes, 10 * d * pairs, BF16_FLOPS)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                              enable_gqa=True)
+
+    def sdpa_fb():
+        sdpa().backward(do)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = _time_ms(sdpa, iters=10)
+    sdpa_fb_ms = _time_ms(sdpa_fb, iters=10)
+    case = dict(S=S, causal=causal, B=q.shape[0], H=q.shape[1],
+                Hkv=k.shape[1], d=d, dtype="bfloat16", live_pairs=pairs)
+    fwd = dict(case, name="flash_attention", ok=ok_o and ok_l,
+               max_abs_err=max(err_o, err_l), max_abs_err_o=err_o,
+               max_abs_err_lse=err_l, tol=ATTN_BF16_TOL,
+               ms=_time_ms(lambda: fa.flash_attention_fwd(
+                   q, k, v, causal=causal), iters=10),
+               kernel_device_ms=_device_ms(lambda: fa.flash_attention_fwd(
+                   q, k, v, causal=causal), iters=10),
+               plain_ms=_time_ms(lambda: fa._fwd_plain(q, k, v, causal,
+                                                       scale), iters=5),
+               bound_ms=fwd_bound, bound_by=fwd_by, bytes=fwd_bytes,
+               flops=4 * d * pairs, library_ms=sdpa_fwd_ms)
+    bwd = dict(case, name="flash_attention_bwd", ok=ok_g,
+               max_abs_err=err_g, tol=ATTN_BF16_TOL,
+               ms=_time_ms(lambda: fa.flash_attention_bwd(
+                   q, k, v, o, lse, do, causal=causal), iters=10),
+               kernel_device_ms=_device_ms(lambda: fa.flash_attention_bwd(
+                   q, k, v, o, lse, do, causal=causal), iters=10),
+               plain_ms=_time_ms(lambda: fa._bwd_plain(
+                   q, k, v, o, lse, do, causal, scale), iters=5),
+               bound_ms=bwd_bound, bound_by=bwd_by, bytes=bwd_bytes,
+               flops=10 * d * pairs,
+               library_ms=max(sdpa_fb_ms - sdpa_fwd_ms, 0.0))
+    return dict(fwd=fwd, bwd=bwd)
 
 
 def _model(dtype: str):
@@ -454,6 +578,156 @@ def phase_parity() -> dict:
                 dtype="float32", tf32=False)
 
 
+def _reset_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    fd.flash_decode.launches = 0
+    fd.flash_decode_paged.launches = 0
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    return {"flash_decode": fd.flash_decode.launches,
+            "flash_decode_paged": fd.flash_decode_paged.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+
+
+def _train_model():
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.config import get_config
+    cfg = get_config("qwen3-0.6b")
+    return cfg, train_cli.train_config(steps=TRAIN_STEPS)
+
+
+def phase_train() -> dict:
+    """The training main path: ``repro_torch.launch.train.run`` (the CLI's
+    loop) at full width, bf16, batch 4 x 2048, 10 steps."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.launch import train as train_cli
+    cfg, tcfg = _train_model()
+    assert tcfg.use_kernel and not tcfg.remat
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    out = train_cli.run(cfg, tcfg, steps=TRAIN_STEPS, batch=TRAIN_B,
+                        seq=TRAIN_S, device="cuda", log=lambda _: None)
+    launches = _launches()
+    losses = out["losses"]
+    want = cfg.n_layers * TRAIN_STEPS
+    assert all(math.isfinite(x) for x in losses), losses
+    assert sum(losses[-3:]) / 3 < losses[0], losses
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert launches[name] == want, f"{name}: {launches}, want {want}"
+    assert launches["flash_decode"] == launches["flash_decode_paged"] == 0
+    steady = out["step_s"][1:]
+    step_ms = statistics.median(steady) * 1e3
+    return dict(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                dtype=cfg.dtype, losses=losses, grad_norms=out["grad_norms"],
+                first_step_ms=out["step_s"][0] * 1e3, step_ms=step_ms,
+                tokens_per_s=TRAIN_B * TRAIN_S / (step_ms / 1e3),
+                tokens_per_s_all_steps=out["tokens_per_s"],
+                launches=launches, launches_expected=want,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_profile_train() -> dict:
+    """Where a train step's time goes: torch.profiler over 2 steady steps
+    of the train phase's configuration (after one warm step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training.train_step import (build_train_step,
+                                                 init_train_state)
+    cfg, tcfg = _train_model()
+    state = init_train_state(cfg, tcfg, 0, device="cuda")
+    step_fn = build_train_step(cfg, tcfg)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B)
+    dev = torch.device("cuda")
+    state, m = step_fn(state, train_cli.device_batch(ds, 0, 1, dev))
+    float(m["loss"])
+    batches = [train_cli.device_batch(ds, s, 1, dev) for s in (1, 2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, m = step_fn(state, b)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del state
+    rows = []
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            rows.append((ev.self_device_time_total, ev.key, ev.count))
+    rows.sort(reverse=True)
+    if not rows:
+        return dict(steps=2, wall_s=wall, device_time="not measured")
+    busy_s = sum(r[0] for r in rows) / 1e6
+
+    def fmt(sel):
+        return [dict(name=k[:80], device_ms=us / 1e3, count=n,
+                     share=us / 1e6 / busy_s) for us, k, n in sel]
+    return dict(steps=2, wall_s=wall, step_ms=wall / 2 * 1e3,
+                device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
+                kernel_launches=sum(r[2] for r in rows),
+                top=fmt(rows[:12]),
+                ported=fmt([r for r in rows if "pam::" in r[1]]))
+
+
+def phase_train_parity() -> dict:
+    """Full-width fp32 loss and gradients through the flash_attention
+    kernels against the plain chunked attention (TF32 off)."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch import tree
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training.train_step import TrainConfig, build_grad_fn
+    cfg, params = _model("float32")
+    b = train_cli.device_batch(
+        SyntheticLM(vocab=cfg.vocab, seq_len=500, batch=2, seed=1), 0, 1,
+        torch.device("cuda"))
+    _reset_launches()
+    lk, gk = build_grad_fn(cfg, TrainConfig(use_kernel=True))(params, b)
+    launches = _launches()
+    lp, gp = build_grad_fn(cfg, TrainConfig(use_kernel=False))(params, b)
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst, worst_leaf = 0.0, ""
+    for (name, a), r in zip(tree.leaves_with_paths(gk), tree.leaves(gp)):
+        scale = float(r.abs().max())
+        rel = float((a - r).abs().max()) / scale if scale > 0 else 0.0
+        if rel > worst:
+            worst, worst_leaf = rel, name
+    assert launches["flash_attention"] == cfg.n_layers, launches
+    assert launches["flash_attention_bwd"] == cfg.n_layers, launches
+    assert loss_rel <= TRAIN_LOSS_TOL, f"loss differs: {loss_rel}"
+    assert worst <= TRAIN_GRAD_TOL, f"grads differ: {worst} at {worst_leaf}"
+    return dict(B=2, S=500, dtype="float32", tf32=False,
+                loss_kernel=float(lk), loss_plain=float(lp),
+                loss_rel_diff=loss_rel, loss_tol=TRAIN_LOSS_TOL,
+                max_grad_rel_diff=worst, worst_leaf=worst_leaf,
+                grad_tol=TRAIN_GRAD_TOL, launches=launches)
+
+
+def phase_kernels() -> dict:
+    out = dict(flash_decode_ring=kernel_flash_decode(256),
+               flash_decode_2048=kernel_flash_decode(2048),
+               flash_decode_paged=kernel_flash_decode_paged())
+    for S, causal in ((TRAIN_S, True), (1000, False)):
+        r = kernel_flash_attention(S, causal)
+        tag = "2048" if causal else "ragged_1000_noncausal"
+        out[f"flash_attention_{tag}"] = r["fwd"]
+        out[f"flash_attention_bwd_{tag}"] = r["bwd"]
+    return out
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -486,10 +760,7 @@ def main() -> int:
 
     env = run("env", phase_env)
     run("build", phase_build)
-    kernels = run("kernels", lambda: dict(
-        flash_decode_ring=kernel_flash_decode(256),
-        flash_decode_2048=kernel_flash_decode(2048),
-        flash_decode_paged=kernel_flash_decode_paged()))
+    kernels = run("kernels", phase_kernels)
     if kernels is not None:
         bad = [k for k, v in kernels.items() if not v["ok"]]
         if bad:
@@ -507,26 +778,42 @@ def main() -> int:
         run("engine_dense_pam", phase_engine_dense, *model)
         run("profile", phase_profile, *model)
         del model
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    run("train", phase_train)
+    torch.cuda.empty_cache()
+    run("profile_train", phase_profile_train)
+    torch.cuda.empty_cache()
+    run("train_parity", phase_train_parity)
+    torch.cuda.empty_cache()
     run("parity", phase_parity)
 
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     paged_run = results["engine_paged_ring"]["launches"]
+    train_run = results["train"]["launches"]
     rows = []
-    for key, src, line in (
-            ("flash_decode_ring", "flash_decode.cu", 98),
-            ("flash_decode_paged", "flash_decode_paged.cu", 202)):
+    for key, src, replaces, launches in (
+            ("flash_decode_ring", "flash_decode.cu", "flash_decode.py:98",
+             paged_run["flash_decode"]),
+            ("flash_decode_paged", "flash_decode_paged.cu",
+             "flash_decode.py:202", paged_run["flash_decode_paged"]),
+            ("flash_attention_2048", "flash_attention.cu",
+             "flash_attention.py:31", train_run["flash_attention"]),
+            ("flash_attention_bwd_2048", "flash_attention_bwd.cu",
+             "flash_attention.py:31", train_run["flash_attention_bwd"])):
         k = kernels[key]
         rows.append(dict(
             name=k["name"], route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
-            replaces=f"src/repro/kernels/flash_decode.py:{line}",
-            launches=paged_run[k["name"]], max_abs_err=k["max_abs_err"],
+            replaces=f"src/repro/kernels/{replaces}",
+            launches=launches, max_abs_err=k["max_abs_err"],
             ms=k["ms"], kernel_device_ms=k["kernel_device_ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    rows[-1]["note"] = ("gradient of flash_attention; the TPU package has "
+                        "no backward kernel (JAX cannot differentiate the "
+                        "Pallas call)")
     print(env["nvidia_smi"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

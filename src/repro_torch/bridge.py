@@ -18,6 +18,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import DecodeCache
 from repro_torch.serving.pam_manager import PAMState
+from repro_torch.training.optim import AdamWState
+from repro_torch.training.train_step import TrainState
 
 
 def to_tensor(x: Any, device: torch.device) -> torch.Tensor:
@@ -67,3 +69,19 @@ def pam_state_from_jax(state: Any,
                     moved_tokens=to_tensor(state.moved_tokens, dev),
                     last_hot=to_tensor(state.last_hot, dev),
                     block_table=to_tensor(state.block_table, dev))
+
+
+def train_state_from_jax(cfg: ModelConfig, state: Any,
+                         device: str | torch.device | None = None
+                         ) -> TrainState:
+    """A reference ``TrainState`` as the port's: params, the AdamW step
+    counter (0-d int32) and fp32 moments, and the error-feedback tree
+    (or None), so both packages train from identical state."""
+    dev = resolve_device(device)
+    ef = state.error_feedback
+    return TrainState(
+        params=params_from_jax(cfg, state.params, dev),
+        opt=AdamWState(step=to_tensor(state.opt.step, dev).to(torch.int32),
+                       mu=_tree(state.opt.mu, dev),
+                       nu=_tree(state.opt.nu, dev)),
+        error_feedback=None if ef is None else _tree(ef, dev))

@@ -1,1 +1,1 @@
-"""Decode-attention kernels (CUDA sources in ``csrc/``) and their ops."""
+"""Attention kernels (CUDA sources in ``csrc/``) and their ops."""

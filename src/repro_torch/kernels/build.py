@@ -23,8 +23,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "flash_decode": CSRC / "flash_decode.cu",
     "flash_decode_paged": CSRC / "flash_decode_paged.cu",
+    "flash_attention": CSRC / "flash_attention.cu",
+    "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
 }
-HEADERS = (CSRC / "decode_common.cuh",)
+HEADERS = (CSRC / "decode_common.cuh", CSRC / "attention_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,242 @@
+"""Full-sequence (train / prefill) attention as hand-written Hopper
+kernels, forward and backward.
+
+Counterpart of ``repro.kernels.flash_attention``, whose Pallas kernel
+``_attn_kernel`` the forward replaces (CUDA source
+``csrc/flash_attention.cu``): FlashAttention-2 with an fp32 online
+softmax, GQA through the kv head ``h // rep``, the causal mask ``kpos <=
+qpos`` from position 0 plus ``kpos < Sk``, the reference's ``-1e30``
+sentinel and its ``l_safe`` finalize. The forward also returns the fp32
+per-row log-sum-exp that the backward needs.
+
+The backward (``csrc/flash_attention_bwd.cu``) has no TPU counterpart:
+JAX cannot differentiate through the Pallas call, so the reference
+trains with its jnp attention. ``FlashAttentionFn`` ties the two into a
+``torch.autograd.Function``; ``flash_attention`` is the entry point.
+
+Each wrapper takes the plain PyTorch version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises. The forward
+counts kernel launches in ``flash_attention.launches``, the backward in
+``flash_attention_bwd.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.flash_decode import (_DTYPE_CODE, _check_cuda, _ptr,
+                                              _stream)
+
+NEG_INF = -1e30
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
+
+
+def _fwd_lib():
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention").pam_flash_attention_fwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _bwd_lib():
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention_bwd").pam_flash_attention_bwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _live(Sq: int, Sk: int, causal: bool, device) -> torch.Tensor:
+    """(Sq, Sk) bool: the keys each query row attends."""
+    if not causal:
+        return torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    qpos = torch.arange(Sq, device=device)[:, None]
+    return torch.arange(Sk, device=device)[None, :] <= qpos
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' accumulation type: fp32, or float64
+    for float64 operands."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _grouped(q, k, v):
+    """q as (B, Hkv, rep, Sq, d) and k, v as (B, Hkv, 1, Sk, d), in the
+    accumulation type."""
+    B, H, Sq, d = q.shape
+    Hkv = k.shape[1]
+    return (_acc(q).reshape(B, Hkv, H // Hkv, Sq, d), _acc(k)[:, :, None],
+            _acc(v)[:, :, None])
+
+
+# ------------------------------------------------------------ forward
+def _fwd_plain(q, k, v, causal, scale):
+    """Plain PyTorch version of the forward kernel: one masked softmax
+    with the kernel's sentinel and ``l_safe``."""
+    B, H, Sq, d = q.shape
+    qg, kg, vg = _grouped(q, k, v)
+    live = _live(Sq, k.shape[2], causal, q.device)
+    s = torch.matmul(qg, kg.transpose(-1, -2)) * scale
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1)
+    p = torch.where(live, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = torch.sum(p, dim=-1)
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    o = torch.matmul(p, vg) / l_safe[..., None]
+    lse = m + torch.log(l_safe)
+    return o.reshape(B, H, Sq, d).to(q.dtype), lse.reshape(B, H, Sq)
+
+
+def _check_args(name, q, k, v):
+    if k.dtype not in _DTYPE_CODE or q.dtype != k.dtype \
+            or v.dtype != k.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype} "
+                         f"not built (float32 or bfloat16, all alike)")
+
+
+def _fwd_cuda(q, k, v, causal, scale):
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    _check_args("flash_attention", q, k, v)
+    _check_cuda("flash_attention", d, H // Hkv, q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    rc = _fwd_lib()(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), B, H,
+                    Hkv, Sq, Sk, d, int(causal), float(scale),
+                    _DTYPE_CODE[q.dtype], _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"(code {rc})")
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward without autograd: (o (B, H, Sq, d) in q.dtype, lse (B, H,
+    Sq) fp32). Operands must be contiguous."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _fwd_plain(q, k, v, causal, scale)
+    return _fwd_cuda(q, k, v, causal, scale)
+
+
+# ------------------------------------------------------------ backward
+def _bwd_plain(q, k, v, o, lse, do, causal, scale):
+    """Plain PyTorch version of the backward kernels: P = exp(S - LSE),
+    Delta = rowsum(dO * O), dV = P^T dO, dP = dO V^T, dS = P (dP -
+    Delta), dQ = scale dS K, dK = scale dS^T Q, with the GQA group's
+    query heads summed into their kv head."""
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qg, kg, vg = _grouped(q, k, v)
+    dog = _acc(do).reshape(B, Hkv, rep, Sq, d)
+    lse_g = lse.reshape(B, Hkv, rep, Sq, 1)
+    delta = torch.sum(dog * _acc(o).reshape(B, Hkv, rep, Sq, d), dim=-1,
+                      keepdim=True)
+    live = _live(Sq, Sk, causal, q.device)
+    s = torch.matmul(qg, kg.transpose(-1, -2)) * scale
+    p = torch.where(live, torch.exp(s - lse_g), torch.zeros_like(s))
+    dv = torch.sum(torch.matmul(p.transpose(-1, -2), dog), dim=2)
+    dp = torch.matmul(dog, vg.transpose(-1, -2))
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kg) * scale
+    dk = torch.sum(torch.matmul(ds.transpose(-1, -2), qg), dim=2) * scale
+    return (dq.reshape(B, H, Sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_cuda(q, k, v, o, lse, do, causal, scale):
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    _check_args("flash_attention_bwd", q, k, v)
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd: o and do must have q's "
+                         "dtype")
+    _check_cuda("flash_attention_bwd", d, H // Hkv, q, k, v, o, lse, do)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    rc = _bwd_lib()(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+                    _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), B, H, Hkv, Sq,
+                    Sk, d, int(causal), float(scale), _DTYPE_CODE[q.dtype],
+                    _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed "
+                           f"(code {rc})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_fwd`` given its (o, lse) and the
+    output gradient ``do``; each in its operand's dtype. Operands must
+    be contiguous."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, o, lse, do, causal, scale)
+    return _bwd_cuda(q, k, v, o, lse, do, causal, scale)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel with the backward kernels as its gradient. Saves
+    q, k, v, o and the fp32 log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """Fused attention. q: (B, H, Sq, d); k, v: (B, H_kv, Sk, d) (GQA ok).
+
+    Returns (B, H, Sq, d) in q.dtype, differentiable in q, k and v.
+    ``block_q``/``block_k`` are kept for parity with the reference's
+    signature; the CUDA kernels tile by 64 and the result does not depend
+    on them. Non-contiguous operands (a head axis moved in front of the
+    sequence) are copied to contiguous ones first.
+    """
+    del block_q, block_k
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"heads {q.shape[1]} not a multiple of kv heads "
+                         f"{k.shape[1]}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttentionFn.apply(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal, float(scale))
+
+
+flash_attention.launches = 0

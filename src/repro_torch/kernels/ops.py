@@ -1,6 +1,7 @@
-"""Decode-attention entry points around the kernels.
+"""Attention entry points around the kernels.
 
-Counterpart of ``repro.kernels.ops``. The local stage of every decode
+Counterpart of ``repro.kernels.ops``. ``fused_attention`` (train /
+prefill) runs ``flash_attention``. The local stage of every decode
 attention partial runs through a kernel wrapper of
 ``repro_torch.kernels.flash_decode`` (the CUDA kernel on the card, its
 plain version on the CPU); the reductions (``merge_decode``, the merges
@@ -13,10 +14,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import online_softmax as osm
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_paged,
                                               ring_gather_mask,
                                               ring_position_map)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Prefill/train attention. q: (B, H, S, d), k/v: (B, H_kv, S, d) ->
+    (B, H, S, d), differentiable (the backward kernels on the card)."""
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           block_q=block_q, block_k=block_k)
 
 
 def _stacked(o, m, l) -> osm.AttnPartial:

@@ -1,10 +1,12 @@
-"""GQA attention (prefill + decode) with optional qk-norm and RoPE.
+"""GQA attention (train, prefill, decode) with optional qk-norm and RoPE.
 
-Counterpart of ``repro.models.attention`` for the serving path. Prefill
-runs q-chunked attention in plain tensor code, as the reference's
-serving prefill does. Decode attention is injectable through
-``decode_attn_fn`` (the PAM manager's tiered attention in the engine);
-the default is dense grouped attention. Decode appends write the caches
+Counterpart of ``repro.models.attention``. ``attention_train`` runs the
+``flash_attention`` kernels (``use_kernel=True``) or q-chunked attention
+in plain tensor code, which stays differentiable. Prefill runs q-chunked
+attention in plain tensor code, as the reference's serving prefill
+does. Decode attention is injectable through ``decode_attn_fn`` (the
+PAM manager's tiered attention in the engine); the default is dense
+grouped attention. Decode appends write the caches
 in place: the ring slot ``pos % W`` of the dense buffer and, in paged
 mode, the token's (block, slot) in the pool.
 """
@@ -16,6 +18,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, rms_norm
 
 DecodeAttnFn = Callable[..., tuple]
@@ -72,6 +75,31 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         outs.append(torch.matmul(p, vh[:, :, None]).to(q.dtype))
     out = torch.cat(outs, dim=3).reshape(B, H, S, dv)
     return torch.movedim(out, 1, 2)                      # (B, S, H, dv)
+
+
+def attention_train(p: AttnParams, x: torch.Tensor, *, n_heads: int,
+                    n_kv: int, d_head: int, causal: bool, rope_theta: float,
+                    rms_eps: float, use_kernel: bool = False,
+                    q_chunk: int = 512) -> torch.Tensor:
+    """Full-sequence attention for training. x: (B, S, d).
+
+    ``use_kernel`` runs ``fused_attention`` on (B, H, S, d) (the heads
+    moved in front of the sequence, copied to contiguous by the wrapper);
+    otherwise ``chunked_attention``. The reference's ``sp_attn`` and
+    ``bf16_probs`` perf flags are not ported (ROADMAP Queue 1 item 10).
+    """
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, x, positions, n_heads, n_kv, d_head,
+                           rope_theta, rms_eps)
+    if use_kernel:
+        out = kops.fused_attention(torch.movedim(q, 2, 1),
+                                   torch.movedim(k, 2, 1),
+                                   torch.movedim(v, 2, 1), causal=causal)
+        out = torch.movedim(out, 1, 2)
+    else:
+        out = chunked_attention(q, k, v, causal=causal, chunk=q_chunk)
+    return out.reshape(B, S, n_heads * d_head) @ p.wo
 
 
 def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,

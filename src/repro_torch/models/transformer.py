@@ -1,10 +1,12 @@
-"""Model assembly for the dense family: init, bucketed prefill, decode.
+"""Model assembly for the dense family: init, the training forward and
+loss, bucketed prefill, decode.
 
 Counterpart of ``repro.models.transformer`` (dense GQA family). Layer
 parameters are stacked on a leading axis exactly as in the JAX pytree —
 ``params["layers"]["attn"]["wq"]`` is (L, d, H*dh) in the ``x @ W``
 orientation — so ``repro_torch.bridge`` moves weights as plain copies;
-the layer loop is a Python loop over that axis. Other families raise
+the layer loop is a Python loop over that axis (``remat`` checkpoints
+each layer with ``torch.utils.checkpoint``). Other families raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -88,6 +92,59 @@ def _mlp(params: Params, i: int, h: torch.Tensor) -> torch.Tensor:
 
 def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ============================================================ train forward
+def _dense_block(cfg: ModelConfig, params: Params, i: int, x: torch.Tensor,
+                 use_kernel: bool) -> torch.Tensor:
+    """Pre-norm attention + SwiGLU of layer ``i``."""
+    lyr = params["layers"]
+    h = rms_norm(x, lyr["ln1"][i], cfg.rms_eps)
+    x = x + attn_mod.attention_train(
+        _attn_params(params, i), h, n_heads=cfg.n_heads,
+        n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=cfg.causal,
+        rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
+        use_kernel=use_kernel)
+    return x + _mlp(params, i, rms_norm(x, lyr["ln2"][i], cfg.rms_eps))
+
+
+def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
+            *, use_kernel: bool = False, remat: bool = False,
+            activation_spec=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V), aux_loss scalar fp32; 0 for the dense
+    family). ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), so the forward kernel
+    runs twice per layer and step."""
+    _require_dense(cfg)
+    if activation_spec is not None:
+        raise NotImplementedError(
+            "activation_spec (sequence-parallel residual sharding) is not "
+            "ported yet (ROADMAP Queue 1 item 9, sharding)")
+    x = params["embed"][batch["tokens"]]
+    for i in range(cfg.n_layers):
+        if remat:
+            x = checkpoint(_dense_block, cfg, params, i, x, use_kernel,
+                           use_reentrant=False)
+        else:
+            x = _dense_block(cfg, params, i, x, use_kernel)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = x @ _head(cfg, params)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ModelConfig, params: Params,
+            batch: dict[str, torch.Tensor], *, use_kernel: bool = False,
+            remat: bool = False, activation_spec=None) -> torch.Tensor:
+    """Mean next-token NLL over labels >= 0 (fp32 log-softmax) + aux."""
+    logits, aux = forward(cfg, params, batch, use_kernel=use_kernel,
+                          remat=remat, activation_spec=activation_spec)
+    labels = batch["labels"].long()
+    logp = F.log_softmax(logits.float(), dim=-1)
+    keep = labels >= 0
+    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = torch.where(keep, nll, torch.zeros_like(nll))
+    count = torch.clamp(torch.sum(keep).float(), min=1.0)
+    return torch.sum(nll) / count + aux
 
 
 # ============================================================ decode cache

@@ -10,7 +10,10 @@ with PyTorch alone:
 Tolerance: both sides upcast the stored K/V to fp32 and differ only in
 summation order (warp-parallel online softmax vs one reduction), so
 rtol 1e-4 / atol 1e-4 on (o, m, l), with TF32 off for the plain side's
-matrix products.
+matrix products. The attention backward sums up to S products per
+gradient entry in another order: rtol / atol 1e-3 in fp32. In bf16
+both sides compute in fp32 and round the result to bf16, so they may
+differ by one bf16 step: rtol / atol 2e-2.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.models import config as tcfg  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -112,3 +116,44 @@ def test_reduced_engine_runs_through_both_kernels(cuda):
     assert summ["finished"] == 4 and summ["total_tokens"] == 64
     assert tfd.flash_decode.launches - n0[0] == cfg.n_layers * steps
     assert tfd.flash_decode_paged.launches - n0[1] == cfg.n_layers * steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,d", [
+    (2, 16, 8, 200, 200, 128),     # qwen3-0.6b heads, ragged tiles
+    (1, 8, 8, 130, 130, 128),      # MHA (pam-llama-7b's group of 1)
+    (2, 4, 2, 96, 96, 16),         # the reduced configs' heads
+    (1, 4, 2, 70, 150, 16),        # Sq != Sk
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, H, Hkv,
+                                             Sq, Sk, d):
+    rng = np.random.default_rng(Sq + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32))
+                   .to(dtype) for s in ((B, H, Sq, d), (B, Hkv, Sk, d),
+                                        (B, Hkv, Sk, d), (B, H, Sq, d)))
+    fwd_tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+               else TOL)
+    bwd_tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+               else dict(rtol=1e-3, atol=1e-3))
+    ref_o, ref_lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    ref_g = tfa.flash_attention_bwd(q, k, v, ref_o, ref_lse, do,
+                                    causal=causal)
+    n0 = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
+    qc, kc, vc = (t.to(cuda).requires_grad_() for t in (q, k, v))
+    o, lse = tfa.flash_attention_fwd(qc.detach(), kc.detach(), vc.detach(),
+                                     causal=causal)
+    out = tfa.flash_attention(qc, kc, vc, causal=causal)
+    out.backward(do.to(cuda))
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == n0[0] + 2
+    assert tfa.flash_attention_bwd.launches == n0[1] + 1
+    assert out.dtype == dtype and qc.grad.dtype == dtype
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.numpy(), **TOL)
+    for got, ref in ((o, ref_o), (out, ref_o)):
+        np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                                   ref.float().numpy(), **fwd_tol)
+    for got, ref in zip((qc.grad, kc.grad, vc.grad), ref_g):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().numpy(), **bwd_tol)

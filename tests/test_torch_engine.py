@@ -162,6 +162,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     params = ttf.init_params(tcf, 0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         teng.ServingEngine(tcf, params, teng.ServingConfig())
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import train_step as tts
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tts.init_train_state(tcf, tts.TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--reduced", "--steps", "1"])
 
 
 @pytest.mark.parametrize("kw", [dict(temperature=0.5), dict(top_k=4),
