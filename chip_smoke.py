@@ -10,9 +10,12 @@ final ``ok`` line:
   env       torch / CUDA versions, the card and its power limit
   build     nvcc builds of the CUDA kernels (sm_90a), seconds taken
   kernels   each kernel against its plain PyTorch version on the card at
-            main-path shapes (B=8, H=16, Hkv=8, d=128, bf16 storage),
-            with its time, the plain version's time, the HBM bound and,
-            for flash_decode, scaled_dot_product_attention as a yardstick
+            main-path shapes (decode: B=8, H=16, Hkv=8, d=128, bf16
+            storage; attention: the train shape; ssd_scan: mamba2-780m's
+            train shape B 4, L 2048, H 48, P 64, N 128, chunk 128, x / B /
+            C as views of the conv output, bf16 and fp32), with its time,
+            the plain version's time, the bound and, where one PyTorch
+            call computes the same function, that call's time
   engine_paged_ring   full-width qwen3-0.6b (random weights, bf16) served
             in paged + hot-ring mode; each kernel must launch
             n_layers x decode steps times
@@ -35,6 +38,19 @@ final ``ok`` line:
   parity    full-width qwen3-0.6b in fp32: teacher-forced decode steps
             through the engine's kernel-backed attention vs attention
             built from plain tensor code, logits compared
+  train_ssm full-width mamba2-780m (48 layers, random weights from seed 0,
+            bf16) trained 10 steps on SyntheticLM batches of 4 x 2048
+            through the train CLI's step builder at peak lr 1e-3 (the SSD
+            scan through the ssd_scan kernels, forward and backward); each
+            must launch n_layers x steps times and the loss must fall
+  profile_train_ssm   torch.profiler over 2 of those train steps
+  train_parity_ssm    full-width mamba2-780m in fp32 (TF32 off), B 2,
+            S 500: loss and gradients through the ssd_scan kernels vs
+            through the plain chunked scan
+  engine_ssm  the same model served by the PAM engine (dense cache, greedy,
+            PAM on): 8 requests of 512-1024 prompt tokens, each prefilled
+            at its exact length, 64 new tokens through the recurrent state
+  profile_ssm torch.profiler over 4 steady decode steps of that engine
 
 Tolerances (each kernel against its plain version on the same inputs):
   flash_decode, flash_decode_paged (fp32 partials from bf16 K/V): rtol
@@ -43,14 +59,19 @@ Tolerances (each kernel against its plain version on the same inputs):
       2e-2 on the bf16 outputs (both sides compute in fp32 and round once
       to bf16, so they may differ by one bf16 step, 2^-8 relative); the
       forward's fp32 log-sum-exp at rtol 1e-4, atol 1e-3
-  train_parity: loss relative difference <= 1e-5, and per gradient leaf
-      max |kernel - plain| / max |plain| <= 1e-3
+  ssd_scan forward and backward: bf16 operands at rtol / atol 2e-2 (one
+      bf16 rounding of the outputs); fp32 at rtol 1e-4, atol 1e-3 (the
+      order of sums and of the in-chunk prefix sum of dt a, whose rounding
+      moves each exp(s_t - s_u) by a few ulp of |s|); for gradients the
+      atol is scaled by max(1, the leaf's largest entry)
+  train_parity (both models): loss relative difference <= 1e-5, and per
+      gradient leaf max |kernel - plain| / max |plain| <= 1e-3
   parity: max |dlogit| / max(1, max |logit|) <= 1e-3
 
 Bounds: bytes over 3.35 TB/s (HBM3), and operations over 67 TFLOP/s
 (fp32, CUDA cores) for the decode kernels or 989 TFLOP/s (bf16 dense
-tensor cores) for flash_attention, whose bf16 work a tensor-core kernel
-could do; NVIDIA's H100 SXM data sheet.
+tensor cores) for flash_attention and ssd_scan, whose bf16 work a
+tensor-core kernel could do; NVIDIA's H100 SXM data sheet.
 
 Imports nothing of JAX or of the reference package ``repro``.
 """
@@ -75,6 +96,9 @@ PARITY_TOL = 1e-3                # max |dlogit| / max(1, max |logit|)
 TRAIN_LOSS_TOL = 1e-5            # relative loss difference
 TRAIN_GRAD_TOL = 1e-3            # per leaf: max |diff| / max |plain|
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 10, 4, 2048
+SSM_ARCH = "mamba2-780m"
+SSM_LR = 1e-3                    # peak lr of the mamba2-780m train phase
+SSD_FP32_TOL = dict(rtol=1e-4, atol=1e-3)
 
 
 def emit(phase: str, **kw) -> None:
@@ -160,13 +184,14 @@ def phase_build() -> dict:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     per = build.build_all()
-    regs = {}                  # bf16, head dim 128, group 2 instantiations
+    regs = {}      # bf16: head dim 128 / group 2, and the SSD kernels
     for name in build.SOURCES:
         lines = build.build_log(name).splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and "bfloat16" in line \
-                    and "Li128E" in line and "Li1E" not in line:
-                kern = re.search(r"pam\d+(\w+?kernel)", line)
+            if "Compiling entry" in line and "bfloat16" in line and (
+                    ("Li128E" in line and "Li1E" not in line)
+                    or "3ssd" in line):
+                kern = re.search(r"\d+([a-z_]+_kernel)", line)
                 info = []
                 for x in lines[i + 1:]:
                     if "Compiling entry" in x:
@@ -175,7 +200,7 @@ def phase_build() -> dict:
                         info.append(x.split(":", 1)[-1].strip())
                 regs[kern.group(1) if kern else name] = "; ".join(info)
     return dict(build_s=time.perf_counter() - t0, per_library=per,
-                libraries=sorted(build.SOURCES), bf16_d128_rep2=regs)
+                libraries=sorted(build.SOURCES), registers=regs)
 
 
 def _dense_case(S, seed, dead_split):
@@ -365,10 +390,138 @@ def kernel_flash_attention(S: int, causal: bool) -> dict:
     return dict(fwd=fwd, bwd=bwd)
 
 
-def _model(dtype: str):
+def _ssd_case(dtype, seed: int = 0):
+    """ssd_scan operands at mamba2-780m's train shape (B 4, L 2048, H 48,
+    G 1, N 128, P 64): x, B and C as column views of one conv-output-like
+    (B, L, 3328) tensor, as ssm_forward passes them; dt = softplus(N(0,
+    1)), the model's initial decay rates a = -linspace(1, 16) and D = 1;
+    and an output gradient."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, L, H, G, N, P = TRAIN_B, TRAIN_S, 48, 1, 128, 64
+    xbc = (torch.randn((B, L, H * P + 2 * G * N), generator=g,
+                       device="cuda") * 0.5).to(dtype)
+    x = xbc[..., :H * P].reshape(B, L, H, P)
+    b = xbc[..., H * P:H * P + G * N].reshape(B, L, G, N)
+    c = xbc[..., H * P + G * N:].reshape(B, L, G, N)
+    dt = F.softplus(torch.randn((B, L, H), generator=g, device="cuda"))
+    a = -torch.linspace(1.0, 16.0, H, device="cuda")
+    d = torch.ones(H, device="cuda")
+    dy = torch.randn((B, L, H, P), generator=g, device="cuda").to(dtype)
+    return (x, dt, a, b, c, d), dy
+
+
+def _ssd_work(x, b, chunk: int) -> tuple[int, int]:
+    """FLOPs of the SSD scan forward and backward as the kernels compute
+    them: per (batch, head, chunk) the forward's 2Q^2N + 2Q^2P + 4QNP
+    (C B^T, the masked product with x, C h_in, the state update) and the
+    backward's 6Q^2N + 4Q^2P + 10QNP (C B^T and g x^T again, dx, dC and
+    dB inside the chunk; C^T g, B dh, C h_in, g h_in^T, x dh^T)."""
+    B, L, H, P = x.shape
+    N = b.shape[3]
+    Q = min(chunk, max(L, 8))
+    n = B * H * -(-L // Q)
+    return (n * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * N * P),
+            n * (6 * Q * Q * N + 4 * Q * Q * P + 10 * Q * N * P))
+
+
+def _grad_compare(got, ref, tol) -> tuple[float, bool]:
+    """Each gradient leaf at rtol, and atol scaled by max(1, its largest
+    entry)."""
+    import torch
+    err, ok = 0.0, True
+    for g, r in zip(got, ref):
+        g, r = g.float(), r.float()
+        scale = max(1.0, float(r.abs().max()))
+        err = max(err, float((g - r).abs().max()))
+        ok = ok and bool(torch.allclose(g, r, rtol=tol["rtol"],
+                                        atol=tol["atol"] * scale))
+    return err, ok
+
+
+def kernel_ssd_scan() -> dict:
+    """The ssd_scan forward and backward kernels against their plain
+    versions at the train shape, in bf16 (the train path's dtype; timed)
+    and in fp32 (checked only); the backward is fed the kernel forward's
+    chunk-start states."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    chunk = 128
+    out = {}
+    for dtype, tol in ((torch.float32, SSD_FP32_TOL),
+                       (torch.bfloat16, ATTN_BF16_TOL)):
+        ins, dy = _ssd_case(dtype)
+        y, st = ss.ssd_scan_fwd(*ins, chunk=chunk)
+        ref_y, ref_st, _ = ss.ssd_chunked_states(*ins, chunk)
+        err_y, ok_y = _compare([y], [ref_y], tol)
+        err_s, ok_s = _grad_compare([st], [ref_st], SSD_FP32_TOL)
+        del ref_y, ref_st
+        grads = ss.ssd_scan_bwd(*ins, st, dy, chunk=chunk)
+        ref_g = ss._bwd_plain(*ins, st, dy, chunk)
+        torch.cuda.synchronize()
+        err_g, ok_g = _grad_compare(grads, ref_g, tol)
+        del ref_g, grads
+        out[str(dtype)] = dict(ok_fwd=ok_y and ok_s, ok_bwd=ok_g,
+                               max_abs_err_y=err_y, max_abs_err_states=err_s,
+                               max_abs_err_grads=err_g, tol=tol)
+    x, dt, a, b, c, d = ins                      # bf16, the train path's
+    el = x.element_size()
+    fwd_flops, bwd_flops = _ssd_work(x, b, chunk)
+    io = (x.numel() * el + dt.numel() * 4 + 2 * b.numel() * el
+          + 2 * a.numel() * 4)                   # x, dt, b, c, a, D
+    # The forward's bound is y's own work: the chunk-start states it also
+    # writes are the port's choice (the backward could recompute them) and
+    # are reported apart. The backward's counts the states it reads; not
+    # reading them would add their recompute (2QNP a chunk) and leave it
+    # bound by operations all the same.
+    fwd_bytes = io + x.numel() * el                          # + y
+    state_bytes = st.numel() * 4
+    bwd_bytes = (io + state_bytes + dy.numel() * el         # + states, dy
+                 + io)                           # the six gradients
+    fwd_bound, fwd_by = _bound_ms(fwd_bytes, fwd_flops, BF16_FLOPS)
+    bwd_bound, bwd_by = _bound_ms(bwd_bytes, bwd_flops, BF16_FLOPS)
+    case = dict(B=x.shape[0], L=x.shape[1], H=x.shape[2], P=x.shape[3],
+                G=b.shape[2], N=b.shape[3], chunk=chunk, dtype="bfloat16",
+                x_bc="views of a (B, L, 3328) tensor")
+    bf, f32 = out[str(torch.bfloat16)], out[str(torch.float32)]
+    fwd = dict(case, name="ssd_scan", ok=bf["ok_fwd"] and f32["ok_fwd"],
+               max_abs_err=bf["max_abs_err_y"],
+               max_abs_err_states=bf["max_abs_err_states"],
+               fp32=dict(max_abs_err_y=f32["max_abs_err_y"],
+                         max_abs_err_states=f32["max_abs_err_states"],
+                         tol=f32["tol"]),
+               tol=bf["tol"],
+               ms=_time_ms(lambda: ss.ssd_scan_fwd(*ins, chunk=chunk),
+                           iters=10),
+               kernel_device_ms=_device_ms(
+                   lambda: ss.ssd_scan_fwd(*ins, chunk=chunk), iters=10),
+               plain_ms=_time_ms(lambda: ss.ssd_chunked_states(*ins, chunk),
+                                 iters=3),
+               bound_ms=fwd_bound, bound_by=fwd_by, bytes=fwd_bytes,
+               flops=fwd_flops, library_ms=None, state_bytes=state_bytes,
+               state_write_bound_ms=state_bytes / HBM_BYTES_PER_S * 1e3)
+    bwd = dict(case, name="ssd_scan_bwd", ok=bf["ok_bwd"] and f32["ok_bwd"],
+               max_abs_err=bf["max_abs_err_grads"],
+               fp32=dict(max_abs_err_grads=f32["max_abs_err_grads"],
+                         tol=f32["tol"]),
+               tol=bf["tol"],
+               ms=_time_ms(lambda: ss.ssd_scan_bwd(*ins, st, dy,
+                                                   chunk=chunk), iters=10),
+               kernel_device_ms=_device_ms(
+                   lambda: ss.ssd_scan_bwd(*ins, st, dy, chunk=chunk),
+                   iters=10),
+               plain_ms=_time_ms(lambda: ss._bwd_plain(*ins, st, dy, chunk),
+                                 iters=3),
+               bound_ms=bwd_bound, bound_by=bwd_by, bytes=bwd_bytes,
+               flops=bwd_flops, library_ms=None)
+    return dict(fwd=fwd, bwd=bwd)
+
+
+def _model(dtype: str, arch: str = "qwen3-0.6b"):
     from repro_torch.models import transformer as tf
     from repro_torch.models.config import get_config
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
     return cfg, tf.init_params(cfg, 0, device="cuda")
 
 
@@ -397,15 +550,12 @@ def _engine(cfg, params, n_req: int, new: int, pam_kw=None, **scfg_kw):
 def run_engine(cfg, params, *, n_req: int, new: int, pam_kw=None,
                **scfg_kw) -> dict:
     import torch
-    from repro_torch.kernels import flash_decode as fd
     eng = _engine(cfg, params, n_req, new, pam_kw, **scfg_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fd.flash_decode.launches = 0            # counts of this run only
-    fd.flash_decode_paged.launches = 0
+    _reset_launches()                       # counts of this run only
     summ = eng.run()
-    launches = {"flash_decode": fd.flash_decode.launches,
-                "flash_decode_paged": fd.flash_decode_paged.launches}
+    launches = _launches()
     lens = [len(eng.requests[i].outputs) for i in range(n_req)]
     assert lens == [new] * n_req, f"outputs per request {lens}"
     return dict(summary=summ, launches=launches,
@@ -417,7 +567,8 @@ def phase_engine_paged(cfg, params) -> dict:
                    max_len=2048, block_size=16, hot_window=256)
     steps = r["summary"]["decode_device_steps"]
     want = cfg.n_layers * steps
-    for name, n in r["launches"].items():
+    for name in ("flash_decode", "flash_decode_paged"):
+        n = r["launches"][name]
         assert n == want, f"{name}: {n} launches, want {want}"
     return _engine_line(r, want)
 
@@ -432,21 +583,28 @@ def phase_engine_paged_full(cfg, params) -> dict:
                    pam_kw=dict(use_sparsity=False))
     s = r["summary"]
     want = cfg.n_layers * s["decode_device_steps"]
-    for name, n in r["launches"].items():
+    for name in ("flash_decode", "flash_decode_paged"):
+        n = r["launches"][name]
         assert n == want, f"{name}: {n} launches, want {want}"
     assert s["blocks_touched_per_step"] > 0, s
     assert s["tier_reads"][1] + s["tier_reads"][2] > 0, s["tier_reads"]
     return _engine_line(r, want)
 
 
-def phase_profile(cfg, params) -> dict:
-    """Where a paged + ring decode step's time goes: torch.profiler over
-    4 steady decode steps of the main-path engine (device time by kernel
-    name, the device's busy share of the window's wall time)."""
+PAGED_RING = dict(block_size=16, hot_window=256)
+HOST_SYNCS = ("aten::_local_scalar_dense", "cudaStreamSynchronize",
+              "cudaDeviceSynchronize", "cudaMemcpyAsync")
+
+
+def phase_profile(cfg, params, layout=PAGED_RING) -> dict:
+    """Where a decode step's time goes: torch.profiler over 4 steady
+    decode steps of an engine at batch 8 (the paged + ring main path, or
+    ``layout={}`` for the dense cache): device time by kernel name, the
+    device's busy share of the window's wall time, and the host events
+    that wait on the device or copy (readbacks)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    eng = _engine(cfg, params, 8, 16, max_batch=8, max_len=2048,
-                  block_size=16, hot_window=256)
+    eng = _engine(cfg, params, 8, 16, max_batch=8, max_len=2048, **layout)
     for _ in range(3):                       # admission + warm decode
         eng.step()
     torch.cuda.synchronize()
@@ -458,14 +616,18 @@ def phase_profile(cfg, params) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []                   # device-side events only (kernels, copies)
+    syncs = {}
     for ev in prof.key_averages():
         if str(ev.device_type).endswith("CUDA"):
             rows.append((ev.self_device_time_total, ev.key, ev.count))
+        elif ev.key in HOST_SYNCS:
+            syncs[ev.key] = ev.count
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     if not rows:
         return dict(steps=4, wall_s=wall, device_time="not measured")
     return dict(steps=4, wall_s=wall, step_ms=wall / 4 * 1e3,
+                host_sync_events=syncs,
                 device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
                 kernel_launches=sum(r[2] for r in rows),
                 top=[dict(name=k[:80], device_ms=us / 1e3, count=n,
@@ -484,6 +646,25 @@ def phase_engine_dense(cfg, params) -> dict:
     assert r["launches"]["flash_decode"] == want, r["launches"]
     assert r["launches"]["flash_decode_paged"] == 0, r["launches"]
     return _engine_line(r, want)
+
+
+def phase_engine_ssm(cfg, params) -> dict:
+    """mamba2-780m served greedily with PAM on (dense cache: the reference
+    refuses paged pools for SSM): 8 requests of 512-1024 prompt tokens,
+    each prefilled at its exact length, 64 new tokens each through the
+    recurrent state. Serving runs the plain chunked scan (prefill) and the
+    one-token recurrence, as the reference does, so no kernel launches."""
+    r = run_engine(cfg, params, n_req=8, new=64, max_batch=8, max_len=2048)
+    s = r["summary"]
+    assert s["finished"] == 8 and s["total_tokens"] == 8 * 64, s
+    assert s["prefill_dispatches"] == 8, s   # eight exact lengths
+    assert not any(r["launches"].values()), r["launches"]
+    di, H = cfg.ssm.d_inner(cfg.d_model), cfg.ssm.n_heads(cfg.d_model)
+    state_bytes = (cfg.n_layers * 8 * H * cfg.ssm.d_state
+                   * cfg.ssm.head_dim * 4)
+    return dict(_engine_line(r, 0), arch=cfg.name,
+                prefill_dispatches=s["prefill_dispatches"],
+                recurrent_state_bytes=state_bytes, d_inner=di)
 
 
 def _engine_line(r: dict, want: int) -> dict:
@@ -578,39 +759,49 @@ def phase_parity() -> dict:
                 dtype="float32", tf32=False)
 
 
-def _reset_launches() -> None:
+def _counted():
+    """Every kernel wrapper that counts its launches, by name."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
-    fd.flash_decode.launches = 0
-    fd.flash_decode_paged.launches = 0
-    fa.flash_attention.launches = 0
-    fa.flash_attention_bwd.launches = 0
+    from repro_torch.kernels import ssd_scan as ss
+    return {"flash_decode": fd.flash_decode,
+            "flash_decode_paged": fd.flash_decode_paged,
+            "flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "ssd_scan": ss.ssd_scan, "ssd_scan_bwd": ss.ssd_scan_bwd}
+
+
+def _reset_launches() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def _launches() -> dict:
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
-    return {"flash_decode": fd.flash_decode.launches,
-            "flash_decode_paged": fd.flash_decode_paged.launches,
-            "flash_attention": fa.flash_attention.launches,
-            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
-def _train_model():
+# the kernels each train path must launch n_layers times a step
+TRAIN_KERNELS = {"qwen3-0.6b": ("flash_attention", "flash_attention_bwd"),
+                 SSM_ARCH: ("ssd_scan", "ssd_scan_bwd")}
+
+
+def _train_model(arch: str = "qwen3-0.6b"):
     from repro_torch.launch import train as train_cli
     from repro_torch.models.config import get_config
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
+    if arch == SSM_ARCH:
+        return cfg, train_cli.train_config(steps=TRAIN_STEPS, lr=SSM_LR)
     return cfg, train_cli.train_config(steps=TRAIN_STEPS)
 
 
-def phase_train() -> dict:
-    """The training main path: ``repro_torch.launch.train.run`` (the CLI's
+def phase_train(arch: str = "qwen3-0.6b") -> dict:
+    """A training main path: ``repro_torch.launch.train.run`` (the CLI's
     loop) at full width, bf16, batch 4 x 2048, 10 steps."""
     import math
     import statistics
     import torch
     from repro_torch.launch import train as train_cli
-    cfg, tcfg = _train_model()
+    cfg, tcfg = _train_model(arch)
     assert tcfg.use_kernel and not tcfg.remat
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -622,13 +813,15 @@ def phase_train() -> dict:
     want = cfg.n_layers * TRAIN_STEPS
     assert all(math.isfinite(x) for x in losses), losses
     assert sum(losses[-3:]) / 3 < losses[0], losses
-    for name in ("flash_attention", "flash_attention_bwd"):
-        assert launches[name] == want, f"{name}: {launches}, want {want}"
-    assert launches["flash_decode"] == launches["flash_decode_paged"] == 0
+    for name, n in launches.items():
+        expect = want if name in TRAIN_KERNELS[arch] else 0
+        assert n == expect, f"{name}: {launches}, want {expect}"
     steady = out["step_s"][1:]
     step_ms = statistics.median(steady) * 1e3
-    return dict(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
-                dtype=cfg.dtype, losses=losses, grad_norms=out["grad_norms"],
+    return dict(arch=arch, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                dtype=cfg.dtype, peak_lr=tcfg.adamw.lr(
+                    torch.tensor(10, device="cuda")).item(),
+                losses=losses, grad_norms=out["grad_norms"],
                 first_step_ms=out["step_s"][0] * 1e3, step_ms=step_ms,
                 tokens_per_s=TRAIN_B * TRAIN_S / (step_ms / 1e3),
                 tokens_per_s_all_steps=out["tokens_per_s"],
@@ -636,7 +829,7 @@ def phase_train() -> dict:
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def phase_profile_train() -> dict:
+def phase_profile_train(arch: str = "qwen3-0.6b") -> dict:
     """Where a train step's time goes: torch.profiler over 2 steady steps
     of the train phase's configuration (after one warm step)."""
     import torch
@@ -645,7 +838,7 @@ def phase_profile_train() -> dict:
     from repro_torch.launch import train as train_cli
     from repro_torch.training.train_step import (build_train_step,
                                                  init_train_state)
-    cfg, tcfg = _train_model()
+    cfg, tcfg = _train_model(arch)
     state = init_train_state(cfg, tcfg, 0, device="cuda")
     step_fn = build_train_step(cfg, tcfg)
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B)
@@ -682,15 +875,16 @@ def phase_profile_train() -> dict:
                 ported=fmt([r for r in rows if "pam::" in r[1]]))
 
 
-def phase_train_parity() -> dict:
-    """Full-width fp32 loss and gradients through the flash_attention
-    kernels against the plain chunked attention (TF32 off)."""
+def phase_train_parity(arch: str = "qwen3-0.6b") -> dict:
+    """Full-width fp32 loss and gradients through the train path's kernels
+    (flash_attention, or ssd_scan) against the plain chunked attention or
+    chunked scan (TF32 off)."""
     import torch
     from repro_torch.data import SyntheticLM
     from repro_torch import tree
     from repro_torch.launch import train as train_cli
     from repro_torch.training.train_step import TrainConfig, build_grad_fn
-    cfg, params = _model("float32")
+    cfg, params = _model("float32", arch)
     b = train_cli.device_batch(
         SyntheticLM(vocab=cfg.vocab, seq_len=500, batch=2, seed=1), 0, 1,
         torch.device("cuda"))
@@ -705,11 +899,12 @@ def phase_train_parity() -> dict:
         rel = float((a - r).abs().max()) / scale if scale > 0 else 0.0
         if rel > worst:
             worst, worst_leaf = rel, name
-    assert launches["flash_attention"] == cfg.n_layers, launches
-    assert launches["flash_attention_bwd"] == cfg.n_layers, launches
+    for name, n in launches.items():
+        expect = cfg.n_layers if name in TRAIN_KERNELS[arch] else 0
+        assert n == expect, f"{name}: {launches}, want {expect}"
     assert loss_rel <= TRAIN_LOSS_TOL, f"loss differs: {loss_rel}"
     assert worst <= TRAIN_GRAD_TOL, f"grads differ: {worst} at {worst_leaf}"
-    return dict(B=2, S=500, dtype="float32", tf32=False,
+    return dict(arch=arch, B=2, S=500, dtype="float32", tf32=False,
                 loss_kernel=float(lk), loss_plain=float(lp),
                 loss_rel_diff=loss_rel, loss_tol=TRAIN_LOSS_TOL,
                 max_grad_rel_diff=worst, worst_leaf=worst_leaf,
@@ -725,6 +920,8 @@ def phase_kernels() -> dict:
         tag = "2048" if causal else "ragged_1000_noncausal"
         out[f"flash_attention_{tag}"] = r["fwd"]
         out[f"flash_attention_bwd_{tag}"] = r["bwd"]
+    r = kernel_ssd_scan()
+    out["ssd_scan"], out["ssd_scan_bwd"] = r["fwd"], r["bwd"]
     return out
 
 
@@ -786,12 +983,30 @@ def main() -> int:
     run("train_parity", phase_train_parity)
     torch.cuda.empty_cache()
     run("parity", phase_parity)
+    torch.cuda.empty_cache()
+    run("train_ssm", phase_train, SSM_ARCH)
+    torch.cuda.empty_cache()
+    run("profile_train_ssm", phase_profile_train, SSM_ARCH)
+    torch.cuda.empty_cache()
+    run("train_parity_ssm", phase_train_parity, SSM_ARCH)
+    torch.cuda.empty_cache()
+    ssm = None
+    try:
+        ssm = _model("bfloat16", SSM_ARCH)
+    except Exception as exc:
+        failed.append("model_ssm")
+        emit("model_ssm", ok=False, error=repr(exc))
+    if ssm is not None:
+        run("engine_ssm", phase_engine_ssm, *ssm)
+        run("profile_ssm", phase_profile, *ssm, {})
+        del ssm
 
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     paged_run = results["engine_paged_ring"]["launches"]
     train_run = results["train"]["launches"]
+    ssm_run = results["train_ssm"]["launches"]
     rows = []
     for key, src, replaces, launches in (
             ("flash_decode_ring", "flash_decode.cu", "flash_decode.py:98",
@@ -801,7 +1016,11 @@ def main() -> int:
             ("flash_attention_2048", "flash_attention.cu",
              "flash_attention.py:31", train_run["flash_attention"]),
             ("flash_attention_bwd_2048", "flash_attention_bwd.cu",
-             "flash_attention.py:31", train_run["flash_attention_bwd"])):
+             "flash_attention.py:31", train_run["flash_attention_bwd"]),
+            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:36",
+             ssm_run["ssd_scan"]),
+            ("ssd_scan_bwd", "ssd_scan_bwd.cu", "ssd_scan.py:36",
+             ssm_run["ssd_scan_bwd"])):
         k = kernels[key]
         rows.append(dict(
             name=k["name"], route="cuda",
@@ -811,9 +1030,11 @@ def main() -> int:
             ms=k["ms"], kernel_device_ms=k["kernel_device_ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
-    rows[-1]["note"] = ("gradient of flash_attention; the TPU package has "
-                        "no backward kernel (JAX cannot differentiate the "
-                        "Pallas call)")
+    for row in rows:
+        if row["name"].endswith("_bwd"):
+            row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "
+                           f"package has no backward kernel (JAX cannot "
+                           f"differentiate the Pallas call)")
     print(env["nvidia_smi"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DecodeCache
+from repro_torch.models.transformer import DecodeCache, _require_ported
 from repro_torch.serving.pam_manager import PAMState
 from repro_torch.training.optim import AdamWState
 from repro_torch.training.train_step import TrainState
@@ -41,21 +41,20 @@ def _tree(x: Any, device: torch.device) -> Any:
 def params_from_jax(cfg: ModelConfig, tree: dict,
                     device: str | torch.device | None = None) -> dict:
     """The reference's ``tf.init_params(cfg, key)`` pytree as the port's
-    parameter dict (same keys, same shapes)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
-                                  f"not ported yet (ROADMAP Queue 1 item 7)")
+    parameter dict (same keys, same shapes and dtypes: the SSM family's
+    fp32 ``dt_bias``, ``a_log`` and ``d_skip`` stay fp32 in a bf16
+    model)."""
+    _require_ported(cfg)
     return _tree(tree, resolve_device(device))
 
 
 def cache_from_jax(cache: Any,
                    device: str | torch.device | None = None) -> DecodeCache:
-    """A reference ``DecodeCache`` (dense family fields) as the port's."""
+    """A reference ``DecodeCache`` (the dense family's ``k``/``v`` and
+    pools, the SSM family's ``conv``/``state``) as the port's."""
     dev = resolve_device(device)
-    return DecodeCache(k=to_tensor(cache.k, dev), v=to_tensor(cache.v, dev),
-                       pk=to_tensor(cache.pk, dev),
-                       pv=to_tensor(cache.pv, dev),
-                       lengths=to_tensor(cache.lengths, dev))
+    return DecodeCache(*(to_tensor(getattr(cache, f), dev)
+                         for f in DecodeCache._fields))
 
 
 def pam_state_from_jax(state: Any,

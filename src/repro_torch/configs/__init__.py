@@ -4,4 +4,5 @@ Importing this package registers every config; select with
 ``repro_torch.models.config.get_config(name)`` or ``--arch <id>``.
 """
 
-from repro_torch.configs import pam_llama_7b, qwen3_0_6b  # noqa: F401
+from repro_torch.configs import (mamba2_780m, pam_llama_7b,  # noqa: F401
+                                 qwen3_0_6b)

@@ -1,7 +1,8 @@
 """Attention entry points around the kernels.
 
 Counterpart of ``repro.kernels.ops``. ``fused_attention`` (train /
-prefill) runs ``flash_attention``. The local stage of every decode
+prefill) runs ``flash_attention``; ``ssd`` (the Mamba-2 train path) runs
+``ssd_scan``. The local stage of every decode
 attention partial runs through a kernel wrapper of
 ``repro_torch.kernels.flash_decode`` (the CUDA kernel on the card, its
 plain version on the CPU); the reductions (``merge_decode``, the merges
@@ -19,6 +20,7 @@ from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_paged,
                                               ring_gather_mask,
                                               ring_position_map)
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -214,3 +216,9 @@ def paged_masked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                      reduce="amax").bool()
     n_live = torch.sum(hot_eff | pgd, dim=-1, keepdim=True).float()
     return out, mass * n_live
+
+
+def ssd(x, dt, a, b, c, d_skip, *, chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD chunked scan, differentiable (the backward kernels on
+    the card). See ``ssd_scan`` for shapes."""
+    return ssd_scan(x, dt, a, b, c, d_skip, chunk=chunk)

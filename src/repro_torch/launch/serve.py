@@ -5,7 +5,9 @@ stream, printing the engine's JSON summary.
         --hot-window 256
 
 runs full-width ``qwen3-0.6b`` (random weights from seed 0) on the GPU;
-``--reduced --device cpu`` runs the smoke-size model on the CPU. The
+``--arch mamba2-780m`` serves the Mamba-2 model (dense cache only, as in
+the reference); ``--reduced --device cpu`` runs the smoke-size model on
+the CPU. The
 flags mirror ``repro.launch.serve``'s batch mode; the defaults are sized
 for the GPU (8 requests of 512 prompt tokens, 64 new tokens each,
 ``max_len`` 2048) rather than for the reference's CPU smoke runs. Times

@@ -4,9 +4,10 @@ with AdamW, periodic checkpoints and auto-resume, on one device.
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \
         --steps 40 --batch 8 --seq 64 --device cpu
 
-trains the smoke-size model on the CPU (the attention kernels' plain
-versions); without ``--device cpu`` it runs on the GPU, where attention
-runs the ``flash_attention`` forward and backward kernels. Counterpart of
+trains the smoke-size model on the CPU (the kernels' plain versions);
+without ``--device cpu`` it runs on the GPU, where attention runs the
+``flash_attention`` forward and backward kernels, or, with ``--arch
+mamba2-780m``, the SSD scan the ``ssd_scan`` kernels. Counterpart of
 ``repro.launch.train`` with the same flags; multi-device sharding and the
 straggler monitor are not ported (ROADMAP Queue 1 item 10). Prints one
 line per 10 steps and a JSON summary; step times are the host's wall

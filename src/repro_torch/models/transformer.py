@@ -1,13 +1,14 @@
-"""Model assembly for the dense family: init, the training forward and
-loss, bucketed prefill, decode.
+"""Model assembly for the dense and SSM families: init, the training
+forward and loss, prefill, decode.
 
-Counterpart of ``repro.models.transformer`` (dense GQA family). Layer
-parameters are stacked on a leading axis exactly as in the JAX pytree —
-``params["layers"]["attn"]["wq"]`` is (L, d, H*dh) in the ``x @ W``
-orientation — so ``repro_torch.bridge`` moves weights as plain copies;
-the layer loop is a Python loop over that axis (``remat`` checkpoints
-each layer with ``torch.utils.checkpoint``). Other families raise
-``NotImplementedError`` naming their ROADMAP item.
+Counterpart of ``repro.models.transformer`` (dense GQA family and the
+Mamba-2 ``ssm`` family). Layer parameters are stacked on a leading axis
+exactly as in the JAX pytree — ``params["layers"]["attn"]["wq"]`` is (L,
+d, H*dh) in the ``x @ W`` orientation, ``params["layers"]["ssm"]`` the
+stacked ``SSMParams`` fields — so ``repro_torch.bridge`` moves weights
+as plain copies; the layer loop is a Python loop over that axis
+(``remat`` checkpoints each layer with ``torch.utils.checkpoint``).
+Other families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (init_embedding, init_linear,
                                        rms_norm, swiglu)
@@ -33,11 +35,14 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
+def _require_ported(cfg: ModelConfig) -> None:
+    """The dense family (GQA, no MoE / MLA) and the pure SSM family are
+    ported; the others raise."""
+    dense = (cfg.family == "dense" and cfg.moe is None and cfg.mla is None)
+    if not (dense or (cfg.family == "ssm" and cfg.ssm is not None)):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 7, the other families)")
+            f"(ROADMAP Queue 1 item 7: moe, mla, hybrid, vlm, audio)")
 
 
 # ============================================================ init
@@ -45,7 +50,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: str | torch.device | None = None) -> Params:
     """Random weights at the reference's init scales, drawn from an
     explicit ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg)
@@ -59,19 +64,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
-    nd = dh if cfg.qk_norm else 0
     params: Params = {
         "embed": init_embedding(gen, cfg.vocab, d, dtype, dev),
         "final_norm": ones(d),
-        "layers": {
+    }
+    if cfg.family == "ssm":
+        layers = [ssm_mod.init_ssm(gen, d, cfg.ssm, dtype, dev)
+                  for _ in range(L)]
+        params["layers"] = {
+            "ln": ones(L, d),
+            "ssm": {f: torch.stack([getattr(p, f) for p in layers])
+                    for f in ssm_mod.SSMParams._fields}}
+    else:
+        nd = dh if cfg.qk_norm else 0
+        params["layers"] = {
             "ln1": ones(L, d), "ln2": ones(L, d),
             "attn": {"wq": lin(d, H * dh), "wk": lin(d, Hkv * dh),
                      "wv": lin(d, Hkv * dh), "wo": lin(H * dh, d),
                      "q_norm": ones(L, nd), "k_norm": ones(L, nd)},
             "mlp": {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
                     "down": lin(cfg.d_ff, d)},
-        },
-    }
+        }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, d, cfg.vocab, dtype, dev)
     return params
@@ -88,6 +101,11 @@ def _attn_params(params: Params, i: int) -> attn_mod.AttnParams:
 def _mlp(params: Params, i: int, h: torch.Tensor) -> torch.Tensor:
     m = params["layers"]["mlp"]
     return swiglu(h, m["gate"][i], m["up"][i], m["down"][i])
+
+
+def _ssm_params(params: Params, i: int) -> ssm_mod.SSMParams:
+    s = params["layers"]["ssm"]
+    return ssm_mod.SSMParams(**{f: s[f][i] for f in ssm_mod.SSMParams._fields})
 
 
 def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -108,25 +126,35 @@ def _dense_block(cfg: ModelConfig, params: Params, i: int, x: torch.Tensor,
     return x + _mlp(params, i, rms_norm(x, lyr["ln2"][i], cfg.rms_eps))
 
 
+def _ssm_block(cfg: ModelConfig, params: Params, i: int, x: torch.Tensor,
+               use_kernel: bool) -> torch.Tensor:
+    """Pre-norm Mamba-2 block of layer ``i``."""
+    h = rms_norm(x, params["layers"]["ln"][i], cfg.rms_eps)
+    return x + ssm_mod.ssm_forward(_ssm_params(params, i), h, cfg.ssm,
+                                   rms_eps=cfg.rms_eps,
+                                   use_kernel=use_kernel)
+
+
 def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             *, use_kernel: bool = False, remat: bool = False,
             activation_spec=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), aux_loss scalar fp32; 0 for the dense
-    family). ``remat`` recomputes each layer in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant), so the forward kernel
-    runs twice per layer and step."""
-    _require_dense(cfg)
+    and SSM families). ``remat`` recomputes each layer in the backward
+    pass (``torch.utils.checkpoint``, non-reentrant), so the forward
+    kernel runs twice per layer and step."""
+    _require_ported(cfg)
     if activation_spec is not None:
         raise NotImplementedError(
             "activation_spec (sequence-parallel residual sharding) is not "
             "ported yet (ROADMAP Queue 1 item 9, sharding)")
+    block = _ssm_block if cfg.family == "ssm" else _dense_block
     x = params["embed"][batch["tokens"]]
     for i in range(cfg.n_layers):
         if remat:
-            x = checkpoint(_dense_block, cfg, params, i, x, use_kernel,
+            x = checkpoint(block, cfg, params, i, x, use_kernel,
                            use_reentrant=False)
         else:
-            x = _dense_block(cfg, params, i, x, use_kernel)
+            x = block(cfg, params, i, x, use_kernel)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = x @ _head(cfg, params)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -149,16 +177,20 @@ def loss_fn(cfg: ModelConfig, params: Params,
 
 # ============================================================ decode cache
 class DecodeCache(NamedTuple):
-    """Stacked per-layer decode state of the dense family.
+    """Stacked per-layer decode state; the fields a family does not use
+    are size-0, as in the reference's pytree.
 
-    ``k``/``v`` are the hot-tier buffers — a ring of W slots when the
-    engine runs a hot window (position p at slot ``p % W``), else W =
-    Smax. ``pk``/``pv`` are the paged warm/cold pools (final physical
-    block a write sentinel), size-0 unless created with paged blocks.
-    Decode appends write these tensors in place.
+    ``k``/``v`` are the hot-tier buffers of the dense family — a ring of W
+    slots when the engine runs a hot window (position p at slot ``p %
+    W``), else W = Smax. ``conv``/``state`` are the SSM family's conv ring
+    and fp32 recurrent state. ``pk``/``pv`` are the paged warm/cold pools
+    (final physical block a write sentinel), size-0 unless created with
+    paged blocks. Decode steps write these tensors in place.
     """
     k: torch.Tensor          # (L, B, Hkv, W, dh)
     v: torch.Tensor
+    conv: torch.Tensor       # (L, B, ck-1, conv_dim)
+    state: torch.Tensor      # (L, B, H, N, P) fp32
     pk: torch.Tensor         # (L, NB+1, bs, Hkv, dh) or size 0
     pv: torch.Tensor
     lengths: torch.Tensor    # (B,) int32 tokens already cached
@@ -171,8 +203,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                       ) -> DecodeCache:
     """Zero decode cache for ``batch`` sequences of up to ``max_len``
     tokens; ``paged_blocks`` > 0 adds the pools, ``hot_window`` > 0
-    shrinks ``k``/``v`` to a ring (which needs the pools)."""
-    _require_dense(cfg)
+    shrinks ``k``/``v`` to a ring (which needs the pools). The SSM
+    family keeps ``conv``/``state`` instead of ``k``/``v`` and refuses
+    pools, as the reference does."""
+    _require_ported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     L, Hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -181,16 +215,24 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                          "back evicted tokens (paged_blocks > 0)")
     kv_len = min(hot_window, max_len) if hot_window else max_len
 
-    def z(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
 
+    k, v, conv, state, pk, pv = z(0), z(0), z(0), z(0), z(0), z(0)
     if paged_blocks:
+        if cfg.family != "dense":
+            raise ValueError(f"paged KV pools require a GQA k/v cache; "
+                             f"family {cfg.family} stores none")
         pk = z(L, paged_blocks + 1, block_size, Hkv, dh)
         pv = z(L, paged_blocks + 1, block_size, Hkv, dh)
+    if cfg.family == "ssm":
+        di, H, conv_dim = ssm_mod._dims(cfg.d_model, cfg.ssm)
+        conv = z(L, batch, cfg.ssm.conv_kernel - 1, conv_dim)
+        state = z(L, batch, H, cfg.ssm.d_state, cfg.ssm.head_dim,
+                  dt=torch.float32)
     else:
-        pk, pv = z(0), z(0)
-    return DecodeCache(k=z(L, batch, Hkv, kv_len, dh),
-                       v=z(L, batch, Hkv, kv_len, dh), pk=pk, pv=pv,
+        k, v = z(L, batch, Hkv, kv_len, dh), z(L, batch, Hkv, kv_len, dh)
+    return DecodeCache(k=k, v=v, conv=conv, state=state, pk=pk, pv=pv,
                        lengths=torch.zeros(batch, dtype=torch.int32,
                                            device=dev))
 
@@ -205,11 +247,16 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     tokens: (B, S). ``true_len`` ((B,) or scalar) is the real prompt
     length when ``tokens`` is right-padded to a pow-2 bucket: causality
     keeps the first ``true_len`` positions exact, logits come from
-    position ``true_len - 1`` and the padded K/V past it is dead.
+    position ``true_len - 1`` and the padded K/V past it is dead. The SSM
+    family takes prompts at their exact length: its running state would
+    absorb the padding, so ``true_len`` raises there.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     B, S = tokens.shape
     assert S <= max_len, (max_len, S)
+    if true_len is not None and cfg.family == "ssm":
+        raise ValueError("bucketed prefill (true_len) requires a "
+                         "positional cache; SSM state absorbs padding")
     cache = init_decode_cache(cfg, B, max_len, device=tokens.device)
     if true_len is None:
         lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
@@ -219,6 +266,15 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = params["embed"][tokens]
     lyr = params["layers"]
     for i in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            out, c = ssm_mod.ssm_prefill(
+                _ssm_params(params, i), rms_norm(x, lyr["ln"][i],
+                                                 cfg.rms_eps),
+                cfg.ssm, rms_eps=cfg.rms_eps)
+            cache.conv[i] = c.conv
+            cache.state[i] = c.state
+            x = x + out
+            continue
         hn = rms_norm(x, lyr["ln1"][i], cfg.rms_eps)
         attn_out, k, v = attn_mod.attention_prefill(
             _attn_params(params, i), hn, n_heads=cfg.n_heads,
@@ -242,10 +298,11 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: DecodeCache, *,
                 decode_attn_fn: Optional[Callable] = None,
                 paged_append: Optional[tuple] = None
-                ) -> tuple[torch.Tensor, DecodeCache, torch.Tensor]:
+                ) -> tuple[torch.Tensor, DecodeCache, Optional[torch.Tensor]]:
     """One autoregressive step. tokens: (B,) int. Returns (logits (B, V),
-    cache with lengths + 1, scores (B, Smax)) — ``scores`` is the
-    layer-mean per-token attention mass feeding the importance EMA.
+    cache with lengths + 1, scores (B, Smax) or None) — ``scores`` is the
+    layer-mean per-token attention mass feeding the importance EMA, None
+    for the attention-free SSM family.
 
     The cache tensors are updated in place. When the cache carries pools,
     ``paged_append=(dst_block, dst_slot)`` ((B,) physical coordinates,
@@ -253,7 +310,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     its appended K/V into the pool and ``decode_attn_fn`` is called with
     the layer's pool slices ``(q, k_cache, v_cache, pk, pv, kv_lens)``.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     d_fn = decode_attn_fn or attn_mod.dense_decode_attn
     use_paged = cache.pk.numel() > 0
     if use_paged and paged_append is None:
@@ -262,20 +319,32 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     lens = cache.lengths
     x = params["embed"][tokens]                           # (B, d)
     lyr = params["layers"]
-    masses = []
-    for i in range(cfg.n_layers):
-        hn = rms_norm(x, lyr["ln1"][i], cfg.rms_eps)
-        paged = ((cache.pk[i], cache.pv[i]) + tuple(paged_append)
-                 if use_paged else None)
-        res = attn_mod.attention_decode(
-            _attn_params(params, i), hn, cache.k[i], cache.v[i], lens,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
-            rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
-            decode_attn_fn=d_fn, paged=paged)
-        x = x + res[0]
-        masses.append(res[1])
-        x = x + _mlp(params, i, rms_norm(x, lyr["ln2"][i], cfg.rms_eps))
-    scores = torch.mean(torch.stack(masses), dim=0)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            out, new = ssm_mod.ssm_decode(
+                _ssm_params(params, i), rms_norm(x, lyr["ln"][i],
+                                                 cfg.rms_eps),
+                ssm_mod.SSMCache(cache.conv[i], cache.state[i]), cfg.ssm,
+                rms_eps=cfg.rms_eps)
+            cache.conv[i] = new.conv
+            cache.state[i] = new.state
+            x = x + out
+        scores = None
+    else:
+        masses = []
+        for i in range(cfg.n_layers):
+            hn = rms_norm(x, lyr["ln1"][i], cfg.rms_eps)
+            paged = ((cache.pk[i], cache.pv[i]) + tuple(paged_append)
+                     if use_paged else None)
+            res = attn_mod.attention_decode(
+                _attn_params(params, i), hn, cache.k[i], cache.v[i], lens,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+                rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
+                decode_attn_fn=d_fn, paged=paged)
+            x = x + res[0]
+            masses.append(res[1])
+            x = x + _mlp(params, i, rms_norm(x, lyr["ln2"][i], cfg.rms_eps))
+        scores = torch.mean(torch.stack(masses), dim=0)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = x @ _head(cfg, params)
     return logits, cache._replace(lengths=lens + 1), scores

@@ -2,7 +2,8 @@
 with prefill priority, PAM-managed decode loop.
 
 Counterpart of ``repro.serving.engine`` for greedy serving of the dense
-family, on a dense or a paged + hot-ring KV layout:
+family, on a dense or a paged + hot-ring KV layout, and of the Mamba-2
+(SSM) family on the dense layout:
 
 * Admission buckets prompt lengths to powers of two; same-bucket
   admissions commit as a group — one batched prefill, then one commit
@@ -15,6 +16,11 @@ family, on a dense or a paged + hot-ring KV layout:
   ``flash_decode`` ⊕ paged partial through ``flash_decode_paged``, or
   ``flash_decode`` over the dense cache), importance EMA, capacity
   cascade and Alg. 2, greedy sampling, on-device EOS.
+* The SSM family prefills at each prompt's exact length (its running
+  state would absorb padding), commits the conv ring and recurrent state
+  into the slot, and feeds the importance EMA recency-only scores (the
+  reference's, for an attention-free model). It refuses paged pools and
+  the hot ring, as the reference does.
 * ``micro_steps = k`` runs ``k`` such steps back to back and reads the
   host buffers once. Time is the host's wall clock; every readback
   synchronises with the device.
@@ -114,7 +120,7 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServingConfig,
                  *, device: str | torch.device | None = None):
         _unported(scfg)
-        tf._require_dense(cfg)
+        tf._require_ported(cfg)
         self.device = resolve_device(device)
         self.cfg, self.params, self.scfg = cfg, params, scfg
         B, Smax = scfg.max_batch, scfg.max_len
@@ -184,7 +190,11 @@ class ServingEngine:
         return [i for i, s in enumerate(self.slots) if s is None]
 
     def _bucket_len(self, s_len: int) -> int:
-        """Pow-2 prefill buckets (as the reference's jit-cache cap)."""
+        """Pow-2 prefill buckets (as the reference's jit-cache cap); the
+        exact length for the SSM family, whose state can't absorb
+        padding."""
+        if self.cfg.family == "ssm":
+            return s_len
         b = 1
         while b < s_len:
             b *= 2
@@ -240,9 +250,11 @@ class ServingEngine:
             padded[i, :s_len] = prompt
             lens[i] = s_len
         lens_t = torch.as_tensor(lens, device=dev)
+        exact = self.cfg.family == "ssm"
         logits, sub = tf.prefill(self.cfg, self.params,
                                  torch.as_tensor(padded, device=dev),
-                                 self.scfg.max_len, true_len=lens_t)
+                                 self.scfg.max_len,
+                                 true_len=None if exact else lens_t)
         self.prefill_dispatches += 1
         slots = [g[4] for g in group]
         rows = None
@@ -261,9 +273,31 @@ class ServingEngine:
                 table_rows: Optional[torch.Tensor]) -> torch.Tensor:
         """Install a prefilled group (the reference's admission commit):
         pool write of the full logical rows, ring re-layout of the last
-        ``hot_window`` tokens, slot scatter, first tokens, PAM placement.
-        Returns the first tokens (n,)."""
+        ``hot_window`` tokens, slot scatter (K/V, or the SSM conv ring and
+        state), first tokens, PAM placement. Returns the first tokens
+        (n,)."""
         firsts = torch.argmax(logits, dim=-1).to(torch.int32)
+        idx = torch.as_tensor(slots, device=self.device)
+        if self.cfg.family == "ssm":
+            self.cache.conv[:, idx] = sub.conv
+            self.cache.state[:, idx] = sub.state
+        else:
+            self._commit_kv(sub, slots, lengths, table_rows, idx)
+        self.cache.lengths[idx] = lengths
+        self.tokens_dev[idx] = firsts
+        if self.pam_cfg is not None:
+            for i, slot in enumerate(slots):
+                pm.place_prefill_state(
+                    self.pam_cfg, self.pam_state, slot, int(lengths[i]),
+                    table_rows[i] if self.block_size else None)
+        return firsts
+
+    def _commit_kv(self, sub: tf.DecodeCache, slots: list[int],
+                   lengths: torch.Tensor,
+                   table_rows: Optional[torch.Tensor],
+                   idx: torch.Tensor) -> None:
+        """The dense family's K/V part of the commit: pool write, ring
+        re-layout, slot scatter."""
         n = len(slots)
         sk, sv = sub.k, sub.v                     # (L, n, Hkv, Smax, dh)
         if self.block_size:
@@ -279,17 +313,8 @@ class ServingEngine:
                     sk[:, i], ring_pos[i], valid[i]) for i in range(n)], 1)
                 sv = torch.stack([pam_if.logical_to_ring(
                     sv[:, i], ring_pos[i], valid[i]) for i in range(n)], 1)
-        idx = torch.as_tensor(slots, device=self.device)
         self.cache.k[:, idx] = sk
         self.cache.v[:, idx] = sv
-        self.cache.lengths[idx] = lengths
-        self.tokens_dev[idx] = firsts
-        if self.pam_cfg is not None:
-            for i, slot in enumerate(slots):
-                pm.place_prefill_state(
-                    self.pam_cfg, self.pam_state, slot, int(lengths[i]),
-                    table_rows[i] if self.block_size else None)
-        return firsts
 
     def _finish_admit(self, rid: int, rs: RequestState, slot: int,
                       tok: int) -> None:
@@ -366,6 +391,8 @@ class ServingEngine:
             read_mask = participate & active[:, None]
             tier_reads = pm.tier_read_counts_of(st.tier, read_mask)
             hit = pm.hit_rate_of(st.last_hot, participate)
+            if scores is None:     # attention-free: recency-only scores
+                scores = (pos_all == (cache.lengths - 1)[:, None]).float()
             before = st.moved_tokens
             st = pm.observe_update(pcfg, st, scores, cache.lengths,
                                    participate)

@@ -13,7 +13,11 @@ rtol 1e-4 / atol 1e-4 on (o, m, l), with TF32 off for the plain side's
 matrix products. The attention backward sums up to S products per
 gradient entry in another order: rtol / atol 1e-3 in fp32. In bf16
 both sides compute in fp32 and round the result to bf16, so they may
-differ by one bf16 step: rtol / atol 2e-2.
+differ by one bf16 step: rtol / atol 2e-2. The SSD scan's kernels and
+plain versions differ in summation order and in the order of the
+in-chunk prefix sum of dt a, whose rounding moves each exp(s_t - s_u) by
+a few ulp of |s|: fp32 outputs at rtol 1e-4 / atol 1e-3 and gradients
+within 1e-3 of each leaf's largest entry; bf16 at 2e-2.
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
+from repro_torch.kernels import ssd_scan as tss  # noqa: E402
 from repro_torch.models import config as tcfg  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.serving import engine as teng  # noqa: E402
@@ -157,3 +162,84 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, H, Hkv,
     for got, ref in zip((qc.grad, kc.grad, vc.grad), ref_g):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    ref.float().numpy(), **bwd_tol)
+
+
+def _ssd_case(seed, B, L, H, G, view, dtype):
+    """SSD operands at mamba2-780m's head shape (N 128, P 64) with the
+    model's decay rates (a = -exp(a_log), a_log from log 1 to log 16);
+    with ``view`` x, b and c are column slices of one conv-output-like
+    tensor, as ssm_forward passes them."""
+    N, P = 128, 64
+    rng = np.random.default_rng(seed)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (B, L, H * P + 2 * G * N), np.float32) * 0.5).to(dtype)
+    if view:
+        x = xbc[..., :H * P].reshape(B, L, H, P)
+        b = xbc[..., H * P:H * P + G * N].reshape(B, L, G, N)
+        c = xbc[..., H * P + G * N:].reshape(B, L, G, N)
+    else:
+        x, b, c = (t.contiguous() for t in (
+            xbc[..., :H * P].reshape(B, L, H, P),
+            xbc[..., H * P:H * P + G * N].reshape(B, L, G, N),
+            xbc[..., H * P + G * N:].reshape(B, L, G, N)))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((B, L, H), np.float32)))
+    a = -torch.exp(torch.linspace(0.0, float(np.log(16.0)), H))
+    d = torch.from_numpy(rng.standard_normal(H, np.float32))
+    dy = torch.from_numpy(rng.standard_normal((B, L, H, P),
+                                              np.float32)).to(dtype)
+    return x, dt, a, b, c, d, dy
+
+
+def _ssd_close(got, ref, dtype, grad=False):
+    got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
+    if dtype == torch.bfloat16:
+        tol = dict(rtol=2e-2, atol=2e-2 * max(1.0, np.abs(ref).max())
+                   if grad else 2e-2)
+    elif grad:
+        tol = dict(rtol=0, atol=1e-3 * max(np.abs(ref).max(), 1e-30))
+    else:
+        tol = dict(rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got, ref, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,G,chunk,view", [
+    (2, 300, 4, 2, 128, True),     # three chunks, ragged tail, two groups
+    (1, 100, 2, 1, 128, True),     # one short chunk (Q = L = 100)
+    (1, 2047, 2, 1, 128, False),   # sixteen chunks, one token short
+    (2, 257, 4, 1, 64, True),      # chunk 64
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernels_match_plain(cuda, dtype, B, L, H, G, chunk, view):
+    x, dt, a, b, c, d, dy = _ssd_case(L + H, B, L, H, G, view, dtype)
+    ref_y, ref_st = tss.ssd_scan_fwd(x, dt, a, b, c, d, chunk=chunk)
+    ref_g = tss.ssd_scan_bwd(x, dt, a, b, c, d, ref_st, dy, chunk=chunk)
+    n0 = (tss.ssd_scan.launches, tss.ssd_scan_bwd.launches)
+    xc, dtc, ac, bc, cc, dc = (t.to(cuda).requires_grad_()
+                               for t in (x, dt, a, b, c, d))
+    y, st = tss.ssd_scan_fwd(xc.detach(), dtc.detach(), ac.detach(),
+                             bc.detach(), cc.detach(), dc.detach(),
+                             chunk=chunk)
+    out = tss.ssd_scan(xc, dtc, ac, bc, cc, dc, chunk=chunk)
+    out.backward(dy.to(cuda))
+    torch.cuda.synchronize()
+    assert tss.ssd_scan.launches == n0[0] + 2
+    assert tss.ssd_scan_bwd.launches == n0[1] + 1
+    assert out.dtype == dtype and xc.grad.dtype == dtype
+    _ssd_close(y, ref_y, dtype)
+    _ssd_close(out.detach(), ref_y, dtype)
+    _ssd_close(st, ref_st, torch.float32, grad=True)
+    for got, ref in zip((xc.grad, dtc.grad, ac.grad, bc.grad, cc.grad,
+                         dc.grad), ref_g):
+        _ssd_close(got, ref, dtype, grad=True)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_unbuilt_shapes(cuda):
+    x = torch.zeros((1, 16, 2, 32), device=cuda)
+    b = torch.zeros((1, 16, 1, 128), device=cuda)
+    dt = torch.zeros((1, 16, 2), device=cuda)
+    h = torch.zeros(2, device=cuda)
+    with pytest.raises(ValueError, match="not built"):
+        tss.ssd_scan(x, dt, h, b, b, h)

@@ -215,6 +215,6 @@ def test_paged_cache_without_append_raises(model):
 
 def test_other_families_name_their_roadmap_item():
     cfg = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
-    ssm = dataclasses.replace(cfg, family="ssm")
+    hybrid = dataclasses.replace(cfg, family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_params(ssm, 0, device="cpu")
+        ttf.init_params(hybrid, 0, device="cpu")
