@@ -8,14 +8,22 @@ Phases, one JSON line each; any failure exits non-zero without the
 final ``ok`` line:
 
   env       torch / CUDA versions, the card and its power limit
-  build     nvcc builds of the CUDA kernels (sm_90a), seconds taken
+  build     nvcc builds of the CUDA kernels (sm_90a), seconds taken;
+            registers and spills of the main-path kernels from the
+            ``-Xptxas -v`` logs; the wgmma attention libraries must hold
+            HGMMA instructions in their SASS (``cuobjdump -sass``) and
+            their kernels must not spill
   kernels   each kernel against its plain PyTorch version on the card at
             main-path shapes (decode: B=8, H=16, Hkv=8, d=128, bf16
-            storage; attention: the train shape; ssd_scan: mamba2-780m's
+            storage; attention: the train shape in bf16 through the wgmma
+            kernels, also S 1000 non-causal, and the CUDA-core kernels in
+            fp32 at train_parity's B 2, S 500; ssd_scan: mamba2-780m's
             train shape B 4, L 2048, H 48, P 64, N 128, chunk 128, x / B /
             C as views of the conv output, bf16 and fp32), with its time,
             the plain version's time, the bound and, where one PyTorch
-            call computes the same function, that call's time
+            call computes the same function, that call's time (for
+            attention also SDPA's own error against the same plain
+            versions, the kernel's TFLOP/s and its share of the bound)
   engine_paged_ring   full-width qwen3-0.6b (random weights, bf16) served
             in paged + hot-ring mode; each kernel must launch
             n_layers x decode steps times
@@ -29,12 +37,14 @@ final ``ok`` line:
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
             flash_attention kernels, forward and backward); each of the
-            two must launch n_layers x steps times and the loss must fall
+            two must launch n_layers x steps times, every launch a wgmma
+            one, and the loss must fall
   profile_train   torch.profiler over 2 train steps: device time by
-            kernel, the device's idle share
+            kernel, the attention kernels' share, the device's idle share
   train_parity    full-width qwen3-0.6b in fp32 (TF32 off), B 2, S 500:
-            loss and gradients through the kernels vs through the plain
-            chunked attention
+            loss and gradients through the kernels (the CUDA-core
+            variant: no wgmma launch) vs through the plain chunked
+            attention
   parity    full-width qwen3-0.6b in fp32: teacher-forced decode steps
             through the engine's kernel-backed attention vs attention
             built from plain tensor code, logits compared
@@ -55,10 +65,15 @@ final ``ok`` line:
 Tolerances (each kernel against its plain version on the same inputs):
   flash_decode, flash_decode_paged (fp32 partials from bf16 K/V): rtol
       1e-4, atol 1e-3 (summation order only)
-  flash_attention forward and backward, bf16 operands: rtol 2e-2, atol
-      2e-2 on the bf16 outputs (both sides compute in fp32 and round once
-      to bf16, so they may differ by one bf16 step, 2^-8 relative); the
-      forward's fp32 log-sum-exp at rtol 1e-4, atol 1e-3
+  flash_attention forward and backward, bf16 operands (wgmma kernels):
+      rtol 2e-2, atol 2e-2 on the bf16 outputs (both sides compute in fp32
+      and round the outputs to bf16, so they may differ by one bf16 step,
+      2^-8 relative; the kernels also round P and dS to bf16 as
+      tensor-core operands, whose effect tests/test_torch_flash_attention_
+      sm90.py bounds on the CPU); the forward's fp32 log-sum-exp at rtol
+      1e-4, atol 1e-3; fp32 operands (CUDA-core kernels): the forward at
+      rtol 1e-4, atol 1e-3, the backward at rtol / atol 1e-3 (sums over
+      up to S products in another order)
   ssd_scan forward and backward: bf16 operands at rtol / atol 2e-2 (one
       bf16 rounding of the outputs); fp32 at rtol 1e-4, atol 1e-3 (the
       order of sums and of the in-chunk prefix sum of dt a, whose rounding
@@ -69,9 +84,10 @@ Tolerances (each kernel against its plain version on the same inputs):
   parity: max |dlogit| / max(1, max |logit|) <= 1e-3
 
 Bounds: bytes over 3.35 TB/s (HBM3), and operations over 67 TFLOP/s
-(fp32, CUDA cores) for the decode kernels or 989 TFLOP/s (bf16 dense
-tensor cores) for flash_attention and ssd_scan, whose bf16 work a
-tensor-core kernel could do; NVIDIA's H100 SXM data sheet.
+(fp32, CUDA cores) for the decode kernels and the fp32 attention rows,
+or 989 TFLOP/s (bf16 dense tensor cores) for bf16 flash_attention and
+ssd_scan, whose bf16 work a tensor-core kernel can do; NVIDIA's H100 SXM
+data sheet.
 
 Imports nothing of JAX or of the reference package ``repro``.
 """
@@ -92,10 +108,12 @@ FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM bf16 dense tensor cores
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-3)
 ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+ATTN_FP32_BWD_TOL = dict(rtol=1e-3, atol=1e-3)
 PARITY_TOL = 1e-3                # max |dlogit| / max(1, max |logit|)
 TRAIN_LOSS_TOL = 1e-5            # relative loss difference
 TRAIN_GRAD_TOL = 1e-3            # per leaf: max |diff| / max |plain|
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 10, 4, 2048
+PARITY_B, PARITY_S = 2, 500      # the fp32 train_parity batch
 SSM_ARCH = "mamba2-780m"
 SSM_LR = 1e-3                    # peak lr of the mamba2-780m train phase
 SSD_FP32_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -179,7 +197,26 @@ def phase_env() -> dict:
                 nvidia_smi=smi[0] if smi else "")
 
 
+SM90_LIBS = ("flash_attention_sm90", "flash_attention_bwd_sm90")
+
+
+def _sass_count(name: str, op: str = "HGMMA") -> int:
+    """Occurrences of ``op`` in the SASS of kernel library ``name``
+    (``cuobjdump -sass``)."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build._target(name))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed for {name}: {sass.stderr}")
+    return sass.stdout.count(op)
+
+
 def phase_build() -> dict:
+    """Builds every kernel library, then reads each main-path kernel's
+    registers and spills from its ``-Xptxas -v`` log and checks that the
+    wgmma libraries' SASS holds tensor-core instructions (``HGMMA``) and
+    that their kernels do not spill."""
     import re
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -188,10 +225,13 @@ def phase_build() -> dict:
     for name in build.SOURCES:
         lines = build.build_log(name).splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and "bfloat16" in line and (
-                    ("Li128E" in line and "Li1E" not in line)
-                    or "3ssd" in line):
-                kern = re.search(r"\d+([a-z_]+_kernel)", line)
+            if "Compiling entry" in line and (
+                    ("bfloat16" in line and (
+                        ("Li128E" in line and "Li1E" not in line)
+                        or "3ssd" in line))
+                    or ("sm90" in line and "Li2E" in line)):
+                kern = re.search(r"\d+((?:flash|ssd)_[a-z0-9_]*_kernel)",
+                                 line)
                 info = []
                 for x in lines[i + 1:]:
                     if "Compiling entry" in x:
@@ -199,8 +239,15 @@ def phase_build() -> dict:
                     if "Used" in x or "spill" in x:
                         info.append(x.split(":", 1)[-1].strip())
                 regs[kern.group(1) if kern else name] = "; ".join(info)
+    hgmma = {name: _sass_count(name) for name in SM90_LIBS}
+    assert all(n > 0 for n in hgmma.values()), f"no HGMMA in {hgmma}"
+    spills = {k: v for k, v in regs.items() if "sm90" in k
+              and re.search(r"[1-9]\d* bytes spill (stores|loads)", v)}
+    assert not spills, f"wgmma kernels spill: {spills}"
+    assert sum("sm90" in k for k in regs) == 3, sorted(regs)
     return dict(build_s=time.perf_counter() - t0, per_library=per,
-                libraries=sorted(build.SOURCES), registers=regs)
+                libraries=sorted(build.SOURCES), registers=regs,
+                hgmma_in_sass=hgmma)
 
 
 def _dense_case(S, seed, dead_split):
@@ -306,13 +353,15 @@ def kernel_flash_decode_paged() -> dict:
                 live_tokens=n_live, library_ms=None)
 
 
-def _attn_case(S: int, causal: bool, seed: int):
-    """bf16 q, k, v, dO at the training path's heads (B 4, H 16, Hkv 8,
-    d 128) and sequence ``S``."""
+def _attn_case(S: int, causal: bool, seed: int, B: int = TRAIN_B,
+               dtype: str = "bfloat16"):
+    """q, k, v, dO at the training path's heads (H 16, Hkv 8, d 128),
+    batch ``B`` and sequence ``S``, in ``dtype``."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, H, Hkv, d = TRAIN_B, 16, 8, 128
-    return [torch.randn(shape, generator=g, device="cuda").bfloat16()
+    H, Hkv, d = 16, 8, 128
+    return [torch.randn(shape, generator=g, device="cuda").to(
+                getattr(torch, dtype))
             for shape in ((B, H, S, d), (B, Hkv, S, d), (B, Hkv, S, d),
                           (B, H, S, d))]
 
@@ -326,31 +375,44 @@ def _attn_work(q, k, causal: bool) -> tuple[int, int]:
     return B * H * pairs, d
 
 
-def kernel_flash_attention(S: int, causal: bool) -> dict:
+def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
+                           dtype: str = "bfloat16") -> dict:
     """Forward and backward kernels against their plain versions on the
     same inputs (the backward fed the kernel forward's o and lse), with
-    their times, bounds and the SDPA yardstick."""
+    their times, bounds and the SDPA yardstick, whose own error against
+    the same plain versions is reported beside the kernels'. bf16 runs
+    the wgmma kernels (also held to ``_fwd_rounded`` / ``_bwd_rounded``,
+    the plain model of their bf16 roundings), fp32 the CUDA-core ones."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, do = _attn_case(S, causal, seed=S)
+    q, k, v, do = _attn_case(S, causal, seed=S, B=B, dtype=dtype)
     scale = 1.0 / q.shape[-1] ** 0.5
+    variant = fa._variant(q.dtype, q.shape[-1])
+    bf16 = q.dtype == torch.bfloat16
+    fwd_tol = ATTN_BF16_TOL if bf16 else KERNEL_TOL
+    bwd_tol = ATTN_BF16_TOL if bf16 else ATTN_FP32_BWD_TOL
+    n0 = (fa.flash_attention.wgmma_launches,
+          fa.flash_attention_bwd.wgmma_launches)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     ref_o, ref_lse = fa._fwd_plain(q, k, v, causal, scale)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     ref_g = fa._bwd_plain(q, k, v, o, lse, do, causal, scale)
     torch.cuda.synchronize()
-    err_o, ok_o = _compare([o], [ref_o], ATTN_BF16_TOL)
+    ran = (fa.flash_attention.wgmma_launches - n0[0],
+           fa.flash_attention_bwd.wgmma_launches - n0[1])
+    assert ran == ((1, 1) if variant == "wgmma" else (0, 0)), (variant, ran)
+    err_o, ok_o = _compare([o], [ref_o], fwd_tol)
     err_l, ok_l = _compare([lse], [ref_lse])
-    err_g, ok_g = _compare(grads, ref_g, ATTN_BF16_TOL)
-    del ref_o, ref_lse, ref_g
-    pairs, d = _attn_work(q, k, causal)
-    el = 2                                        # bf16 bytes
-    fwd_bytes = (q.numel() * 2 + k.numel() * 2) * el + lse.numel() * 4
-    bwd_bytes = ((q.numel() * 3 + k.numel() * 2) * el + lse.numel() * 4
-                 + (q.numel() + k.numel() * 2) * el)
-    fwd_bound, fwd_by = _bound_ms(fwd_bytes, 4 * d * pairs, BF16_FLOPS)
-    bwd_bound, bwd_by = _bound_ms(bwd_bytes, 10 * d * pairs, BF16_FLOPS)
+    err_g, ok_g = _compare(grads, ref_g, bwd_tol)
+    extra_f, extra_b = {}, {}
+    if bf16:
+        rnd_o, _ = fa._fwd_rounded(q, k, v, causal, scale)
+        extra_f["max_abs_err_vs_rounded"] = _compare([o], [rnd_o])[0]
+        del rnd_o
+        rnd_g = fa._bwd_rounded(q, k, v, o, lse, do, causal, scale)
+        extra_b["max_abs_err_vs_rounded"] = _compare(grads, rnd_g)[0]
+        del rnd_g
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
 
     def sdpa():
@@ -360,32 +422,52 @@ def kernel_flash_attention(S: int, causal: bool) -> dict:
     def sdpa_fb():
         sdpa().backward(do)
 
+    so = sdpa()
+    sg = torch.autograd.grad(so, (qr, kr, vr), do)
+    sdpa_err_o = _compare([so.detach()], [ref_o])[0]
+    sdpa_err_g = _compare(sg, ref_g)[0]
+    del ref_o, ref_lse, ref_g, so, sg
+    pairs, d = _attn_work(q, k, causal)
+    el = q.element_size()
+    peak = BF16_FLOPS if bf16 else FP32_FLOPS
+    fwd_bytes = (q.numel() * 2 + k.numel() * 2) * el + lse.numel() * 4
+    bwd_bytes = ((q.numel() * 3 + k.numel() * 2) * el + lse.numel() * 4
+                 + (q.numel() + k.numel() * 2) * el)
+    fwd_flops, bwd_flops = 4 * d * pairs, 10 * d * pairs
+    fwd_bound, fwd_by = _bound_ms(fwd_bytes, fwd_flops, peak)
+    bwd_bound, bwd_by = _bound_ms(bwd_bytes, bwd_flops, peak)
     with torch.no_grad():
         sdpa_fwd_ms = _time_ms(sdpa, iters=10)
     sdpa_fb_ms = _time_ms(sdpa_fb, iters=10)
     case = dict(S=S, causal=causal, B=q.shape[0], H=q.shape[1],
-                Hkv=k.shape[1], d=d, dtype="bfloat16", live_pairs=pairs)
+                Hkv=k.shape[1], d=d, dtype=dtype, variant=variant,
+                live_pairs=pairs)
+
+    def timed(fn, flops, bound):
+        dev = _device_ms(fn, iters=10)
+        return dict(ms=_time_ms(fn, iters=10), kernel_device_ms=dev,
+                    tflops=flops / (dev * 1e-3) / 1e12,
+                    pct_of_bound=100.0 * bound / dev)
     fwd = dict(case, name="flash_attention", ok=ok_o and ok_l,
                max_abs_err=max(err_o, err_l), max_abs_err_o=err_o,
-               max_abs_err_lse=err_l, tol=ATTN_BF16_TOL,
-               ms=_time_ms(lambda: fa.flash_attention_fwd(
-                   q, k, v, causal=causal), iters=10),
-               kernel_device_ms=_device_ms(lambda: fa.flash_attention_fwd(
-                   q, k, v, causal=causal), iters=10),
+               max_abs_err_lse=err_l, tol=fwd_tol,
+               sdpa_max_abs_err=sdpa_err_o, **extra_f,
+               **timed(lambda: fa.flash_attention_fwd(
+                   q, k, v, causal=causal), fwd_flops, fwd_bound),
                plain_ms=_time_ms(lambda: fa._fwd_plain(q, k, v, causal,
                                                        scale), iters=5),
                bound_ms=fwd_bound, bound_by=fwd_by, bytes=fwd_bytes,
-               flops=4 * d * pairs, library_ms=sdpa_fwd_ms)
+               flops=fwd_flops, library_ms=sdpa_fwd_ms)
     bwd = dict(case, name="flash_attention_bwd", ok=ok_g,
-               max_abs_err=err_g, tol=ATTN_BF16_TOL,
-               ms=_time_ms(lambda: fa.flash_attention_bwd(
-                   q, k, v, o, lse, do, causal=causal), iters=10),
-               kernel_device_ms=_device_ms(lambda: fa.flash_attention_bwd(
-                   q, k, v, o, lse, do, causal=causal), iters=10),
+               max_abs_err=err_g, tol=bwd_tol, sdpa_max_abs_err=sdpa_err_g,
+               **extra_b,
+               **timed(lambda: fa.flash_attention_bwd(
+                   q, k, v, o, lse, do, causal=causal), bwd_flops,
+                   bwd_bound),
                plain_ms=_time_ms(lambda: fa._bwd_plain(
                    q, k, v, o, lse, do, causal, scale), iters=5),
                bound_ms=bwd_bound, bound_by=bwd_by, bytes=bwd_bytes,
-               flops=10 * d * pairs,
+               flops=bwd_flops,
                library_ms=max(sdpa_fb_ms - sdpa_fwd_ms, 0.0))
     return dict(fwd=fwd, bwd=bwd)
 
@@ -774,10 +856,23 @@ def _counted():
 def _reset_launches() -> None:
     for fn in _counted().values():
         fn.launches = 0
+    for fn in _wgmma_counted().values():
+        fn.wgmma_launches = 0
 
 
 def _launches() -> dict:
     return {name: fn.launches for name, fn in _counted().items()}
+
+
+def _wgmma_counted():
+    """The attention wrappers, which also count their wgmma launches."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd}
+
+
+def _wgmma_launches() -> dict:
+    return {name: fn.wgmma_launches for name, fn in _wgmma_counted().items()}
 
 
 # the kernels each train path must launch n_layers times a step
@@ -809,6 +904,7 @@ def phase_train(arch: str = "qwen3-0.6b") -> dict:
     out = train_cli.run(cfg, tcfg, steps=TRAIN_STEPS, batch=TRAIN_B,
                         seq=TRAIN_S, device="cuda", log=lambda _: None)
     launches = _launches()
+    wgmma = _wgmma_launches()
     losses = out["losses"]
     want = cfg.n_layers * TRAIN_STEPS
     assert all(math.isfinite(x) for x in losses), losses
@@ -816,6 +912,9 @@ def phase_train(arch: str = "qwen3-0.6b") -> dict:
     for name, n in launches.items():
         expect = want if name in TRAIN_KERNELS[arch] else 0
         assert n == expect, f"{name}: {launches}, want {expect}"
+    for name, n in wgmma.items():      # bf16, head dim 128: all wgmma
+        expect = want if name in TRAIN_KERNELS[arch] else 0
+        assert n == expect, f"{name}: wgmma {wgmma}, want {expect}"
     steady = out["step_s"][1:]
     step_ms = statistics.median(steady) * 1e3
     return dict(arch=arch, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
@@ -825,7 +924,8 @@ def phase_train(arch: str = "qwen3-0.6b") -> dict:
                 first_step_ms=out["step_s"][0] * 1e3, step_ms=step_ms,
                 tokens_per_s=TRAIN_B * TRAIN_S / (step_ms / 1e3),
                 tokens_per_s_all_steps=out["tokens_per_s"],
-                launches=launches, launches_expected=want,
+                launches=launches, wgmma_launches=wgmma,
+                launches_expected=want,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -868,9 +968,12 @@ def phase_profile_train(arch: str = "qwen3-0.6b") -> dict:
     def fmt(sel):
         return [dict(name=k[:80], device_ms=us / 1e3, count=n,
                      share=us / 1e6 / busy_s) for us, k, n in sel]
+    attn = [r for r in rows if "pam::flash_attention" in r[1]]
     return dict(steps=2, wall_s=wall, step_ms=wall / 2 * 1e3,
                 device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
                 kernel_launches=sum(r[2] for r in rows),
+                attention_device_ms=sum(r[0] for r in attn) / 1e3,
+                attention_share=sum(r[0] for r in attn) / 1e6 / busy_s,
                 top=fmt(rows[:12]),
                 ported=fmt([r for r in rows if "pam::" in r[1]]))
 
@@ -886,11 +989,14 @@ def phase_train_parity(arch: str = "qwen3-0.6b") -> dict:
     from repro_torch.training.train_step import TrainConfig, build_grad_fn
     cfg, params = _model("float32", arch)
     b = train_cli.device_batch(
-        SyntheticLM(vocab=cfg.vocab, seq_len=500, batch=2, seed=1), 0, 1,
+        SyntheticLM(vocab=cfg.vocab, seq_len=PARITY_S, batch=PARITY_B,
+                    seed=1), 0, 1,
         torch.device("cuda"))
     _reset_launches()
     lk, gk = build_grad_fn(cfg, TrainConfig(use_kernel=True))(params, b)
     launches = _launches()
+    wgmma = _wgmma_launches()          # fp32: the CUDA-core kernels
+    assert not any(wgmma.values()), f"fp32 ran wgmma kernels: {wgmma}"
     lp, gp = build_grad_fn(cfg, TrainConfig(use_kernel=False))(params, b)
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     worst, worst_leaf = 0.0, ""
@@ -904,11 +1010,13 @@ def phase_train_parity(arch: str = "qwen3-0.6b") -> dict:
         assert n == expect, f"{name}: {launches}, want {expect}"
     assert loss_rel <= TRAIN_LOSS_TOL, f"loss differs: {loss_rel}"
     assert worst <= TRAIN_GRAD_TOL, f"grads differ: {worst} at {worst_leaf}"
-    return dict(arch=arch, B=2, S=500, dtype="float32", tf32=False,
+    return dict(arch=arch, B=PARITY_B, S=PARITY_S, dtype="float32",
+                tf32=False,
                 loss_kernel=float(lk), loss_plain=float(lp),
                 loss_rel_diff=loss_rel, loss_tol=TRAIN_LOSS_TOL,
                 max_grad_rel_diff=worst, worst_leaf=worst_leaf,
-                grad_tol=TRAIN_GRAD_TOL, launches=launches)
+                grad_tol=TRAIN_GRAD_TOL, launches=launches,
+                wgmma_launches=wgmma)
 
 
 def phase_kernels() -> dict:
@@ -920,6 +1028,11 @@ def phase_kernels() -> dict:
         tag = "2048" if causal else "ragged_1000_noncausal"
         out[f"flash_attention_{tag}"] = r["fwd"]
         out[f"flash_attention_bwd_{tag}"] = r["bwd"]
+    # the CUDA-core variant at its main path's shape (train_parity: fp32,
+    # B 2, S 500, causal)
+    r = kernel_flash_attention(PARITY_S, True, B=PARITY_B, dtype="float32")
+    out["flash_attention_fp32_500"] = r["fwd"]
+    out["flash_attention_bwd_fp32_500"] = r["bwd"]
     r = kernel_ssd_scan()
     out["ssd_scan"], out["ssd_scan_bwd"] = r["fwd"], r["bwd"]
     return out
@@ -1006,6 +1119,7 @@ def main() -> int:
         return 1
     paged_run = results["engine_paged_ring"]["launches"]
     train_run = results["train"]["launches"]
+    fp32_run = results["train_parity"]["launches"]
     ssm_run = results["train_ssm"]["launches"]
     rows = []
     for key, src, replaces, launches in (
@@ -1013,10 +1127,14 @@ def main() -> int:
              paged_run["flash_decode"]),
             ("flash_decode_paged", "flash_decode_paged.cu",
              "flash_decode.py:202", paged_run["flash_decode_paged"]),
-            ("flash_attention_2048", "flash_attention.cu",
+            ("flash_attention_2048", "flash_attention_sm90.cu",
              "flash_attention.py:31", train_run["flash_attention"]),
-            ("flash_attention_bwd_2048", "flash_attention_bwd.cu",
+            ("flash_attention_bwd_2048", "flash_attention_bwd_sm90.cu",
              "flash_attention.py:31", train_run["flash_attention_bwd"]),
+            ("flash_attention_fp32_500", "flash_attention.cu",
+             "flash_attention.py:31", fp32_run["flash_attention"]),
+            ("flash_attention_bwd_fp32_500", "flash_attention_bwd.cu",
+             "flash_attention.py:31", fp32_run["flash_attention_bwd"]),
             ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:36",
              ssm_run["ssd_scan"]),
             ("ssd_scan_bwd", "ssd_scan_bwd.cu", "ssd_scan.py:36",
@@ -1030,6 +1148,10 @@ def main() -> int:
             ms=k["ms"], kernel_device_ms=k["kernel_device_ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
+        for extra in ("variant", "dtype", "tflops", "pct_of_bound",
+                      "sdpa_max_abs_err"):
+            if extra in k:
+                rows[-1][extra] = k[extra]
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

@@ -25,11 +25,13 @@ SOURCES = {
     "flash_decode_paged": CSRC / "flash_decode_paged.cu",
     "flash_attention": CSRC / "flash_attention.cu",
     "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
+    "flash_attention_sm90": CSRC / "flash_attention_sm90.cu",
+    "flash_attention_bwd_sm90": CSRC / "flash_attention_bwd_sm90.cu",
     "ssd_scan": CSRC / "ssd_scan.cu",
     "ssd_scan_bwd": CSRC / "ssd_scan_bwd.cu",
 }
 HEADERS = (CSRC / "decode_common.cuh", CSRC / "attention_common.cuh",
-           CSRC / "ssd_common.cuh")
+           CSRC / "attention_sm90.cuh", CSRC / "ssd_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

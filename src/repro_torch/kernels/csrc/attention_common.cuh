@@ -9,7 +9,9 @@
 // and sums are 4-step shuffles. Tiles live in shared memory as fp32 with a
 // padded row stride (D + 1), so a half-warp reading one column of 16
 // different rows touches 16 different banks. All products run on the CUDA
-// cores in fp32 (no tensor cores yet).
+// cores in fp32: these kernels serve fp32 operands (whose tensor-core
+// product would be TF32) and head dim 16 (the reduced configs); bf16 with
+// head dim 128 runs the wgmma kernels of attention_sm90.cuh.
 #pragma once
 
 #include "decode_common.cuh"
@@ -111,6 +113,20 @@ __device__ __forceinline__ void mul_tile(const float* __restrict__ P,
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) out[i][c] += p[i] * m[c];
   }
+}
+
+// Dispatch over the (dtype, head dim, group size) triples these kernels
+// serve: fp32 with head dim 16 or 128, and bf16 with head dim 16. bf16 with
+// head dim 128 runs the wgmma kernels (flash_attention_sm90.cu,
+// flash_attention_bwd_sm90.cu) and is not built here, so each triple has
+// one kernel; -1 for any other triple.
+template <template <typename, int, int> class Launch, typename Args>
+int dispatch_cuda_core(int dtype, int d, int rep, const Args& a,
+                       cudaStream_t stream) {
+  if (dtype == 0) return dispatch_d<Launch, float>(d, rep, a, stream);
+  if (dtype == 1 && d == 16)
+    return dispatch_rep<Launch, __nv_bfloat16, 16>(rep, a, stream);
+  return -1;
 }
 
 // Key tiles a query tile starting at q0 must visit: all of them, or under

@@ -13,12 +13,14 @@
 // fp32, which the backward (flash_attention_bwd.cu) reads. Query rows past
 // Sq are computed on zero rows and never written.
 //
-// Bound on the H100: operations. At the training shape (B 4, H 16, S 2048,
-// d 128, causal) the two products are 6.9e10 FLOPs against ~0.1 GB moved,
-// far above the ridge, so the least time is the FLOPs over the bf16 tensor
-// cores. This first kernel runs them on the CUDA cores in fp32 (simple and
-// exact to the plain version), with causal tiles past the diagonal
-// skipped; wgmma on bf16 tiles with TMA staging is later work.
+// Bound on the H100: operations. This kernel runs the products on the
+// CUDA cores in fp32 (exact to the plain version up to the order of sums),
+// with causal tiles past the diagonal skipped. It serves fp32 operands
+// (the fp32 train_parity path: a tensor-core product would be TF32) and
+// head dim 16 (the reduced configs), bound by their FLOPs over the 67
+// TFLOP/s fp32 peak. bf16 with head dim 128, the full-width train path,
+// runs flash_attention_sm90.cu (wgmma on TMA-staged bf16 tiles) instead;
+// kernels/flash_attention.py::_variant chooses.
 #include "attention_common.cuh"
 
 namespace pam {
@@ -148,7 +150,7 @@ struct LaunchFwd {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o). Returns 0, a CUDA
 // error code from cudaGetLastError(), or -1 for an unsupported
-// (dtype, D, H / Hkv).
+// (dtype, D, H / Hkv), bf16 with D = 128 among them (flash_attention_sm90.cu).
 extern "C" int pam_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int H, int Hkv, int Sq, int Sk,
@@ -167,6 +169,6 @@ extern "C" int pam_flash_attention_fwd(const void* q, const void* k,
   a.Sk = Sk;
   a.causal = causal;
   a.scale = scale;
-  return pam::dispatch<pam::LaunchFwd>(dtype, D, H / Hkv, a,
-                                       static_cast<cudaStream_t>(stream));
+  return pam::attn::dispatch_cuda_core<pam::LaunchFwd>(
+      dtype, D, H / Hkv, a, static_cast<cudaStream_t>(stream));
 }

@@ -20,9 +20,11 @@
 // of atomics. Causal tiles above the diagonal are skipped in both.
 //
 // Bound on the H100: operations, as for the forward: five 64-wide products
-// per tile pair (2.5x the forward's FLOPs), ~0.2 GB moved at the training
-// shape. Products run on the CUDA cores in fp32; tensor cores are later
-// work.
+// per tile pair (2.5x the forward's FLOPs). Products run on the CUDA cores
+// in fp32. This backward serves fp32 operands and head dim 16, like
+// flash_attention.cu; bf16 with head dim 128 runs
+// flash_attention_bwd_sm90.cu (wgmma), chosen by
+// kernels/flash_attention.py::_variant.
 #include "attention_common.cuh"
 
 namespace pam {
@@ -281,7 +283,8 @@ struct LaunchBwd {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout and the gradients).
 // delta is an fp32 (B, H, Sq) scratch buffer. Returns 0, a CUDA error code
-// from cudaGetLastError(), or -1 for an unsupported (dtype, D, H / Hkv).
+// from cudaGetLastError(), or -1 for an unsupported (dtype, D, H / Hkv),
+// bf16 with D = 128 among them (flash_attention_bwd_sm90.cu).
 extern "C" int pam_flash_attention_bwd(const void* q, const void* k,
                                        const void* v, const void* o,
                                        const void* dout, const void* lse,
@@ -307,6 +310,6 @@ extern "C" int pam_flash_attention_bwd(const void* q, const void* k,
   a.Sk = Sk;
   a.causal = causal;
   a.scale = scale;
-  return pam::dispatch<pam::LaunchBwd>(dtype, D, H / Hkv, a,
-                                       static_cast<cudaStream_t>(stream));
+  return pam::attn::dispatch_cuda_core<pam::LaunchBwd>(
+      dtype, D, H / Hkv, a, static_cast<cudaStream_t>(stream));
 }

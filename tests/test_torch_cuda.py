@@ -13,7 +13,10 @@ rtol 1e-4 / atol 1e-4 on (o, m, l), with TF32 off for the plain side's
 matrix products. The attention backward sums up to S products per
 gradient entry in another order: rtol / atol 1e-3 in fp32. In bf16
 both sides compute in fp32 and round the result to bf16, so they may
-differ by one bf16 step: rtol / atol 2e-2. The SSD scan's kernels and
+differ by one bf16 step; the wgmma kernels (bf16, head dim 128) also
+round P and dS to bf16 as tensor-core operands, which
+tests/test_torch_flash_attention_sm90.py shows stays inside the same
+rtol / atol 2e-2. The SSD scan's kernels and
 plain versions differ in summation order and in the order of the
 in-chunk prefix sum of dt a, whose rounding moves each exp(s_t - s_u) by
 a few ulp of |s|: fp32 outputs at rtol 1e-4 / atol 1e-3 and gradients
@@ -129,6 +132,7 @@ def test_reduced_engine_runs_through_both_kernels(cuda):
     (1, 8, 8, 130, 130, 128),      # MHA (pam-llama-7b's group of 1)
     (2, 4, 2, 96, 96, 16),         # the reduced configs' heads
     (1, 4, 2, 70, 150, 16),        # Sq != Sk
+    (1, 4, 2, 70, 150, 128),       # Sq != Sk on the wgmma kernels (bf16)
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -145,7 +149,9 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, H, Hkv,
     ref_o, ref_lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
     ref_g = tfa.flash_attention_bwd(q, k, v, ref_o, ref_lse, do,
                                     causal=causal)
-    n0 = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
+    n0 = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches,
+          tfa.flash_attention.wgmma_launches,
+          tfa.flash_attention_bwd.wgmma_launches)
     qc, kc, vc = (t.to(cuda).requires_grad_() for t in (q, k, v))
     o, lse = tfa.flash_attention_fwd(qc.detach(), kc.detach(), vc.detach(),
                                      causal=causal)
@@ -154,6 +160,12 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, H, Hkv,
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == n0[0] + 2
     assert tfa.flash_attention_bwd.launches == n0[1] + 1
+    # bf16 with head dim 128 runs the wgmma kernels, the rest the CUDA-core
+    # ones
+    wgmma = dtype == torch.bfloat16 and d == 128
+    assert tfa._variant(dtype, d) == ("wgmma" if wgmma else "cuda_core")
+    assert tfa.flash_attention.wgmma_launches == n0[2] + 2 * wgmma
+    assert tfa.flash_attention_bwd.wgmma_launches == n0[3] + wgmma
     assert out.dtype == dtype and qc.grad.dtype == dtype
     np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.numpy(), **TOL)
     for got, ref in ((o, ref_o), (out, ref_o)):
@@ -162,6 +174,34 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, H, Hkv,
     for got, ref in zip((qc.grad, kc.grad, vc.grad), ref_g):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    ref.float().numpy(), **bwd_tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_long_causal_matches_plain(cuda):
+    """The wgmma kernels at qwen3-0.6b's heads over a train-length causal
+    sequence (16 query tiles, 32 key tiles of the backward's dQ pass),
+    held to the plain versions run on the card in fp32."""
+    g = torch.Generator(device=cuda).manual_seed(2048)
+    B, H, Hkv, S, d = 1, 16, 8, 2048, 128
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).bfloat16()
+                   for s in ((B, H, S, d), (B, Hkv, S, d), (B, Hkv, S, d),
+                             (B, H, S, d)))
+    scale = d ** -0.5
+    n0 = (tfa.flash_attention.wgmma_launches,
+          tfa.flash_attention_bwd.wgmma_launches)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.wgmma_launches,
+            tfa.flash_attention_bwd.wgmma_launches) == (n0[0] + 1, n0[1] + 1)
+    ref_o, ref_lse = tfa._fwd_plain(q, k, v, True, scale)
+    torch.testing.assert_close(lse, ref_lse, **TOL)
+    torch.testing.assert_close(o.float(), ref_o.float(), rtol=2e-2,
+                               atol=2e-2)
+    ref_g = tfa._bwd_plain(q, k, v, o, lse, do, True, scale)
+    for got, ref in zip(grads, ref_g):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
 
 
 def _ssd_case(seed, B, L, H, G, view, dtype):
