@@ -10,20 +10,26 @@ final ``ok`` line:
   env       torch / CUDA versions, the card and its power limit
   build     nvcc builds of the CUDA kernels (sm_90a), seconds taken;
             registers and spills of the main-path kernels from the
-            ``-Xptxas -v`` logs; the wgmma attention libraries must hold
-            HGMMA instructions in their SASS (``cuobjdump -sass``) and
-            their kernels must not spill
+            ``-Xptxas -v`` logs; the four wgmma libraries (attention and
+            SSD scan) must hold HGMMA instructions in their SASS
+            (``cuobjdump -sass``) and their kernels must not spill
   kernels   each kernel against its plain PyTorch version on the card at
             main-path shapes (decode: B=8, H=16, Hkv=8, d=128, bf16
             storage; attention: the train shape in bf16 through the wgmma
             kernels, also S 1000 non-causal, and the CUDA-core kernels in
-            fp32 at train_parity's B 2, S 500; ssd_scan: mamba2-780m's
-            train shape B 4, L 2048, H 48, P 64, N 128, chunk 128, x / B /
-            C as views of the conv output, bf16 and fp32), with its time,
-            the plain version's time, the bound and, where one PyTorch
-            call computes the same function, that call's time (for
-            attention also SDPA's own error against the same plain
-            versions, the kernel's TFLOP/s and its share of the bound)
+            fp32 at train_parity's B 2, S 500; ssd_scan: the wgmma kernels
+            in bf16 at mamba2-780m's train shape B 4, L 2048, H 48, P 64,
+            N 128, chunk 128, x / B / C as views of the conv output, and
+            the CUDA-core kernels in fp32 at train_parity_ssm's B 2, L
+            500), with its time, the plain version's time, the bound and,
+            where one PyTorch call computes the same function, that call's
+            time (for attention also SDPA's own error against the same
+            plain versions; for both the kernel's TFLOP/s and its share of
+            the bound; for the SSD scan the device time of each of its
+            kernels, the FLOPs the wgmma kernels execute beside those the
+            bound counts, each gradient's error, and the errors against
+            ``_fwd_rounded`` / ``_bwd_rounded``, the plain model of the
+            wgmma kernels' bf16 roundings)
   engine_paged_ring   full-width qwen3-0.6b (random weights, bf16) served
             in paged + hot-ring mode; each kernel must launch
             n_layers x decode steps times
@@ -40,7 +46,9 @@ final ``ok`` line:
             two must launch n_layers x steps times, every launch a wgmma
             one, and the loss must fall
   profile_train   torch.profiler over 2 train steps: device time by
-            kernel, the attention kernels' share, the device's idle share
+            kernel, the attention kernels' and the SSD kernels' shares,
+            PyTorch's elementwise kernels' share (where gradient
+            accumulation shows), the device's idle share
   train_parity    full-width qwen3-0.6b in fp32 (TF32 off), B 2, S 500:
             loss and gradients through the kernels (the CUDA-core
             variant: no wgmma launch) vs through the plain chunked
@@ -52,11 +60,13 @@ final ``ok`` line:
             bf16) trained 10 steps on SyntheticLM batches of 4 x 2048
             through the train CLI's step builder at peak lr 1e-3 (the SSD
             scan through the ssd_scan kernels, forward and backward); each
-            must launch n_layers x steps times and the loss must fall
+            must launch n_layers x steps times, every launch a wgmma one,
+            and the loss must fall
   profile_train_ssm   torch.profiler over 2 of those train steps
   train_parity_ssm    full-width mamba2-780m in fp32 (TF32 off), B 2,
-            S 500: loss and gradients through the ssd_scan kernels vs
-            through the plain chunked scan
+            S 500: loss and gradients through the ssd_scan kernels (the
+            CUDA-core variant: no wgmma launch) vs through the plain
+            chunked scan
   engine_ssm  the same model served by the PAM engine (dense cache, greedy,
             PAM on): 8 requests of 512-1024 prompt tokens, each prefilled
             at its exact length, 64 new tokens through the recurrent state
@@ -75,7 +85,10 @@ Tolerances (each kernel against its plain version on the same inputs):
       rtol 1e-4, atol 1e-3, the backward at rtol / atol 1e-3 (sums over
       up to S products in another order)
   ssd_scan forward and backward: bf16 operands at rtol / atol 2e-2 (one
-      bf16 rounding of the outputs); fp32 at rtol 1e-4, atol 1e-3 (the
+      bf16 rounding of the outputs, and the wgmma kernels' bf16 operands,
+      whose effect tests/test_torch_ssd_scan_sm90.py bounds on the CPU;
+      the forward's fp32 states at the fp32 tolerance below); fp32 at
+      rtol 1e-4, atol 1e-3 (the
       order of sums and of the in-chunk prefix sum of dt a, whose rounding
       moves each exp(s_t - s_u) by a few ulp of |s|); for gradients the
       atol is scaled by max(1, the leaf's largest entry)
@@ -145,11 +158,13 @@ def _time_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
     return total / iters
 
 
-def _device_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
-    """Mean device time (ms) per call of the port's own CUDA kernels
-    (symbols in namespace ``pam``) launched by ``fn``, from
-    torch.profiler; L2 flushed before each call as in ``_time_ms``. The
-    wrapper's argument preparation is not counted."""
+def _device_ms_by_kernel(fn, iters: int = 20,
+                         flush_bytes: int = 64 << 20) -> dict:
+    """Mean device time (ms) per call of each of the port's own CUDA
+    kernels (symbols in namespace ``pam``) launched by ``fn``, by kernel
+    name, from torch.profiler; L2 flushed before each call as in
+    ``_time_ms``. The wrapper's argument preparation is not counted."""
+    import re
     import torch
     from torch.profiler import ProfilerActivity, profile
     scratch = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
@@ -160,9 +175,20 @@ def _device_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
             scratch.zero_()
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if "pam::" in ev.key)
-    return us / iters / 1e3
+    out: dict = {}
+    for ev in prof.key_averages():
+        if "pam::" in ev.key:
+            m = re.search(r"pam::(?:\w+::)*(\w+)", ev.key)
+            name = m.group(1) if m else ev.key[:60]
+            out[name] = (out.get(name, 0.0)
+                         + ev.self_device_time_total / iters / 1e3)
+    return out
+
+
+def _device_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
+    """Mean device time (ms) per call of the port's own CUDA kernels
+    launched by ``fn`` (the sum of ``_device_ms_by_kernel``)."""
+    return sum(_device_ms_by_kernel(fn, iters, flush_bytes).values())
 
 
 def _bound_ms(nbytes: float, flops: float,
@@ -197,7 +223,11 @@ def phase_env() -> dict:
                 nvidia_smi=smi[0] if smi else "")
 
 
-SM90_LIBS = ("flash_attention_sm90", "flash_attention_bwd_sm90")
+SM90_LIBS = ("flash_attention_sm90", "flash_attention_bwd_sm90",
+             "ssd_scan_sm90", "ssd_scan_bwd_sm90")
+SSD_WGMMA_KERNELS = {"ssd90_chunk_state_kernel<true>", "ssd90_out_kernel",
+                     "ssd90_chunk_state_kernel<false>", "ssd90_bwd_t_kernel",
+                     "ssd90_bwd_u_kernel"}
 
 
 def _sass_count(name: str, op: str = "HGMMA") -> int:
@@ -226,25 +256,29 @@ def phase_build() -> dict:
         lines = build.build_log(name).splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry" in line and (
-                    ("bfloat16" in line and (
-                        ("Li128E" in line and "Li1E" not in line)
-                        or "3ssd" in line))
-                    or ("sm90" in line and "Li2E" in line)):
-                kern = re.search(r"\d+((?:flash|ssd)_[a-z0-9_]*_kernel)",
-                                 line)
+                    ("bfloat16" in line and "Li128E" in line
+                     and "Li1E" not in line)
+                    or ("sm90" in line and "Li2E" in line)
+                    or "ssd90" in line):
+                kern = re.search(
+                    r"\d+((?:flash_|ssd90_)[a-z0-9_]*?_kernel)", line)
+                key = kern.group(1) if kern else name
+                if "ssd90" in key and ("Lb1E" in line or "Lb0E" in line):
+                    key += "<true>" if "Lb1E" in line else "<false>"
                 info = []
                 for x in lines[i + 1:]:
                     if "Compiling entry" in x:
                         break
                     if "Used" in x or "spill" in x:
                         info.append(x.split(":", 1)[-1].strip())
-                regs[kern.group(1) if kern else name] = "; ".join(info)
+                regs[key] = "; ".join(info)
     hgmma = {name: _sass_count(name) for name in SM90_LIBS}
     assert all(n > 0 for n in hgmma.values()), f"no HGMMA in {hgmma}"
-    spills = {k: v for k, v in regs.items() if "sm90" in k
+    spills = {k: v for k, v in regs.items() if ("sm90" in k or "ssd90" in k)
               and re.search(r"[1-9]\d* bytes spill (stores|loads)", v)}
     assert not spills, f"wgmma kernels spill: {spills}"
     assert sum("sm90" in k for k in regs) == 3, sorted(regs)
+    assert SSD_WGMMA_KERNELS <= set(regs), sorted(regs)
     return dict(build_s=time.perf_counter() - t0, per_library=per,
                 libraries=sorted(build.SOURCES), registers=regs,
                 hgmma_in_sass=hgmma)
@@ -472,16 +506,16 @@ def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
     return dict(fwd=fwd, bwd=bwd)
 
 
-def _ssd_case(dtype, seed: int = 0):
-    """ssd_scan operands at mamba2-780m's train shape (B 4, L 2048, H 48,
-    G 1, N 128, P 64): x, B and C as column views of one conv-output-like
-    (B, L, 3328) tensor, as ssm_forward passes them; dt = softplus(N(0,
-    1)), the model's initial decay rates a = -linspace(1, 16) and D = 1;
-    and an output gradient."""
+def _ssd_case(dtype, seed: int = 0, B: int = TRAIN_B, L: int = TRAIN_S):
+    """ssd_scan operands at mamba2-780m's head shape (H 48, G 1, N 128, P
+    64), batch ``B`` and length ``L``: x, B and C as column views of one
+    conv-output-like (B, L, 3328) tensor, as ssm_forward passes them; dt =
+    softplus(N(0, 1)), the model's initial decay rates a = -linspace(1,
+    16) and D = 1; and an output gradient."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, L, H, G, N, P = TRAIN_B, TRAIN_S, 48, 1, 128, 64
+    H, G, N, P = 48, 1, 128, 64
     xbc = (torch.randn((B, L, H * P + 2 * G * N), generator=g,
                        device="cuda") * 0.5).to(dtype)
     x = xbc[..., :H * P].reshape(B, L, H, P)
@@ -495,17 +529,33 @@ def _ssd_case(dtype, seed: int = 0):
 
 
 def _ssd_work(x, b, chunk: int) -> tuple[int, int]:
-    """FLOPs of the SSD scan forward and backward as the kernels compute
-    them: per (batch, head, chunk) the forward's 2Q^2N + 2Q^2P + 4QNP
-    (C B^T, the masked product with x, C h_in, the state update) and the
-    backward's 6Q^2N + 4Q^2P + 10QNP (C B^T and g x^T again, dx, dC and
-    dB inside the chunk; C^T g, B dh, C h_in, g h_in^T, x dh^T)."""
+    """FLOPs of the SSD scan forward and backward as the TPU kernel's
+    function needs them (the yardstick of the bound): per (batch, head,
+    chunk) the forward's 2Q^2N + 2Q^2P + 4QNP (C B^T, the masked product
+    with x, C h_in, the state update) and the backward's 6Q^2N + 4Q^2P +
+    10QNP (C B^T and g x^T again, dx, dC and dB inside the chunk; C^T g,
+    B dh, C h_in, g h_in^T, x dh^T)."""
     B, L, H, P = x.shape
     N = b.shape[3]
     Q = min(chunk, max(L, 8))
     n = B * H * -(-L // Q)
     return (n * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * N * P),
             n * (6 * Q * Q * N + 4 * Q * Q * P + 10 * Q * N * P))
+
+
+def _ssd_executed(x, b, chunk: int, hb: int) -> tuple[int, int]:
+    """FLOPs the wgmma kernels execute (tiles of 128 rows): C B^T once per
+    block of ``hb`` heads; per head the forward's B^T (w x), C h_in and M x
+    twice each (hi / lo bf16 pairs), and the backward's C^T (exp(s) g), C
+    h_in, g h_in^T, g x^T, Pb B (t-side), x g^T, Pb^T C, B dh, the dx
+    product and (w x) dh^T (u-side), with C B^T on each side."""
+    B, L, H, P = x.shape
+    N = b.shape[3]
+    Q = 128
+    n = B * H * -(-L // min(chunk, max(L, 8)))
+    qnp, qqp, qqn = Q * N * P, Q * Q * P, Q * Q * N
+    return (n * (2 * qqn // hb + 4 * qnp + 4 * qnp + 4 * qqp),
+            n * (4 * qqn // hb + 10 * qnp + 6 * qqp + 4 * qqn))
 
 
 def _grad_compare(got, ref, tol) -> tuple[float, bool]:
@@ -522,32 +572,59 @@ def _grad_compare(got, ref, tol) -> tuple[float, bool]:
     return err, ok
 
 
-def kernel_ssd_scan() -> dict:
-    """The ssd_scan forward and backward kernels against their plain
-    versions at the train shape, in bf16 (the train path's dtype; timed)
-    and in fp32 (checked only); the backward is fed the kernel forward's
-    chunk-start states."""
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd")
+
+
+def _ssd_variant(dtype, B: int, L: int, chunk: int) -> dict:
+    """One variant of the ssd_scan kernels against the plain versions (and,
+    for bf16, the plain model of the wgmma kernels' roundings) on the same
+    inputs, the backward fed the kernel forward's chunk-start states; the
+    wgmma launch counts of the calls; times, the per-kernel device time of
+    each pass, and the bounds."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
-    chunk = 128
-    out = {}
-    for dtype, tol in ((torch.float32, SSD_FP32_TOL),
-                       (torch.bfloat16, ATTN_BF16_TOL)):
-        ins, dy = _ssd_case(dtype)
-        y, st = ss.ssd_scan_fwd(*ins, chunk=chunk)
-        ref_y, ref_st, _ = ss.ssd_chunked_states(*ins, chunk)
-        err_y, ok_y = _compare([y], [ref_y], tol)
-        err_s, ok_s = _grad_compare([st], [ref_st], SSD_FP32_TOL)
-        del ref_y, ref_st
-        grads = ss.ssd_scan_bwd(*ins, st, dy, chunk=chunk)
-        ref_g = ss._bwd_plain(*ins, st, dy, chunk)
-        torch.cuda.synchronize()
-        err_g, ok_g = _grad_compare(grads, ref_g, tol)
-        del ref_g, grads
-        out[str(dtype)] = dict(ok_fwd=ok_y and ok_s, ok_bwd=ok_g,
-                               max_abs_err_y=err_y, max_abs_err_states=err_s,
-                               max_abs_err_grads=err_g, tol=tol)
-    x, dt, a, b, c, d = ins                      # bf16, the train path's
+    bf16 = dtype == torch.bfloat16
+    tol = ATTN_BF16_TOL if bf16 else SSD_FP32_TOL
+    ins, dy = _ssd_case(dtype, B=B, L=L)
+    x, dt, a, b, c, d = ins
+    variant = ss._variant(x.dtype, b.shape[3], x.shape[3])
+    n0 = (ss.ssd_scan.wgmma_launches, ss.ssd_scan_bwd.wgmma_launches)
+    y, st = ss.ssd_scan_fwd(*ins, chunk=chunk)
+    grads = ss.ssd_scan_bwd(*ins, st, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    ran = (ss.ssd_scan.wgmma_launches - n0[0],
+           ss.ssd_scan_bwd.wgmma_launches - n0[1])
+    assert ran == ((1, 1) if variant == "wgmma" else (0, 0)), (variant, ran)
+    ref_y, ref_st, _ = ss.ssd_chunked_states(*ins, chunk)
+    err_y, ok_y = _compare([y], [ref_y], tol)
+    err_s, ok_s = _grad_compare([st], [ref_st], SSD_FP32_TOL)
+    del ref_y, ref_st
+    ref_g = ss._bwd_plain(*ins, st, dy, chunk)
+    err_g, ok_g = _grad_compare(grads, ref_g, tol)
+    per_leaf = {n: _grad_compare([g], [r], tol)[0]
+                for n, g, r in zip(SSD_GRADS, grads, ref_g)}
+    del ref_g
+    out = dict(variant=variant, dtype=str(dtype).split(".")[-1], B=B, L=L,
+               ok_fwd=ok_y and ok_s, ok_bwd=ok_g, max_abs_err_y=err_y,
+               max_abs_err_states=err_s, max_abs_err_grads=err_g,
+               max_abs_err_per_grad=per_leaf, tol=tol)
+    if bf16:
+        rnd_y, rnd_st = ss._fwd_rounded(*ins, chunk)
+        out["max_abs_err_y_vs_rounded"] = _compare([y], [rnd_y])[0]
+        out["max_abs_err_states_vs_rounded"] = _compare([st], [rnd_st])[0]
+        del rnd_y, rnd_st
+        rnd_g = ss._bwd_rounded(*ins, st, dy, chunk)
+        out["max_abs_err_per_grad_vs_rounded"] = {
+            n: _compare([g], [r])[0]
+            for n, g, r in zip(SSD_GRADS, grads, rnd_g)}
+        del rnd_g
+    del grads
+
+    def fwd():
+        return ss.ssd_scan_fwd(*ins, chunk=chunk)
+
+    def bwd():
+        return ss.ssd_scan_bwd(*ins, st, dy, chunk=chunk)
     el = x.element_size()
     fwd_flops, bwd_flops = _ssd_work(x, b, chunk)
     io = (x.numel() * el + dt.numel() * 4 + 2 * b.numel() * el
@@ -561,43 +638,62 @@ def kernel_ssd_scan() -> dict:
     state_bytes = st.numel() * 4
     bwd_bytes = (io + state_bytes + dy.numel() * el         # + states, dy
                  + io)                           # the six gradients
-    fwd_bound, fwd_by = _bound_ms(fwd_bytes, fwd_flops, BF16_FLOPS)
-    bwd_bound, bwd_by = _bound_ms(bwd_bytes, bwd_flops, BF16_FLOPS)
-    case = dict(B=x.shape[0], L=x.shape[1], H=x.shape[2], P=x.shape[3],
-                G=b.shape[2], N=b.shape[3], chunk=chunk, dtype="bfloat16",
-                x_bc="views of a (B, L, 3328) tensor")
-    bf, f32 = out[str(torch.bfloat16)], out[str(torch.float32)]
-    fwd = dict(case, name="ssd_scan", ok=bf["ok_fwd"] and f32["ok_fwd"],
-               max_abs_err=bf["max_abs_err_y"],
-               max_abs_err_states=bf["max_abs_err_states"],
-               fp32=dict(max_abs_err_y=f32["max_abs_err_y"],
-                         max_abs_err_states=f32["max_abs_err_states"],
-                         tol=f32["tol"]),
-               tol=bf["tol"],
-               ms=_time_ms(lambda: ss.ssd_scan_fwd(*ins, chunk=chunk),
-                           iters=10),
-               kernel_device_ms=_device_ms(
-                   lambda: ss.ssd_scan_fwd(*ins, chunk=chunk), iters=10),
-               plain_ms=_time_ms(lambda: ss.ssd_chunked_states(*ins, chunk),
-                                 iters=3),
-               bound_ms=fwd_bound, bound_by=fwd_by, bytes=fwd_bytes,
-               flops=fwd_flops, library_ms=None, state_bytes=state_bytes,
-               state_write_bound_ms=state_bytes / HBM_BYTES_PER_S * 1e3)
-    bwd = dict(case, name="ssd_scan_bwd", ok=bf["ok_bwd"] and f32["ok_bwd"],
-               max_abs_err=bf["max_abs_err_grads"],
-               fp32=dict(max_abs_err_grads=f32["max_abs_err_grads"],
-                         tol=f32["tol"]),
-               tol=bf["tol"],
-               ms=_time_ms(lambda: ss.ssd_scan_bwd(*ins, st, dy,
-                                                   chunk=chunk), iters=10),
-               kernel_device_ms=_device_ms(
-                   lambda: ss.ssd_scan_bwd(*ins, st, dy, chunk=chunk),
-                   iters=10),
-               plain_ms=_time_ms(lambda: ss._bwd_plain(*ins, st, dy, chunk),
-                                 iters=3),
-               bound_ms=bwd_bound, bound_by=bwd_by, bytes=bwd_bytes,
-               flops=bwd_flops, library_ms=None)
-    return dict(fwd=fwd, bwd=bwd)
+    peak = BF16_FLOPS if bf16 else FP32_FLOPS
+    fwd_bound, fwd_by = _bound_ms(fwd_bytes, fwd_flops, peak)
+    bwd_bound, bwd_by = _bound_ms(bwd_bytes, bwd_flops, peak)
+    if variant == "wgmma":
+        ex = _ssd_executed(x, b, chunk, ss._head_block(x.shape[2]
+                                                       // b.shape[2]))
+    else:
+        ex = (fwd_flops, bwd_flops)
+    for tag, fn, flops, exe, bound, by, nbytes in (
+            ("fwd", fwd, fwd_flops, ex[0], fwd_bound, fwd_by, fwd_bytes),
+            ("bwd", bwd, bwd_flops, ex[1], bwd_bound, bwd_by, bwd_bytes)):
+        per = _device_ms_by_kernel(fn, iters=10)
+        dev = sum(per.values())
+        out[tag] = dict(ms=_time_ms(fn, iters=10), kernel_device_ms=dev,
+                        per_launch_ms=per, flops=flops, executed_flops=exe,
+                        tflops=flops / (dev * 1e-3) / 1e12,
+                        executed_tflops=exe / (dev * 1e-3) / 1e12,
+                        pct_of_bound=100.0 * bound / dev, bound_ms=bound,
+                        bound_by=by, bytes=nbytes)
+    out["fwd"]["state_bytes"] = state_bytes
+    out["fwd"]["state_write_bound_ms"] = state_bytes / HBM_BYTES_PER_S * 1e3
+    out["fwd"]["plain_ms"] = _time_ms(
+        lambda: ss.ssd_chunked_states(*ins, chunk), iters=3)
+    out["bwd"]["plain_ms"] = _time_ms(
+        lambda: ss._bwd_plain(*ins, st, dy, chunk), iters=3)
+    return out
+
+
+def kernel_ssd_scan() -> dict:
+    """Both variants of the ssd_scan kernels at their main paths' shapes:
+    wgmma in bf16 at the train shape (train_ssm), CUDA cores in fp32 at
+    train_parity_ssm's B 2, L 500; one row for each kernel."""
+    import torch
+    chunk = 128
+    rows = {}
+    for key, dtype, B, L in (("", torch.bfloat16, TRAIN_B, TRAIN_S),
+                             ("_fp32_500", torch.float32, PARITY_B,
+                              PARITY_S)):
+        r = _ssd_variant(dtype, B, L, chunk)
+        case = dict(B=B, L=L, H=48, P=64, G=1, N=128, chunk=chunk,
+                    dtype=r["dtype"], variant=r["variant"],
+                    x_bc="views of a (B, L, 3328) tensor")
+        common = {k: r[k] for k in r if k.startswith("max_abs_err_per")}
+        rows["ssd_scan" + key] = dict(
+            case, name="ssd_scan", ok=r["ok_fwd"],
+            max_abs_err=r["max_abs_err_y"],
+            max_abs_err_states=r["max_abs_err_states"], tol=r["tol"],
+            library_ms=None, **r["fwd"],
+            **{k: r[k] for k in ("max_abs_err_y_vs_rounded",
+                                 "max_abs_err_states_vs_rounded") if k in r})
+        rows["ssd_scan_bwd" + key] = dict(
+            case, name="ssd_scan_bwd", ok=r["ok_bwd"],
+            max_abs_err=r["max_abs_err_grads"], tol=r["tol"],
+            library_ms=None, **r["bwd"], **common)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _model(dtype: str, arch: str = "qwen3-0.6b"):
@@ -865,10 +961,12 @@ def _launches() -> dict:
 
 
 def _wgmma_counted():
-    """The attention wrappers, which also count their wgmma launches."""
+    """The wrappers that also count their wgmma launches."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
     return {"flash_attention": fa.flash_attention,
-            "flash_attention_bwd": fa.flash_attention_bwd}
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "ssd_scan": ss.ssd_scan, "ssd_scan_bwd": ss.ssd_scan_bwd}
 
 
 def _wgmma_launches() -> dict:
@@ -912,7 +1010,7 @@ def phase_train(arch: str = "qwen3-0.6b") -> dict:
     for name, n in launches.items():
         expect = want if name in TRAIN_KERNELS[arch] else 0
         assert n == expect, f"{name}: {launches}, want {expect}"
-    for name, n in wgmma.items():      # bf16, head dim 128: all wgmma
+    for name, n in wgmma.items():      # bf16 at full width: all wgmma
         expect = want if name in TRAIN_KERNELS[arch] else 0
         assert n == expect, f"{name}: wgmma {wgmma}, want {expect}"
     steady = out["step_s"][1:]
@@ -931,7 +1029,11 @@ def phase_train(arch: str = "qwen3-0.6b") -> dict:
 
 def phase_profile_train(arch: str = "qwen3-0.6b") -> dict:
     """Where a train step's time goes: torch.profiler over 2 steady steps
-    of the train phase's configuration (after one warm step)."""
+    of the train phase's configuration (after one warm step). The
+    ``attention_*`` keys sum the flash_attention kernels, the ``ssd_*``
+    keys the ssd_scan kernels and the ``elementwise_*`` keys PyTorch's
+    elementwise kernels; ``*_device_ms`` and ``elementwise_launches`` are
+    totals over the two steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import SyntheticLM
@@ -969,11 +1071,21 @@ def phase_profile_train(arch: str = "qwen3-0.6b") -> dict:
         return [dict(name=k[:80], device_ms=us / 1e3, count=n,
                      share=us / 1e6 / busy_s) for us, k, n in sel]
     attn = [r for r in rows if "pam::flash_attention" in r[1]]
+    ssd = [r for r in rows if "pam::ssd" in r[1]]
+    # PyTorch's elementwise kernels (fills, adds, casts, AdamW's
+    # arithmetic): where gradient accumulation into the stacked leaves
+    # would show
+    elem = [r for r in rows if "elementwise_kernel" in r[1]]
     return dict(steps=2, wall_s=wall, step_ms=wall / 2 * 1e3,
                 device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
                 kernel_launches=sum(r[2] for r in rows),
                 attention_device_ms=sum(r[0] for r in attn) / 1e3,
                 attention_share=sum(r[0] for r in attn) / 1e6 / busy_s,
+                ssd_device_ms=sum(r[0] for r in ssd) / 1e3,
+                ssd_share=sum(r[0] for r in ssd) / 1e6 / busy_s,
+                elementwise_device_ms=sum(r[0] for r in elem) / 1e3,
+                elementwise_share=sum(r[0] for r in elem) / 1e6 / busy_s,
+                elementwise_launches=sum(r[2] for r in elem),
                 top=fmt(rows[:12]),
                 ported=fmt([r for r in rows if "pam::" in r[1]]))
 
@@ -1033,8 +1145,7 @@ def phase_kernels() -> dict:
     r = kernel_flash_attention(PARITY_S, True, B=PARITY_B, dtype="float32")
     out["flash_attention_fp32_500"] = r["fwd"]
     out["flash_attention_bwd_fp32_500"] = r["bwd"]
-    r = kernel_ssd_scan()
-    out["ssd_scan"], out["ssd_scan_bwd"] = r["fwd"], r["bwd"]
+    out.update(kernel_ssd_scan())
     return out
 
 
@@ -1121,6 +1232,7 @@ def main() -> int:
     train_run = results["train"]["launches"]
     fp32_run = results["train_parity"]["launches"]
     ssm_run = results["train_ssm"]["launches"]
+    ssm_fp32_run = results["train_parity_ssm"]["launches"]
     rows = []
     for key, src, replaces, launches in (
             ("flash_decode_ring", "flash_decode.cu", "flash_decode.py:98",
@@ -1135,10 +1247,14 @@ def main() -> int:
              "flash_attention.py:31", fp32_run["flash_attention"]),
             ("flash_attention_bwd_fp32_500", "flash_attention_bwd.cu",
              "flash_attention.py:31", fp32_run["flash_attention_bwd"]),
-            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:36",
+            ("ssd_scan", "ssd_scan_sm90.cu", "ssd_scan.py:36",
              ssm_run["ssd_scan"]),
-            ("ssd_scan_bwd", "ssd_scan_bwd.cu", "ssd_scan.py:36",
-             ssm_run["ssd_scan_bwd"])):
+            ("ssd_scan_bwd", "ssd_scan_bwd_sm90.cu", "ssd_scan.py:36",
+             ssm_run["ssd_scan_bwd"]),
+            ("ssd_scan_fp32_500", "ssd_scan.cu", "ssd_scan.py:36",
+             ssm_fp32_run["ssd_scan"]),
+            ("ssd_scan_bwd_fp32_500", "ssd_scan_bwd.cu", "ssd_scan.py:36",
+             ssm_fp32_run["ssd_scan_bwd"])):
         k = kernels[key]
         rows.append(dict(
             name=k["name"], route="cuda",
@@ -1149,7 +1265,7 @@ def main() -> int:
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
         for extra in ("variant", "dtype", "tflops", "pct_of_bound",
-                      "sdpa_max_abs_err"):
+                      "executed_tflops", "sdpa_max_abs_err"):
             if extra in k:
                 rows[-1][extra] = k[extra]
     for row in rows:

@@ -29,9 +29,12 @@ SOURCES = {
     "flash_attention_bwd_sm90": CSRC / "flash_attention_bwd_sm90.cu",
     "ssd_scan": CSRC / "ssd_scan.cu",
     "ssd_scan_bwd": CSRC / "ssd_scan_bwd.cu",
+    "ssd_scan_sm90": CSRC / "ssd_scan_sm90.cu",
+    "ssd_scan_bwd_sm90": CSRC / "ssd_scan_bwd_sm90.cu",
 }
 HEADERS = (CSRC / "decode_common.cuh", CSRC / "attention_common.cuh",
-           CSRC / "attention_sm90.cuh", CSRC / "ssd_common.cuh")
+           CSRC / "attention_sm90.cuh", CSRC / "ssd_common.cuh",
+           CSRC / "ssd_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -13,7 +13,6 @@
 // dt = 0 (the identity), as the TPU kernel masks them.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace pam {
@@ -30,19 +29,12 @@ constexpr int kLdP = kP + 1;
 constexpr int kLdS = kNS + 1;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // acc[i][j] += sum_{k < K} A(ty + 16 i, k) * Bm(k, tx + 16 j): the
@@ -155,16 +147,12 @@ __device__ __forceinline__ float decay(const float* sv, int t, int u, int Q) {
   return (u <= t && t < Q) ? expf(sv[t] - sv[u]) : 0.f;
 }
 
+// fp32 operands only: bf16 at (N, P) = (128, 64) runs on the wgmma
+// kernels (ssd_scan_sm90.cu, ssd_scan_bwd_sm90.cu).
 template <template <typename> class Launch, typename Args>
-int dispatch(int dtype, int N, int P, const Args& a, cudaStream_t stream) {
+int dispatch(int N, int P, const Args& a, cudaStream_t stream) {
   if (N != kN || P != kP) return -1;
-  if (dtype == 0) {
-    Launch<float>::run(a, stream);
-  } else if (dtype == 1) {
-    Launch<__nv_bfloat16>::run(a, stream);
-  } else {
-    return -1;
-  }
+  Launch<float>::run(a, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,13 +19,11 @@
 // Besides y (the input dtype) the kernel writes each chunk's starting
 // state h_in, (B, H, n_chunks, N, P) fp32, which the backward reads.
 //
-// Bound on the H100: at the training shape (B 4, L 2048, H 48, P 64, N
-// 128, chunk 128) the chunk products are 3.2e10 FLOPs against ~0.2 GB
-// moved, so the least time is the FLOPs over the bf16 tensor cores. This
-// first kernel runs them on the CUDA cores in fp32: the C B^T and C h_in
-// products stream d_state in slices of 32 so that x, the state, the masked
-// Q x Q scores and two slices fit in 165 KiB of shared memory. wgmma on
-// bf16 tiles is later work.
+// This kernel takes fp32 operands (the parity runs); bf16 runs on the
+// wgmma kernel (ssd_scan_sm90.cu). It runs the products on the CUDA cores
+// in fp32: the C B^T and C h_in products stream d_state in slices of 32 so
+// that x, the state, the masked Q x Q scores and two slices fit in 165 KiB
+// of shared memory.
 #include "ssd_common.cuh"
 
 namespace pam {
@@ -162,16 +160,15 @@ struct LaunchFwd {
 }  // namespace ssd
 }  // namespace pam
 
-// dtype: 0 = float32, 1 = bfloat16 (x, b, c and y). Returns 0, a CUDA
-// error code from cudaGetLastError(), or -1 for an unsupported (dtype, N,
-// P).
+// fp32 x, b, c and y. Returns 0, a CUDA error code from
+// cudaGetLastError(), or -1 for an unsupported (N, P).
 extern "C" int pam_ssd_scan_fwd(const void* x, const void* dt, const void* a,
                                 const void* b, const void* c, const void* d,
                                 void* y, void* states, int B, int L, int H,
                                 int G, int Q, int nc, long long x_sb,
                                 long long x_sl, long long b_sb,
                                 long long b_sl, long long c_sb,
-                                long long c_sl, int N, int P, int dtype,
+                                long long c_sl, int N, int P,
                                 void* stream) {
   pam::ssd::FwdArgs args;
   args.x = x;
@@ -195,5 +192,5 @@ extern "C" int pam_ssd_scan_fwd(const void* x, const void* dt, const void* a,
   args.c_sb = c_sb;
   args.c_sl = c_sl;
   return pam::ssd::dispatch<pam::ssd::LaunchFwd>(
-      dtype, N, P, args, static_cast<cudaStream_t>(stream));
+      N, P, args, static_cast<cudaStream_t>(stream));
 }

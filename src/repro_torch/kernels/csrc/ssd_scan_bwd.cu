@@ -25,7 +25,8 @@
 //
 // Bound on the H100: operations, about 2.4x the forward's (S', G and the
 // four Q x Q x {N, P} products, plus four Q x N x P products). As the
-// forward, everything runs on the CUDA cores in fp32; the chunk kernel
+// forward, it takes fp32 operands (bf16 runs on ssd_scan_bwd_sm90.cu) and
+// runs everything on the CUDA cores in fp32; the chunk kernel
 // keeps two Q x Q fp32 tiles, g and x in 203 KiB of shared memory and
 // streams d_state in slices of 32 through the space of the first tile.
 #include "ssd_common.cuh"
@@ -444,9 +445,8 @@ struct LaunchBwd {
 }  // namespace ssd
 }  // namespace pam
 
-// dtype: 0 = float32, 1 = bfloat16 (x, b, c, dy, dx, db and dc). Returns 0,
-// a CUDA error code from cudaGetLastError(), or -1 for an unsupported
-// (dtype, N, P).
+// fp32 x, b, c, dy, dx, db and dc. Returns 0, a CUDA error code from
+// cudaGetLastError(), or -1 for an unsupported (N, P).
 extern "C" int pam_ssd_scan_bwd(
     const void* x, const void* dt, const void* a, const void* b,
     const void* c, const void* d, const void* states, const void* dy,
@@ -454,7 +454,7 @@ extern "C" int pam_ssd_scan_bwd(
     void* dstates, void* db_part, void* dc_part, void* da_part,
     void* dd_part, int B, int L, int H, int G, int Q, int nc, long long x_sb,
     long long x_sl, long long b_sb, long long b_sl, long long c_sb,
-    long long c_sl, int N, int P, int dtype, void* stream) {
+    long long c_sl, int N, int P, void* stream) {
   pam::ssd::BwdArgs args;
   args.x = x;
   args.dt = static_cast<const float*>(dt);
@@ -488,5 +488,5 @@ extern "C" int pam_ssd_scan_bwd(
   args.c_sb = c_sb;
   args.c_sl = c_sl;
   return pam::ssd::dispatch<pam::ssd::LaunchBwd>(
-      dtype, N, P, args, static_cast<cudaStream_t>(stream));
+      N, P, args, static_cast<cudaStream_t>(stream));
 }

@@ -6,8 +6,9 @@ Mamba-2 ``ssm`` family). Layer parameters are stacked on a leading axis
 exactly as in the JAX pytree — ``params["layers"]["attn"]["wq"]`` is (L,
 d, H*dh) in the ``x @ W`` orientation, ``params["layers"]["ssm"]`` the
 stacked ``SSMParams`` fields — so ``repro_torch.bridge`` moves weights
-as plain copies; the layer loop is a Python loop over that axis
-(``remat`` checkpoints each layer with ``torch.utils.checkpoint``).
+as plain copies; the layer loop is a Python loop over per-layer views
+of that axis, each leaf unbound once (``_layers``; ``remat`` checkpoints
+each layer with ``torch.utils.checkpoint``).
 Other families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
@@ -90,22 +92,34 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return params
 
 
-def _attn_params(params: Params, i: int) -> attn_mod.AttnParams:
-    a = params["layers"]["attn"]
-    qn, kn = a["q_norm"][i], a["k_norm"][i]
-    return attn_mod.AttnParams(a["wq"][i], a["wk"][i], a["wv"][i],
-                               a["wo"][i], qn if qn.numel() else None,
+def _layers(params: Params) -> list[Params]:
+    """Per-layer views of the stacked layer leaves, one dict per layer:
+    each leaf is unbound once (``torch.unbind(leaf, 0)``), so the
+    backward writes each layer's gradient slice once. Indexing a leaf
+    per layer instead would give every layer a zero gradient as large as
+    the whole stacked leaf, and autograd would add L of them."""
+    lyr = params["layers"]
+    split = [torch.unbind(leaf, 0) for leaf in tree.leaves(lyr)]
+    return [tree.unflatten(lyr, [s[i] for s in split])
+            for i in range(len(split[0]))]
+
+
+def _attn_params(lp: Params) -> attn_mod.AttnParams:
+    a = lp["attn"]
+    qn, kn = a["q_norm"], a["k_norm"]
+    return attn_mod.AttnParams(a["wq"], a["wk"], a["wv"], a["wo"],
+                               qn if qn.numel() else None,
                                kn if kn.numel() else None)
 
 
-def _mlp(params: Params, i: int, h: torch.Tensor) -> torch.Tensor:
-    m = params["layers"]["mlp"]
-    return swiglu(h, m["gate"][i], m["up"][i], m["down"][i])
+def _mlp(lp: Params, h: torch.Tensor) -> torch.Tensor:
+    m = lp["mlp"]
+    return swiglu(h, m["gate"], m["up"], m["down"])
 
 
-def _ssm_params(params: Params, i: int) -> ssm_mod.SSMParams:
-    s = params["layers"]["ssm"]
-    return ssm_mod.SSMParams(**{f: s[f][i] for f in ssm_mod.SSMParams._fields})
+def _ssm_params(lp: Params) -> ssm_mod.SSMParams:
+    return ssm_mod.SSMParams(**{f: lp["ssm"][f]
+                                for f in ssm_mod.SSMParams._fields})
 
 
 def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -113,24 +127,23 @@ def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
 
 
 # ============================================================ train forward
-def _dense_block(cfg: ModelConfig, params: Params, i: int, x: torch.Tensor,
+def _dense_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                  use_kernel: bool) -> torch.Tensor:
-    """Pre-norm attention + SwiGLU of layer ``i``."""
-    lyr = params["layers"]
-    h = rms_norm(x, lyr["ln1"][i], cfg.rms_eps)
+    """Pre-norm attention + SwiGLU of one layer (``lp``: its views)."""
+    h = rms_norm(x, lp["ln1"], cfg.rms_eps)
     x = x + attn_mod.attention_train(
-        _attn_params(params, i), h, n_heads=cfg.n_heads,
+        _attn_params(lp), h, n_heads=cfg.n_heads,
         n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=cfg.causal,
         rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
         use_kernel=use_kernel)
-    return x + _mlp(params, i, rms_norm(x, lyr["ln2"][i], cfg.rms_eps))
+    return x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
 
 
-def _ssm_block(cfg: ModelConfig, params: Params, i: int, x: torch.Tensor,
+def _ssm_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                use_kernel: bool) -> torch.Tensor:
-    """Pre-norm Mamba-2 block of layer ``i``."""
-    h = rms_norm(x, params["layers"]["ln"][i], cfg.rms_eps)
-    return x + ssm_mod.ssm_forward(_ssm_params(params, i), h, cfg.ssm,
+    """Pre-norm Mamba-2 block of one layer (``lp``: its views)."""
+    h = rms_norm(x, lp["ln"], cfg.rms_eps)
+    return x + ssm_mod.ssm_forward(_ssm_params(lp), h, cfg.ssm,
                                    rms_eps=cfg.rms_eps,
                                    use_kernel=use_kernel)
 
@@ -141,7 +154,8 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
     """Returns (logits (B, S, V), aux_loss scalar fp32; 0 for the dense
     and SSM families). ``remat`` recomputes each layer in the backward
     pass (``torch.utils.checkpoint``, non-reentrant), so the forward
-    kernel runs twice per layer and step."""
+    kernel runs twice per layer and step; the stacked leaves are unbound
+    once, outside the checkpoints (``_layers``)."""
     _require_ported(cfg)
     if activation_spec is not None:
         raise NotImplementedError(
@@ -149,12 +163,12 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             "ported yet (ROADMAP Queue 1 item 9, sharding)")
     block = _ssm_block if cfg.family == "ssm" else _dense_block
     x = params["embed"][batch["tokens"]]
-    for i in range(cfg.n_layers):
+    for lp in _layers(params):      # unbound here, outside the checkpoints
         if remat:
-            x = checkpoint(block, cfg, params, i, x, use_kernel,
+            x = checkpoint(block, cfg, lp, x, use_kernel,
                            use_reentrant=False)
         else:
-            x = block(cfg, params, i, x, use_kernel)
+            x = block(cfg, lp, x, use_kernel)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = x @ _head(cfg, params)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -264,26 +278,24 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         lens = torch.as_tensor(true_len, dtype=torch.int32,
                                device=tokens.device).expand(B).clone()
     x = params["embed"][tokens]
-    lyr = params["layers"]
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(_layers(params)):
         if cfg.family == "ssm":
             out, c = ssm_mod.ssm_prefill(
-                _ssm_params(params, i), rms_norm(x, lyr["ln"][i],
-                                                 cfg.rms_eps),
+                _ssm_params(lp), rms_norm(x, lp["ln"], cfg.rms_eps),
                 cfg.ssm, rms_eps=cfg.rms_eps)
             cache.conv[i] = c.conv
             cache.state[i] = c.state
             x = x + out
             continue
-        hn = rms_norm(x, lyr["ln1"][i], cfg.rms_eps)
+        hn = rms_norm(x, lp["ln1"], cfg.rms_eps)
         attn_out, k, v = attn_mod.attention_prefill(
-            _attn_params(params, i), hn, n_heads=cfg.n_heads,
+            _attn_params(lp), hn, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=cfg.causal,
             rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps)
         cache.k[i, :, :, :S] = k
         cache.v[i, :, :, :S] = v
         x = x + attn_out
-        x = x + _mlp(params, i, rms_norm(x, lyr["ln2"][i], cfg.rms_eps))
+        x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if true_len is None:
         last = x[:, -1]
@@ -318,12 +330,11 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                          "paged_append=(dst_block, dst_slot)")
     lens = cache.lengths
     x = params["embed"][tokens]                           # (B, d)
-    lyr = params["layers"]
+    layers = _layers(params)
     if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
+        for i, lp in enumerate(layers):
             out, new = ssm_mod.ssm_decode(
-                _ssm_params(params, i), rms_norm(x, lyr["ln"][i],
-                                                 cfg.rms_eps),
+                _ssm_params(lp), rms_norm(x, lp["ln"], cfg.rms_eps),
                 ssm_mod.SSMCache(cache.conv[i], cache.state[i]), cfg.ssm,
                 rms_eps=cfg.rms_eps)
             cache.conv[i] = new.conv
@@ -332,18 +343,18 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         scores = None
     else:
         masses = []
-        for i in range(cfg.n_layers):
-            hn = rms_norm(x, lyr["ln1"][i], cfg.rms_eps)
+        for i, lp in enumerate(layers):
+            hn = rms_norm(x, lp["ln1"], cfg.rms_eps)
             paged = ((cache.pk[i], cache.pv[i]) + tuple(paged_append)
                      if use_paged else None)
             res = attn_mod.attention_decode(
-                _attn_params(params, i), hn, cache.k[i], cache.v[i], lens,
+                _attn_params(lp), hn, cache.k[i], cache.v[i], lens,
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
                 rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
                 decode_attn_fn=d_fn, paged=paged)
             x = x + res[0]
             masses.append(res[1])
-            x = x + _mlp(params, i, rms_norm(x, lyr["ln2"][i], cfg.rms_eps))
+            x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
         scores = torch.mean(torch.stack(masses), dim=0)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = x @ _head(cfg, params)
