@@ -15,7 +15,9 @@ final ``ok`` line:
             (``cuobjdump -sass``) and their kernels must not spill
   kernels   each kernel against its plain PyTorch version on the card at
             main-path shapes (decode: B=8, H=16, Hkv=8, d=128, bf16
-            storage; attention: the train shape in bf16 through the wgmma
+            storage, each kernel under the reference's stacked contract
+            and merged with its scores, the serving path's; attention:
+            the train shape in bf16 through the wgmma
             kernels, also S 1000 non-causal, and the CUDA-core kernels in
             fp32 at train_parity's B 2, S 500; ssd_scan: the wgmma kernels
             in bf16 at mamba2-780m's train shape B 4, L 2048, H 48, P 64,
@@ -31,14 +33,18 @@ final ``ok`` line:
             ``_fwd_rounded`` / ``_bwd_rounded``, the plain model of the
             wgmma kernels' bf16 roundings)
   engine_paged_ring   full-width qwen3-0.6b (random weights, bf16) served
-            in paged + hot-ring mode; each kernel must launch
-            n_layers x decode steps times
+            in paged + hot-ring mode; each merged decode kernel must
+            launch n_layers x decode steps times, the stacked ones never
   engine_paged_ring_full   the same with retrieval sparsity off, so
-            every token past the ring is read through flash_decode_paged
-  engine_dense_pam    the same model in dense PAM mode (flash_decode
-            through masked_decode_attention)
+            every token past the ring is read through
+            flash_decode_paged_merged
+  engine_dense_pam    the same model in dense PAM mode
+            (flash_decode_merged through masked_decode_attention)
   profile   torch.profiler over 4 steady paged + ring decode steps: device
-            time by kernel, the device's idle share
+            time by kernel, launches per step (matmul, gather / scatter
+            and copy kernels apart), the device's idle share, the steps'
+            peak memory, and the calls of the pool gather and grouped
+            QK^T that the union mass no longer needs
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
@@ -73,8 +79,9 @@ final ``ok`` line:
   profile_ssm torch.profiler over 4 steady decode steps of that engine
 
 Tolerances (each kernel against its plain version on the same inputs):
-  flash_decode, flash_decode_paged (fp32 partials from bf16 K/V): rtol
-      1e-4, atol 1e-3 (summation order only)
+  flash_decode, flash_decode_paged and their merged entry points (fp32
+      partials and scores from bf16 K/V): rtol 1e-4, atol 1e-3 (summation
+      order, and the kernels' exp, ex2.approx, within 2^-21 relative)
   flash_attention forward and backward, bf16 operands (wgmma kernels):
       rtol 2e-2, atol 2e-2 on the bf16 outputs (both sides compute in fp32
       and round the outputs to bf16, so they may differ by one bf16 step,
@@ -312,42 +319,68 @@ def _sdpa_ms(q, k, v, mask, lens) -> float:
         qq, k, v, attn_mask=am, enable_gqa=True))
 
 
-def kernel_flash_decode(S: int) -> dict:
+def _decode_row(name, call, plain, nbytes, flops, **case) -> dict:
+    """One decode kernel row: the wrapper ``call`` against its plain
+    version on the same inputs, times, and the bound of ``nbytes`` /
+    ``flops``."""
     import torch
+    got = call()
+    ref = plain()
+    torch.cuda.synchronize()
+    err, ok = _compare(got, ref)
+    del got, ref
+    bound, by = _bound_ms(nbytes, flops)
+    dev = _device_ms(call)
+    return dict(case, name=name, ok=ok, max_abs_err=err, tol=KERNEL_TOL,
+                ms=_time_ms(call), kernel_device_ms=dev,
+                pct_of_bound=100.0 * bound / dev, plain_ms=_time_ms(plain),
+                bound_ms=bound, bound_by=by, bytes=nbytes)
+
+
+def kernel_flash_decode(S: int, merged: bool = False) -> dict:
+    """The dense kernel at B 8, H 16, Hkv 8, d 128, bf16 K/V: stacked over
+    the reference's 512-token splits, or merged (``flash_decode_merged``:
+    the split from ``split_len``, the merge in the kernel, and the
+    scores, whose (B, H, S) fp32 write the bound counts)."""
     from repro_torch.kernels import flash_decode as fd
     q, k, v, mask, lens = _dense_case(S, seed=S, dead_split=S > 512)
     B, H, d = q.shape
     Hkv = k.shape[1]
-    got = fd.flash_decode(q, k, v, mask, kv_lens=lens)
-    # the wrapper's own argument preparation, then its plain version
-    live = (mask & (torch.arange(S, device="cuda")[None] < lens[:, None]))
-    m8 = live.to(torch.int8).contiguous()
-    block_s = min(fd.DEFAULT_BLOCK_S, max(S, 8))
-    nsplit = -(-S // block_s)
     scale = 1.0 / d ** 0.5
-    ref = fd._flash_decode_plain(q, k, v, m8, S, scale, block_s, nsplit)
-    torch.cuda.synchronize()
-    err, ok = _compare(got, ref)
+    live = fd._dense_live(mask, S, lens, B, S, q.device)
+    block_s = min(fd.DEFAULT_BLOCK_S, max(S, 8))
     n_live = int(live.sum())
-    nbytes = (n_live * Hkv * d * 2 * 2 + q.numel() * 4 + m8.numel()
-              + B * 4 + sum(t.numel() * 4 for t in got))
-    flops = n_live * H * d * 4
-    bound, by = _bound_ms(nbytes, flops)
-    return dict(name="flash_decode", S=S, nsplit=nsplit, ok=ok,
-                max_abs_err=err, tol=KERNEL_TOL,
-                ms=_time_ms(lambda: fd.flash_decode(q, k, v, mask,
-                                                    kv_lens=lens)),
-                kernel_device_ms=_device_ms(lambda: fd.flash_decode(
-                    q, k, v, mask, kv_lens=lens)),
-                plain_ms=_time_ms(lambda: fd._flash_decode_plain(
-                    q, k, v, m8, S, scale, block_s, nsplit)),
-                bound_ms=bound, bound_by=by, bytes=nbytes,
-                live_tokens=n_live, library_ms=_sdpa_ms(q, k, v, mask, lens))
+    nbytes = n_live * Hkv * d * 2 * 2 + q.numel() * 4 + mask.numel() + B * 4
+    if merged:
+        split = fd.split_len(B, Hkv, S, fd._sm_count(q.device))
+        nbytes += B * H * (d + 2) * 4 + B * H * S * 4     # o, m, l, scores
+        row = _decode_row(
+            "flash_decode_merged",
+            lambda: fd.flash_decode_merged(q, k, v, mask, kv_lens=lens,
+                                           scores=True),
+            lambda: fd._merged_plain(*fd._flash_decode_plain(
+                q, k, v, live, scale, block_s)),
+            nbytes, n_live * H * d * 4, S=S, split=split,
+            nsplit=-(-S // split), grid_blocks=-(-S // split) * Hkv * B)
+    else:
+        nsplit = -(-S // block_s)
+        nbytes += B * H * nsplit * (d + 2) * 4
+        row = _decode_row(
+            "flash_decode",
+            lambda: fd.flash_decode(q, k, v, mask, kv_lens=lens),
+            lambda: fd._flash_decode_plain(q, k, v, live, scale,
+                                           block_s)[:3],
+            nbytes, n_live * H * d * 4, S=S, nsplit=nsplit,
+            grid_blocks=nsplit * Hkv * B)
+    return dict(row, live_tokens=n_live,
+                library_ms=_sdpa_ms(q, k, v, mask, lens))
 
 
-def kernel_flash_decode_paged() -> dict:
+def _paged_case():
+    """The paged kernels' inputs: B 8, H 16, Hkv 8, d 128, bs 16, nb 128 (a
+    2048-token window), bf16 pools of 1,024 blocks, a quarter of the first
+    100 table entries live, 60 % of their tokens participating."""
     import torch
-    from repro_torch.kernels import flash_decode as fd
     g = torch.Generator(device="cuda").manual_seed(7)
     B, H, Hkv, d, bs, nb, NB = 8, 16, 8, 128, 16, 128, 1024
     q = torch.randn((B, H, d), generator=g, device="cuda")
@@ -362,29 +395,47 @@ def kernel_flash_decode_paged() -> dict:
     live_blk[:, 100:] = False
     mask = (torch.rand((B, nb * bs), generator=g, device="cuda") < 0.6)
     mask = mask & live_blk.repeat_interleave(bs, 1)
-    got = fd.flash_decode_paged(q, kp, vp, table, mask, block_live=live_blk)
-    tbl = torch.where(live_blk, table, torch.full_like(table, NB)).long()
-    m8 = mask.to(torch.int8).contiguous()
-    bl = live_blk.to(torch.int32).contiguous()
+    return q, kp, vp, table, mask, live_blk
+
+
+def kernel_flash_decode_paged(merged: bool = False) -> dict:
+    """The paged kernel on ``_paged_case``'s inputs: stacked (one partial
+    per logical block, the reference's contract) or
+    merged (``flash_decode_paged_merged``: runs from ``split_len``, the
+    merge in the kernel, and the scores). No single PyTorch call computes
+    paged attention, so ``library_ms`` is null."""
+    from repro_torch.kernels import flash_decode as fd
+    q, kp, vp, table, mask, live_blk = _paged_case()
+    B, H, d = q.shape
+    bs, Hkv = kp.shape[1], kp.shape[2]
+    nb = table.shape[1]
     scale = 1.0 / d ** 0.5
-    ref = fd._flash_decode_paged_plain(q, kp, vp, tbl, bl, m8, scale)
-    torch.cuda.synchronize()
-    err, ok = _compare(got, ref)
     n_live = int(mask.sum())
-    nbytes = (n_live * Hkv * d * 2 * 2 + q.numel() * 4 + m8.numel()
-              + 2 * table.numel() * 4 + sum(t.numel() * 4 for t in got))
-    flops = n_live * H * d * 4
-    bound, by = _bound_ms(nbytes, flops)
-    return dict(name="flash_decode_paged", ok=ok, max_abs_err=err,
-                tol=KERNEL_TOL, live_blocks=int(live_blk.sum()),
-                ms=_time_ms(lambda: fd.flash_decode_paged(
-                    q, kp, vp, table, mask, block_live=live_blk)),
-                kernel_device_ms=_device_ms(lambda: fd.flash_decode_paged(
-                    q, kp, vp, table, mask, block_live=live_blk)),
-                plain_ms=_time_ms(lambda: fd._flash_decode_paged_plain(
-                    q, kp, vp, tbl, bl, m8, scale)),
-                bound_ms=bound, bound_by=by, bytes=nbytes,
-                live_tokens=n_live, library_ms=None)
+    nbytes = (n_live * Hkv * d * 2 * 2 + q.numel() * 4 + mask.numel()
+              + table.numel() * 4 + live_blk.numel())
+    case = dict(live_tokens=n_live, live_blocks=int(live_blk.sum()),
+                library_ms=None)
+    if merged:
+        split = fd.split_len(B, Hkv, nb * bs, fd._sm_count(q.device),
+                             block=bs)
+        nbytes += B * H * (d + 2) * 4 + B * H * nb * bs * 4
+        return _decode_row(
+            "flash_decode_paged_merged",
+            lambda: fd.flash_decode_paged_merged(
+                q, kp, vp, table, mask, block_live=live_blk, scores=True),
+            lambda: fd._merged_plain(*fd._flash_decode_paged_plain(
+                q, kp, vp, table, live_blk, mask, None, scale)),
+            nbytes, n_live * H * d * 4, split=split,
+            runs=-(-nb // (split // bs)),
+            grid_blocks=-(-nb // (split // bs)) * Hkv * B, **case)
+    nbytes += B * H * nb * (d + 2) * 4           # the stacked partials
+    return _decode_row(
+        "flash_decode_paged",
+        lambda: fd.flash_decode_paged(q, kp, vp, table, mask,
+                                      block_live=live_blk),
+        lambda: fd._flash_decode_paged_plain(q, kp, vp, table, live_blk,
+                                             mask, None, scale)[:3],
+        nbytes, n_live * H * d * 4, grid_blocks=nb * Hkv * B, **case)
 
 
 def _attn_case(S: int, causal: bool, seed: int, B: int = TRAIN_B,
@@ -740,14 +791,25 @@ def run_engine(cfg, params, *, n_req: int, new: int, pam_kw=None,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
 
+DECODE_KERNELS = ("flash_decode_merged", "flash_decode_paged_merged",
+                  "flash_decode", "flash_decode_paged")
+
+
+def _assert_decode_launches(launches: dict, want: dict) -> None:
+    """Each decode entry point launched as often as ``want`` says (the
+    merged ones n_layers x decode steps, the stacked ones never)."""
+    for name in DECODE_KERNELS:
+        n, w = launches[name], want.get(name, 0)
+        assert n == w, f"{name}: {n} launches, want {w}"
+
+
 def phase_engine_paged(cfg, params) -> dict:
     r = run_engine(cfg, params, n_req=8, new=64, max_batch=8,
                    max_len=2048, block_size=16, hot_window=256)
     steps = r["summary"]["decode_device_steps"]
     want = cfg.n_layers * steps
-    for name in ("flash_decode", "flash_decode_paged"):
-        n = r["launches"][name]
-        assert n == want, f"{name}: {n} launches, want {want}"
+    _assert_decode_launches(r["launches"], dict.fromkeys(DECODE_KERNELS[:2],
+                                                         want))
     return _engine_line(r, want)
 
 
@@ -761,9 +823,8 @@ def phase_engine_paged_full(cfg, params) -> dict:
                    pam_kw=dict(use_sparsity=False))
     s = r["summary"]
     want = cfg.n_layers * s["decode_device_steps"]
-    for name in ("flash_decode", "flash_decode_paged"):
-        n = r["launches"][name]
-        assert n == want, f"{name}: {n} launches, want {want}"
+    _assert_decode_launches(r["launches"], dict.fromkeys(DECODE_KERNELS[:2],
+                                                         want))
     assert s["blocks_touched_per_step"] > 0, s
     assert s["tier_reads"][1] + s["tier_reads"][2] > 0, s["tier_reads"]
     return _engine_line(r, want)
@@ -774,25 +835,63 @@ HOST_SYNCS = ("aten::_local_scalar_dense", "cudaStreamSynchronize",
               "cudaDeviceSynchronize", "cudaMemcpyAsync")
 
 
+# kernel-name classes of the profile phase: the union-mass reconstruction
+# of PR 11-16 showed as pool gathers, copies and grouped-score products
+KERNEL_CLASSES = {"matmul": ("gemm", "gemv", "cutlass", "cublas"),
+                  "gather_scatter": ("index", "gather", "scatter"),
+                  "copy": ("copy", "Copy")}
+
+
+def _count_calls(module, name: str, counts: dict):
+    """Wrap ``module.name`` to count its calls in ``counts``; returns the
+    original, for restoring."""
+    orig = getattr(module, name)
+
+    def counted(*a, **kw):
+        counts[name] += 1
+        return orig(*a, **kw)
+    counts[name] = 0
+    setattr(module, name, counted)
+    return orig
+
+
 def phase_profile(cfg, params, layout=PAGED_RING) -> dict:
     """Where a decode step's time goes: torch.profiler over 4 steady
     decode steps of an engine at batch 8 (the paged + ring main path, or
-    ``layout={}`` for the dense cache): device time by kernel name, the
-    device's busy share of the window's wall time, and the host events
-    that wait on the device or copy (readbacks)."""
+    ``layout={}`` for the dense cache): device time by kernel name, kernel
+    launches per step by class (matmul, gather / scatter, copy), the
+    device's busy share of the window's wall time, the peak device memory
+    the steps allocate above what the engine holds, the decode kernels'
+    launches, the calls of the union-mass reconstruction's pool gather
+    (``paged_gather_logical``) and grouped QK^T (``ops._grouped_scores``),
+    and the host events that wait on the device or copy (readbacks)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import pam_interface
+    from repro_torch.kernels import ops
     eng = _engine(cfg, params, 8, 16, max_batch=8, max_len=2048, **layout)
     for _ in range(3):                       # admission + warm decode
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(4):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    calls: dict = {}
+    saved = [(m, n, _count_calls(m, n, calls)) for m, n in (
+        (pam_interface, "paged_gather_logical"), (ops, "_grouped_scores"))]
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for m, n, orig in saved:
+            setattr(m, n, orig)
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 2**30
+    launches = {k: v for k, v in _launches().items() if k in DECODE_KERNELS}
     rows = []                   # device-side events only (kernels, copies)
     syncs = {}
     for ev in prof.key_averages():
@@ -804,10 +903,18 @@ def phase_profile(cfg, params, layout=PAGED_RING) -> dict:
     busy_s = sum(r[0] for r in rows) / 1e6
     if not rows:
         return dict(steps=4, wall_s=wall, device_time="not measured")
+    classes = {}
+    for cls, keys in KERNEL_CLASSES.items():
+        sel = [r for r in rows if any(k in r[1] for k in keys)]
+        classes[cls] = dict(launches_per_step=sum(r[2] for r in sel) / 4,
+                            device_ms_per_step=sum(r[0] for r in sel) / 4e3)
     return dict(steps=4, wall_s=wall, step_ms=wall / 4 * 1e3,
                 host_sync_events=syncs,
                 device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
                 kernel_launches=sum(r[2] for r in rows),
+                launches_per_step=sum(r[2] for r in rows) / 4,
+                kernel_classes=classes, decode_launches=launches,
+                union_mass_calls=calls, peak_step_mem_gb=peak_gb,
                 top=[dict(name=k[:80], device_ms=us / 1e3, count=n,
                           us_per_launch=us / max(n, 1))
                      for us, k, n in rows[:12]],
@@ -821,8 +928,7 @@ def phase_engine_dense(cfg, params) -> dict:
                    max_len=2048)
     steps = r["summary"]["decode_device_steps"]
     want = cfg.n_layers * steps
-    assert r["launches"]["flash_decode"] == want, r["launches"]
-    assert r["launches"]["flash_decode_paged"] == 0, r["launches"]
+    _assert_decode_launches(r["launches"], {"flash_decode_merged": want})
     return _engine_line(r, want)
 
 
@@ -942,7 +1048,9 @@ def _counted():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd_scan as ss
-    return {"flash_decode": fd.flash_decode,
+    return {"flash_decode_merged": fd.flash_decode_merged,
+            "flash_decode_paged_merged": fd.flash_decode_paged_merged,
+            "flash_decode": fd.flash_decode,
             "flash_decode_paged": fd.flash_decode_paged,
             "flash_attention": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_bwd,
@@ -1134,7 +1242,10 @@ def phase_train_parity(arch: str = "qwen3-0.6b") -> dict:
 def phase_kernels() -> dict:
     out = dict(flash_decode_ring=kernel_flash_decode(256),
                flash_decode_2048=kernel_flash_decode(2048),
-               flash_decode_paged=kernel_flash_decode_paged())
+               flash_decode_paged=kernel_flash_decode_paged(),
+               flash_decode_merged_ring=kernel_flash_decode(256, True),
+               flash_decode_merged_2048=kernel_flash_decode(2048, True),
+               flash_decode_paged_merged=kernel_flash_decode_paged(True))
     for S, causal in ((TRAIN_S, True), (1000, False)):
         r = kernel_flash_attention(S, causal)
         tag = "2048" if causal else "ragged_1000_noncausal"
@@ -1147,6 +1258,13 @@ def phase_kernels() -> dict:
     out["flash_attention_bwd_fp32_500"] = r["bwd"]
     out.update(kernel_ssd_scan())
     return out
+
+
+# the stacked (reference-contract) rows of the kernels phase, by the
+# merged row that launches the same CUDA kernel on the serving path
+STACKED_ROWS = {"flash_decode_merged_ring": "flash_decode_ring",
+                "flash_decode_merged_2048": "flash_decode_2048",
+                "flash_decode_paged_merged": "flash_decode_paged"}
 
 
 # ------------------------------------------------------------------ main
@@ -1229,16 +1347,19 @@ def main() -> int:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     paged_run = results["engine_paged_ring"]["launches"]
+    dense_run = results["engine_dense_pam"]["launches"]
     train_run = results["train"]["launches"]
     fp32_run = results["train_parity"]["launches"]
     ssm_run = results["train_ssm"]["launches"]
     ssm_fp32_run = results["train_parity_ssm"]["launches"]
     rows = []
     for key, src, replaces, launches in (
-            ("flash_decode_ring", "flash_decode.cu", "flash_decode.py:98",
-             paged_run["flash_decode"]),
-            ("flash_decode_paged", "flash_decode_paged.cu",
-             "flash_decode.py:202", paged_run["flash_decode_paged"]),
+            ("flash_decode_merged_ring", "flash_decode.cu",
+             "flash_decode.py:98", paged_run["flash_decode_merged"]),
+            ("flash_decode_merged_2048", "flash_decode.cu",
+             "flash_decode.py:98", dense_run["flash_decode_merged"]),
+            ("flash_decode_paged_merged", "flash_decode_paged.cu",
+             "flash_decode.py:202", paged_run["flash_decode_paged_merged"]),
             ("flash_attention_2048", "flash_attention_sm90.cu",
              "flash_attention.py:31", train_run["flash_attention"]),
             ("flash_attention_bwd_2048", "flash_attention_bwd_sm90.cu",
@@ -1264,10 +1385,17 @@ def main() -> int:
             ms=k["ms"], kernel_device_ms=k["kernel_device_ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
-        for extra in ("variant", "dtype", "tflops", "pct_of_bound",
-                      "executed_tflops", "sdpa_max_abs_err"):
+        for extra in ("S", "split", "variant", "dtype", "tflops",
+                      "pct_of_bound", "executed_tflops", "sdpa_max_abs_err"):
             if extra in k:
                 rows[-1][extra] = k[extra]
+        stacked = STACKED_ROWS.get(key)
+        if stacked:             # the same CUDA kernel, reference contract
+            rows[-1]["stacked"] = {
+                f: kernels[stacked][f] for f in (
+                    "max_abs_err", "ms", "kernel_device_ms", "bound_ms",
+                    "pct_of_bound")}
+    rows[1]["launches_in"] = "engine_dense_pam"
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

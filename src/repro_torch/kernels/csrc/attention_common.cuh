@@ -17,6 +17,13 @@
 #include "decode_common.cuh"
 
 namespace pam {
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
+  return x;
+}
+
 namespace attn {
 
 constexpr int kTile = 64;      // query rows and key rows per tile
@@ -112,6 +119,29 @@ __device__ __forceinline__ void mul_tile(const float* __restrict__ P,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) out[i][c] += p[i] * m[c];
+  }
+}
+
+// Launch over the GQA group sizes built (1 and 2) and the head dims (16
+// and 128): Launch<T, D, REP>::run(args, stream); 0 or a CUDA error code.
+template <template <typename, int, int> class Launch, typename T, int D,
+          typename Args>
+int dispatch_rep(int rep, const Args& a, cudaStream_t stream) {
+  switch (rep) {
+    case 1: Launch<T, D, 1>::run(a, stream); break;
+    case 2: Launch<T, D, 2>::run(a, stream); break;
+    default: return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <template <typename, int, int> class Launch, typename T,
+          typename Args>
+int dispatch_d(int d, int rep, const Args& a, cudaStream_t stream) {
+  switch (d) {
+    case 16: return dispatch_rep<Launch, T, 16>(rep, a, stream);
+    case 128: return dispatch_rep<Launch, T, 128>(rep, a, stream);
+    default: return -1;
   }
 }
 

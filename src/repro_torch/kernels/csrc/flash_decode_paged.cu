@@ -2,101 +2,159 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_decode.py::_paged_decode_kernel
 // (wrapper flash_decode_paged, pl.pallas_call at :314). One CUDA block per
-// (logical block i, kv head h, batch b) reads block_table[b, i] and
-// block_live[b, i] itself (the TPU kernel's scalar prefetch): a dead block
-// writes the merge identity (O=0, m=-1e30, l=0) without touching KV; a live
-// block attends the REP grouped query heads over the bs tokens of physical
-// block table[b, i] at kv head h and writes the block's (O, m, l). Pool
-// layout is (NB+1, bs, Hkv, D), sentinel block last; the wrapper has
-// already remapped dead table entries onto the sentinel and localised
-// block ids (block_offset).
+// (run of R logical blocks, kv head h, batch b) walks its run of table
+// entries itself (the TPU kernel's scalar prefetch): an entry is live when
+// block_live[b, i] != 0 (when given) and its physical id lies in the pool
+// slice [block_offset, block_offset + NB_local); a dead entry is skipped
+// without touching KV. The participating tokens of the live pages (mask at
+// logical positions) are compacted and their K/V rows for kv head h (row
+// stride Hkv * D) staged by cp.async two tiles deep, and one running
+// partial is kept across the run's pages (decode_common.cuh). Pool layout
+// is (NB_local, bs, Hkv, D), ids localised by block_offset in the kernel.
 //
-// Bound on the H100: bytes read from HBM — the live tokens' K/V rows over
-// 3.35 TB/s. Pages with no participating token cost one 4-byte table read
-// and the identity write; inside a live page only participating rows are
-// loaded. Each row is one coalesced load per warp. Not yet done: folding
-// the union-mass scores into this walk (the reference still scores the
-// whole logical gather in plain tensor code) and cp.async/TMA staging.
+// The stacked launch (flash_decode_paged) runs one block per logical block
+// (R = 1), the reference's contract: a dead block writes the merge
+// identity (O=0, m=-1e30, l=0). The merged launch
+// (flash_decode_paged_merged) takes R from the wrapper's shape-only choice,
+// keeps one partial per run, writes every position's score, and merges
+// the runs of a (batch, kv head) inside their cluster.
+//
+// Bound on the H100: bytes read from HBM, the participating tokens' K/V
+// rows over 3.35 TB/s, plus the table, masks and outputs. Dead pages cost
+// one table-entry read; only participating rows are loaded.
 #include "decode_common.cuh"
 
 namespace pam {
 
+constexpr int kMaxRunPages = 128;   // table entries a block walks
+
 struct PagedArgs {
-  const float* q;        // (B, H, D) fp32
-  const void* k_pool;    // (NB+1, bs, Hkv, D)
+  const void* q;           // (B, H, D) fp32 or bf16
+  const void* k_pool;      // (NB_local, bs, Hkv, D)
   const void* v_pool;
-  const int32_t* table;  // (B, nb) physical ids, dead entries -> sentinel
-  const int32_t* live;   // (B, nb)
-  const int8_t* mask;    // (B, nb*bs) logical participation
-  float* o;              // (B, H, nb, D)
-  float* m;              // (B, H, nb)
-  float* l;
-  int B, H, Hkv, nb, bs;
+  const int32_t* table;    // (B, nb) physical ids
+  const uint8_t* live;     // (B, nb) bool, or nullptr (all live)
+  const uint8_t* mask;     // (B, nb * bs) logical participation
+  Outputs out;
+  int B, H, Hkv, nb, bs, R, nb_local, block_offset, tile;
   float scale;
 };
 
-// Warps per block: a pool block holds bs (16 on the main path) tokens.
-constexpr int kPagedWarps = 4;
+template <typename T, int D>
+struct PagedSrc {
+  struct Raw {
+    uint8_t m;
+    uint8_t live;
+    int32_t id;
+  };
+  const T* k_pool;         // kv head h of row 0 of physical block 0
+  const T* v_pool;
+  const int32_t* table;    // the run's first table entry
+  const uint8_t* blive;    // its block_live entry, or nullptr
+  const uint8_t* mask;     // mask entry of the run's first position
+  int* phys;               // shared: the run's local ids, -1 when dead
+  long p0;
+  long page_stride;        // elements between physical blocks
+  long row_stride;         // elements between rows of a block (Hkv * D)
+  int bs, n, nb_local, block_offset;
 
-template <typename T, int D, int REP>
-__global__ void flash_decode_paged_kernel(PagedArgs a) {
-  constexpr int NW = kPagedWarps;
-  __shared__ MergeSmem<D, REP, NW> sm;
-  const int i = blockIdx.x;
+  __device__ Raw fetch(int t) const {
+    const int i = t / bs;
+    return {mask[t], blive ? blive[i] : uint8_t(1), table[i]};
+  }
+  // records the page's local id (first token of a page), then decides
+  __device__ bool live(int t, const Raw& raw) const {
+    const int local = raw.id - block_offset;
+    const bool ok = (raw.live != 0) & (local >= 0) & (local < nb_local);
+    if (t % bs == 0) phys[t / bs] = ok ? local : -1;
+    return ok & (raw.m != 0);
+  }
+  __device__ long pos(int t) const { return p0 + t; }
+  __device__ const T* row(int t, int kv) const {
+    const long off = phys[t / bs] * page_stride + (t % bs) * row_stride;
+    return (kv ? v_pool : k_pool) + off;
+  }
+};
+
+template <typename T, typename TQ, int D, int REP, bool MERGED>
+__global__ void __launch_bounds__(kThreads)
+    flash_decode_paged_kernel(PagedArgs a) {
+  __shared__ RunSmem<D, REP, MERGED> sm;
+  __shared__ int phys[kMaxRunPages];
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int run = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const long bi = (long)b * a.nb + i;
-  const long qrow = (long)b * a.H + (long)h * REP;
-  const long out = qrow * a.nb + i;
-  if (a.live[bi] == 0) {  // whole block takes this branch
-    write_identity<D, REP>(a.o + out * D, (long)a.nb * D, a.m + out,
-                           a.l + out, a.nb);
-    return;
-  }
-  const long phys = a.table[bi];
-  const long base = (phys * a.bs * a.Hkv + h) * D;
-  attend_tokens<T, D, REP, NW>(
-      a.q + qrow * D, static_cast<const T*>(a.k_pool) + base,
-      static_cast<const T*>(a.v_pool) + base, (long)a.Hkv * D, a.bs, a.bs,
-      a.mask + bi * a.bs, a.scale, a.o + out * D, (long)a.nb * D, a.m + out,
-      a.l + out, a.nb, sm);
+  const int i0 = run * a.R;
+  const long bi = (long)b * a.nb + i0;
+  PagedSrc<T, D> src;
+  src.k_pool = static_cast<const T*>(a.k_pool) + (long)h * D;
+  src.v_pool = static_cast<const T*>(a.v_pool) + (long)h * D;
+  src.table = a.table + bi;
+  src.blive = a.live == nullptr ? nullptr : a.live + bi;
+  src.phys = phys;
+  src.p0 = (long)i0 * a.bs;
+  src.mask = a.mask + bi * a.bs;
+  src.row_stride = (long)a.Hkv * D;
+  src.page_stride = (long)a.bs * src.row_stride;
+  src.bs = a.bs;
+  src.n = min(a.R, a.nb - i0) * a.bs;
+  src.nb_local = a.nb_local;
+  src.block_offset = a.block_offset;
+  const long row0 = (long)b * a.H + (long)h * REP;
+  attend_run<T, TQ, D, REP, MERGED>(src, static_cast<const TQ*>(a.q) + row0 * D,
+                            a.scale, a.tile, a.R * a.bs, row0, a.out, sm,
+                            dyn);
 }
 
-template <typename T, int D, int REP>
+template <typename T, typename TQ, int D, int REP>
 struct LaunchPaged {
-  static void run(const PagedArgs& a, cudaStream_t stream) {
-    const dim3 grid(a.nb, a.Hkv, a.B);
-    flash_decode_paged_kernel<T, D, REP><<<grid, kPagedWarps * 32, 0,
-                                            stream>>>(a);
+  static cudaError_t run(PagedArgs a, cudaStream_t stream) {
+    const dim3 grid(a.out.nsplit, a.Hkv, a.B);
+    a.tile = tile_rows<T, D>(a.R * a.bs);
+    const size_t smem = dyn_smem_bytes<T, D>(a.tile, a.R * a.bs);
+    if (a.out.merged)
+      return launch_run_kernel<flash_decode_paged_kernel<T, TQ, D, REP, true>>(
+          grid, smem, true, stream, a);
+    return launch_run_kernel<flash_decode_paged_kernel<T, TQ, D, REP, false>>(
+        grid, smem, false, stream, a);
   }
 };
 
 }  // namespace pam
 
-// dtype: 0 = float32, 1 = bfloat16 (pool storage). Returns 0, a CUDA error
-// code from cudaGetLastError(), or -1 for an unsupported (dtype, D, rep).
-extern "C" int pam_flash_decode_paged(const void* q, const void* k_pool,
-                                      const void* v_pool, const void* table,
-                                      const void* live, const void* mask,
-                                      void* o, void* m, void* l, int B, int H,
-                                      int Hkv, int nb, int bs, int D,
-                                      float scale, int dtype, void* stream) {
+// dtype / qtype: 0 = float32, 1 = bfloat16 (pool storage, q). A block
+// walks R table entries (at most 128); nruns = ceil(nb / R). Outputs as
+// pam_flash_decode's, with runs in place of splits and scores (B, H,
+// nb * bs). Returns 0, a CUDA error code, or -1 for an unsupported
+// (dtype, qtype, D, rep), run length or number of merged runs.
+extern "C" int pam_flash_decode_paged(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* live, const void* mask, void* o, void* m, void* l,
+    void* scores, int B, int H, int Hkv, int nb, int bs, int D, int R,
+    int nruns, int merged, int nb_local, int block_offset, float scale,
+    int dtype, int qtype, void* stream) {
+  if (R < 1 || R > pam::kMaxRunPages) return -1;
+  if (merged && nruns > pam::kMaxSplits) return -1;
   pam::PagedArgs a;
-  a.q = static_cast<const float*>(q);
+  a.q = q;
   a.k_pool = k_pool;
   a.v_pool = v_pool;
   a.table = static_cast<const int32_t*>(table);
-  a.live = static_cast<const int32_t*>(live);
-  a.mask = static_cast<const int8_t*>(mask);
-  a.o = static_cast<float*>(o);
-  a.m = static_cast<float*>(m);
-  a.l = static_cast<float*>(l);
+  a.live = static_cast<const uint8_t*>(live);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.out = {static_cast<float*>(o), static_cast<float*>(m),
+           static_cast<float*>(l), static_cast<float*>(scores),
+           (long)nb * bs, nruns, merged != 0};
   a.B = B;
   a.H = H;
   a.Hkv = Hkv;
   a.nb = nb;
   a.bs = bs;
+  a.R = R;
+  a.nb_local = nb_local;
+  a.block_offset = block_offset;
   a.scale = scale;
-  return pam::dispatch<pam::LaunchPaged>(dtype, D, H / Hkv, a,
+  return pam::dispatch<pam::LaunchPaged>(dtype, qtype, D, H / Hkv, a,
                                          static_cast<cudaStream_t>(stream));
 }

@@ -3,11 +3,12 @@
 Counterpart of ``repro.kernels.ops``. ``fused_attention`` (train /
 prefill) runs ``flash_attention``; ``ssd`` (the Mamba-2 train path) runs
 ``ssd_scan``. The local stage of every decode
-attention partial runs through a kernel wrapper of
-``repro_torch.kernels.flash_decode`` (the CUDA kernel on the card, its
-plain version on the CPU); the reductions (``merge_decode``, the merges
-of ``online_softmax``) and the per-token mass reconstruction stay plain
-tensor code, as they are in the reference.
+attention partial runs through a merged kernel wrapper of
+``repro_torch.kernels.flash_decode`` (the CUDA kernel on the card, which
+also merges its splits; its plain version on the CPU). The masked decode
+functions take the per-token attention mass from the scores those
+kernels return, the values that entered their softmax; the tier merge
+(``online_softmax.merge_partials``) and the mass stay plain tensor code.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import torch
 
 from repro_torch.core import online_softmax as osm
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import (flash_decode,
-                                              flash_decode_paged,
+from repro_torch.kernels.flash_decode import (flash_decode_merged,
+                                              flash_decode_paged_merged,
                                               ring_gather_mask,
                                               ring_position_map)
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -48,13 +49,11 @@ def merge_decode(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
 
 
 def decode_attention_partial(q, k, v, mask=None, *, kv_len=None,
-                             kv_lens=None, scale=None,
-                             block_s=512) -> osm.AttnPartial:
+                             kv_lens=None, scale=None) -> osm.AttnPartial:
     """Local stage over one dense pool — the merged per-pool partial,
     fields (B, H, d) / (B, H)."""
-    o, m, l = flash_decode(q, k, v, mask, kv_len=kv_len, kv_lens=kv_lens,
-                           scale=scale, block_s=block_s)
-    return osm.merge_many(_stacked(o, m, l))
+    return osm.AttnPartial(*flash_decode_merged(
+        q, k, v, mask, kv_len=kv_len, kv_lens=kv_lens, scale=scale))
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor,
@@ -88,11 +87,12 @@ def _grouped_partial_from_scores(s: torch.Tensor, v: torch.Tensor,
 
 def _probs(s: torch.Tensor, mask: torch.Tensor, m_safe: torch.Tensor,
            inv_l: torch.Tensor) -> torch.Tensor:
-    """Normalised probabilities of grouped scores under a merged (m, l)."""
-    s = torch.where(mask[:, None, None, :], s,
-                    torch.full_like(s, float("-inf")))
+    """Normalised probabilities of scores s (B, H, S) under a merged (m,
+    l), zero outside ``mask`` (B, S); (B, Hkv, rep, S)."""
+    B, Hkv, rep = m_safe.shape
+    s = s.reshape(B, Hkv, rep, -1)
     p = torch.exp(s - m_safe[..., None]) * inv_l
-    return torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+    return torch.where(mask[:, None, None, :], p, torch.zeros_like(p))
 
 
 def _merged_stats(part: osm.AttnPartial, B: int, Hkv: int, rep: int):
@@ -106,31 +106,29 @@ def _merged_stats(part: osm.AttnPartial, B: int, Hkv: int, rep: int):
 def masked_decode_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor,
                             participate: torch.Tensor | None,
-                            kv_lens: torch.Tensor, *, scale=None,
-                            block_s: int = 512
+                            kv_lens: torch.Tensor, *, scale=None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Repeat-free GQA decode attention + per-token attention mass.
 
     q: (B, H, d); k/v: (B, H_kv, S, d); participate: (B, S) bool or None;
     kv_lens: (B,). Returns (out (B, H, d), mass (B, S)): the local stage
-    runs ``flash_decode`` (ragged lengths folded through ``kv_lens``) and
-    the head-mean, count-scaled mass is reconstructed from the merged
-    (m, l) with one grouped QK^T — the reference's kernel-path idiom.
+    runs ``flash_decode_merged`` (ragged lengths through ``kv_lens``),
+    and the head-mean, count-scaled mass comes from the scores it
+    returns under the merged (m, l).
     """
     B, H, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    rep = H // Hkv
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
     live = torch.arange(S, device=q.device)[None, :] < kv_lens[:, None]
     if participate is not None:
         live = live & participate
-    part = decode_attention_partial(q, k, v, participate, kv_lens=kv_lens,
-                                    scale=sc, block_s=min(block_s, S))
+    o, m, l, s = flash_decode_merged(q, k, v, participate, kv_lens=kv_lens,
+                                     scale=sc, scores=True)
+    part = osm.AttnPartial(o, m, l)
     out = osm.finalize(part, out_dtype=q.dtype)
-    m_safe, inv_l = _merged_stats(part, B, Hkv, rep)
-    p = _probs(_grouped_scores(q, k, sc), live, m_safe, inv_l)
+    m_safe, inv_l = _merged_stats(part, B, Hkv, H // Hkv)
     n_live = torch.sum(live, dim=-1, keepdim=True).float()
-    mass = torch.mean(p, dim=(1, 2)) * n_live
+    mass = torch.mean(_probs(s, live, m_safe, inv_l), dim=(1, 2)) * n_live
     return out, mass
 
 
@@ -139,23 +137,15 @@ def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor,
                                    block_table: torch.Tensor,
                                    token_mask: torch.Tensor, *,
                                    block_live: torch.Tensor | None = None,
-                                   block_offset=None,
+                                   block_offset: int | None = None,
                                    scale=None) -> osm.AttnPartial:
     """Local stage over a paged pool: merged per-pool partial, fields
     (B, H, d) / (B, H). ``block_offset`` makes the pool slices shard-local
     while the table keeps global ids: entries outside the local range
     are masked out of the partial entirely."""
-    if block_offset is not None:
-        nb_local, bs = k_pool.shape[0], k_pool.shape[1]
-        inside = ((block_table >= block_offset)
-                  & (block_table < block_offset + nb_local))
-        token_mask = token_mask & torch.repeat_interleave(inside, bs, dim=1)
-        block_live = inside if block_live is None else (block_live & inside)
-        block_table = torch.where(inside, block_table - block_offset,
-                                  torch.zeros_like(block_table))
-    o, m, l = flash_decode_paged(q, k_pool, v_pool, block_table, token_mask,
-                                 block_live=block_live, scale=scale)
-    return osm.merge_many(_stacked(o, m, l))
+    return osm.AttnPartial(*flash_decode_paged_merged(
+        q, k_pool, v_pool, block_table, token_mask, block_live=block_live,
+        block_offset=block_offset, scale=scale))
 
 
 def paged_masked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -171,22 +161,20 @@ def paged_masked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Tiered decode attention: hot-ring partial ⊕ paged warm/cold partial.
 
     The hot tier reads the ring buffer (``k_cache``/``v_cache``, (B, Hkv,
-    W, dh), absolute position p at slot ``p % W``) through ``flash_decode``
-    with the hot mask pulled onto ring coordinates and ``kv_len=W``; the
-    warm/cold tiers read the block pool through ``flash_decode_paged``.
-    The two partials merge exactly (Alg. 1).
+    W, dh), absolute position p at slot ``p % W``) through
+    ``flash_decode_merged`` with the hot mask pulled onto ring
+    coordinates and ``kv_len=W``; the warm/cold tiers read the block pool
+    through ``flash_decode_paged_merged``. The two partials merge exactly
+    (Alg. 1).
 
     Returns (out (B, H, d), mass (B, Smax)): ``mass`` is the head-mean,
     count-scaled softmax mass over the union working set in absolute
-    coordinates, reconstructed from the merged (m, l) — plain tensor
-    code: grouped QK^T over the ring and over the pool's logical gather,
-    the hot part scattered back through the ring index map.
+    coordinates, from the scores both kernels return under the merged
+    (m, l), the hot part scattered back through the ring index map.
     """
-    from repro_torch.core.pam_interface import paged_gather_logical
     B, H, d = q.shape
     Hkv, W = k_cache.shape[1], k_cache.shape[2]
     Smax = hot_mask.shape[1]
-    rep = H // Hkv
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
     live_len = torch.arange(Smax, device=q.device)[None, :] < kv_lens[:, None]
     hot = hot_mask & live_len
@@ -194,18 +182,17 @@ def paged_masked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     ring_pos, ring_valid = ring_position_map(kv_lens, W)
     hot_ring = ring_gather_mask(hot, ring_pos, ring_valid)
-    part_hot = decode_attention_partial(q, k_cache, v_cache, hot_ring,
-                                        kv_len=W, scale=sc)
-    part_paged = paged_decode_attention_partial(
-        q, k_pool, v_pool, block_table, pgd, block_live=block_live, scale=sc)
-    merged = osm.merge_partials(part_hot, part_paged)
+    *part_hot, s_ring = flash_decode_merged(q, k_cache, v_cache, hot_ring,
+                                            kv_len=W, scale=sc, scores=True)
+    *part_paged, s_pool = flash_decode_paged_merged(
+        q, k_pool, v_pool, block_table, pgd, block_live=block_live,
+        scale=sc, scores=True)
+    merged = osm.merge_partials(osm.AttnPartial(*part_hot),
+                                osm.AttnPartial(*part_paged))
     out = osm.finalize(merged, out_dtype=q.dtype)
 
     # union mass in absolute coordinates from the merged (m, l)
-    m_safe, inv_l = _merged_stats(merged, B, Hkv, rep)
-    s_ring = _grouped_scores(q, k_cache, sc)                 # (B,Hkv,rep,W)
-    s_pool = _grouped_scores(q, paged_gather_logical(k_pool, block_table),
-                             sc)                             # (..., Smax)
+    m_safe, inv_l = _merged_stats(merged, B, Hkv, H // Hkv)
     ph = torch.mean(_probs(s_ring, hot_ring, m_safe, inv_l), dim=(1, 2))
     pp = torch.mean(_probs(s_pool, pgd, m_safe, inv_l), dim=(1, 2))
     idx = ring_pos.clamp(0, Smax - 1)

@@ -13,8 +13,9 @@ family, on a dense or a paged + hot-ring KV layout, and of the Mamba-2
 * ``_decode_body`` is one decode step of the full PAM pipeline in the
   reference's order (``_fused_decode_body``): participation mask, hot
   clamp and tier split, ``decode_step`` (hot-ring partial through
-  ``flash_decode`` ⊕ paged partial through ``flash_decode_paged``, or
-  ``flash_decode`` over the dense cache), importance EMA, capacity
+  ``flash_decode_merged`` ⊕ paged partial through
+  ``flash_decode_paged_merged``, or ``flash_decode_merged`` over the
+  dense cache), importance EMA, capacity
   cascade and Alg. 2, greedy sampling, on-device EOS.
 * The SSM family prefills at each prompt's exact length (its running
   state would absorb padding), commits the conv ring and recurrent state
@@ -98,12 +99,19 @@ class ServingConfig:
     top_k: int = 0
     prefix_cache: bool = False
     prefill_chunk: int = 0
+    bucket_prefill: bool = True        # pow-2 prompt-length buckets
+    sample_seed: int = 0               # per-request sampling key seed
 
 
 def _unported(scfg: ServingConfig) -> None:
-    if scfg.temperature > 0 or scfg.top_k:
-        raise NotImplementedError("sampled decoding (temperature/top_k) is "
-                                  "not ported yet: ROADMAP Queue 1 item 1")
+    if scfg.temperature > 0 or scfg.top_k or scfg.sample_seed:
+        raise NotImplementedError("sampled decoding (temperature/top_k/"
+                                  "sample_seed) is not ported yet: ROADMAP "
+                                  "Queue 1 item 1")
+    if not scfg.bucket_prefill:
+        raise NotImplementedError("exact-length prefill (bucket_prefill="
+                                  "False) is not ported yet: ROADMAP Queue 1 "
+                                  "item 1")
     if scfg.prefix_cache:
         raise NotImplementedError("the prefix cache is not ported yet: "
                                   "ROADMAP Queue 1 item 2")

@@ -81,7 +81,8 @@ def init_pam_state(batch: int, max_tokens: int, num_blocks: int = 0,
 # --------------------------------------------------------------- attention
 def make_masked_decode_attn(participate: torch.Tensor):
     """Dense-cache decode attention over the participation set
-    (``ops.masked_decode_attention``: ``flash_decode`` + mass)."""
+    (``ops.masked_decode_attention``: ``flash_decode_merged`` and the
+    mass from its scores)."""
     def d_fn(q, k_cache, v_cache, kv_lens):
         from repro_torch.kernels import ops as kops
         return kops.masked_decode_attention(q, k_cache, v_cache,
@@ -94,9 +95,9 @@ def make_paged_decode_attn(hot_mask: torch.Tensor, paged_mask: torch.Tensor,
                            block_table: torch.Tensor,
                            block_live: torch.Tensor):
     """Paged decode attention for the block-table fast path: the hot-ring
-    partial (``flash_decode``) merged with the warm/cold pool partial
-    (``flash_decode_paged``); signature ``d_fn(q, kc, vc, pk, pv,
-    kv_lens) -> (out, mass)``."""
+    partial (``flash_decode_merged``) merged with the warm/cold pool
+    partial (``flash_decode_paged_merged``); signature ``d_fn(q, kc, vc,
+    pk, pv, kv_lens) -> (out, mass)``."""
     def d_fn(q, k_cache, v_cache, pk, pv, kv_lens):
         from repro_torch.kernels import ops as kops
         return kops.paged_masked_decode_attention(

@@ -7,13 +7,14 @@ with PyTorch alone:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \
         tests/test_torch_cuda.py
 
-Tolerance: both sides upcast the stored K/V to fp32 and differ only in
-summation order (warp-parallel online softmax vs one reduction), so
-rtol 1e-4 / atol 1e-4 on (o, m, l), with TF32 off for the plain side's
-matrix products. The attention backward sums up to S products per
-gradient entry in another order: rtol / atol 1e-3 in fp32. In bf16
-both sides compute in fp32 and round the result to bf16, so they may
-differ by one bf16 step; the wgmma kernels (bf16, head dim 128) also
+Tolerance: both sides upcast the stored K/V (and q) to fp32 and differ
+only in summation order (tiled online softmax and the in-kernel merge vs
+one reduction) and in the decode kernels' exp (ex2.approx, within 2^-21
+relative), so rtol 1e-4 / atol 1e-4 on (o, m, l) and the scores, with
+TF32 off for the plain side's matrix products. The attention backward
+sums up to S products per gradient entry in another order: rtol / atol
+1e-3 in fp32. In bf16 both sides compute in fp32 and round the result to
+bf16, so they may differ by one bf16 step; the wgmma kernels (bf16, head dim 128) also
 round P and dS to bf16 as tensor-core operands, which
 tests/test_torch_flash_attention_sm90.py shows stays inside the same
 rtol / atol 2e-2. The SSD scan's kernels and
@@ -55,39 +56,62 @@ def _close(got, ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), **TOL)
 
 
+DECODE_HEADS = [(128, 16, 8), (128, 8, 8), (16, 4, 2)]   # group 2, 1, 2
+
+
+def _launched(fn, n0):
+    torch.cuda.synchronize()
+    return fn.launches - n0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,H,Hkv", [(128, 16, 8), (128, 8, 8), (16, 4, 2)])
+@pytest.mark.parametrize("split", [None, 40, 64, 300])
+@pytest.mark.parametrize("d,H,Hkv", DECODE_HEADS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_decode_kernel_matches_plain(cuda, dtype, d, H, Hkv):
+def test_flash_decode_kernel_matches_plain(cuda, dtype, d, H, Hkv, split):
+    """The dense kernel, stacked (the reference's splits of ``split`` or
+    128 tokens) and merged (any split; scores included), against the
+    plain versions: ragged lengths, an all-dead row, a dead split, a
+    length bound inside the last split, q in the storage dtype."""
     rng = np.random.default_rng(0)
-    B, S = 3, 300                        # S not a multiple of block_s
-    q = torch.from_numpy(rng.standard_normal((B, H, d), np.float32))
-    k = torch.from_numpy(rng.standard_normal((B, Hkv, S, d), np.float32))
-    v = torch.from_numpy(rng.standard_normal((B, Hkv, S, d), np.float32))
+    B, S = 3, 300                        # S not a multiple of the splits
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(dtype)
+               for s in ((B, H, d), (B, Hkv, S, d), (B, Hkv, S, d)))
     mask = torch.from_numpy(rng.random((B, S)) < 0.5)
     mask[0, 128:256] = False             # a dead split
     lens = torch.tensor([300, 77, 0])    # ragged, and an all-dead row
-    k, v = k.to(dtype), v.to(dtype)
-    ref = tfd.flash_decode(q, k, v, mask, kv_lens=lens, block_s=128)
+    dev = [t.to(cuda) for t in (q, k, v, mask)]
+    ref = tfd.flash_decode(q, k, v, mask, kv_lens=lens, block_s=split or 128)
     n0 = tfd.flash_decode.launches
-    got = tfd.flash_decode(q.to(cuda), k.to(cuda), v.to(cuda),
-                           mask.to(cuda), kv_lens=lens.to(cuda),
-                           block_s=128)
-    torch.cuda.synchronize()
-    assert tfd.flash_decode.launches == n0 + 1
+    got = tfd.flash_decode(*dev, kv_lens=lens.to(cuda), block_s=split or 128)
+    assert _launched(tfd.flash_decode, n0) == 1
     _close(got, ref)
+    for kw in (dict(kv_lens=lens), dict(kv_len=250)):
+        ref = tfd.flash_decode_merged(q, k, v, mask, scores=True, **kw)
+        kw = {n: (x.to(cuda) if torch.is_tensor(x) else x)
+              for n, x in kw.items()}
+        n0 = tfd.flash_decode_merged.launches
+        got = tfd.flash_decode_merged(*dev, scores=True, split=split, **kw)
+        assert _launched(tfd.flash_decode_merged, n0) == 1
+        assert len(got) == 4
+        _close(got, ref)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("split", [None, 32, 64, 192])
+@pytest.mark.parametrize("d,H,Hkv", DECODE_HEADS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_decode_paged_kernel_matches_plain(cuda, dtype):
+def test_flash_decode_paged_kernel_matches_plain(cuda, dtype, d, H, Hkv,
+                                                 split):
+    """The paged kernel, stacked (one partial per logical block) and
+    merged (runs of ``split`` tokens; scores included), against the plain
+    versions: sentinel entries, dead blocks, live tokens inside a dead
+    block, dead pages inside live runs, and a shard-local pool slice."""
     rng = np.random.default_rng(1)
-    B, H, Hkv, d, bs, nb, NB = 3, 16, 8, 128, 16, 12, 40
-    q = torch.from_numpy(rng.standard_normal((B, H, d), np.float32))
-    kp = torch.from_numpy(
-        rng.standard_normal((NB + 1, bs, Hkv, d), np.float32)).to(dtype)
-    vp = torch.from_numpy(
-        rng.standard_normal((NB + 1, bs, Hkv, d), np.float32)).to(dtype)
+    B, bs, nb, NB = 3, 16, 12, 40
+    q = torch.from_numpy(rng.standard_normal((B, H, d), np.float32)).to(dtype)
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (NB + 1, bs, Hkv, d), np.float32)).to(dtype) for _ in range(2))
     table = torch.from_numpy(
         rng.permutation(NB)[:B * nb].reshape(B, nb).astype(np.int32))
     table[2, 5:] = NB                    # sentinel entries
@@ -96,14 +120,46 @@ def test_flash_decode_paged_kernel_matches_plain(cuda, dtype):
     mask[2, 5 * bs:] = False
     live = mask.reshape(B, nb, bs).any(-1)
     live[0, 0] = False                   # live tokens in a dead block
-    ref = tfd.flash_decode_paged(q, kp, vp, table, mask, block_live=live)
-    n0 = tfd.flash_decode_paged.launches
-    got = tfd.flash_decode_paged(q.to(cuda), kp.to(cuda), vp.to(cuda),
-                                 table.to(cuda), mask.to(cuda),
-                                 block_live=live.to(cuda))
-    torch.cuda.synchronize()
-    assert tfd.flash_decode_paged.launches == n0 + 1
-    _close(got, ref)
+    live[0, 6] = False                   # a dead page inside a live run
+    for kw, pools in ((dict(block_live=live), (kp, vp)),
+                      (dict(block_offset=8), (kp[8:32], vp[8:32]))):
+        args = (q, *pools, table, mask)
+        dev = [t.to(cuda).contiguous() for t in args]
+        dkw = {n: (x.to(cuda) if torch.is_tensor(x) else x)
+               for n, x in kw.items()}
+        ref = tfd.flash_decode_paged(*args, **kw)
+        n0 = tfd.flash_decode_paged.launches
+        got = tfd.flash_decode_paged(*dev, **dkw)
+        assert _launched(tfd.flash_decode_paged, n0) == 1
+        _close(got, ref)
+        ref = tfd.flash_decode_paged_merged(*args, scores=True, **kw)
+        n0 = tfd.flash_decode_paged_merged.launches
+        got = tfd.flash_decode_paged_merged(*dev, scores=True, split=split,
+                                            **dkw)
+        assert _launched(tfd.flash_decode_paged_merged, n0) == 1
+        _close(got, ref)
+
+
+@pytest.mark.cuda
+def test_merged_kernels_are_deterministic(cuda):
+    """The in-cluster merge reduces the splits in split order: repeated
+    launches at the serving shape (B 8, Hkv 8, S 2048, bf16) give the same
+    bits, and every split count up to the cluster's 8 matches the plain
+    version."""
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((8, 16, 128), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((8, 8, 2048, 128),
+                                                 np.float32)).bfloat16()
+            for _ in range(2))
+    mask = torch.from_numpy(rng.random((8, 2048)) < 0.3)
+    ref = tfd.flash_decode_merged(q, k, v, mask, scores=True)
+    dev = [t.to(cuda) for t in (q, k, v, mask)]
+    first = tfd.flash_decode_merged(*dev, scores=True)
+    for _ in range(3):
+        again = tfd.flash_decode_merged(*dev, scores=True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for split in (256, 512, 1024, 2048):
+        _close(tfd.flash_decode_merged(*dev, scores=True, split=split), ref)
 
 
 @pytest.mark.cuda
@@ -119,12 +175,14 @@ def test_reduced_engine_runs_through_both_kernels(cuda):
     rng = np.random.default_rng(0)
     for i in range(4):
         eng.submit(teng.Request(i, rng.integers(0, cfg.vocab, 40), 16))
-    n0 = (tfd.flash_decode.launches, tfd.flash_decode_paged.launches)
+    fns = (tfd.flash_decode_merged, tfd.flash_decode_paged_merged,
+           tfd.flash_decode, tfd.flash_decode_paged)
+    n0 = [f.launches for f in fns]
     summ = eng.run()
     steps = summ["decode_device_steps"]
     assert summ["finished"] == 4 and summ["total_tokens"] == 64
-    assert tfd.flash_decode.launches - n0[0] == cfg.n_layers * steps
-    assert tfd.flash_decode_paged.launches - n0[1] == cfg.n_layers * steps
+    ran = [f.launches - n for f, n in zip(fns, n0)]
+    assert ran == [cfg.n_layers * steps] * 2 + [0, 0]
 
 
 @pytest.mark.cuda

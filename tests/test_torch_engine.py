@@ -172,7 +172,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 @pytest.mark.parametrize("kw", [dict(temperature=0.5), dict(top_k=4),
                                 dict(prefix_cache=True),
-                                dict(prefill_chunk=8)])
+                                dict(prefill_chunk=8),
+                                dict(bucket_prefill=False),
+                                dict(sample_seed=7)])
 def test_unported_options_raise(model, kw):
     _, _, tcf, tparams = model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
