@@ -40,11 +40,23 @@ final ``ok`` line:
             flash_decode_paged_merged
   engine_dense_pam    the same model in dense PAM mode
             (flash_decode_merged through masked_decode_attention)
+  engine_prefix_chunk_sampled   the same model served with the prefix
+            cache, chunked prefill (256-token slices) and sampling
+            (temperature 0.8, top-50, seed 7), sparsity off: eight requests
+            share a 760-token system prompt, request 0 first, the seven
+            others once its prompt is in the trie (each hit copy-on-writes
+            the shared tail block); asserts 64 tokens each, 7 hits, >= 7
+            copies, >= 4 chunked admissions, slices <= 256, the merged
+            decode kernels n_layers x steps, a paged walk over blocks two
+            or more rows map, every token inside its top-50; prints TTFT,
+            the counters, the sampler's launches and device ms a step
   profile   torch.profiler over 4 steady paged + ring decode steps: device
             time by kernel, launches per step (matmul, gather / scatter
             and copy kernels apart), the device's idle share, the steps'
             peak memory, and the calls of the pool gather and grouped
             QK^T that the union mass no longer needs
+  profile_prefix_chunk_sampled   the same over 4 decode steps of the
+            engine_prefix_chunk_sampled engine once all eight requests run
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
@@ -62,6 +74,13 @@ final ``ok`` line:
   parity    full-width qwen3-0.6b in fp32: teacher-forced decode steps
             through the engine's kernel-backed attention vs attention
             built from plain tensor code, logits compared
+  prefix_chunk_parity   fp32, TF32 off: (a) the sampler's keys, bits and
+            tokens on the card equal its CPU run's ((8, 151936) logits, 16
+            (seed, rid, pos) triples); (b) greedy streams of the shared-
+            prompt requests with the prefix cache and chunked prefill on
+            equal those with both off; (c) sampled streams of requests 1
+            and 6 run alone equal theirs in the batch (a difference fails
+            the phase with the position and both top-2 margins)
   train_ssm full-width mamba2-780m (48 layers, random weights from seed 0,
             bf16) trained 10 steps on SyntheticLM batches of 4 x 2048
             through the train CLI's step builder at peak lr 1e-3 (the SSD
@@ -855,10 +874,11 @@ def _count_calls(module, name: str, counts: dict):
     return orig
 
 
-def phase_profile(cfg, params, layout=PAGED_RING) -> dict:
+def phase_profile(cfg, params, layout=PAGED_RING, eng=None) -> dict:
     """Where a decode step's time goes: torch.profiler over 4 steady
     decode steps of an engine at batch 8 (the paged + ring main path, or
-    ``layout={}`` for the dense cache): device time by kernel name, kernel
+    ``layout={}`` for the dense cache, or a ready engine ``eng`` whose
+    admissions are done): device time by kernel name, kernel
     launches per step by class (matmul, gather / scatter, copy), the
     device's busy share of the window's wall time, the peak device memory
     the steps allocate above what the engine holds, the decode kernels'
@@ -869,9 +889,11 @@ def phase_profile(cfg, params, layout=PAGED_RING) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import pam_interface
     from repro_torch.kernels import ops
-    eng = _engine(cfg, params, 8, 16, max_batch=8, max_len=2048, **layout)
-    for _ in range(3):                       # admission + warm decode
-        eng.step()
+    if eng is None:
+        eng = _engine(cfg, params, 8, 16, max_batch=8, max_len=2048,
+                      **layout)
+        for _ in range(3):                   # admission + warm decode
+            eng.step()
     torch.cuda.synchronize()
     calls: dict = {}
     saved = [(m, n, _count_calls(m, n, calls)) for m, n in (
@@ -921,6 +943,337 @@ def phase_profile(cfg, params, layout=PAGED_RING) -> dict:
                 ported=[dict(name=k[:80], device_ms=us / 1e3, count=n,
                              us_per_launch=us / max(n, 1))
                         for us, k, n in rows if "pam::" in k])
+
+
+# the prefix / chunk / sampled serving phase: one 760-token system prompt
+# (47 full blocks of 16 and 8 tokens, so every hit copy-on-writes its
+# tail block) shared by eight requests, each with its own novel tail
+SYS_PROMPT = 760
+TAILS = (48, 100, 200, 300, 400, 520, 640, 600)
+PREFIX_CHUNK = dict(prefix_cache=True, prefill_chunk=256)
+SAMPLED = dict(temperature=0.8, top_k=50, sample_seed=7)
+SAMPLER_ROWS = 8                         # the engine's max_batch
+
+
+def _inv_temperature(t: float) -> float:
+    """The sampler's fp32 reciprocal of the temperature."""
+    import numpy as np
+    return float(np.float32(1.0) / np.float32(t))
+
+
+def _shared_prompts(vocab: int):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, vocab, SYS_PROMPT)
+    return [np.concatenate([system, rng.integers(0, vocab, n)])
+            .astype(np.int32) for n in TAILS]
+
+
+def _prefix_engine(cfg, params, *, prefix_chunk=True, sampled=True):
+    """The phase's engine: paged + ring at batch 8, max_len 2048, with
+    retrieval sparsity off so that every token outside the ring (the
+    shared system prompt included) is read through the pool."""
+    from repro_torch.serving import ServingConfig, ServingEngine
+    scfg = ServingConfig(
+        max_batch=8, max_len=2048, **PAGED_RING,
+        pam=_pam(2048, use_sparsity=False),
+        **(PREFIX_CHUNK if prefix_chunk else {}),
+        **(SAMPLED if sampled else {}))
+    return ServingEngine(cfg, params, scfg, device=params["embed"].device)
+
+
+def _serve_shared(eng, prompts, new: int, ids=None):
+    """Request ``ids[0]`` first, the others once it runs (its prompt is
+    then in the trie); returns (summary, TTFT seconds by request)."""
+    from repro_torch.serving import Request
+    ids = list(range(len(prompts))) if ids is None else ids
+    submitted = {}
+    eng.submit(Request(ids[0], prompts[ids[0]], new))
+    submitted[ids[0]] = eng.clock
+    while eng.requests[ids[0]].status not in ("running", "done"):
+        eng.step()
+    for i in ids[1:]:
+        eng.submit(Request(i, prompts[i], new))
+        submitted[i] = eng.clock
+    summ = eng.run()
+    return summ, {i: eng.requests[i].first_token_time - submitted[i]
+                  for i in ids}
+
+
+def _profile_calls(fn) -> tuple[int, float]:
+    """(kernel launches, device ms) of one call of ``fn``, from
+    torch.profiler (after a warm call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages()
+            if str(ev.device_type).endswith("CUDA")]
+    return (sum(ev.count for ev in rows),
+            sum(ev.self_device_time_total for ev in rows) / 1e3)
+
+
+def phase_engine_prefix_chunk_sampled(cfg, params) -> dict:
+    """Full-width qwen3-0.6b served with the prefix cache, chunked prefill
+    (256-token slices) and sampling (temperature 0.8, top-50, seed 7):
+    eight requests share a 760-token system prompt; request 0 (808
+    tokens) runs first, then the seven others hit its trie entries, each
+    copy-on-writing the shared tail block; novel tails over 256 tokens
+    admit in slices. During the run each step's pool table is checked
+    for physical blocks that two or more rows map (the paged kernel
+    walks them), and every sampled token for membership of its row's
+    top-50 (a few device ops a step beside the engine's)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import sampling
+    eng = _prefix_engine(cfg, params)
+    scfg = eng.scfg
+    prompts = _shared_prompts(cfg.vocab)
+    shared_per_step, in_top_k = [], []
+    calls = [0]
+    orig_paged = ops.flash_decode_paged_merged
+
+    def paged(q, k_pool, v_pool, table, *a, **kw):
+        if calls[0] % cfg.n_layers == 0:          # one table a step
+            nb_pool = k_pool.shape[0] - 1         # the sentinel excluded
+            cnt = torch.bincount(table.long().flatten(),
+                                 minlength=nb_pool + 1)[:nb_pool]
+            shared_per_step.append(torch.sum(cnt >= 2))
+        calls[0] += 1
+        return orig_paged(q, k_pool, v_pool, table, *a, **kw)
+
+    orig_sample = eng._sample
+    inv_t = _inv_temperature(scfg.temperature)
+
+    def sample(logits, rids, positions):
+        tok = orig_sample(logits, rids, positions)
+        lg = logits.float() * inv_t
+        kth = torch.topk(lg, scfg.top_k, dim=-1).values[:, -1]
+        in_top_k.append(torch.all(
+            lg.gather(1, tok.long()[:, None])[:, 0] >= kth))
+        return tok
+
+    eng._sample = sample
+    ops.flash_decode_paged_merged = paged
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()                       # counts of this run only
+    try:
+        s, ttft = _serve_shared(eng, prompts, 64)
+    finally:
+        ops.flash_decode_paged_merged = orig_paged
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    shared = [int(x) for x in torch.stack(shared_per_step).cpu()]
+    lens = [len(eng.requests[i].outputs) for i in range(len(prompts))]
+    assert lens == [64] * len(prompts), f"outputs per request {lens}"
+    assert s["prefix_hits"] == 7 and s["cow_copies"] >= 7, s
+    assert s["chunked_admissions"] >= 4, s
+    assert s["max_chunk_slice_tokens"] <= 256, s
+    assert s["novel_prefill_tokens"] == SYS_PROMPT + sum(TAILS), s
+    steps = s["decode_device_steps"]
+    want = cfg.n_layers * steps
+    _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
+                                                    want))
+    assert len(shared) == steps and max(shared) >= 1, shared
+    assert bool(torch.stack(in_top_k).all()), "a token outside its top-k"
+    # the sampler alone at the engine's shapes: (8, vocab) logits
+    dev = params["embed"].device
+    g = torch.Generator(device=dev).manual_seed(1)
+    logits = torch.randn((SAMPLER_ROWS, cfg.vocab), generator=g,
+                         device=dev).to(params["embed"].dtype)
+    rids = torch.arange(SAMPLER_ROWS, device=dev)
+    pos = torch.full((SAMPLER_ROWS,), 1000, device=dev)
+
+    def draw():
+        return sampling.sample_tokens(logits, scfg.sample_seed, rids, pos,
+                                      scfg.temperature, scfg.top_k)
+    sampler_launches, sampler_dev_ms = _profile_calls(draw)
+    ttfts = sorted(ttft.values())
+    return dict(_engine_line(dict(summary=s, launches=launches,
+                                  peak_mem_gb=peak_gb), want),
+                **{k: s[k] for k in (
+                    "prefix_hits", "cached_prefix_tokens",
+                    "novel_prefill_tokens", "cow_copies", "trie_blocks",
+                    "trie_evictions", "chunked_admissions", "chunk_slices",
+                    "max_chunk_slice_tokens", "prefill_dispatches",
+                    "admit_dispatches")},
+                ttft_s=ttft, ttft_p50_s=ttfts[len(ttfts) // 2],
+                ttft_max_s=ttfts[-1],
+                shared_blocks_max=max(shared),
+                steps_over_shared_blocks=sum(x >= 1 for x in shared),
+                paged_launches_over_shared_blocks=cfg.n_layers * sum(
+                    x >= 1 for x in shared),
+                sampler_launches_per_step=sampler_launches,
+                sampler_device_ms_per_step=sampler_dev_ms,
+                sampler_ms=_time_ms(draw),
+                sampler_shape=[SAMPLER_ROWS, cfg.vocab],
+                sys_prompt=SYS_PROMPT, tails=list(TAILS),
+                sparsity=False, **SAMPLED, **PREFIX_CHUNK)
+
+
+def phase_profile_prefix_chunk_sampled(cfg, params) -> dict:
+    """The profile phase over 4 decode steps of the prefix / chunk /
+    sampled engine once all eight requests run (every admission done):
+    a sampled step whose tables share the system prompt's blocks."""
+    from repro_torch.serving import Request
+    eng = _prefix_engine(cfg, params)
+    prompts = _shared_prompts(cfg.vocab)
+    eng.submit(Request(0, prompts[0], 64))
+    while eng.requests[0].status != "running":
+        eng.step()
+    for i in range(1, len(prompts)):
+        eng.submit(Request(i, prompts[i], 64))
+    while eng.waiting or any(r.status == "prefilling"
+                             for r in eng.requests.values()):
+        eng.step()
+    eng.step()                               # one warm decode step
+    return dict(phase_profile(cfg, params, eng=eng),
+                prefix_hits=eng.prefix_hits, cow_copies=eng.cow_copies)
+
+
+def _margins(eng, sampled: bool) -> dict:
+    """Record, for every sampled (rid, position), the gap between the two
+    largest values the draw takes its argmax over (the logits; sampled:
+    the masked, scaled logits plus the row's Gumbel noise)."""
+    import torch
+    from repro_torch.serving import sampling as smp
+    rec: dict = {}
+    orig = eng._sample
+    scfg = eng.scfg
+
+    def sample(logits, rids, positions):
+        tok = orig(logits, rids, positions)
+        v = logits.float()
+        if sampled:
+            v = v * _inv_temperature(scfg.temperature)
+            kth = torch.topk(v, scfg.top_k, dim=-1).values[:, -1:]
+            v = v.masked_fill(v < kth, float("-inf"))
+            key = smp.fold_in(smp.fold_in(smp.prng_key(scfg.sample_seed),
+                                          rids.long()), positions.long())
+            v = v + smp.gumbel(key, v.shape[-1], v.device)
+        top = torch.topk(v, 2, dim=-1).values
+        for r, p, (a, b) in zip(rids.tolist(), positions.tolist(),
+                                top.tolist()):
+            rec.setdefault((r, p), a - b)
+        return tok
+
+    eng._sample = sample
+    return rec
+
+
+def _first_divergence(prompts, got: dict, want: dict, rec_got: dict,
+                      rec_want: dict):
+    """None, or where two streams first differ with both runs' top-2
+    margins at that position."""
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        if a == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        pos = len(prompts[rid]) + t
+        return dict(rid=rid, token_index=t, position=pos, got=a[t],
+                    want=b[t], margin_got=rec_got.get((rid, pos)),
+                    margin_want=rec_want.get((rid, pos)))
+    return None
+
+
+def _sampler_parity(dev: str = "cuda") -> dict:
+    """(a) The sampler on the card against the same function on the CPU
+    (the version tier-1 pins to JAX): bits bit for bit and tokens, for
+    (8, 151936) fp32 logits at 16 (seed, rid, pos) triples."""
+    import torch
+    from repro_torch.serving import sampling as smp
+    V = 151936
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn((2, SAMPLER_ROWS, V), generator=g) * 3
+    rids = torch.tensor([0, 1, 5, 77, 2**31 + 3, 2**32 - 1, 12, 9])
+    pos = torch.tensor([808, 1000, 2047, 0, 3, 1500, 65535, 123])
+    out = dict(triples=16, vocab=V, rows=[])
+    for (seed, temp, top_k), lg in zip(((7, 0.8, 50), (123456789, 1.3, 0)),
+                                       logits):
+        key = smp.fold_in(smp.fold_in(smp.prng_key(seed), rids), pos)
+        kc = smp.fold_in(smp.fold_in(smp.prng_key(seed), rids.to(dev)),
+                         pos.to(dev))
+        keys_equal = all(torch.equal(a, b.cpu()) for a, b in zip(key, kc))
+        bits_cpu = smp.random_bits(key, V, "cpu")
+        bits_gpu = smp.random_bits(kc, V, dev).cpu()
+        g_cpu = smp.gumbel(key, V, "cpu")
+        g_gpu = smp.gumbel(kc, V, dev).cpu()
+        # one ulp of the inner log carried through the outer one, plus
+        # one ulp of the outer: |diff| <= eps (1 + |g|) (as on the CPU
+        # against XLA); reported as the largest share of that bound
+        eps = torch.finfo(torch.float32).eps
+        gumbel_share = float(((g_cpu - g_gpu).abs()
+                              / (eps * (1 + g_cpu.abs()))).max())
+        tok_cpu = smp.sample_tokens(lg, seed, rids, pos, temp, top_k)
+        tok_gpu = smp.sample_tokens(lg.to(dev), seed, rids.to(dev),
+                                    pos.to(dev), temp, top_k).cpu()
+        row = dict(seed=seed, temperature=temp, top_k=top_k,
+                   keys_equal=keys_equal,
+                   bits_equal=bool(torch.equal(bits_cpu, bits_gpu)),
+                   tokens_equal=bool(torch.equal(tok_cpu, tok_gpu)),
+                   gumbel_diff_share_of_bound=gumbel_share)
+        if not row["tokens_equal"]:
+            v = lg * _inv_temperature(temp) + g_cpu
+            top = torch.topk(v, 2, dim=-1).values
+            row["margins"] = (top[:, 0] - top[:, 1]).tolist()
+        out["rows"].append(row)
+    return out
+
+
+def phase_prefix_chunk_parity() -> dict:
+    """Full-width qwen3-0.6b in fp32 (TF32 off): (a) the sampler on the
+    card against its CPU run; (b) the twin property: greedy streams of
+    the eight shared-prompt requests (16 new tokens) with the prefix
+    cache and chunked prefill on equal those with both off; (c) a
+    sampled stream run alone equals the same request's stream in the
+    batch. A stream that differs fails the phase with the position and
+    both runs' top-2 margins there."""
+    import torch
+    a = _sampler_parity()
+    cfg, params = _model("float32")
+    prompts = _shared_prompts(cfg.vocab)
+    streams, recs = {}, {}
+    for on in (True, False):
+        eng = _prefix_engine(cfg, params, prefix_chunk=on, sampled=False)
+        recs[on] = _margins(eng, sampled=False)
+        summ, _ = _serve_shared(eng, prompts, 16)
+        streams[on] = {i: eng.requests[i].outputs for i in range(8)}
+        if on:
+            twin_counts = {k: summ[k] for k in (
+                "prefix_hits", "cow_copies", "chunked_admissions")}
+        del eng
+        torch.cuda.empty_cache()
+    b = _first_divergence(prompts, streams[True], streams[False],
+                          recs[True], recs[False])
+    batch = _prefix_engine(cfg, params)
+    rec_batch = _margins(batch, sampled=True)
+    _serve_shared(batch, prompts, 16)
+    together = {i: batch.requests[i].outputs for i in range(8)}
+    del batch
+    c, alone_ids = None, (1, 6)
+    for rid in alone_ids:
+        solo = _prefix_engine(cfg, params)
+        rec_solo = _margins(solo, sampled=True)
+        _serve_shared(solo, prompts, 16, ids=[rid])
+        c = c or _first_divergence(prompts, {rid: solo.requests[rid].outputs},
+                                   {rid: together[rid]}, rec_solo, rec_batch)
+        del solo
+    torch.cuda.empty_cache()
+    out = dict(dtype="float32", tf32=False, sampler=a,
+               twin_equal=b is None, twin_counts=twin_counts,
+               alone_equal=c is None, alone_ids=list(alone_ids))
+    bad_a = [r for r in a["rows"] if not (
+        r["keys_equal"] and r["bits_equal"] and r["tokens_equal"])]
+    assert not bad_a, f"sampler card vs CPU: {bad_a}"
+    assert twin_counts["prefix_hits"] == 7, twin_counts
+    assert b is None, f"twin streams differ: {b}"
+    assert c is None, f"alone vs batch streams differ: {c}"
+    return out
 
 
 def phase_engine_dense(cfg, params) -> dict:
@@ -1315,7 +1668,11 @@ def main() -> int:
         run("engine_paged_ring", phase_engine_paged, *model)
         run("engine_paged_ring_full", phase_engine_paged_full, *model)
         run("engine_dense_pam", phase_engine_dense, *model)
+        run("engine_prefix_chunk_sampled",
+            phase_engine_prefix_chunk_sampled, *model)
         run("profile", phase_profile, *model)
+        run("profile_prefix_chunk_sampled",
+            phase_profile_prefix_chunk_sampled, *model)
         del model
     torch.cuda.empty_cache()
     run("train", phase_train)
@@ -1325,6 +1682,8 @@ def main() -> int:
     run("train_parity", phase_train_parity)
     torch.cuda.empty_cache()
     run("parity", phase_parity)
+    torch.cuda.empty_cache()
+    run("prefix_chunk_parity", phase_prefix_chunk_parity)
     torch.cuda.empty_cache()
     run("train_ssm", phase_train, SSM_ARCH)
     torch.cuda.empty_cache()
@@ -1396,6 +1755,10 @@ def main() -> int:
                     "max_abs_err", "ms", "kernel_device_ms", "bound_ms",
                     "pct_of_bound")}
     rows[1]["launches_in"] = "engine_dense_pam"
+    pcs = results["engine_prefix_chunk_sampled"]["launches"]
+    for row, name in ((rows[0], "flash_decode_merged"),
+                      (rows[2], "flash_decode_paged_merged")):
+        row["launches_engine_prefix_chunk_sampled"] = pcs[name]
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

@@ -7,8 +7,8 @@ stream, printing the engine's JSON summary.
 runs full-width ``qwen3-0.6b`` (random weights from seed 0) on the GPU;
 ``--arch mamba2-780m`` serves the Mamba-2 model (dense cache only, as in
 the reference); ``--reduced --device cpu`` runs the smoke-size model on
-the CPU. The
-flags mirror ``repro.launch.serve``'s batch mode; the defaults are sized
+the CPU; ``--temperature``/``--top-k`` sample, ``--prefill-chunk``
+admits long prompts in slices. The flags mirror ``repro.launch.serve``'s batch mode; the defaults are sized
 for the GPU (8 requests of 512 prompt tokens, 64 new tokens each,
 ``max_len`` 2048) rather than for the reference's CPU smoke runs. Times
 are the host's wall clock, each step ending in a device readback.
@@ -45,6 +45,12 @@ def main(argv=None) -> dict:
                     help="hot-tier ring slots (0 = full window; requires "
                          "--block-size)")
     ap.add_argument("--micro-steps", type=int, default=1)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="on-device sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked-prefill slice budget in tokens (pow-2; "
+                         "0 = monolithic prefill; requires --block-size)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -60,11 +66,15 @@ def main(argv=None) -> dict:
         warm_capacity=max(args.max_len // 4, 16),
         compression=4, recency_window=8, schedule_interval=2,
         use_sparsity=not args.no_sparsity)
+    if args.prefill_chunk and not args.block_size:
+        ap.error("--prefill-chunk requires --block-size (paged KV)")
     scfg = ServingConfig(max_batch=args.max_batch, max_len=args.max_len,
                          pam=pam_cfg, block_size=args.block_size,
                          pool_blocks=args.pool_blocks,
                          hot_window=args.hot_window,
-                         micro_steps=args.micro_steps)
+                         micro_steps=args.micro_steps,
+                         temperature=args.temperature, top_k=args.top_k,
+                         prefill_chunk=args.prefill_chunk)
     eng = ServingEngine(cfg, params, scfg, device=args.device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):

@@ -4,11 +4,12 @@ Counterpart of ``repro.models.attention``. ``attention_train`` runs the
 ``flash_attention`` kernels (``use_kernel=True``) or q-chunked attention
 in plain tensor code, which stays differentiable. Prefill runs q-chunked
 attention in plain tensor code, as the reference's serving prefill
-does. Decode attention is injectable through ``decode_attn_fn`` (the
-PAM manager's tiered attention in the engine); the default is dense
-grouped attention. Decode appends write the caches
-in place: the ring slot ``pos % W`` of the dense buffer and, in paged
-mode, the token's (block, slot) in the pool.
+does, and so does the suffix prefill over a cached prefix
+(``attention_prefill_with_prefix``). Decode attention is injectable
+through ``decode_attn_fn`` (the PAM manager's tiered attention in the
+engine); the default is dense grouped attention. Decode appends write
+the caches in place: the ring slot ``pos % W`` of the dense buffer
+and, in paged mode, the token's (block, slot) in the pool.
 """
 
 from __future__ import annotations
@@ -115,6 +116,55 @@ def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,
     out = chunked_attention(q, k, v, causal=causal, chunk=q_chunk)
     out = out.reshape(B, S, n_heads * d_head) @ p.wo
     return out, torch.movedim(k, 2, 1), torch.movedim(v, 2, 1)
+
+
+def attention_prefill_with_prefix(p: AttnParams, x: torch.Tensor,
+                                  prefix_k: torch.Tensor,
+                                  prefix_v: torch.Tensor,
+                                  prefix_len: torch.Tensor, *, n_heads: int,
+                                  n_kv: int, d_head: int, rope_theta: float,
+                                  rms_eps: float):
+    """Suffix prefill of a prefix-cache or chunked admission (plain
+    tensor code, as in the reference).
+
+    ``x`` holds only the novel tail of a prompt whose first
+    ``prefix_len`` tokens already have cache-resident K/V. Queries are
+    roped at absolute positions ``prefix_len + i`` and attend over the
+    cached prefix (masked to its live length) and the suffix's own causal
+    window, in one fp32 softmax: by causality this is what a from-scratch
+    prefill computes for these positions.
+
+    x: (B, S, d); prefix_k/v: (B, Hkv, P, dh) logical layout, post-RoPE,
+    live below ``prefix_len`` (B,). Returns (out (B, S, d), k, v), k/v
+    the suffix's roped K/V in cache layout (B, Hkv, S, dh).
+    """
+    B, S, _ = x.shape
+    positions = (prefix_len[:, None].long()
+                 + torch.arange(S, device=x.device)[None, :])
+    q, k, v = _project_qkv(p, x, positions, n_heads, n_kv, d_head,
+                           rope_theta, rms_eps)
+    P = prefix_k.shape[2]
+    rep = n_heads // n_kv
+    scale = 1.0 / math.sqrt(d_head)
+    qg = torch.movedim(q, 2, 1).reshape(B, n_kv, rep, S, d_head).float()
+    kh = torch.movedim(k, 2, 1)                        # (B, Hkv, S, dh)
+    vh = torch.movedim(v, 2, 1)
+    s_pre = torch.matmul(qg, prefix_k.float()[:, :, None]
+                         .transpose(-1, -2)) * scale   # (B,Hkv,rep,S,P)
+    live = (torch.arange(P, device=x.device)[None, :]
+            < prefix_len[:, None])                     # (B, P)
+    s_pre = s_pre.masked_fill(~live[:, None, None, None, :], float("-inf"))
+    s_suf = torch.matmul(qg, kh.float()[:, :, None].transpose(-1, -2)) * scale
+    causal = (torch.arange(S, device=x.device)[None, :]
+              <= torch.arange(S, device=x.device)[:, None])   # (Sq, Sk)
+    s_suf = s_suf.masked_fill(~causal, float("-inf"))
+    pr = torch.softmax(torch.cat([s_pre, s_suf], dim=-1), dim=-1)
+    pr = torch.nan_to_num(pr, nan=0.0)
+    out = (torch.matmul(pr[..., :P], prefix_v.float()[:, :, None])
+           + torch.matmul(pr[..., P:], vh.float()[:, :, None]))
+    out = out.to(x.dtype).reshape(B, n_heads, S, d_head)
+    out = torch.movedim(out, 1, 2).reshape(B, S, n_heads * d_head)
+    return out @ p.wo, kh, vh
 
 
 def grouped_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,

@@ -305,6 +305,56 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return logits, cache._replace(lengths=lens)
 
 
+def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                   prefix_len: torch.Tensor, *,
+                   true_len: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Suffix-only prefill of a prefix-cache (or chunked) admission.
+
+    Processes only the novel tail of a prompt whose first ``prefix_len``
+    tokens already have cache-resident K/V (gathered from the paged pool
+    through the request's block table); by causality the result equals
+    a from-scratch prefill's for the suffix positions.
+
+    tokens: (B, S) suffix tokens, right-padded to a bucket; prefix_k/v:
+    (L, B, Hkv, P, dh) logical layout, live below ``prefix_len`` ((B,)
+    or scalar); true_len: real suffix length per row (``None``: all of
+    S). Returns (logits at the last real suffix token (B, V), suffix K/V
+    (L, B, Hkv, S, dh)). GQA-cache families only, as in the reference
+    (and of those, the port has the dense family).
+    """
+    if not (cfg.family == "dense"
+            or (cfg.family == "moe" and cfg.mla is None)):
+        raise ValueError(f"suffix prefill needs a token-only GQA cache; "
+                         f"family {cfg.family} is not supported")
+    _require_ported(cfg)
+    B, S = tokens.shape
+    dev = tokens.device
+
+    def per_row(v):          # an int, or a (B,) / 0-dim tensor -> (B,)
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=torch.int32).expand(B)
+        return torch.full((B,), int(v), dtype=torch.int32, device=dev)
+    plen = per_row(prefix_len)
+    slen = per_row(S if true_len is None else true_len)
+    x = params["embed"][tokens]
+    ks, vs = [], []
+    for i, lp in enumerate(_layers(params)):
+        hn = rms_norm(x, lp["ln1"], cfg.rms_eps)
+        attn_out, k, v = attn_mod.attention_prefill_with_prefix(
+            _attn_params(lp), hn, prefix_k[i], prefix_v[i], plen,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+            rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps)
+        x = x + attn_out
+        x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    last = x[torch.arange(B, device=dev), (slen - 1).long()]
+    return last @ _head(cfg, params), torch.stack(ks), torch.stack(vs)
+
+
 # ============================================================ decode
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: DecodeCache, *,

@@ -1,22 +1,35 @@
 """The PAM serving engine (paper §4): request pool, continuous batching
 with prefill priority, PAM-managed decode loop.
 
-Counterpart of ``repro.serving.engine`` for greedy serving of the dense
-family, on a dense or a paged + hot-ring KV layout, and of the Mamba-2
-(SSM) family on the dense layout:
+Counterpart of ``repro.serving.engine`` for the dense family, on a dense
+or a paged + hot-ring KV layout, and of the Mamba-2 (SSM) family on the
+dense layout:
 
-* Admission buckets prompt lengths to powers of two; same-bucket
-  admissions commit as a group — one batched prefill, then one commit
-  that writes every prompt into its pool blocks, re-lays the last
-  ``hot_window`` tokens onto the ring, seeds the first tokens and places
-  the PAM rows.
+* Admission buckets prompt lengths to powers of two (or takes them
+  exactly, ``bucket_prefill=False``); same-bucket admissions commit as a
+  group — one batched prefill, then one commit that writes every prompt
+  into its pool blocks, re-lays the last ``hot_window`` tokens onto the
+  ring, samples the first tokens and places the PAM rows.
+* ``prefix_cache`` makes the pool refcounted and indexes committed
+  prompts in a ``PrefixTrie``: an admission adopts its longest cached
+  prefix's blocks, pins a partially-covered tail block for
+  copy-on-write, prefills only the novel suffix over the gathered prefix
+  (``tf.prefill_suffix``) and commits it in the reference's order (CoW,
+  suffix scatter, hot-row rebuild, first-token sample, PAM placement).
+* ``prefill_chunk`` admits a prompt whose novel part exceeds the budget
+  in bounded slices, one per engine step, interleaved with decode; the
+  slot is claimed but ``PREFILLING`` (out of the decode mask) until the
+  final slice's suffix commit samples its first token.
 * ``_decode_body`` is one decode step of the full PAM pipeline in the
   reference's order (``_fused_decode_body``): participation mask, hot
   clamp and tier split, ``decode_step`` (hot-ring partial through
   ``flash_decode_merged`` ⊕ paged partial through
   ``flash_decode_paged_merged``, or ``flash_decode_merged`` over the
-  dense cache), importance EMA, capacity
-  cascade and Alg. 2, greedy sampling, on-device EOS.
+  dense cache), importance EMA, capacity cascade and Alg. 2, sampling
+  (``sampling.sample_tokens``: greedy argmax at temperature 0, else
+  temperature / top-k with per-request keys ``fold_in(fold_in(
+  PRNGKey(seed), rid), position)`` on the reference's own threefry
+  bits), on-device EOS.
 * The SSM family prefills at each prompt's exact length (its running
   state would absorb padding), commits the conv ring and recurrent state
   into the slot, and feeds the importance EMA recency-only scores (the
@@ -26,10 +39,8 @@ family, on a dense or a paged + hot-ring KV layout, and of the Mamba-2
   host buffers once. Time is the host's wall clock; every readback
   synchronises with the device.
 
-Not ported yet: sampling at ``temperature > 0`` and ``top_k`` (ROADMAP
-Queue 1 item 1), the prefix cache (item 2) and chunked prefill (item 3),
-each raising ``NotImplementedError``; export/import for migration (item
-4) and sharding (item 9).
+Not ported yet: export/import for migration (ROADMAP Queue 1 item 8)
+and sharding (item 9).
 """
 
 from __future__ import annotations
@@ -45,15 +56,19 @@ import torch
 from repro_torch.core import pam_interface as pam_if
 from repro_torch.core import tiers as tiers_mod
 from repro_torch.device import resolve_device
+from repro_torch.frontend.chunking import ChunkPlan, validate_budget
 from repro_torch.kernels.flash_decode import ring_position_map
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import paged_kv as pkv
 from repro_torch.serving import pam_manager as pm
-from repro_torch.serving.paged_kv import BlockAllocator, OutOfBlocks
+from repro_torch.serving import sampling
+from repro_torch.serving.paged_kv import (BlockAllocator, OutOfBlocks,
+                                          PrefixTrie)
 from repro_torch.serving.pam_manager import PAMManagerConfig
 
-WAITING, RUNNING, DONE = "waiting", "running", "done"
+WAITING, PREFILLING, RUNNING, DONE = (
+    "waiting", "prefilling", "running", "done")
 
 
 @dataclasses.dataclass
@@ -80,12 +95,32 @@ class RequestState:
 class ServingConfig:
     """Engine configuration (the reference's fields).
 
-    ``block_size > 0`` turns on the paged warm/cold pool (``pool_blocks``
-    physical blocks, default enough for every slot's full window; needs a
-    PAM config and ``max_len`` a block multiple). ``hot_window > 0``
-    (paged only) shrinks the dense hot buffer to a ring of that many
-    slots. The remaining sampling/prefix/chunking fields exist so configs
-    read the same as the reference's; non-default values raise.
+    ``block_size > 0`` turns on the paged warm/cold pool: ``pool_blocks``
+    physical blocks of ``block_size`` tokens (default: enough for every
+    slot's full window; set it lower for capacity backpressure). Needs a
+    PAM config (tier residency decides dense-vs-paged reads) and
+    ``max_len`` a block multiple. ``hot_window > 0`` (paged only) shrinks
+    the dense hot buffer to a ring of that many slots (position ``p`` at
+    slot ``p % hot_window``); every appended token is mirrored into its
+    pool block, so streams equal the full-window engine's.
+
+    ``temperature`` 0 is the greedy argmax; above 0 the first token and
+    every decode token are sampled from the temperature softmax,
+    restricted to the ``top_k`` largest logits (0: all), drawing the
+    token at position ``p`` of request ``rid`` from
+    ``fold_in(fold_in(PRNGKey(sample_seed), rid), p)``.
+    ``bucket_prefill`` pads prompts to power-of-two lengths; False
+    prefills each at its exact length.
+
+    ``prefix_cache`` shares prompt prefixes over the paged pool: an
+    admission maps its longest cached prefix onto existing (refcounted)
+    blocks, prefills only the novel suffix, and copy-on-writes a
+    partially-filled shared tail block before its first write. Needs
+    ``block_size > 0``. ``prefill_chunk`` (a power of two, 0 = off)
+    admits a prompt whose novel part exceeds that many tokens in slices
+    of at most ``prefill_chunk`` tokens, one per engine step,
+    interleaved with decode; streams equal single-shot admission's.
+    Needs ``block_size > 0``.
     """
     max_batch: int = 4
     max_len: int = 256
@@ -95,29 +130,12 @@ class ServingConfig:
     block_size: int = 0                # paged-KV block tokens (0 = dense)
     pool_blocks: Optional[int] = None  # physical blocks (None = full)
     hot_window: int = 0                # hot ring slots (0 = max_len)
-    temperature: float = 0.0
-    top_k: int = 0
-    prefix_cache: bool = False
-    prefill_chunk: int = 0
+    temperature: float = 0.0           # 0 = greedy argmax
+    top_k: int = 0                     # 0 = full softmax when sampling
+    prefix_cache: bool = False         # trie-indexed prefix sharing
+    prefill_chunk: int = 0             # chunked prefill budget (0 = off)
     bucket_prefill: bool = True        # pow-2 prompt-length buckets
     sample_seed: int = 0               # per-request sampling key seed
-
-
-def _unported(scfg: ServingConfig) -> None:
-    if scfg.temperature > 0 or scfg.top_k or scfg.sample_seed:
-        raise NotImplementedError("sampled decoding (temperature/top_k/"
-                                  "sample_seed) is not ported yet: ROADMAP "
-                                  "Queue 1 item 1")
-    if not scfg.bucket_prefill:
-        raise NotImplementedError("exact-length prefill (bucket_prefill="
-                                  "False) is not ported yet: ROADMAP Queue 1 "
-                                  "item 1")
-    if scfg.prefix_cache:
-        raise NotImplementedError("the prefix cache is not ported yet: "
-                                  "ROADMAP Queue 1 item 2")
-    if scfg.prefill_chunk:
-        raise NotImplementedError("chunked prefill is not ported yet: "
-                                  "ROADMAP Queue 1 item 3")
 
 
 class ServingEngine:
@@ -127,7 +145,6 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServingConfig,
                  *, device: str | torch.device | None = None):
-        _unported(scfg)
         tf._require_ported(cfg)
         self.device = resolve_device(device)
         self.cfg, self.params, self.scfg = cfg, params, scfg
@@ -175,10 +192,36 @@ class ServingEngine:
             self.cache = tf.init_decode_cache(cfg, B, Smax, device=dev)
             self.pam_state = pm.init_pam_state(B, Smax, device=dev)
 
+        self.trie: Optional[PrefixTrie] = None
+        if scfg.prefix_cache:
+            if not self.block_size:
+                raise ValueError("prefix_cache requires the paged pool "
+                                 "(block_size > 0): shared prefixes live "
+                                 "in refcounted blocks")
+            self.trie = PrefixTrie(self.block_size, self.allocator)
+            self.prefix_hits = 0            # admissions with matched > 0
+            self.cached_prefix_tokens = 0   # prefill compute skipped
+            self.novel_prefill_tokens = 0   # prefill compute performed
+            self.cow_copies = 0             # tail blocks duplicated
+        self.chunk = scfg.prefill_chunk
+        self._chunking: dict[int, ChunkPlan] = {}  # rid -> in-flight plan
+        if self.chunk:
+            validate_budget(self.chunk)
+            if not self.block_size:
+                raise ValueError("prefill_chunk (chunked prefill) "
+                                 "requires the paged pool (block_size > "
+                                 "0): slices append KV through the pool "
+                                 "commit path")
+            self.chunked_admissions = 0
+            self.chunk_slices = 0             # slice dispatches
+            self.max_chunk_slice = 0          # largest slice prefilled
+
         self.requests: dict[int, RequestState] = {}
         self.waiting: collections.deque[int] = collections.deque()
         self.slots: list[Optional[int]] = [None] * B
         self.tokens_dev = torch.zeros(B, dtype=torch.int32, device=dev)
+        # per-slot request ids, the sampling keys' operand
+        self.rids_dev = torch.zeros(B, dtype=torch.int64, device=dev)
         self.clock = 0.0                 # wall-clock seconds
         self.decode_time = 0.0           # wall-clock seconds in decode
         self.steps = 0
@@ -199,20 +242,48 @@ class ServingEngine:
 
     def _bucket_len(self, s_len: int) -> int:
         """Pow-2 prefill buckets (as the reference's jit-cache cap); the
-        exact length for the SSM family, whose state can't absorb
-        padding."""
-        if self.cfg.family == "ssm":
+        exact length without ``bucket_prefill`` and for the SSM family,
+        whose state can't absorb padding."""
+        if not self.scfg.bucket_prefill or self.cfg.family == "ssm":
             return s_len
         b = 1
         while b < s_len:
             b *= 2
         return min(b, self.scfg.max_len)
 
+    def _sample(self, logits: torch.Tensor, rids: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        """Tokens under the engine's sampling policy; ``positions`` are
+        the sampled tokens' absolute positions."""
+        return sampling.sample_tokens(
+            logits, self.scfg.sample_seed, rids, positions,
+            self.scfg.temperature, self.scfg.top_k)
+
+    def _reserve_fresh(self, need: int) -> None:
+        """Best-effort headroom for ``need`` fresh blocks: under pool
+        pressure, evict LRU trie-only cached prefixes until the free list
+        covers the ask. If live requests pin everything, the caller's
+        ``allocate`` raises ``OutOfBlocks`` (admission backpressure)."""
+        if self.trie is not None and need > self.allocator.free_blocks:
+            self.trie.evict(need - self.allocator.free_blocks)
+
     def _admit(self) -> int:
-        """Prefill-priority admission. In paged mode each admission first
-        claims pool blocks for its full window (prompt + budget); an
-        exhausted pool leaves the request queued. Same-bucket admissions
-        commit as one group. Returns prompt tokens processed."""
+        """Prefill-priority admission. Returns prompt tokens processed:
+        with the prefix cache, only each admission's novel suffix. In
+        paged mode each admission first claims pool blocks for its full
+        window (prompt + budget); an exhausted pool leaves the request
+        queued.
+
+        With ``prefix_cache`` the prompt is split against the trie into a
+        cached prefix, whose blocks are ADOPTED (refcount +1), and a
+        novel suffix; a partially-covered tail block is pinned for
+        copy-on-write. A novel part above ``prefill_chunk`` admits in
+        slices (``PREFILLING``). The rest group by novel-length bucket:
+        a group with a prefix hit commits through the suffix path (plain
+        members ride along), the others through one full prefill."""
+        # items: (rid, rs, prompt, s_len, slot, table_row, start,
+        # cow_src); start = cache-resident prefix tokens, cow_src = the
+        # shared tail block pinned for copy-on-write (-1 = none)
         admitted: list[tuple] = []
         free = self._free_slots()
         while self.waiting and free:
@@ -223,6 +294,7 @@ class ServingEngine:
             if s_len + rs.request.max_new_tokens > self.scfg.max_len:
                 raise ValueError(f"request {rid} exceeds max_len")
             table_row = None
+            matched, cow_src = 0, -1
             if self.allocator is not None:
                 window = s_len + rs.request.max_new_tokens
                 need = self.allocator.blocks_for(window)
@@ -230,9 +302,29 @@ class ServingEngine:
                     raise ValueError(
                         f"request {rid} needs {need} blocks but the pool "
                         f"holds {self.allocator.num_blocks}")
+                shared: list[int] = []
+                if self.trie is not None:
+                    # >= 1 token is always recomputed (the suffix prefill
+                    # produces the first token's logits)
+                    matched, ids = self.trie.lookup(prompt)
+                    matched = min(matched, s_len - 1)
+                    nfull = matched // self.block_size
+                    shared = ids[:nfull]
+                    if matched % self.block_size:
+                        cow_src = ids[nfull]
                 try:
+                    if shared:
+                        # adopt first: the incref shields the matched
+                        # blocks from the eviction below
+                        self.allocator.adopt(rid, shared)
+                    if cow_src >= 0:
+                        self.allocator.incref(cow_src)   # CoW-source pin
+                    self._reserve_fresh(need - len(shared))
                     self.allocator.allocate(rid, window)
                 except OutOfBlocks:
+                    # roll back the adoption and the pin, then wait
+                    if cow_src >= 0:
+                        self.allocator.decref(cow_src)
                     self.allocator.free(rid)
                     self.waiting.appendleft(rid)
                     break
@@ -241,12 +333,32 @@ class ServingEngine:
                     self.sentinel)
                 self.peak_occupancy = max(self.peak_occupancy,
                                           self.allocator.occupancy)
-            admitted.append((rid, rs, prompt, s_len, free.pop(0), table_row))
+            slot = free.pop(0)
+            if matched > 0:
+                self.prefix_hits += 1
+                self.cached_prefix_tokens += matched
+            if self.chunk and s_len - matched > self.chunk:
+                # chunked admission: the slot and the full block window
+                # are claimed now, the prompt fills one slice per step;
+                # the slot is not decode-eligible until the final slice
+                rs.status, rs.slot = PREFILLING, slot
+                self.slots[slot] = rid
+                self._chunking[rid] = ChunkPlan(
+                    rid=rid, slot=slot, start=matched, total=s_len,
+                    budget=self.chunk, cow_src=cow_src)
+                self.chunked_admissions += 1
+                continue
+            admitted.append((rid, rs, prompt, s_len, slot, table_row,
+                             matched, cow_src))
         groups: dict[int, list[tuple]] = {}
         for item in admitted:
-            groups.setdefault(self._bucket_len(item[3]), []).append(item)
-        return sum(self._commit_group(bucket, group)
-                   for bucket, group in groups.items())
+            groups.setdefault(self._bucket_len(item[3] - item[6]),
+                              []).append(item)
+        return sum(
+            self._commit_suffix_group(bucket, group)
+            if any(it[6] > 0 for it in group)
+            else self._commit_group(bucket, group)
+            for bucket, group in groups.items())
 
     def _commit_group(self, bucket: int, group: list[tuple]) -> int:
         """One batched prefill + one commit for a same-bucket group."""
@@ -265,27 +377,36 @@ class ServingEngine:
                                  true_len=None if exact else lens_t)
         self.prefill_dispatches += 1
         slots = [g[4] for g in group]
+        rids = torch.as_tensor([g[0] for g in group], dtype=torch.int64,
+                               device=dev)
         rows = None
         if self.allocator is not None:
             rows = torch.as_tensor(np.stack([g[5] for g in group]),
                                    device=dev)
-        firsts = self._commit(sub, logits, slots, lens_t, rows)
+        firsts = self._commit(sub, logits, slots, lens, rids, rows)
         self.admit_dispatches += 1
+        if self.trie is not None:
+            # publish after the commit lands the prompts in the pool and
+            # before an EOS teardown frees their tables
+            self.novel_prefill_tokens += int(lens.sum())
+            for rid, _, prompt, *_rest in group:
+                self.trie.insert(prompt, self.allocator.table(rid))
         firsts = firsts.cpu().numpy()
-        for i, (rid, rs, _, _, slot, _) in enumerate(group):
+        for i, (rid, rs, _, _, slot, *_rest) in enumerate(group):
             self._finish_admit(rid, rs, slot, int(firsts[i]))
         return int(lens.sum())
 
     def _commit(self, sub: tf.DecodeCache, logits: torch.Tensor,
-                slots: list[int], lengths: torch.Tensor,
+                slots: list[int], lens: np.ndarray, rids: torch.Tensor,
                 table_rows: Optional[torch.Tensor]) -> torch.Tensor:
         """Install a prefilled group (the reference's admission commit):
         pool write of the full logical rows, ring re-layout of the last
         ``hot_window`` tokens, slot scatter (K/V, or the SSM conv ring and
-        state), first tokens, PAM placement. Returns the first tokens
-        (n,)."""
-        firsts = torch.argmax(logits, dim=-1).to(torch.int32)
+        state), first tokens sampled at position ``lens[i]``, PAM
+        placement. Returns the first tokens (n,)."""
         idx = torch.as_tensor(slots, device=self.device)
+        lengths = torch.as_tensor(lens, device=self.device)
+        firsts = self._sample(logits, rids, lengths)
         if self.cfg.family == "ssm":
             self.cache.conv[:, idx] = sub.conv
             self.cache.state[:, idx] = sub.state
@@ -293,10 +414,11 @@ class ServingEngine:
             self._commit_kv(sub, slots, lengths, table_rows, idx)
         self.cache.lengths[idx] = lengths
         self.tokens_dev[idx] = firsts
+        self.rids_dev[idx] = rids
         if self.pam_cfg is not None:
             for i, slot in enumerate(slots):
                 pm.place_prefill_state(
-                    self.pam_cfg, self.pam_state, slot, int(lengths[i]),
+                    self.pam_cfg, self.pam_state, slot, int(lens[i]),
                     table_rows[i] if self.block_size else None)
         return firsts
 
@@ -314,15 +436,220 @@ class ServingEngine:
                                   self.block_size)
                 pkv.write_prefill(self.cache.pv, sv[:, i], table_rows[i],
                                   self.block_size)
-            if self.hot_window:
-                ring_pos, valid = ring_position_map(lengths,
-                                                    self.hot_window)
-                sk = torch.stack([pam_if.logical_to_ring(
-                    sk[:, i], ring_pos[i], valid[i]) for i in range(n)], 1)
-                sv = torch.stack([pam_if.logical_to_ring(
-                    sv[:, i], ring_pos[i], valid[i]) for i in range(n)], 1)
+        self._install_hot_rows(sk, sv, lengths, idx)
+
+    def _install_hot_rows(self, sk: torch.Tensor, sv: torch.Tensor,
+                          lengths: torch.Tensor, idx: torch.Tensor) -> None:
+        """Write logical (L, n, Hkv, Smax, dh) rows into the dense cache
+        slots ``idx``, re-based onto ring coordinates with a hot ring."""
+        if self.hot_window:
+            ring_pos, valid = ring_position_map(lengths, self.hot_window)
+            n = sk.shape[1]
+            sk = torch.stack([pam_if.logical_to_ring(
+                sk[:, i], ring_pos[i], valid[i]) for i in range(n)], 1)
+            sv = torch.stack([pam_if.logical_to_ring(
+                sv[:, i], ring_pos[i], valid[i]) for i in range(n)], 1)
         self.cache.k[:, idx] = sk
         self.cache.v[:, idx] = sv
+
+    def _suffix_coords(self, row: np.ndarray, start: int, t: int,
+                       width: int) -> tuple[np.ndarray, np.ndarray]:
+        """Token-granular pool scatter coordinates for ``width`` suffix
+        positions from absolute position ``start`` (``t`` of them real);
+        padding past ``t`` routes to the sentinel trash block."""
+        bs = self.block_size
+        nb = self.scfg.max_len // bs
+        pos = start + np.arange(width)
+        bids = np.where(np.arange(width) < t,
+                        row[np.minimum(pos // bs, nb - 1)],
+                        self.sentinel).astype(np.int32)
+        sids = (pos % bs).astype(np.int32)
+        return bids, sids
+
+    def _commit_suffix_group(self, bucket: int,
+                             group: list[tuple]) -> int:
+        """Prefill + commit a same-bucket group through the SUFFIX path:
+        one batched suffix prefill (each row's cached prefix gathered
+        from the pool through its table; all zeros for plain riders)
+        and one commit (``_commit_suffix``). Also commits the FINAL
+        slice of a chunked admission (``start`` = the slice's begin).
+        Returns the novel tokens prefilled."""
+        dev = self.device
+        bs = self.block_size
+        nb = self.scfg.max_len // bs
+        n = len(group)
+        padded = np.zeros((n, bucket), np.int32)
+        suf_lens = np.zeros((n,), np.int32)
+        starts = np.zeros((n,), np.int32)
+        full_lens = np.zeros((n,), np.int32)
+        rows = np.zeros((n, nb), np.int32)
+        read_rows = np.zeros((n, nb), np.int32)
+        bids = np.zeros((n, bucket), np.int32)
+        sids = np.zeros((n, bucket), np.int32)
+        cow_srcs = np.full((n,), self.sentinel, np.int32)
+        cow_dsts = np.full((n,), self.sentinel, np.int32)
+        cow_pins: list[int] = []
+        for i, (rid, _, prompt, s_len, _, _, start, cow_src) \
+                in enumerate(group):
+            t = s_len - start
+            padded[i, :t] = prompt[start:]
+            suf_lens[i], starts[i], full_lens[i] = t, start, s_len
+            row = self.allocator.padded_table(rid, nb, self.sentinel)
+            rows[i] = row
+            # READ view of the table for the prefix gather: a CoW row's
+            # tail positions live in the publisher's cow_src until the
+            # commit duplicates it, and the prefill runs first
+            read_rows[i] = row
+            if cow_src >= 0:
+                nfull = start // bs
+                read_rows[i, nfull] = cow_src
+                cow_srcs[i] = cow_src
+                cow_dsts[i] = row[nfull]
+                cow_pins.append(cow_src)
+            bids[i], sids[i] = self._suffix_coords(row, start, t, bucket)
+        starts_t = torch.as_tensor(starts, device=dev)
+        read_t = torch.as_tensor(read_rows, device=dev)
+        logits, suf_k, suf_v = tf.prefill_suffix(
+            self.cfg, self.params, torch.as_tensor(padded, device=dev),
+            pam_if.gather_prefix_logical(self.cache.pk, read_t, starts_t),
+            pam_if.gather_prefix_logical(self.cache.pv, read_t, starts_t),
+            starts_t, true_len=torch.as_tensor(suf_lens, device=dev))
+        self.prefill_dispatches += 1
+        slots = [g[4] for g in group]
+        rids = torch.as_tensor([g[0] for g in group], dtype=torch.int64,
+                               device=dev)
+        firsts = self._commit_suffix(
+            suf_k, suf_v, logits, slots, full_lens, rids,
+            torch.as_tensor(rows, device=dev),
+            torch.as_tensor(bids, device=dev),
+            torch.as_tensor(sids, device=dev), cow_srcs, cow_dsts)
+        self.admit_dispatches += 1
+        for src in cow_pins:
+            # the copy reading cow_src is enqueued ahead of any later use
+            # of the block on the stream: release the pin
+            self.allocator.decref(src)
+            self.cow_copies += 1
+        if self.trie is not None:
+            self.novel_prefill_tokens += int(suf_lens.sum())
+            for rid, _, prompt, *_rest in group:
+                self.trie.insert(prompt, self.allocator.table(rid))
+        firsts = firsts.cpu().numpy()
+        for i, (rid, rs, _, _, slot, *_rest) in enumerate(group):
+            self._finish_admit(rid, rs, slot, int(firsts[i]))
+        return int(suf_lens.sum())
+
+    def _commit_suffix(self, suf_k: torch.Tensor, suf_v: torch.Tensor,
+                       logits: torch.Tensor, slots: list[int],
+                       lens: np.ndarray, rids: torch.Tensor,
+                       table_rows: torch.Tensor, bids: torch.Tensor,
+                       sids: torch.Tensor, cow_srcs: np.ndarray,
+                       cow_dsts: np.ndarray) -> torch.Tensor:
+        """Commit a suffix-prefilled group, in the reference's order:
+
+        1. copy-on-write each row's shared tail block ``cow_srcs[i]``
+           into its fresh ``cow_dsts[i]`` (the sentinel onto itself for
+           rows with nothing to copy);
+        2. scatter each row's suffix K/V token by token into its blocks
+           (padding to the sentinel);
+        3. rebuild each slot's dense hot row from the full logical
+           sequence gathered back through its table, on the ring;
+        4. sample each first token at absolute position ``lens[i]``;
+        5. place the PAM rows and block tables.
+
+        Returns the first tokens (n,)."""
+        pk, pv = self.cache.pk, self.cache.pv
+        for src, dst in zip(cow_srcs.tolist(), cow_dsts.tolist()):
+            pkv.copy_block(pk, src, dst)
+            pkv.copy_block(pv, src, dst)
+        bi, si = bids.long(), sids.long()
+        pk[:, bi, si] = torch.movedim(suf_k, 2, 3)     # (L, n, S, Hkv, dh)
+        pv[:, bi, si] = torch.movedim(suf_v, 2, 3)
+        lengths = torch.as_tensor(lens, device=self.device)
+        idx = torch.as_tensor(slots, device=self.device)
+        # the full logical rows (shared prefix + fresh suffix), zeroed
+        # past each length: (L, n, Hkv, Smax, dh)
+        self._install_hot_rows(
+            pam_if.gather_prefix_logical(pk, table_rows, lengths),
+            pam_if.gather_prefix_logical(pv, table_rows, lengths),
+            lengths, idx)
+        self.cache.lengths[idx] = lengths
+        firsts = self._sample(logits, rids, lengths)
+        self.tokens_dev[idx] = firsts
+        self.rids_dev[idx] = rids
+        if self.pam_cfg is not None:
+            for i, slot in enumerate(slots):
+                pm.place_prefill_state(self.pam_cfg, self.pam_state, slot,
+                                       int(lens[i]), table_rows[i])
+        return firsts
+
+    # ------------------------------------------------- chunked prefill
+    def _advance_chunks(self) -> int:
+        """Advance every in-flight chunked admission by ONE slice:
+        intermediate slices scatter their KV into the pool
+        (``_chunk_fill``); the final slice commits through the suffix
+        path, which samples the first token, and the request turns
+        RUNNING. Returns the prefill tokens processed: at most
+        ``prefill_chunk`` per in-flight admission per step."""
+        total = 0
+        for rid in list(self._chunking):
+            plan = self._chunking[rid]
+            begin, t = plan.next_slice()
+            rs = self.requests[rid]
+            prompt = np.asarray(rs.request.prompt, np.int32)
+            if begin + t >= plan.total:
+                del self._chunking[rid]
+                # cow_src is -1 here: a chunked plan has >= 2 slices, so
+                # the first (CoW-carrying) slice was an intermediate one
+                self._commit_suffix_group(
+                    self._bucket_len(t),
+                    [(rid, rs, prompt, plan.total, plan.slot, None,
+                      begin, -1)])
+            else:
+                self._chunk_fill(plan, prompt, begin, t)
+                plan.done += t
+            plan.slices += 1
+            self.chunk_slices += 1
+            self.max_chunk_slice = max(self.max_chunk_slice, t)
+            total += t
+        return total
+
+    def _chunk_fill(self, plan: ChunkPlan, prompt: np.ndarray,
+                    begin: int, t: int) -> None:
+        """One INTERMEDIATE slice: the first slice's copy-on-write, the
+        prefix gather through the request's own table, the suffix prefill
+        over the slice, and the slice's pool scatter. No hot row, no
+        sampling, no PAM placement: the final slice's commit does those."""
+        dev = self.device
+        bs = self.block_size
+        nb = self.scfg.max_len // bs
+        row = self.allocator.padded_table(plan.rid, nb, self.sentinel)
+        pk, pv = self.cache.pk, self.cache.pv
+        cow = plan.cow_src >= 0
+        if cow:
+            # after the copy the request's own table maps the copy, so
+            # the gather below reads the prefix through its own row
+            pkv.copy_block(pk, plan.cow_src, int(row[begin // bs]))
+            pkv.copy_block(pv, plan.cow_src, int(row[begin // bs]))
+        row_t = torch.as_tensor(row, device=dev)
+        gk = pam_if.gather_prefix_logical(pk, row_t, begin)
+        gv = pam_if.gather_prefix_logical(pv, row_t, begin)
+        _, suf_k, suf_v = tf.prefill_suffix(
+            self.cfg, self.params,
+            torch.as_tensor(prompt[begin:begin + t][None], device=dev),
+            gk[:, None], gv[:, None], begin, true_len=t)
+        del gk, gv
+        bids, sids = self._suffix_coords(row, begin, t, t)
+        bi = torch.as_tensor(bids, device=dev).long()
+        si = torch.as_tensor(sids, device=dev).long()
+        pk[:, bi, si] = torch.movedim(suf_k[:, 0], 1, 2)  # (L, t, Hkv, dh)
+        pv[:, bi, si] = torch.movedim(suf_v[:, 0], 1, 2)
+        self.prefill_dispatches += 1
+        if cow:
+            self.allocator.decref(plan.cow_src)
+            self.cow_copies += 1
+            plan.cow_src = -1
+        if self.trie is not None:
+            self.novel_prefill_tokens += t
 
     def _finish_admit(self, rid: int, rs: RequestState, slot: int,
                       tok: int) -> None:
@@ -409,7 +736,9 @@ class ServingEngine:
             tier_reads = torch.zeros(3, dtype=torch.int32, device=dev)
             hit = torch.zeros((), device=dev)
             moved = torch.zeros((), dtype=torch.int32, device=dev)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)   # greedy
+        # the sampled token's absolute position is the post-append
+        # length; (rid, position) key the per-request draw
+        nxt = self._sample(logits, self.rids_dev, cache.lengths)
         tokens = torch.where(active, nxt, tokens)
         if self.scfg.eos_token >= 0:
             active = active & (tokens != self.scfg.eos_token)
@@ -449,7 +778,9 @@ class ServingEngine:
         """One engine iteration: admission (prefill) + one decode step
         for all running sequences. Returns step stats."""
         t0 = time.perf_counter()
-        prefill_tokens = self._admit()
+        prefill_tokens = self._admit() + self._advance_chunks()
+        # decode-eligible = occupied and past prefill (a chunking slot is
+        # claimed but PREFILLING until its final slice commits)
         active_np = self._running()
         stats: dict[str, Any] = {"prefill_tokens": prefill_tokens,
                                  "active": int(active_np.sum())}
@@ -513,14 +844,15 @@ class ServingEngine:
             if not self.waiting and all(s is None for s in self.slots):
                 break
             t0 = time.perf_counter()
-            prefill_tokens = self._admit()
+            prefill_tokens = self._admit() + self._advance_chunks()
             pairs = [(i, rid) for i, rid in enumerate(self.slots)
                      if rid is not None
                      and self.requests[rid].status == RUNNING]
             if not pairs:
                 self.clock += time.perf_counter() - t0
                 if prefill_tokens:
-                    continue   # the admission wave finished at prefill
+                    continue   # the admission wave finished at prefill,
+                    # or chunk slices are filling with nothing decoding
                 break
             remaining = min(self.requests[rid].request.max_new_tokens
                             - self.requests[rid].planned
@@ -560,8 +892,10 @@ class ServingEngine:
     def summary(self) -> dict[str, Any]:
         """Run metrics: throughput, TPOT percentiles, step counts, tier
         reads and Alg. 2 moves; in paged mode also pages touched vs the
-        dense window per step and pool occupancy. Times are wall-clock
-        seconds on the host, each ending in a device readback."""
+        dense window per step and pool occupancy; the chunk counters with
+        ``prefill_chunk`` and the prefix counters with ``prefix_cache``.
+        Times are wall-clock seconds on the host, each ending in a device
+        readback."""
         done = [r for r in self.requests.values() if r.status == DONE]
         total_tokens = sum(len(r.outputs) for r in done)
         decode_tokens = sum(len(r.outputs) - 1 for r in done)
@@ -597,5 +931,16 @@ class ServingEngine:
             out["hot_bytes_per_slot"] = int(
                 (self.cache.k.nbytes + self.cache.v.nbytes)
                 // self.scfg.max_batch)
+        if self.chunk:
+            out["chunked_admissions"] = self.chunked_admissions
+            out["chunk_slices"] = self.chunk_slices
+            out["max_chunk_slice_tokens"] = self.max_chunk_slice
+        if self.trie is not None:
+            out["prefix_hits"] = self.prefix_hits
+            out["cached_prefix_tokens"] = self.cached_prefix_tokens
+            out["novel_prefill_tokens"] = self.novel_prefill_tokens
+            out["cow_copies"] = self.cow_copies
+            out["trie_blocks"] = self.trie.num_blocks
+            out["trie_evictions"] = self.trie.evictions
         return out
 

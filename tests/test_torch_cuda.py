@@ -163,6 +163,47 @@ def test_merged_kernels_are_deterministic(cuda):
 
 
 @pytest.mark.cuda
+def test_reduced_engine_prefix_chunk_sampled_card_equals_cpu(cuda):
+    """The prefix cache, chunked prefill and sampling on the card: the
+    same weights give the CPU run's token streams and counters (fp32,
+    TF32 off), and the paged kernel walks tables whose rows share
+    blocks."""
+    from repro_torch import tree
+    cfg = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
+    cpu_params = ttf.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, cfg.vocab, 20)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab, n)])
+               for n in (6, 30, 11, 25)]
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree.unflatten(cpu_params, [
+            x.to(dev) for x in tree.leaves(cpu_params)])
+        pam = tpm.PAMManagerConfig(max_tokens=64, hot_capacity=8,
+                                   warm_capacity=8, compression=2,
+                                   recency_window=4, schedule_interval=2,
+                                   use_sparsity=False)
+        eng = teng.ServingEngine(cfg, params, teng.ServingConfig(
+            max_batch=3, max_len=64, block_size=8, hot_window=16, pam=pam,
+            prefix_cache=True, prefill_chunk=8, temperature=0.8, top_k=8,
+            sample_seed=7), device=dev)
+        eng.submit(teng.Request(0, prompts[0], 12))
+        while eng.requests[0].status != teng.RUNNING:
+            eng.step()                    # until its prompt is in the trie
+        for i in range(1, 4):
+            eng.submit(teng.Request(i, prompts[i], 12))
+        n0 = tfd.flash_decode_paged_merged.launches
+        summ = eng.run()
+        out[str(dev)] = ({i: eng.requests[i].outputs for i in range(4)},
+                         {k: summ[k] for k in ("prefix_hits", "cow_copies",
+                                               "chunked_admissions")},
+                         tfd.flash_decode_paged_merged.launches - n0)
+    assert out["cuda"][:2] == out["cpu"][:2]
+    assert out["cuda"][1]["prefix_hits"] == 3
+    assert out["cuda"][2] > 0
+
+
+@pytest.mark.cuda
 def test_reduced_engine_runs_through_both_kernels(cuda):
     cfg = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
     params = ttf.init_params(cfg, 0, device=cuda)

@@ -168,15 +168,3 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         tts.init_train_state(tcf, tts.TrainConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--reduced", "--steps", "1"])
-
-
-@pytest.mark.parametrize("kw", [dict(temperature=0.5), dict(top_k=4),
-                                dict(prefix_cache=True),
-                                dict(prefill_chunk=8),
-                                dict(bucket_prefill=False),
-                                dict(sample_seed=7)])
-def test_unported_options_raise(model, kw):
-    _, _, tcf, tparams = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.ServingEngine(tcf, tparams, teng.ServingConfig(**kw),
-                           device="cpu")
