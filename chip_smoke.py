@@ -40,6 +40,18 @@ final ``ok`` line:
             flash_decode_paged_merged
   engine_dense_pam    the same model in dense PAM mode
             (flash_decode_merged through masked_decode_attention)
+  engine_cluster   the same model on a modeled ``hbm:1,cxl:2`` fleet
+            (ClusterSpec, the perf model's latency models, the balancer of
+            scripts/cluster_smoke.py), all three engines on this card
+            sharing one copy of the weights: 24 requests of 512-1024
+            prompt tokens and 64 new, 8 pinned to cxl0, 16 routed at
+            Poisson gaps of 2 ms of modeled time; asserts 64 tokens each,
+            >= 1 balancer migration, the merged decode kernels n_layers x
+            the fleet's decode steps; prints wall seconds and tok/s, per
+            device steps, tokens and migrations, export / crc32 / import
+            wall ms, snapshot and live KV bytes, peak memory, and the
+            modeled makespan and tok/s (``modeled_``: the perf model's PIM
+            hardware, not the card)
   engine_prefix_chunk_sampled   the same model served with the prefix
             cache, chunked prefill (256-token slices) and sampling
             (temperature 0.8, top-50, seed 7), sparsity off: eight requests
@@ -81,6 +93,11 @@ final ``ok`` line:
             equal those with both off; (c) sampled streams of requests 1
             and 6 run alone equal theirs in the batch (a difference fails
             the phase with the position and both top-2 margins)
+  cluster_parity  fp32, TF32 off, ``hbm:1,cxl:1``: 8 requests of 16 new
+            tokens, 6 pinned to cxl0; >= 1 migration, every stream equal
+            to its stream on one unmigrated engine (a difference fails
+            with the request, position and top-2 margins), and export ->
+            import -> export bit-equal with the same crc32
   train_ssm full-width mamba2-780m (48 layers, random weights from seed 0,
             bf16) trained 10 steps on SyntheticLM batches of 4 x 2048
             through the train CLI's step builder at peak lr 1e-3 (the SSD
@@ -134,6 +151,7 @@ Imports nothing of JAX or of the reference package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1285,6 +1303,233 @@ def phase_engine_dense(cfg, params) -> dict:
     return _engine_line(r, want)
 
 
+CLUSTER_BALANCER = dict(rebalance_interval=2, hysteresis=1.1,
+                        cooldown_ticks=4, min_remaining=2)
+
+
+def _cluster(cfg, params, devices: str):
+    """A ``ClusterSpec`` fleet of modeled device classes on the card,
+    engine_paged_ring's serving template (each class sets its batch and
+    pool), the perf model's latency models and scripts/cluster_smoke.py's
+    balancer."""
+    from repro_torch.cluster import BalancerConfig, ClusterSpec, KVBalancer
+    from repro_torch.serving import ServingConfig
+    spec = ClusterSpec.from_cli(devices, model=cfg, serving=ServingConfig(
+        max_len=2048, pam=_pam(2048), **PAGED_RING))
+    return spec.build(params, device="cuda",
+                      balancer=KVBalancer(BalancerConfig(**CLUSTER_BALANCER)))
+
+
+def _cluster_stream(vocab: int, n: int, pinned: int, new: int):
+    """``pinned`` requests for cxl0 at arrival 0 (to load the slow device,
+    as scripts/cluster_smoke.py does), the rest at Poisson gaps of mean
+    2 ms of modeled time; prompts of 512-1024 tokens (seeded)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    t, out = 0.0, []
+    for i in range(n):
+        if i >= pinned:
+            t += float(rng.exponential(0.002))
+        plen = int(rng.integers(512, 1025))
+        out.append(Request(i, rng.integers(0, vocab, plen), new, arrival=t))
+    return out[:pinned], out[pinned:]
+
+
+class _MigrationClock:
+    """Wall ms of every export (gather + host copy), crc32 seal and import
+    (host-to-device copy + commit) while installed, with the card
+    synchronised around each; snapshot and live ``kv_bytes`` too."""
+
+    def __init__(self):
+        self.export_ms, self.seal_ms, self.import_ms = [], [], []
+        self.snapshot_bytes, self.kv_bytes = [], []
+
+    def __enter__(self):
+        from repro_torch.cluster import migration
+        from repro_torch.serving.engine import ServingEngine
+        self._saved = [(ServingEngine, "export_request"),
+                       (ServingEngine, "import_request"),
+                       (migration.KVSnapshot, "seal")]
+        self._orig = [getattr(c, n) for c, n in self._saved]
+        exp, imp, seal = self._orig
+        clock = self
+
+        def timed(fn, sink):
+            def run(*a, **kw):
+                import torch
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                sink.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        def export(eng, rid):
+            d = timed(exp, clock.export_ms)(eng, rid)
+            clock.snapshot_bytes.append(d["k"].nbytes + d["v"].nbytes)
+            L, Hkv, _, dh = d["k"].shape
+            clock.kv_bytes.append(2 * L * Hkv * dh * d["length"]
+                                  * d["k"].dtype.itemsize)
+            return d
+
+        ServingEngine.export_request = export
+        ServingEngine.import_request = timed(imp, self.import_ms)
+        migration.KVSnapshot.seal = timed(seal, self.seal_ms)
+        return self
+
+    def __exit__(self, *exc):
+        for (c, n), fn in zip(self._saved, self._orig):
+            setattr(c, n, fn)
+
+    def line(self) -> dict:
+        import numpy as np
+
+        def stats(xs):
+            return dict(n=len(xs), median=float(np.median(xs)) if xs else 0.0,
+                        max=float(max(xs)) if xs else 0.0)
+        return dict(export_ms=stats(self.export_ms),
+                    seal_crc32_ms=stats(self.seal_ms),
+                    import_ms=stats(self.import_ms),
+                    snapshot_bytes=sorted(set(self.snapshot_bytes)),
+                    kv_bytes=stats(self.kv_bytes))
+
+
+def phase_engine_cluster(cfg, params) -> dict:
+    """Full-width qwen3-0.6b (bf16) on a modeled ``hbm:1,cxl:2`` fleet, all
+    three engines on this one card sharing one copy of the weights: 24
+    requests of 64 new tokens, 8 pinned to cxl0, 16 routed; the balancer
+    must move at least one. Modeled figures are the perf model's PIM
+    hardware (``modeled_``), the rest the card's."""
+    import torch
+    from repro_torch import tree
+    router = _cluster(cfg, params, "hbm:1,cxl:2")
+    pinned, rest = _cluster_stream(cfg.vocab, 24, 8, 64)
+    ptrs = [[x.data_ptr() for x in tree.leaves(d.engine.params)]
+            for d in router.devices]
+    assert all(p == ptrs[0] for p in ptrs), "engines hold weight copies"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with _MigrationClock() as mig:
+        t0 = time.perf_counter()
+        for r in pinned:
+            router.submit_to(r, "cxl0")
+        events = list(router.serve(rest))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launches()
+    s = router.summary()
+    lens = {rid: len(rs.outputs) for rid, rs in router.finished.items()}
+    assert s["finished"] == 24 and set(lens.values()) == {64}, lens
+    assert s["balancer_migrations"] >= 1, s
+    steps = sum(d["decode_device_steps"] for d in s["devices"].values())
+    want = cfg.n_layers * steps
+    _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
+                                                    want))
+    decode_tokens = 24 * 63
+    decode_s = sum(d.engine.decode_time for d in router.devices)
+    card = dict(wall_s=wall, wall_tok_s=24 * 64 / wall,
+                decode_tok_s=decode_tokens / decode_s)
+    lines = [("card", card)] + [
+        (f"device {n}", {k: d[k] for k in ("class", "steps",
+                                           "tokens_emitted", "migrations_in",
+                                           "migrations_out")})
+        for n, d in s["devices"].items()] + [
+        ("migrations", dict(balancer=s["balancer_migrations"],
+                            **mig.line())),
+        ("memory", dict(peak_mem_gb=torch.cuda.max_memory_allocated()
+                        / 2**30)),
+        ("modeled (the perf model's PIM hardware, not the card)",
+         dict(modeled_makespan_s=s["makespan_s"],
+              modeled_tok_s=s["throughput_tok_s"]))]
+    for what, vals in lines:
+        print(f"engine_cluster {what}: {json.dumps(vals)}", flush=True)
+    return dict(
+        requests=24, new_tokens=64, events=len(events),
+        wall_s=wall, wall_tok_s=24 * 64 / wall,
+        decode_tok_s=decode_tokens / decode_s, decode_time_s=decode_s,
+        devices={n: {k: d[k] for k in ("class", "steps", "tokens_emitted",
+                                       "migrations_in", "migrations_out")}
+                 for n, d in s["devices"].items()},
+        balancer_migrations=s["balancer_migrations"],
+        balancer_log=[{k: r[k] for k in ("rid", "src", "dst", "tokens",
+                                         "tick")}
+                      for r in router.balancer.log],
+        migrations=mig.line(), launches=launches, launches_expected=want,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        modeled_makespan_s=s["makespan_s"],
+        modeled_tok_s=s["throughput_tok_s"])
+
+
+def phase_cluster_parity() -> dict:
+    """Full-width qwen3-0.6b in fp32 (TF32 off) on ``hbm:1,cxl:1``: 8
+    requests of 16 new tokens, 6 pinned to cxl0. Every stream equals its
+    stream on one unmigrated engine (a difference fails with the request,
+    the position and both runs' top-2 margins), at least one request
+    moves, and export -> import -> export returns bit-equal K, V,
+    importance and tier rows with the same crc32."""
+    import numpy as np
+    import torch
+    from repro_torch.cluster import KVSnapshot
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    cfg, params = _model("float32")
+    router = _cluster(cfg, params, "hbm:1,cxl:1")
+    recs: dict = {}
+    for d in router.devices:
+        recs.update(_margins(d.engine, sampled=False))
+    pinned, rest = _cluster_stream(cfg.vocab, 8, 6, 16)
+    for r in pinned:
+        router.submit_to(r, "cxl0")
+    list(router.serve(rest))
+    s = router.summary()
+    got = {rid: rs.outputs for rid, rs in router.finished.items()}
+    moved = [(r["rid"], r["src"], r["dst"]) for r in router.balancer.log]
+    del router
+    twin = ServingEngine(cfg, params, ServingConfig(
+        max_batch=8, max_len=2048, pam=_pam(2048), **PAGED_RING),
+        device="cuda")
+    rec_twin = _margins(twin, sampled=False)
+    prompts = {}
+    for r in pinned + rest:
+        prompts[r.id] = r.prompt
+        twin.submit(Request(r.id, r.prompt, r.max_new_tokens))
+    twin.run()
+    want = {rid: rs.outputs for rid, rs in twin.requests.items()}
+    del twin
+    diff = _first_divergence(prompts, got, want, recs, rec_twin)
+    # export -> import -> export on two card engines, bit for bit
+    engines = [ServingEngine(cfg, params, ServingConfig(
+        max_batch=2, max_len=2048, pam=_pam(2048), block_size=16,
+        hot_window=hw), name=f"e{hw}", device="cuda") for hw in (256, 0)]
+    engines[0].submit(Request(0, pinned[0].prompt, 16))
+    for _ in range(4):
+        engines[0].step()
+    first = KVSnapshot.export(engines[0], 0)
+    first.commit(engines[1])
+    back = KVSnapshot.export(engines[1], 0)
+    rows_equal = {f: bool(np.array_equal(getattr(back, f),
+                                         getattr(first, f)))
+                  for f in ("k", "v", "importance", "tier", "last_hot")}
+    del engines
+    torch.cuda.empty_cache()
+    out = dict(dtype="float32", tf32=False, devices="hbm:1,cxl:1",
+               balancer_migrations=s["balancer_migrations"],
+               moved=moved,
+               streams_equal=diff is None, first_difference=diff,
+               round_trip_rows_equal=rows_equal,
+               crc32=[first.checksum, back.checksum],
+               snapshot_bytes=int(first.k.nbytes + first.v.nbytes),
+               kv_bytes=first.kv_bytes)
+    assert s["finished"] == 8, s
+    assert s["balancer_migrations"] >= 1, s
+    assert diff is None, f"migrated streams differ from the twin: {diff}"
+    assert all(rows_equal.values()), rows_equal
+    assert first.checksum == back.checksum and back.verify()
+    return out
+
+
 def phase_engine_ssm(cfg, params) -> dict:
     """mamba2-780m served greedily with PAM on (dense cache: the reference
     refuses paged pools for SSM): 8 requests of 512-1024 prompt tokens,
@@ -1649,6 +1894,10 @@ def main() -> int:
             emit(name, ok=False, error=repr(exc),
                  trace=traceback.format_exc()[-2000:])
             return None
+        finally:
+            # a phase's engines can sit in reference cycles (the margin
+            # hooks); free their device memory before the next phase
+            gc.collect()
 
     env = run("env", phase_env)
     run("build", phase_build)
@@ -1668,6 +1917,7 @@ def main() -> int:
         run("engine_paged_ring", phase_engine_paged, *model)
         run("engine_paged_ring_full", phase_engine_paged_full, *model)
         run("engine_dense_pam", phase_engine_dense, *model)
+        run("engine_cluster", phase_engine_cluster, *model)
         run("engine_prefix_chunk_sampled",
             phase_engine_prefix_chunk_sampled, *model)
         run("profile", phase_profile, *model)
@@ -1684,6 +1934,8 @@ def main() -> int:
     run("parity", phase_parity)
     torch.cuda.empty_cache()
     run("prefix_chunk_parity", phase_prefix_chunk_parity)
+    torch.cuda.empty_cache()
+    run("cluster_parity", phase_cluster_parity)
     torch.cuda.empty_cache()
     run("train_ssm", phase_train, SSM_ARCH)
     torch.cuda.empty_cache()
@@ -1759,6 +2011,8 @@ def main() -> int:
     for row, name in ((rows[0], "flash_decode_merged"),
                       (rows[2], "flash_decode_paged_merged")):
         row["launches_engine_prefix_chunk_sampled"] = pcs[name]
+        row["launches_engine_cluster"] = results["engine_cluster"][
+            "launches"][name]
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

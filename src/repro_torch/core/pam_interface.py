@@ -4,7 +4,8 @@ block-table gather of the paged pool into logical order, and the gather
 of a cached prompt prefix for a prefix-cache admission.
 
 Counterpart of ``repro.core.pam_interface.logical_to_ring``,
-``paged_gather_logical`` and ``gather_prefix_logical``.
+``ring_to_logical``, ``paged_gather_logical`` and
+``gather_prefix_logical``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,22 @@ def logical_to_ring(kv: torch.Tensor, ring_pos: torch.Tensor,
     g = torch.index_select(kv, kv.dim() - 2, idx)
     return torch.where(valid[:, None], g, torch.zeros((), dtype=kv.dtype,
                                                       device=kv.device))
+
+
+def ring_to_logical(ring_kv: torch.Tensor, ring_pos: torch.Tensor,
+                    valid: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """Scatter one sequence's ring-resident KV back into the absolute-
+    position layout on top of ``base`` (the pool gather, so every other
+    position keeps its capacity-tier bytes): the migration export's half
+    of the ring interface.
+
+    ring_kv: (..., W, dh); ring_pos: (W,) from ``ring_position_map``;
+    valid: (W,) bool, the slots to write back (live, distinct
+    positions); base: (..., S, dh). Returns a new (..., S, dh) tensor.
+    """
+    out = base.clone()
+    out[..., ring_pos[valid], :] = ring_kv[..., valid, :]
+    return out
 
 
 def paged_gather_logical(pool: torch.Tensor, block_table: torch.Tensor

@@ -12,6 +12,19 @@ admits long prompts in slices. The flags mirror ``repro.launch.serve``'s batch m
 for the GPU (8 requests of 512 prompt tokens, 64 new tokens each,
 ``max_len`` 2048) rather than for the reference's CPU smoke runs. Times
 are the host's wall clock, each step ending in a device readback.
+
+Cluster mode (paper §4.3) routes the stream over modeled device classes
+with online KV balancing, and prints the router's summary:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --devices hbm:1,cxl:2 \
+        --block-size 16 --hot-window 256
+
+Requests then arrive with Poisson gaps (``--arrival-gap-ms``) on the
+modeled clock; ``--system pam`` (default) runs each engine's clock on
+its class's latency model, ``wallclock`` on the host's clock. Every
+engine runs on the one device given (``--device``), sharing one copy of
+the weights. ``--shard`` above 1 (ROADMAP Queue 1 item 9) and
+``--chaos`` (item 8) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,6 +34,7 @@ import json
 
 import numpy as np
 
+from repro_torch.cluster import BalancerConfig, ClusterSpec, KVBalancer
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import get_config, reduced
 from repro_torch.serving import (PAMManagerConfig, Request, ServingConfig,
@@ -54,7 +68,30 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--devices", default=None, metavar="SPEC",
+                    help="cluster mode: modeled device classes, e.g. "
+                         "'hbm:1,cxl:2' (repro_torch.perfmodel.devices)")
+    ap.add_argument("--arrival-gap-ms", type=float, default=2.0,
+                    help="cluster mode: mean Poisson arrival gap on the "
+                         "modeled clock")
+    ap.add_argument("--system", default="pam", choices=["pam", "wallclock"],
+                    help="cluster mode: engine clocks on the device "
+                         "classes' latency models, or the host's clock")
+    ap.add_argument("--shard", type=int, default=1,
+                    help="devices per replica group (not ported yet above "
+                         "1: ROADMAP Queue 1 item 9)")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="cluster mode: fault trace (not ported yet: "
+                         "ROADMAP Queue 1 item 8)")
     args = ap.parse_args(argv)
+    if args.shard > 1:
+        raise NotImplementedError("--shard > 1 (one engine over several "
+                                  "devices) is not ported yet: ROADMAP "
+                                  "Queue 1 item 9")
+    if args.chaos:
+        raise NotImplementedError("--chaos (fault injection and recovery) "
+                                  "is not ported yet: ROADMAP Queue 1 "
+                                  "item 8")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -75,6 +112,8 @@ def main(argv=None) -> dict:
                          micro_steps=args.micro_steps,
                          temperature=args.temperature, top_k=args.top_k,
                          prefill_chunk=args.prefill_chunk)
+    if args.devices:
+        return _cluster_mode(args, cfg, params, scfg)
     eng = ServingEngine(cfg, params, scfg, device=args.device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
@@ -82,6 +121,29 @@ def main(argv=None) -> dict:
                            prompt=rng.integers(0, cfg.vocab, args.prompt_len),
                            max_new_tokens=args.gen_len))
     summary = eng.run()
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+def _cluster_mode(args, cfg, params, scfg) -> dict:
+    """The stream over a ``ClusterSpec`` fleet with the default balancer;
+    returns the router's summary with SLO attainment at 100-200 ms."""
+    spec = ClusterSpec.from_cli(args.devices, model=cfg, serving=scfg,
+                                wallclock=args.system == "wallclock")
+    router = spec.build(params, balancer=KVBalancer(BalancerConfig()),
+                        device=args.device)
+    rng = np.random.default_rng(0)
+    t, reqs = 0.0, []
+    for i in range(args.requests):
+        t += float(rng.exponential(args.arrival_gap_ms / 1e3))
+        reqs.append(Request(id=i,
+                            prompt=rng.integers(0, cfg.vocab, args.prompt_len),
+                            max_new_tokens=args.gen_len, arrival=t))
+    for _ in router.serve(reqs):
+        pass
+    summary = router.summary()
+    summary["slo_attainment"] = {f"{ms}ms": router.slo_attainment(ms / 1e3)
+                                 for ms in (100, 150, 200)}
     print(json.dumps(summary, indent=1))
     return summary
 

@@ -36,11 +36,26 @@ dense layout:
   reference's, for an attention-free model). It refuses paged pools and
   the hot ring, as the reference does.
 * ``micro_steps = k`` runs ``k`` such steps back to back and reads the
-  host buffers once. Time is the host's wall clock; every readback
-  synchronises with the device.
+  host buffers once; every readback synchronises with the device.
+* Time: with a ``latency_model`` (``repro_torch.perfmodel``) each step
+  advances ``clock`` by the model's seconds for the step's stats dict
+  (the reference's keys: ``prefill_tokens``, ``active``, ``tier_reads``,
+  ``moved_tokens``, ``hit_rate``, the paged blocks, ``batch_lengths``):
+  the simulated PIM hardware's time, which makes a cluster
+  deterministic. Without one, ``clock`` is the host's wall clock.
+  ``wall_time`` is always the host's.
+* Cluster hooks: ``export_request`` gathers a running request's KV into
+  the portable logical layout (hot rows from the ring through
+  ``ring_to_logical``, warm/cold rows through the block table) and frees
+  its slot and blocks without finishing it; ``import_request`` installs
+  such a snapshot into a free slot and freshly allocated blocks;
+  ``load_signal`` / ``can_accept`` / ``serviceable`` /
+  ``slot_importance_mass`` feed the router and the balancer
+  (``repro_torch.cluster``). Metrics and traces bind to
+  ``repro_torch.obs`` as the reference's do.
 
-Not ported yet: export/import for migration (ROADMAP Queue 1 item 8)
-and sharding (item 9).
+Not ported yet: sharding (``EngineSpec.shard > 1``, ROADMAP Queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -48,7 +63,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -60,6 +75,8 @@ from repro_torch.frontend.chunking import ChunkPlan, validate_budget
 from repro_torch.kernels.flash_decode import ring_position_map
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import paged_kv as pkv
 from repro_torch.serving import pam_manager as pm
 from repro_torch.serving import sampling
@@ -139,15 +156,45 @@ class ServingConfig:
 
 
 class ServingEngine:
-    """The PAM serving engine. ``submit`` requests, then drive with
-    ``step()`` (one admission pass + one decode step) or ``run()`` (to
-    completion; ``micro_steps`` decode steps per host readback)."""
+    """The PAM serving engine. Build with ``EngineSpec(...).build(params,
+    latency_model=..., device=...)`` or ``ServingEngine(cfg, params,
+    scfg, device=...)``; ``submit`` requests, then drive with ``step()``
+    (one admission pass + one decode step) or ``run()`` (to completion;
+    ``micro_steps`` decode steps per host readback)."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, scfg: ServingConfig,
-                 *, device: str | torch.device | None = None):
+    def __init__(self, spec, params: dict, scfg: Optional[ServingConfig]
+                 = None, *,
+                 latency_model: Optional[Callable[[dict], float]] = None,
+                 name: Optional[str] = None,
+                 device: str | torch.device | None = None):
+        from repro_torch.serving.spec import EngineSpec
+        if isinstance(spec, EngineSpec):
+            if scfg is not None or name is not None:
+                raise TypeError("ServingEngine(EngineSpec, params, ...): "
+                                "the serving config and name live on the "
+                                "spec")
+        else:
+            if scfg is None:
+                raise TypeError("ServingEngine(cfg, params, scfg) needs a "
+                                "ServingConfig")
+            spec = EngineSpec(model=spec, serving=scfg,
+                              name=name if name is not None else "dev0")
+        if spec.shard > 1:
+            spec.validate()
+            raise NotImplementedError(
+                f"EngineSpec.shard={spec.shard} (one engine over several "
+                f"devices) is not ported yet: ROADMAP Queue 1 item 9")
+        cfg, scfg = spec.model, spec.serving
         tf._require_ported(cfg)
         self.device = resolve_device(device)
+        self.spec, self.name, self.shard = spec, spec.name, spec.shard
         self.cfg, self.params, self.scfg = cfg, params, scfg
+        self.latency_model = latency_model
+        self.clock = 0.0                 # modeled (or wall) seconds
+        self.wall_time = 0.0             # host wall-clock seconds
+        self.busy_time = 0.0             # clock seconds with active > 0
+        self.last_step_time = 0.0        # clock charge of the last
+        self.last_step_stats = None      # decode-only step, its stats
         B, Smax = scfg.max_batch, scfg.max_len
         self.pam_cfg = scfg.pam
         self.block_size = scfg.block_size
@@ -222,20 +269,158 @@ class ServingEngine:
         self.tokens_dev = torch.zeros(B, dtype=torch.int32, device=dev)
         # per-slot request ids, the sampling keys' operand
         self.rids_dev = torch.zeros(B, dtype=torch.int64, device=dev)
-        self.clock = 0.0                 # wall-clock seconds
         self.decode_time = 0.0           # wall-clock seconds in decode
         self.steps = 0
         self.decode_dispatches = 0       # host readbacks of decode steps
         self.decode_device_steps = 0
         self.prefill_dispatches = 0
         self.admit_dispatches = 0
+        self.migrations_in = 0
+        self.migrations_out = 0
         self.tier_reads_total = np.zeros(3, np.int64)
         self.moved_tokens_total = 0
+        self._bind_obs()
+
+    # -------------------------------------------------------- telemetry
+    def _bind_obs(self) -> None:
+        """Bind this engine's labeled instruments against the registry
+        installed now (``repro_torch.obs.metrics.install`` before
+        construction); every series carries a ``device`` label so a
+        fleet shares one registry. With the default (disabled) registry
+        each update is one attribute check."""
+        reg = obs_metrics.get_registry()
+        self._mreg = reg
+        c, g, h = reg.counter, reg.gauge, reg.histogram
+        dl = ("device",)
+        d = {"device": self.name}
+        self._m_steps = c(
+            "pam_engine_steps_total",
+            "engine iterations (admission pass + decode step)",
+            dl).labels(**d)
+        self._m_decode_disp = c(
+            "pam_engine_decode_dispatches_total",
+            "fused decode device dispatches", dl).labels(**d)
+        self._m_device_steps = c(
+            "pam_engine_decode_device_steps_total",
+            "decode steps executed on device (k per micro dispatch)",
+            dl).labels(**d)
+        self._m_prefill_disp = c(
+            "pam_engine_prefill_dispatches_total",
+            "prefill / suffix-prefill / chunk-slice dispatches",
+            dl).labels(**d)
+        self._m_admit_disp = c(
+            "pam_engine_admit_dispatches_total",
+            "donated admission-commit dispatches", dl).labels(**d)
+        self._m_prefill_tokens = c(
+            "pam_engine_prefill_tokens_total",
+            "prompt tokens prefilled (novel only under prefix cache)",
+            dl).labels(**d)
+        self._m_decode_tokens = c(
+            "pam_engine_decode_tokens_total",
+            "decode tokens emitted to requests", dl).labels(**d)
+        self._m_finished = c(
+            "pam_engine_finished_total",
+            "requests finished (EOS or budget)", dl).labels(**d)
+        self._m_step_h = h(
+            "pam_engine_step_seconds",
+            "per-step latency (modeled or wall-clock)", dl).labels(**d)
+        self._m_active = g(
+            "pam_engine_active_slots",
+            "slots decoding in the last step", dl).labels(**d)
+        self._m_queue = g(
+            "pam_engine_queue_depth",
+            "requests waiting for admission", dl).labels(**d)
+        self._m_pool = g(
+            "pam_engine_pool_occupancy",
+            "paged-pool block occupancy fraction", dl).labels(**d)
+        tier_c = c("pam_engine_tier_read_tokens_total",
+                   "participating tokens read, by KV tier",
+                   ("device", "tier"))
+        self._m_tier = tuple(tier_c.labels(device=self.name, tier=t)
+                             for t in ("hot", "warm", "cold"))
+        self._m_moved = c(
+            "pam_engine_moved_tokens_total",
+            "Alg. 2 tier migrations (tokens)", dl).labels(**d)
+        self._m_blocks_touched = c(
+            "pam_engine_blocks_touched_total",
+            "pool pages touched by paged reads", dl).labels(**d)
+        self._m_blocks_window = c(
+            "pam_engine_blocks_window_total",
+            "dense-window pages a full read would touch",
+            dl).labels(**d)
+        self._m_prefix_hits = c(
+            "pam_engine_prefix_hits_total",
+            "admissions that matched a cached prefix", dl).labels(**d)
+        self._m_cached_prefix_tokens = c(
+            "pam_engine_cached_prefix_tokens_total",
+            "prefill compute skipped via prefix sharing (tokens)",
+            dl).labels(**d)
+        self._m_cow = c(
+            "pam_engine_cow_copies_total",
+            "copy-on-write tail-block duplications", dl).labels(**d)
+        self._m_chunk_adm = c(
+            "pam_engine_chunked_admissions_total",
+            "admissions that went through chunked prefill",
+            dl).labels(**d)
+        self._m_chunk_slices = c(
+            "pam_engine_chunk_slices_total",
+            "chunked-prefill slice dispatches", dl).labels(**d)
+        mig = c("pam_engine_migrations_total",
+                "requests migrated (suspend/resume rides the same "
+                "path)", ("device", "direction"))
+        self._m_mig_in = mig.labels(device=self.name, direction="in")
+        self._m_mig_out = mig.labels(device=self.name, direction="out")
+
+    def _observe_step(self, stats: dict[str, Any], dt: float) -> None:
+        """Per-step telemetry: one ``enabled`` check when metrics are off
+        and one ``None`` check when tracing is off."""
+        if self._mreg.enabled:
+            self._m_steps.inc()
+            self._m_step_h.observe(dt)
+            if stats["prefill_tokens"]:
+                self._m_prefill_tokens.inc(stats["prefill_tokens"])
+            self._m_active.set(stats["active"])
+            self._m_queue.set(len(self.waiting))
+            for m, v in zip(self._m_tier, stats["tier_reads"]):
+                if v:
+                    m.inc(int(v))
+            if stats["moved_tokens"]:
+                self._m_moved.inc(stats["moved_tokens"])
+            if "blocks_touched" in stats:
+                self._m_blocks_touched.inc(stats["blocks_touched"])
+                self._m_blocks_window.inc(stats["blocks_window"])
+            if self.allocator is not None:
+                self._m_pool.set(self.allocator.occupancy)
+        tr = obs_trace.COLLECTOR
+        if tr is not None:
+            tr.slice(self.name, "step", self.clock - dt, dt,
+                     active=stats["active"],
+                     prefill_tokens=stats["prefill_tokens"])
+            tr.counter(self.name, "occupancy", self.clock,
+                       active=stats["active"],
+                       queue=len(self.waiting),
+                       pool=(self.allocator.occupancy
+                             if self.allocator is not None else 0.0))
+
+    def _trace_finish(self, rs: RequestState) -> None:
+        """Count a finished request and close its lifecycle track."""
+        self._m_finished.inc()
+        tr = obs_trace.COLLECTOR
+        if tr is not None:
+            rid = rs.request.id
+            tr.mark(rid, "finish", self.clock, tokens=len(rs.outputs))
+            phase = tr.open_phase(rid)
+            if phase is not None:
+                tr.end(rid, phase, self.clock)
 
     # ------------------------------------------------------------ admission
     def submit(self, req: Request) -> None:
         self.requests[req.id] = RequestState(request=req)
         self.waiting.append(req.id)
+        tr = obs_trace.COLLECTOR
+        if tr is not None:
+            tr.begin(req.id, "queued", self.clock,
+                     device=self.name, prompt=len(req.prompt))
 
     def _free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -337,6 +522,8 @@ class ServingEngine:
             if matched > 0:
                 self.prefix_hits += 1
                 self.cached_prefix_tokens += matched
+                self._m_prefix_hits.inc()
+                self._m_cached_prefix_tokens.inc(matched)
             if self.chunk and s_len - matched > self.chunk:
                 # chunked admission: the slot and the full block window
                 # are claimed now, the prompt fills one slice per step;
@@ -347,6 +534,11 @@ class ServingEngine:
                     rid=rid, slot=slot, start=matched, total=s_len,
                     budget=self.chunk, cow_src=cow_src)
                 self.chunked_admissions += 1
+                self._m_chunk_adm.inc()
+                tr = obs_trace.COLLECTOR
+                if tr is not None:
+                    tr.begin(rid, "prefill", self.clock,
+                             device=self.name, novel=s_len - matched)
                 continue
             admitted.append((rid, rs, prompt, s_len, slot, table_row,
                              matched, cow_src))
@@ -376,6 +568,7 @@ class ServingEngine:
                                  self.scfg.max_len,
                                  true_len=None if exact else lens_t)
         self.prefill_dispatches += 1
+        self._m_prefill_disp.inc()
         slots = [g[4] for g in group]
         rids = torch.as_tensor([g[0] for g in group], dtype=torch.int64,
                                device=dev)
@@ -385,6 +578,7 @@ class ServingEngine:
                                    device=dev)
         firsts = self._commit(sub, logits, slots, lens, rids, rows)
         self.admit_dispatches += 1
+        self._m_admit_disp.inc()
         if self.trie is not None:
             # publish after the commit lands the prompts in the pool and
             # before an EOS teardown frees their tables
@@ -515,6 +709,7 @@ class ServingEngine:
             pam_if.gather_prefix_logical(self.cache.pv, read_t, starts_t),
             starts_t, true_len=torch.as_tensor(suf_lens, device=dev))
         self.prefill_dispatches += 1
+        self._m_prefill_disp.inc()
         slots = [g[4] for g in group]
         rids = torch.as_tensor([g[0] for g in group], dtype=torch.int64,
                                device=dev)
@@ -524,11 +719,13 @@ class ServingEngine:
             torch.as_tensor(bids, device=dev),
             torch.as_tensor(sids, device=dev), cow_srcs, cow_dsts)
         self.admit_dispatches += 1
+        self._m_admit_disp.inc()
         for src in cow_pins:
             # the copy reading cow_src is enqueued ahead of any later use
             # of the block on the stream: release the pin
             self.allocator.decref(src)
             self.cow_copies += 1
+            self._m_cow.inc()
         if self.trie is not None:
             self.novel_prefill_tokens += int(suf_lens.sum())
             for rid, _, prompt, *_rest in group:
@@ -609,6 +806,7 @@ class ServingEngine:
                 plan.done += t
             plan.slices += 1
             self.chunk_slices += 1
+            self._m_chunk_slices.inc()
             self.max_chunk_slice = max(self.max_chunk_slice, t)
             total += t
         return total
@@ -644,9 +842,11 @@ class ServingEngine:
         pk[:, bi, si] = torch.movedim(suf_k[:, 0], 1, 2)  # (L, t, Hkv, dh)
         pv[:, bi, si] = torch.movedim(suf_v[:, 0], 1, 2)
         self.prefill_dispatches += 1
+        self._m_prefill_disp.inc()
         if cow:
             self.allocator.decref(plan.cow_src)
             self.cow_copies += 1
+            self._m_cow.inc()
             plan.cow_src = -1
         if self.trie is not None:
             self.novel_prefill_tokens += t
@@ -659,7 +859,13 @@ class ServingEngine:
         rs.status, rs.slot = RUNNING, slot
         rs.outputs.append(tok)
         rs.planned = 1
+        rs.first_token_time = None         # stamped after the clock charge
         self.slots[slot] = rid
+        self._m_decode_tokens.inc()
+        tr = obs_trace.COLLECTOR
+        if tr is not None:
+            # begin() closes the open queued / prefill phase
+            tr.begin(rid, "decode", self.clock, device=self.name)
         if (eos >= 0 and tok == eos) or rs.request.max_new_tokens <= 1:
             rs.status = DONE
             rs.first_token_time = self.clock
@@ -668,6 +874,7 @@ class ServingEngine:
             self.slots[slot] = None
             if self.allocator is not None:
                 self.allocator.free(rid)
+            self._trace_finish(rs)
 
     # ------------------------------------------------------------ decoding
     def _decode_body(self, tokens: torch.Tensor, active: torch.Tensor):
@@ -760,9 +967,12 @@ class ServingEngine:
                  "blocks")
         out = {name: torch.stack([b[i] for b in per_step]).cpu().numpy()
                for i, name in enumerate(names)}
+        out["tier_reads"] = out["tier_reads"].astype(np.int64)
         self.decode_time += time.perf_counter() - t0
         self.decode_dispatches += 1
         self.decode_device_steps += k
+        self._m_decode_disp.inc()
+        self._m_device_steps.inc(k)
         self.tier_reads_total += out["tier_reads"].sum(axis=0)
         self.moved_tokens_total += int(out["moved"].sum())
         if self.block_size:
@@ -776,25 +986,47 @@ class ServingEngine:
 
     def step(self) -> dict[str, Any]:
         """One engine iteration: admission (prefill) + one decode step
-        for all running sequences. Returns step stats."""
+        for all running sequences. Returns the step's stats, the dict
+        the latency model reads (the reference's keys)."""
         t0 = time.perf_counter()
         prefill_tokens = self._admit() + self._advance_chunks()
         # decode-eligible = occupied and past prefill (a chunking slot is
         # claimed but PREFILLING until its final slice commits)
         active_np = self._running()
         stats: dict[str, Any] = {"prefill_tokens": prefill_tokens,
-                                 "active": int(active_np.sum())}
+                                 "active": int(active_np.sum()),
+                                 "tier_reads": np.zeros(3, np.int64),
+                                 "moved_tokens": 0}
         if active_np.any():
             out = self._decode(1, active_np)
-            stats["tier_reads"] = out["tier_reads"][0]
-            stats["moved_tokens"] = int(out["moved"][0])
-            stats["hit_rate"] = float(out["hit_rate"][0])
+            if self.pam_cfg is not None:
+                stats["tier_reads"] = out["tier_reads"][0]
+                stats["hit_rate"] = float(out["hit_rate"][0])
+                stats["moved_tokens"] = int(out["moved"][0])
+            if self.block_size:
+                stats["blocks_touched"] = int(out["blocks"][0, 0])
+                stats["blocks_window"] = int(out["blocks"][0, 1])
+                stats["pool_occupancy"] = self.allocator.occupancy
+            stats["batch_lengths"] = out["lengths"][0]
             self._emit_tokens(out["tokens"][0], active_np)
-        dt = time.perf_counter() - t0
+        else:
+            stats["batch_lengths"] = self.cache.lengths.cpu().numpy()
+        wall = time.perf_counter() - t0
+        self.wall_time += wall
+        dt = (float(self.latency_model(stats))
+              if self.latency_model is not None else wall)
         self.clock += dt
+        if not prefill_tokens:
+            # the load signal: steady decode latency only (an admission
+            # step's prefill spike would whipsaw the router's costs)
+            self.last_step_time = dt
+            self.last_step_stats = stats
+        if active_np.any():
+            self.busy_time += dt
         stats["step_time_s"] = dt
         self._stamp_times()
         self.steps += 1
+        self._observe_step(stats, dt)
         return stats
 
     def _emit_tokens(self, nxt: np.ndarray, active: np.ndarray) -> None:
@@ -804,6 +1036,7 @@ class ServingEngine:
             rs = self.requests[rid]
             tok = int(nxt[slot])
             rs.outputs.append(tok)
+            self._m_decode_tokens.inc()
             rs.planned = len(rs.outputs)
             if (len(rs.outputs) >= rs.request.max_new_tokens
                     or tok == self.scfg.eos_token):
@@ -822,6 +1055,7 @@ class ServingEngine:
                         len(rs.outputs) - len(rs.token_times))
                 if rs.status == DONE and rs.finish_time is None:
                     rs.finish_time = self.clock
+                    self._trace_finish(rs)
 
     def run(self, max_steps: int = 10_000) -> dict[str, Any]:
         """Run until all submitted requests finish. Returns summary."""
@@ -837,7 +1071,10 @@ class ServingEngine:
         """Micro-step loop: each iteration admits, then runs the largest
         power-of-two number of decode steps (up to ``micro_steps``) that
         no running request overshoots, with one host readback. A slot
-        that samples EOS mid-run is frozen on the device."""
+        that samples EOS mid-run is frozen on the device. The latency
+        model charges each sub-step, the first one the admission's
+        prefill, as the reference's ``_consume``; without one each
+        sub-step takes an equal share of the iteration's wall time."""
         micro = self.scfg.micro_steps
         eos = self.scfg.eos_token
         while self.steps < max_steps:
@@ -849,7 +1086,14 @@ class ServingEngine:
                      if rid is not None
                      and self.requests[rid].status == RUNNING]
             if not pairs:
-                self.clock += time.perf_counter() - t0
+                wall = time.perf_counter() - t0
+                self.wall_time += wall
+                if self.latency_model is None:
+                    self.clock += wall
+                elif self._chunking:
+                    # chunk slices filling with nothing decoding: no
+                    # decode step carries the admission's charge
+                    self._charge_prefill_only(prefill_tokens)
                 if prefill_tokens:
                     continue   # the admission wave finished at prefill,
                     # or chunk slices are filling with nothing decoding
@@ -865,15 +1109,31 @@ class ServingEngine:
                 active_np[slot] = True
             out = self._decode(k, active_np)
             self.steps += k
-            dt = (time.perf_counter() - t0) / k
+            wall = time.perf_counter() - t0
+            self.wall_time += wall
             for j in range(k):
+                stats = {"prefill_tokens": prefill_tokens if j == 0 else 0,
+                         "active": len(pairs),
+                         "tier_reads": out["tier_reads"][j],
+                         "moved_tokens": int(out["moved"][j]),
+                         "batch_lengths": out["lengths"][j]}
+                if self.pam_cfg is not None:
+                    stats["hit_rate"] = float(out["hit_rate"][j])
+                dt = (float(self.latency_model(stats))
+                      if self.latency_model is not None else wall / k)
                 self.clock += dt
+                if not stats["prefill_tokens"]:
+                    self.last_step_time = dt
+                    self.last_step_stats = stats
+                self.busy_time += dt
+                self._observe_step(stats, dt)
                 for slot, rid in pairs:
                     rs = self.requests[rid]
                     if rs.status == DONE:
                         continue             # froze at EOS mid-run
                     tok = int(out["tokens"][j, slot])
                     rs.outputs.append(tok)
+                    self._m_decode_tokens.inc()
                     rs.planned = len(rs.outputs)
                     if rs.first_token_time is None:
                         rs.first_token_time = self.clock
@@ -883,19 +1143,282 @@ class ServingEngine:
                             or (eos >= 0 and tok == eos)):
                         rs.status = DONE
                         rs.finish_time = self.clock
+                        self._trace_finish(rs)
                         self.slots[slot] = None
                         if self.allocator is not None:
                             self.allocator.free(rid)
         return self.summary()
 
+    def _charge_prefill_only(self, prefill_tokens: int) -> None:
+        """Modeled clock charge of a micro-loop iteration that filled
+        chunk slices but dispatched no decode step."""
+        stats = {"prefill_tokens": prefill_tokens, "active": 0,
+                 "tier_reads": np.zeros(3, np.int64), "moved_tokens": 0,
+                 "batch_lengths": self.cache.lengths.cpu().numpy()}
+        self.clock += float(self.latency_model(stats))
+
+    # ---------------------------------------- cluster / migration hooks
+    def can_accept(self, n_tokens: int, *,
+                   reserve_queued: bool = True) -> bool:
+        """True iff a request with an ``n_tokens`` window (prompt +
+        generation budget) could be admitted now: a free slot and, in
+        paged mode, enough free pool blocks. With ``reserve_queued`` both
+        are counted net of this engine's own waiting queue, so a router's
+        dispatch round cannot over-assign it; a migration passes False
+        (a rescue may compete with queued admissions)."""
+        queued_slots = len(self.waiting) if reserve_queued else 0
+        if len(self._free_slots()) - queued_slots < 1:
+            return False
+        if self.allocator is None:
+            return True
+        queued = sum(
+            self.allocator.blocks_for(
+                len(self.requests[rid].request.prompt)
+                + self.requests[rid].request.max_new_tokens)
+            for rid in self.waiting) if reserve_queued else 0
+        return (self.allocator.blocks_for(n_tokens)
+                <= self.allocator.free_blocks - queued)
+
+    def serviceable(self, n_tokens: int) -> bool:
+        """True iff an ``n_tokens`` window fits this engine at all
+        (``max_len`` and the whole pool)."""
+        if n_tokens > self.scfg.max_len:
+            return False
+        if self.allocator is None:
+            return True
+        return self.allocator.blocks_for(n_tokens) <= self.allocator.num_blocks
+
+    def load_signal(self) -> dict[str, Any]:
+        """Host-side load snapshot for the router and the balancer (the
+        paper's §4.3 cost signal): queue depth, running count, last
+        decode step's clock charge, pool occupancy."""
+        running = sum(s is not None for s in self.slots)
+        return {
+            "queue_depth": len(self.waiting),
+            "running": running,
+            "free_slots": self.scfg.max_batch - running,
+            "step_time_s": self.last_step_time,
+            "pool_occupancy": (self.allocator.occupancy
+                               if self.allocator is not None else 0.0),
+            "free_blocks": (self.allocator.free_blocks
+                            if self.allocator is not None else -1),
+            "clock": self.clock,
+        }
+
+    def slot_importance_mass(self) -> dict[int, float]:
+        """Per running request: the sum of its eq. 7 EMA over its tokens,
+        the balancer's victim signal (lowest mass moves first)."""
+        running = [(slot, rid) for slot, rid in enumerate(self.slots)
+                   if rid is not None
+                   and self.requests[rid].status == RUNNING]
+        if self.pam_cfg is None:
+            return {rid: 0.0 for _, rid in running}
+        mass = torch.sum(self.pam_state.importance, dim=-1).cpu().numpy()
+        return {rid: float(mass[slot]) for slot, rid in running}
+
+    def _require_migratable(self) -> None:
+        if self.cache.k.numel() == 0 or self.cache.conv.numel() > 0:
+            raise ValueError(f"{self.cfg.name}: KV migration requires a "
+                             f"pure GQA decode cache")
+
+    def _export_rows(self, rid: int, slot: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One request's K and V in the logical (L, Hkv, Smax, dh)
+        layout: hot tokens from the dense row (through the ring map with
+        a hot window), warm/cold tokens through the block table."""
+        kc, vc = self.cache.k[:, slot], self.cache.v[:, slot]
+        if not self.block_size:
+            return kc, vc
+        nb = self.scfg.max_len // self.block_size
+        row = torch.as_tensor(
+            self.allocator.padded_table(rid, nb, self.sentinel),
+            device=self.device)
+        gk = pkv.gather_sequence(self.cache.pk, row)
+        gv = pkv.gather_sequence(self.cache.pv, row)
+        tier_row = self.pam_state.tier[slot]
+        if self.hot_window:
+            ring_pos, valid = ring_position_map(
+                self.cache.lengths[slot][None], self.hot_window)
+            ring_pos, valid = ring_pos[0], valid[0]
+            hot_at = tier_row[ring_pos.clamp(0, gk.shape[2] - 1)]
+            sel = valid & (hot_at == tiers_mod.HOT)
+            return (pam_if.ring_to_logical(kc, ring_pos, sel, gk),
+                    pam_if.ring_to_logical(vc, ring_pos, sel, gv))
+        hot = (tier_row == tiers_mod.HOT)[None, None, :, None]
+        return torch.where(hot, kc, gk), torch.where(hot, vc, gv)
+
+    def export_request(self, rid: int) -> dict[str, Any]:
+        """Export a RUNNING request for migration (§6.2 sender side):
+        its KV in the portable logical layout, its PAM rows and host
+        bookkeeping, as numpy on the host; then free its slot and blocks
+        (a decref: blocks another request or the trie maps survive)
+        without finishing it. bf16 K/V travel as ``uint16`` arrays of
+        the same bits (numpy has no bfloat16)."""
+        self._require_migratable()
+        rs = self.requests.get(rid)
+        if rs is None or rs.status != RUNNING:
+            raise ValueError(f"request {rid} is not running here")
+        slot = rs.slot
+        k_row, v_row = self._export_rows(rid, slot)
+        pam = self.pam_cfg is not None
+        imp, tier, lh = (pm.extract_slot_state(self.pam_state, slot) if pam
+                         else (None, None, None))
+        snap = {
+            "request": rs.request,
+            "outputs": list(rs.outputs),
+            "planned": len(rs.outputs),
+            "length": int(self.cache.lengths[slot]),
+            "token": int(self.tokens_dev[slot]),
+            "k": _kv_to_host(k_row),
+            "v": _kv_to_host(v_row),
+            "importance": imp.cpu().numpy() if pam else None,
+            "tier": tier.cpu().numpy() if pam else None,
+            "last_hot": lh.cpu().numpy() if pam else None,
+            "first_token_time": rs.first_token_time,
+            "token_times": list(rs.token_times),
+            "arrival": rs.request.arrival,
+            "src": self.name,
+        }
+        self.slots[slot] = None
+        if self.allocator is not None:
+            self.allocator.free(rid)
+        del self.requests[rid]
+        self.migrations_out += 1
+        self._m_mig_out.inc()
+        tr = obs_trace.COLLECTOR
+        if tr is not None:
+            tr.mark(rid, "migrate_out", self.clock, src=self.name)
+            tr.begin(rid, "suspended", self.clock)  # closes "decode"
+        return snap
+
+    def _kv_to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A snapshot's K or V on this engine's device, in its cache
+        dtype; a bf16 cache takes the ``uint16`` bit patterns."""
+        want = self.cache.k.dtype
+        if want == torch.bfloat16:
+            if a.dtype != np.uint16:
+                raise ValueError(f"{self.name}: a bf16 cache imports uint16 "
+                                 f"bit patterns, got {a.dtype}")
+            t = torch.from_numpy(np.array(a, copy=True).view(np.int16))
+            return t.to(self.device).view(torch.bfloat16)
+        t = torch.from_numpy(np.array(a, copy=True))
+        if t.dtype != want:
+            raise ValueError(f"{self.name}: snapshot KV is {a.dtype}, the "
+                             f"cache holds {want}")
+        return t.to(self.device)
+
+    def import_request(self, snap: dict[str, Any]) -> None:
+        """Admit a migrated request mid-decode (§6.2 receiver side):
+        install the snapshot's KV into a free slot (re-based onto the
+        ring with a hot window) and, in paged mode, write the whole
+        logical row through freshly allocated blocks (physical ids never
+        travel); insert the PAM rows and seed the token. Raises
+        ``OutOfBlocks`` / ``ValueError`` when this engine cannot take
+        the request (check ``can_accept`` first)."""
+        self._require_migratable()
+        req: Request = snap["request"]
+        free = self._free_slots()
+        if not free:
+            raise ValueError(f"{self.name}: no free slot for migrated "
+                             f"request {req.id}")
+        Smax = self.scfg.max_len
+        if snap["k"].shape[2] != Smax:
+            raise ValueError("snapshot window does not match max_len "
+                             f"({snap['k'].shape[2]} vs {Smax})")
+        dev = self.device
+        k_row = self._kv_to_device(snap["k"])
+        v_row = self._kv_to_device(snap["v"])
+        window = len(req.prompt) + req.max_new_tokens
+        table_row = None
+        if self.allocator is not None:
+            # trie-only cached prefixes yield first under pressure
+            self._reserve_fresh(self.allocator.blocks_for(window))
+            self.allocator.allocate(req.id, window)  # may raise OutOfBlocks
+            table_row = torch.as_tensor(self.allocator.padded_table(
+                req.id, Smax // self.block_size, self.sentinel), device=dev)
+            self.peak_occupancy = max(self.peak_occupancy,
+                                      self.allocator.occupancy)
+        slot = free[0]
+        length = int(snap["length"])
+        if self.hot_window:
+            ring_pos, valid = ring_position_map(
+                torch.tensor([length], device=dev), self.hot_window)
+            dk = pam_if.logical_to_ring(k_row, ring_pos[0], valid[0])
+            dv = pam_if.logical_to_ring(v_row, ring_pos[0], valid[0])
+        else:
+            dk, dv = k_row, v_row
+        self.cache.k[:, slot] = dk
+        self.cache.v[:, slot] = dv
+        self.cache.lengths[slot] = length
+        if self.block_size:
+            pkv.write_prefill(self.cache.pk, k_row, table_row,
+                              self.block_size)
+            pkv.write_prefill(self.cache.pv, v_row, table_row,
+                              self.block_size)
+        self.tokens_dev[slot] = int(snap["token"])
+        self.rids_dev[slot] = req.id
+        if self.pam_cfg is not None:
+            def row(key, dtype, default):
+                a = snap[key] if snap[key] is not None else default
+                return torch.as_tensor(np.array(a, dtype), device=dev)
+            pm.insert_slot_state(
+                self.pam_state, slot,
+                row("importance", np.float32, np.zeros(Smax)),
+                row("tier", np.int32, np.zeros(Smax)),
+                row("last_hot", bool, np.zeros(Smax)), table_row)
+        rs = RequestState(
+            request=req, status=RUNNING, slot=slot,
+            outputs=list(snap["outputs"]), planned=snap["planned"],
+            first_token_time=snap["first_token_time"],
+            token_times=list(snap["token_times"]))
+        self.requests[req.id] = rs
+        self.slots[slot] = req.id
+        if self.trie is not None:
+            # the imported row holds the prompt's KV at its positions:
+            # publish it so later arrivals share it here too
+            self.trie.insert(np.asarray(req.prompt, np.int32),
+                             self.allocator.table(req.id))
+        self.migrations_in += 1
+        self._m_mig_in.inc()
+        tr = obs_trace.COLLECTOR
+        if tr is not None:
+            tr.mark(req.id, "migrate_in", self.clock, dst=self.name)
+            tr.begin(req.id, "decode", self.clock, device=self.name)
+
+    def suspend_request(self, rid: int) -> dict[str, Any]:
+        """Detach a running request into a host-held snapshot, freeing
+        its slot and blocks (``export_request``'s dict); resuming it
+        here or on any compatible engine continues the stream exactly
+        (sampling keys depend only on seed, rid and position)."""
+        return self.export_request(rid)
+
+    def resume_request(self, snap: dict[str, Any]) -> None:
+        """Re-admit a suspended request, the twin of ``suspend_request``."""
+        self.import_request(snap)
+
+    # ------------------------------------------------ serving surface
+    def as_router(self):
+        """This engine as a one-device ``ClusterRouter``: admission,
+        events and the ``serve`` generator come from the router."""
+        from repro_torch.cluster.router import ClusterRouter
+        return ClusterRouter.for_engine(self)
+
+    def serve(self, requests: Optional[Iterable[Request]] = None, *,
+              max_ticks: Optional[int] = None) -> Iterator[Any]:
+        """Submit ``requests`` (if given) and yield ``ServeEvent``s until
+        everything drains; the same surface as ``ClusterRouter.serve``."""
+        yield from self.as_router().serve(requests, max_ticks=max_ticks)
+
     # ------------------------------------------------------------ metrics
     def summary(self) -> dict[str, Any]:
         """Run metrics: throughput, TPOT percentiles, step counts, tier
-        reads and Alg. 2 moves; in paged mode also pages touched vs the
-        dense window per step and pool occupancy; the chunk counters with
-        ``prefill_chunk`` and the prefix counters with ``prefix_cache``.
-        Times are wall-clock seconds on the host, each ending in a device
-        readback."""
+        reads and Alg. 2 moves, migrations; in paged mode also pages
+        touched vs the dense window per step and pool occupancy; the
+        chunk counters with ``prefill_chunk`` and the prefix counters
+        with ``prefix_cache``. ``sim_time_s`` and the TPOTs are on the
+        engine's clock (modeled with a latency model); ``wall_time_s``
+        and the decode times are the host's wall clock, each step ending
+        in a device readback."""
         done = [r for r in self.requests.values() if r.status == DONE]
         total_tokens = sum(len(r.outputs) for r in done)
         decode_tokens = sum(len(r.outputs) - 1 for r in done)
@@ -907,7 +1430,8 @@ class ServingEngine:
             "device": str(self.device),
             "finished": len(done),
             "total_tokens": total_tokens,
-            "wall_time_s": self.clock,
+            "sim_time_s": self.clock,
+            "wall_time_s": self.wall_time,
             "throughput_tok_s": total_tokens / max(self.clock, 1e-9),
             "decode_time_s": self.decode_time,
             "decode_tok_s": decode_tokens / max(self.decode_time, 1e-9),
@@ -918,6 +1442,8 @@ class ServingEngine:
             "decode_device_steps": self.decode_device_steps,
             "prefill_dispatches": self.prefill_dispatches,
             "admit_dispatches": self.admit_dispatches,
+            "migrations_in": self.migrations_in,
+            "migrations_out": self.migrations_out,
             "tier_reads": [int(x) for x in self.tier_reads_total],
             "moved_tokens": self.moved_tokens_total,
         }
@@ -944,3 +1470,21 @@ class ServingEngine:
             out["trie_evictions"] = self.trie.evictions
         return out
 
+    def slo_attainment(self, slo_s: float) -> float:
+        """Fraction of decode-token gaps within the SLO (paper Fig. 9)."""
+        gaps = []
+        for r in self.requests.values():
+            if len(r.token_times) > 1:
+                gaps.extend(np.diff(r.token_times).tolist())
+        if not gaps:
+            return 1.0
+        return float(np.mean(np.asarray(gaps) <= slo_s))
+
+
+def _kv_to_host(t: torch.Tensor) -> np.ndarray:
+    """K or V rows as a host numpy array; bf16 as ``uint16`` bit patterns
+    (numpy has no bfloat16), so a snapshot's bytes, ``kv_bytes`` and its
+    crc32 are those of the reference's bf16 arrays for the same values."""
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()

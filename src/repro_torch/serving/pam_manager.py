@@ -218,6 +218,29 @@ def place_prefill_state(cfg: PAMManagerConfig, state: PAMState, slot: int,
     return state
 
 
+def extract_slot_state(state: PAMState, slot: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One sequence's migratable PAM state: (importance, tier, last_hot)
+    rows. The block table row stays behind: physical block ids are
+    device-local and the importing engine's allocator rebuilds them."""
+    return (state.importance[slot], state.tier[slot], state.last_hot[slot])
+
+
+def insert_slot_state(state: PAMState, slot: int, importance: torch.Tensor,
+                      tier: torch.Tensor, last_hot: torch.Tensor,
+                      table_row: torch.Tensor | None = None) -> PAMState:
+    """Install one migrated sequence's PAM rows at ``slot``, in place
+    (the inverse of ``extract_slot_state``); ``table_row``, the importing
+    engine's freshly allocated physical block ids, when it runs the paged
+    path."""
+    state.importance[slot] = importance
+    state.tier[slot] = tier
+    state.last_hot[slot] = last_hot
+    if table_row is not None:
+        state.block_table[slot] = table_row
+    return state
+
+
 def tier_read_counts_of(tier: torch.Tensor, participate: torch.Tensor
                         ) -> torch.Tensor:
     """(3,) tokens read per tier this step."""
@@ -227,7 +250,11 @@ def tier_read_counts_of(tier: torch.Tensor, participate: torch.Tensor
 
 def hit_rate_of(last_hot: torch.Tensor, participate: torch.Tensor
                 ) -> torch.Tensor:
-    """Fraction of this step's working set also in the previous one."""
+    """Fraction of this step's working set also in the previous one,
+    averaged over the batch as XLA's mean is: a sum in row order times
+    the fp32 reciprocal of the batch size (the step stats then carry
+    the reference's value bit for bit)."""
     inter = torch.sum(last_hot & participate, dim=-1)
     denom = torch.clamp(torch.sum(participate, dim=-1), min=1)
-    return torch.mean(inter / denom)
+    ratio = inter / denom
+    return torch.cumsum(ratio, 0)[-1] * (1.0 / ratio.shape[0])

@@ -226,6 +226,88 @@ def test_reduced_engine_runs_through_both_kernels(cuda):
     assert ran == [cfg.n_layers * steps] * 2 + [0, 0]
 
 
+def _cluster_run(dev, params, cfg):
+    """The reduced ``hbm:1,cxl:2`` fleet with the balancer over a seeded
+    stream (4 requests pinned to cxl0, 12 Poisson arrivals)."""
+    from repro_torch.cluster import BalancerConfig, ClusterSpec, KVBalancer
+    pam = tpm.PAMManagerConfig(max_tokens=64, hot_capacity=4,
+                               warm_capacity=8, compression=4,
+                               recency_window=2, schedule_interval=2)
+    router = ClusterSpec.from_cli(
+        "hbm:1,cxl:2", model=cfg, serving=teng.ServingConfig(
+            max_batch=4, max_len=64, block_size=8, hot_window=16,
+            pam=pam)).build(params, device=dev, balancer=KVBalancer(
+                BalancerConfig(rebalance_interval=2, hysteresis=1.1,
+                               cooldown_ticks=4, min_remaining=2)))
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        router.submit_to(teng.Request(i, rng.integers(0, cfg.vocab, 16), 12),
+                         "cxl0")
+    t, rest = 0.0, []
+    for i in range(4, 16):
+        t += float(rng.exponential(0.002))
+        rest.append(teng.Request(i, rng.integers(0, cfg.vocab,
+                                                 int(rng.integers(10, 30))),
+                                 12, arrival=t))
+    events = [(e.time, e.request_id, e.token, e.index, e.device, e.done)
+              for e in router.serve(rest)]
+    return events, router.summary(), router.balancer.log
+
+
+@pytest.mark.cuda
+def test_reduced_cluster_card_equals_cpu(cuda):
+    """The cluster on the card (fp32, TF32 off) gives its CPU run's
+    events, bindings, migrations and streams, every engine sharing one
+    copy of the weights and decoding through the merged kernels."""
+    from repro_torch import tree
+    cfg = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
+    cpu_params = ttf.init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree.unflatten(cpu_params, [
+            x.to(dev) for x in tree.leaves(cpu_params)])
+        fns = (tfd.flash_decode_merged, tfd.flash_decode_paged_merged)
+        n0 = [f.launches for f in fns]
+        out[str(dev)] = _cluster_run(dev, params, cfg)
+        ran = [f.launches - n for f, n in zip(fns, n0)]
+    assert out["cuda"] == out["cpu"]
+    summ = out["cuda"][1]
+    steps = sum(d["decode_device_steps"] for d in summ["devices"].values())
+    assert ran == [cfg.n_layers * steps] * 2
+    assert summ["balancer_migrations"] >= 1 and summ["finished"] == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_export_import_round_trip_on_card_is_bit_exact(cuda, dtype):
+    """Export -> import -> export on the card returns the same K, V,
+    importance, tier and participation rows and the same crc32."""
+    import dataclasses
+    from repro_torch.cluster import KVSnapshot
+    cfg = dataclasses.replace(tcfg.reduced(tcfg.get_config("qwen3-0.6b")),
+                              dtype=dtype)
+    params = ttf.init_params(cfg, 0, device=cuda)
+    pam = tpm.PAMManagerConfig(max_tokens=64, hot_capacity=4,
+                               warm_capacity=8, compression=4,
+                               recency_window=2, schedule_interval=2)
+    engines = [teng.ServingEngine(cfg, params, teng.ServingConfig(
+        max_batch=3, max_len=64, block_size=8, hot_window=hw, pam=pam),
+        name=f"e{hw}", device=cuda) for hw in (16, 0)]
+    rng = np.random.default_rng(2)
+    for i in range(3):
+        engines[0].submit(teng.Request(i, rng.integers(0, cfg.vocab, 30), 20))
+    for _ in range(6):
+        engines[0].step()
+    first = KVSnapshot.export(engines[0], 1)
+    assert first.k.dtype == (np.uint16 if dtype == "bfloat16"
+                             else np.float32)
+    first.commit(engines[1])
+    back = KVSnapshot.export(engines[1], 1)
+    for f in ("k", "v", "importance", "tier", "last_hot"):
+        assert np.array_equal(getattr(back, f), getattr(first, f)), f
+    assert back.checksum == first.checksum and back.verify()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,d", [
     (2, 16, 8, 200, 200, 128),     # qwen3-0.6b heads, ragged tiles

@@ -1,7 +1,9 @@
 """The port's serving engine against the JAX engine: identical greedy
 token streams on ``make_requests`` in dense-PAM and paged + hot-ring
 modes, with ``micro_steps`` 1 and 8 and with on-device EOS; plus the
-port's import hygiene and device selection.
+port's import hygiene (no ``jax``, ``repro`` or ``ml_dtypes``) and
+device selection (every entry point, the cluster's included, wants
+CUDA unless told otherwise).
 
 The JAX streams are computed once per mode (its compile is the cost);
 the JAX engine's own suite pins its micro-step and EOS streams to its
@@ -138,8 +140,8 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
-             if n == "jax" or n.startswith("jax.") or n == "repro"
-             or n.startswith("repro."))
+             if n in ("jax", "repro", "ml_dtypes")
+             or n.startswith(("jax.", "repro.", "ml_dtypes.")))
 assert not bad, bad
 print("clean", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
@@ -168,3 +170,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         tts.init_train_state(tcf, tts.TrainConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--reduced", "--steps", "1"])
+    from repro_torch.cluster import ClusterSpec
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving import EngineSpec
+    scfg = teng.ServingConfig(max_len=64, block_size=8,
+                              pam=tpm.PAMManagerConfig(64, 8, 16))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EngineSpec(model=tcf, serving=scfg).build(params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClusterSpec.from_cli("hbm:1,cxl:2", model=tcf,
+                             serving=scfg).build(params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--reduced", "--devices", "hbm:1,cxl:2",
+                        "--block-size", "8", "--max-len", "64"])
