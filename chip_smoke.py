@@ -52,6 +52,31 @@ final ``ok`` line:
             wall ms, snapshot and live KV bytes, peak memory, and the
             modeled makespan and tok/s (``modeled_``: the perf model's PIM
             hardware, not the card)
+  engine_chaos   the same fleet (with engine_cluster's balancer) under
+            the mixed chaos trace ``stall:cxl0@25x6, kill:cxl1@40,
+            corrupt@30*1, drop@45`` and the recovery watchdog at its
+            defaults, beside the same stream fault-free in this call: 16
+            requests of 512-1024 prompt tokens and 32 new, 4 pinned to
+            cxl1 (the kill lands on running work), 12 routed at Poisson
+            gaps of 2 ms; asserts complete, gapless streams, one kill
+            detected, the recovery counts of a CPU dry run of the same
+            schedule (scripts/chaos_dry_run.py: the modeled schedule does
+            not depend on the weights), the merged decode kernels n_layers
+            x the fleet's decode steps; prints wall seconds, decode tok/s
+            and goodput beside the fault-free run's, the modeled recovery
+            latency, wall ms of each transfer part (export, crc32 seal,
+            clone, crc32 check, import, whole transfers), the replayed
+            tokens recomputed, peak memory and the dead engine's memory
+  serve_frontend   the same model behind ``AsyncServer`` with
+            ``SLOAdmission(SLOSpec(ttft 250 ms, tpot 50 ms))``: one engine
+            (paged + ring, 256-token prefill chunks, batch 8) on the
+            ``pam`` system's modeled clock with each engine token standing
+            for 16 hardware tokens, an onoff trace of 32 requests (prompts
+            128-1024, 16-64 new, seed 0) at 128 req/s on average (512 in
+            the ON windows); asserts gapless streams and the shed /
+            force-preempt / resume counts of the CPU dry run; prints
+            host-wall TTFT (release to the shared queue -> first token) and
+            TPOT p50 / p99 and the modeled scorecard
   engine_prefix_chunk_sampled   the same model served with the prefix
             cache, chunked prefill (256-token slices) and sampling
             (temperature 0.8, top-50, seed 7), sparsity off: eight requests
@@ -98,6 +123,14 @@ final ``ok`` line:
             to its stream on one unmigrated engine (a difference fails
             with the request, position and top-2 margins), and export ->
             import -> export bit-equal with the same crc32
+  chaos_parity    fp32, TF32 off, sampled (temperature 1.0, seed 5) as
+            the reference's scripts/chaos_smoke.py: two HBM engines, (a) 8
+            requests of 16 new, the second engine killed at tick 6 (its
+            requests replay on the first), (b) 6 requests, the second
+            stalled 50x from its prefill with the first transfer corrupted
+            (its requests drain through a retried transfer); every stream
+            equal to a batch-8 twin's (a difference fails with the
+            position and both top-2 margins) and gapless
   train_ssm full-width mamba2-780m (48 layers, random weights from seed 0,
             bf16) trained 10 steps on SyntheticLM batches of 4 x 2048
             through the train CLI's step builder at peak lr 1e-3 (the SSD
@@ -1168,8 +1201,9 @@ def _margins(eng, sampled: bool) -> dict:
         v = logits.float()
         if sampled:
             v = v * _inv_temperature(scfg.temperature)
-            kth = torch.topk(v, scfg.top_k, dim=-1).values[:, -1:]
-            v = v.masked_fill(v < kth, float("-inf"))
+            if scfg.top_k:
+                kth = torch.topk(v, scfg.top_k, dim=-1).values[:, -1:]
+                v = v.masked_fill(v < kth, float("-inf"))
             key = smp.fold_in(smp.fold_in(smp.prng_key(scfg.sample_seed),
                                           rids.long()), positions.long())
             v = v + smp.gumbel(key, v.shape[-1], v.device)
@@ -1307,17 +1341,22 @@ CLUSTER_BALANCER = dict(rebalance_interval=2, hysteresis=1.1,
                         cooldown_ticks=4, min_remaining=2)
 
 
-def _cluster(cfg, params, devices: str):
+def _cluster(cfg, params, devices: str, chaos=None, device="cuda"):
     """A ``ClusterSpec`` fleet of modeled device classes on the card,
     engine_paged_ring's serving template (each class sets its batch and
     pool), the perf model's latency models and scripts/cluster_smoke.py's
-    balancer."""
-    from repro_torch.cluster import BalancerConfig, ClusterSpec, KVBalancer
+    balancer; with ``chaos`` (a ``--chaos`` spec, "" for none) the
+    recovery watchdog at ``RecoveryConfig()`` defaults too."""
+    from repro_torch.cluster import (BalancerConfig, ClusterSpec,
+                                     FaultInjector, KVBalancer,
+                                     RecoveryConfig)
     from repro_torch.serving import ServingConfig
     spec = ClusterSpec.from_cli(devices, model=cfg, serving=ServingConfig(
-        max_len=2048, pam=_pam(2048), **PAGED_RING))
-    return spec.build(params, device="cuda",
-                      balancer=KVBalancer(BalancerConfig(**CLUSTER_BALANCER)))
+        max_len=2048, pam=_pam(2048), **PAGED_RING),
+        recovery=RecoveryConfig() if chaos is not None else None)
+    return spec.build(params, device=device,
+                      balancer=KVBalancer(BalancerConfig(**CLUSTER_BALANCER)),
+                      faults=FaultInjector.from_spec(chaos) if chaos else None)
 
 
 def _cluster_stream(vocab: int, n: int, pinned: int, new: int):
@@ -1337,22 +1376,29 @@ def _cluster_stream(vocab: int, n: int, pinned: int, new: int):
 
 
 class _MigrationClock:
-    """Wall ms of every export (gather + host copy), crc32 seal and import
-    (host-to-device copy + commit) while installed, with the card
-    synchronised around each; snapshot and live ``kv_bytes`` too."""
+    """Wall ms of every export (gather + host copy), crc32 seal, wire
+    clone, receiver-side crc32 check (``verify``; ``commit`` checks once
+    more), import (host-to-device copy + commit) and whole recovery
+    transfer while installed, with the card synchronised around each;
+    snapshot and live ``kv_bytes`` too."""
 
     def __init__(self):
         self.export_ms, self.seal_ms, self.import_ms = [], [], []
+        self.clone_ms, self.verify_ms, self.transfer_ms = [], [], []
         self.snapshot_bytes, self.kv_bytes = [], []
 
     def __enter__(self):
-        from repro_torch.cluster import migration
+        from repro_torch.cluster import migration, recovery
         from repro_torch.serving.engine import ServingEngine
         self._saved = [(ServingEngine, "export_request"),
                        (ServingEngine, "import_request"),
                        (migration.KVSnapshot, "seal")]
+        extra = [(migration.KVSnapshot, "clone", self.clone_ms),
+                 (migration.KVSnapshot, "verify", self.verify_ms),
+                 (recovery.RecoveryManager, "transfer", self.transfer_ms)]
+        self._saved += [(c, n) for c, n, _ in extra]
         self._orig = [getattr(c, n) for c, n in self._saved]
-        exp, imp, seal = self._orig
+        exp, imp, seal = self._orig[:3]
         clock = self
 
         def timed(fn, sink):
@@ -1377,6 +1423,8 @@ class _MigrationClock:
         ServingEngine.export_request = export
         ServingEngine.import_request = timed(imp, self.import_ms)
         migration.KVSnapshot.seal = timed(seal, self.seal_ms)
+        for (c, n, sink), fn in zip(extra, self._orig[3:]):
+            setattr(c, n, timed(fn, sink))
         return self
 
     def __exit__(self, *exc):
@@ -1393,7 +1441,10 @@ class _MigrationClock:
                     seal_crc32_ms=stats(self.seal_ms),
                     import_ms=stats(self.import_ms),
                     snapshot_bytes=sorted(set(self.snapshot_bytes)),
-                    kv_bytes=stats(self.kv_bytes))
+                    kv_bytes=stats(self.kv_bytes),
+                    clone_ms=stats(self.clone_ms),
+                    verify_crc32_ms=stats(self.verify_ms),
+                    transfer_ms=stats(self.transfer_ms))
 
 
 def phase_engine_cluster(cfg, params) -> dict:
@@ -1527,6 +1578,378 @@ def phase_cluster_parity() -> dict:
     assert diff is None, f"migrated streams differ from the twin: {diff}"
     assert all(rows_equal.values()), rows_equal
     assert first.checksum == back.checksum and back.verify()
+    return out
+
+
+# engine_chaos: the reference's mixed chaos trace
+# (benchmarks/chaos_bench.py) plus a dropped transfer
+CHAOS = "stall:cxl0@25x6, kill:cxl1@40, corrupt@30*1, drop@45"
+CHAOS_N, CHAOS_PINNED, CHAOS_NEW = 16, 4, 32
+CHAOS_COUNTS = ("kills_detected", "replays", "drains", "transfer_retries",
+                "transfers_dropped", "corruptions_detected",
+                "transfer_failures", "preemptions", "resumes", "abandoned")
+# what a CPU dry run of the same schedule gives (reduced qwen3-0.6b, the
+# same fleet, stream and trace; scripts/chaos_dry_run.py)
+CHAOS_DRY_RUN = dict(kills_detected=1, replays=5, drains=0,
+                     transfer_retries=2, transfers_dropped=1,
+                     corruptions_detected=1, transfer_failures=0,
+                     preemptions=0, resumes=1, abandoned=0)
+
+
+def _serve_fleet(router, pinned, rest, pin: str) -> list:
+    """``pinned`` requests on device ``pin`` at arrival 0, the rest routed;
+    the stream's events."""
+    for r in pinned:
+        router.submit_to(r, pin)
+    return list(router.serve(rest))
+
+
+def _records(events) -> dict:
+    """The client's view of an event stream: one ``StreamRecord`` a
+    request."""
+    from repro_torch.frontend.server import StreamRecord
+    recs: dict = {}
+    for e in events:
+        rec = recs.setdefault(e.request_id, StreamRecord(
+            rid=e.request_id, arrival=0.0, prompt_len=0, max_new=0))
+        if e.rejected:
+            rec.rejected = True
+        else:
+            rec.tokens.append(e.token)
+            rec.times.append(e.time)
+            rec.indices.append(e.index)
+        rec.done = rec.done or e.done
+    return recs
+
+
+def _engine_bytes(eng) -> int:
+    """Device bytes of an engine's cache (rings, pools) and PAM rows."""
+    import torch
+    ts = [t for t in list(eng.cache) + list(eng.pam_state or ())
+          if isinstance(t, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+QWEN_VOCAB = 151936                    # qwen3-0.6b's vocabulary
+
+
+def _fit_vocab(reqs, vocab: int):
+    """Prompts drawn for qwen3-0.6b's vocabulary folded into ``vocab`` (a
+    dry run on the reduced model keeps the full model's draws, so its
+    prompt lengths and arrivals)."""
+    for r in reqs:
+        r.prompt = r.prompt % vocab
+    return reqs
+
+
+def chaos_fleet_run(cfg, params, device: str = "cuda", chaos=CHAOS) -> dict:
+    """engine_chaos's fleet and stream (``chaos`` "" for the fault-free
+    run): the router, events, the streamed tokens each replay regenerated,
+    and the host wall seconds."""
+    from repro_torch.serving.engine import DONE
+    router = _cluster(cfg, params, "hbm:1,cxl:2", chaos=chaos or None,
+                      device=device)
+    replayed: dict = {}
+    if chaos:
+        declare = router._declare_dead
+
+        def declare_dead(dev):
+            for rid, rs in dev.engine.requests.items():
+                if rs.status != DONE:
+                    replayed[rid] = (router._seen_tokens.get(rid, 0),
+                                     len(rs.request.prompt))
+            declare(dev)
+        router._declare_dead = declare_dead
+    pinned, rest = _cluster_stream(QWEN_VOCAB, CHAOS_N, CHAOS_PINNED,
+                                   CHAOS_NEW)
+    _fit_vocab(pinned + rest, cfg.vocab)
+    t0 = time.perf_counter()
+    events = _serve_fleet(router, pinned, rest, "cxl1")
+    if device == "cuda":
+        import torch
+        torch.cuda.synchronize()
+    return dict(router=router, events=events, replayed=replayed,
+                wall=time.perf_counter() - t0)
+
+
+def phase_engine_chaos(cfg, params) -> dict:
+    """Full-width qwen3-0.6b (bf16) on engine_cluster's ``hbm:1,cxl:2``
+    fleet under the mixed chaos trace (``CHAOS``) with the recovery
+    watchdog at its defaults, beside the same stream fault-free in this
+    call: 16 requests of 512-1024 prompt tokens and 32 new, 4 pinned to
+    cxl1 (so the kill lands on running work). Every stream is complete and
+    gapless, ``kills_detected`` is 1, the recovery counts equal a CPU dry
+    run of the same schedule, and the merged decode kernels launch
+    n_layers x the fleet's decode steps."""
+    import torch
+    from repro_torch.frontend.loadgen import stream_integrity
+    free = chaos_fleet_run(cfg, params, chaos="")
+    fs = free["router"].summary()
+    free_decode_s = sum(d.engine.decode_time for d in free["router"].devices)
+    assert fs["finished"] == CHAOS_N, fs
+    del free["router"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with _MigrationClock() as mig:
+        run = chaos_fleet_run(cfg, params)
+    launches = _launches()
+    router = run["router"]
+    s, ft = router.summary(), router.summary()["fault_tolerance"]
+    recs = _records(run["events"])
+    lost, dup = stream_integrity(recs.values())
+    counts = {k: ft[k] for k in CHAOS_COUNTS}
+    dead = router._by_name("cxl1")
+    steps = sum(d["decode_device_steps"] for d in s["devices"].values())
+    want = cfg.n_layers * steps
+    decode_tokens = CHAOS_N * (CHAOS_NEW - 1)
+    decode_s = sum(d.engine.decode_time for d in router.devices)
+    delivered = sum(len(r.tokens) for r in recs.values())
+    out = dict(
+        requests=CHAOS_N, new_tokens=CHAOS_NEW, chaos=CHAOS,
+        wall_s=run["wall"], fault_free_wall_s=free["wall"],
+        decode_tok_s=decode_tokens / decode_s,
+        fault_free_decode_tok_s=decode_tokens / free_decode_s,
+        goodput_tok_s=delivered / run["wall"],
+        fault_free_goodput_tok_s=CHAOS_N * CHAOS_NEW / free["wall"],
+        goodput_vs_fault_free=(delivered / run["wall"])
+        / (CHAOS_N * CHAOS_NEW / free["wall"]),
+        lost_tokens=lost, dup_tokens=dup, recovery=counts,
+        dry_run=CHAOS_DRY_RUN,
+        modeled_recovery_latency_s=dict(
+            mean=ft["recovery_latency_mean_s"],
+            max=ft["recovery_latency_max_s"]),
+        replayed_streamed_tokens=sum(v[0] for v in run["replayed"].values()),
+        replayed_prompt_tokens=sum(v[1] for v in run["replayed"].values()),
+        replayed_requests=sorted(run["replayed"]),
+        devices={n: {k: d[k] for k in ("class", "state", "steps",
+                                       "tokens_emitted", "migrations_in",
+                                       "migrations_out")}
+                 for n, d in s["devices"].items()},
+        balancer_migrations=s["balancer_migrations"],
+        transfers=mig.line(), launches=launches, launches_expected=want,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        dead_engine_gb=_engine_bytes(dead.engine) / 2**30,
+        modeled_makespan_s=s["makespan_s"],
+        fault_free_modeled_makespan_s=fs["makespan_s"])
+    for what in ("recovery", "transfers", "devices"):
+        print(f"engine_chaos {what}: {json.dumps(out[what])}", flush=True)
+    assert s["finished"] == CHAOS_N and s["rejected"] == 0, s
+    assert all(len(recs[i].tokens) == CHAOS_NEW and recs[i].done
+               for i in range(CHAOS_N)), "a stream is short"
+    assert (lost, dup) == (0, 0), (lost, dup)
+    assert all(recs[rid].tokens == rs.outputs
+               for rid, rs in router.finished.items())
+    assert ft["kills_detected"] == 1, ft
+    assert dead.state == "dead", dead.state
+    assert counts == CHAOS_DRY_RUN, f"{counts} != dry run {CHAOS_DRY_RUN}"
+    _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
+                                                    want))
+    return out
+
+
+def _fleet_parity(cfg, params, chaos: str, n: int, serving: dict,
+                  rec_kw: dict, reqs) -> dict:
+    """Two HBM engines (no balancer) under ``chaos``, ``n`` requests
+    pinned alternately; the router, its summary and the margins."""
+    from repro_torch.cluster import ClusterSpec, FaultInjector, RecoveryConfig
+    from repro_torch.serving import ServingConfig
+    router = ClusterSpec.from_cli("hbm:2", model=cfg, serving=ServingConfig(
+        max_len=2048, pam=_pam(2048), **PAGED_RING, **serving),
+        recovery=RecoveryConfig(**rec_kw)).build(
+            params, device="cuda", faults=FaultInjector.from_spec(chaos))
+    recs: dict = {}
+    for d in router.devices:
+        recs.update(_margins(d.engine, sampled=True))
+    for i, r in enumerate(reqs[:n]):
+        router.submit_to(r, f"hbm{i % 2}")
+    events = list(router.serve())
+    return dict(router=router, summary=router.summary(), margins=recs,
+                records=_records(events))
+
+
+def phase_chaos_parity() -> dict:
+    """Full-width qwen3-0.6b in fp32 (TF32 off), sampled at temperature
+    1.0, seed 5, as the reference's scripts/chaos_smoke.py: (a) two HBM
+    engines, 8 requests of 16 new tokens pinned 4 / 4, the second engine
+    killed mid-decode (heartbeat timeout 10 ms): the lost requests replay
+    on the survivor; (b) 6 requests pinned 3 / 3, the second engine
+    stalled 50x from its first step (its prefill) with the first transfer
+    corrupted: its running requests drain to the first, one through a
+    retried transfer. Every stream equals the fault-free twin's (one
+    engine of batch 8) and is gapless."""
+    import torch
+    from repro_torch.frontend.loadgen import stream_integrity
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    cfg, params = _model("float32")
+    sampled = dict(temperature=1.0, sample_seed=5)
+    reqs, _ = _cluster_stream(cfg.vocab, 8, 8, 16)
+    twin = ServingEngine(cfg, params, ServingConfig(
+        max_batch=8, max_len=2048, pam=_pam(2048), **PAGED_RING, **sampled),
+        device="cuda")
+    rec_twin = _margins(twin, sampled=True)
+    for r in reqs:
+        twin.submit(Request(r.id, r.prompt, r.max_new_tokens))
+    twin.run()
+    want = {rid: rs.outputs for rid, rs in twin.requests.items()}
+    del twin
+    prompts = {r.id: r.prompt for r in reqs}
+    out: dict = dict(dtype="float32", tf32=False, **sampled)
+    for case, chaos, n, rec_kw in (
+            ("kill", "kill:hbm1@6", 8, dict(heartbeat_timeout_s=0.01)),
+            ("stall_corrupt", "stall:hbm1@1x50, corrupt@0*1", 6, {})):
+        r = _fleet_parity(cfg, params, chaos, n, sampled, rec_kw, reqs)
+        s = r["summary"]
+        got = {rid: rs.outputs for rid, rs in r["router"].finished.items()}
+        diff = _first_divergence(prompts, got,
+                                 {k: want[k] for k in got}, r["margins"],
+                                 rec_twin)
+        lost_dup = stream_integrity(r["records"].values())
+        out[case] = dict(
+            chaos=chaos, requests=n, finished=s["finished"],
+            states={k: d["state"] for k, d in s["devices"].items()},
+            fault_tolerance={k: s["fault_tolerance"][k]
+                             for k in CHAOS_COUNTS},
+            streams_equal=diff is None, first_difference=diff,
+            lost_dup=lost_dup)
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    for case in ("kill", "stall_corrupt"):
+        o = out[case]
+        assert o["finished"] == o["requests"], o
+        assert o["streams_equal"], f"{case}: {o['first_difference']}"
+        assert o["lost_dup"] == (0, 0), o
+    ft = out["kill"]["fault_tolerance"]
+    assert ft["kills_detected"] == 1 and ft["replays"] >= 1, ft
+    assert out["kill"]["states"]["hbm1"] == "dead", out["kill"]
+    ft = out["stall_corrupt"]["fault_tolerance"]
+    assert ft["corruptions_detected"] >= 1 and ft["drains"] >= 1, ft
+    assert out["stall_corrupt"]["states"]["hbm1"] == "drained"
+    return out
+
+
+# serve_frontend: an onoff trace whose ON windows overload the batch of 8
+SERVE_SLO = dict(ttft_s=0.25, tpot_s=0.05)
+SERVE_RATE = 128.0                     # mean req/s; 512 req/s in ON windows
+SERVE_CONTEXT_SCALE = 16             # hardware tokens an engine token models
+SERVE_TRACE = dict(kind="onoff", n_requests=32, prompt_len=(128, 1024),
+                   max_new=(16, 64), seed=0)
+# the admission decisions a CPU dry run of the same trace gives
+# (reduced qwen3-0.6b; scripts/chaos_dry_run.py)
+SERVE_DRY_RUN = dict(shed=12, forced_preemptions=1, preemptions=1,
+                     resumes=1)
+
+
+def serve_frontend_run(cfg, params, device: str = "cuda") -> dict:
+    """``AsyncServer`` with ``SLOAdmission`` over one engine (paged +
+    ring, 256-token prefill chunks, the ``pam`` system's modeled clock)
+    serving the onoff trace; host wall stamps of each request's release
+    to the shared queue and of every token it streams."""
+    import asyncio
+    from repro_torch.frontend.admission import SLOAdmission, SLOSpec
+    from repro_torch.frontend.loadgen import TraceConfig, make_trace
+    from repro_torch.frontend.server import AsyncServer
+    from repro_torch.perfmodel import (PAM_LLAMA_7B, make_latency_model,
+                                       make_system)
+    from repro_torch.serving import EngineSpec, ServingConfig
+    eng = EngineSpec(model=cfg, serving=ServingConfig(
+        max_batch=8, max_len=2048, pam=_pam(2048), prefill_chunk=256,
+        **PAGED_RING)).build(params, device=device, latency_model=(
+            make_latency_model(make_system("pam"), PAM_LLAMA_7B,
+                               context_scale=SERVE_CONTEXT_SCALE)))
+    adm = SLOAdmission(SLOSpec(**SERVE_SLO))
+    srv = AsyncServer(eng, admission=adm)
+    router = srv.router
+    released: dict = {}
+    stamps: dict = {}
+    release, fanout = router._release_arrivals, srv._fanout
+
+    def release_arrivals():
+        before = {r.id for r in router.queue}
+        release()
+        now = time.perf_counter()
+        for r in router.queue:
+            if r.id not in before:
+                released.setdefault(r.id, now)
+
+    def fan_out():
+        n0 = {rid: len(r.tokens) for rid, r in srv.records.items()}
+        fanout()
+        now = time.perf_counter()
+        for rid, r in srv.records.items():
+            stamps.setdefault(rid, []).extend(
+                [now] * (len(r.tokens) - n0.get(rid, 0)))
+    router._release_arrivals = release_arrivals
+    srv._fanout = fan_out
+    trace = _fit_vocab(make_trace(TraceConfig(
+        rate_rps=SERVE_RATE, vocab=QWEN_VOCAB, **SERVE_TRACE)), cfg.vocab)
+    t0 = time.perf_counter()
+    records = asyncio.run(srv.serve_trace(trace))
+    if device == "cuda":
+        import torch
+        torch.cuda.synchronize()
+    return dict(server=srv, admission=adm, records=records,
+                released=released, stamps=stamps,
+                wall=time.perf_counter() - t0)
+
+
+def _serve_counts(run) -> dict:
+    ft = run["server"].router.summary()["fault_tolerance"]
+    return dict(shed=run["admission"].shed,
+                forced_preemptions=run["admission"].forced_preemptions,
+                preemptions=ft["preemptions"], resumes=ft["resumes"])
+
+
+def phase_serve_frontend(cfg, params) -> dict:
+    """Full-width qwen3-0.6b (bf16) behind ``AsyncServer`` with
+    ``SLOAdmission(SLOSpec(ttft 250 ms, tpot 50 ms))``: an onoff trace of
+    32 requests (prompts 128-1024, 16-64 new, seed 0) whose ON windows
+    overload the batch of 8. Streams are gapless, the shed / preempt /
+    resume decisions equal a CPU dry run's, and the merged decode kernels
+    launch n_layers x the engine's decode steps. Host-wall TTFT (release
+    to the shared queue -> first token) and TPOT percentiles; SLO
+    attainment on the modeled clock."""
+    import numpy as np
+    import torch
+    from repro_torch.frontend.loadgen import score
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    run = serve_frontend_run(cfg, params)
+    launches = _launches()
+    srv = run["server"]
+    eng = srv.router.devices[0].engine
+    sc = score(run["records"].values(), ttft_slo_s=SERVE_SLO["ttft_s"],
+               tpot_slo_s=SERVE_SLO["tpot_s"])
+    ttft, tpot = [], []
+    for rid, st in run["stamps"].items():
+        if not st or rid not in run["released"]:
+            continue
+        ttft.append(st[0] - run["released"][rid])
+        if len(st) > 1:
+            tpot.append(float(np.mean(np.diff(st))))
+
+    def pct(xs):
+        return dict(p50=float(np.percentile(xs, 50)),
+                    p99=float(np.percentile(xs, 99)), n=len(xs)) \
+            if xs else dict(n=0)
+    counts = _serve_counts(run)
+    want = cfg.n_layers * eng.decode_device_steps
+    out = dict(
+        trace=dict(SERVE_TRACE, rate_rps=SERVE_RATE), slo=SERVE_SLO,
+        wall_s=run["wall"], host_wall_ttft_s=pct(ttft),
+        host_wall_tpot_s=pct(tpot), modeled_score=sc, decisions=counts,
+        dry_run=SERVE_DRY_RUN, launches=launches, launches_expected=want,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        chunk_slices=eng.summary().get("chunk_slices"))
+    assert sc["lost_tokens"] == 0 and sc["dup_tokens"] == 0, sc
+    assert sc["finished"] + sc["rejected"] == SERVE_TRACE["n_requests"], sc
+    assert counts == SERVE_DRY_RUN, f"{counts} != dry run {SERVE_DRY_RUN}"
+    _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
+                                                    want))
     return out
 
 
@@ -1918,6 +2341,8 @@ def main() -> int:
         run("engine_paged_ring_full", phase_engine_paged_full, *model)
         run("engine_dense_pam", phase_engine_dense, *model)
         run("engine_cluster", phase_engine_cluster, *model)
+        run("engine_chaos", phase_engine_chaos, *model)
+        run("serve_frontend", phase_serve_frontend, *model)
         run("engine_prefix_chunk_sampled",
             phase_engine_prefix_chunk_sampled, *model)
         run("profile", phase_profile, *model)
@@ -1936,6 +2361,8 @@ def main() -> int:
     run("prefix_chunk_parity", phase_prefix_chunk_parity)
     torch.cuda.empty_cache()
     run("cluster_parity", phase_cluster_parity)
+    torch.cuda.empty_cache()
+    run("chaos_parity", phase_chaos_parity)
     torch.cuda.empty_cache()
     run("train_ssm", phase_train, SSM_ARCH)
     torch.cuda.empty_cache()
@@ -2011,8 +2438,8 @@ def main() -> int:
     for row, name in ((rows[0], "flash_decode_merged"),
                       (rows[2], "flash_decode_paged_merged")):
         row["launches_engine_prefix_chunk_sampled"] = pcs[name]
-        row["launches_engine_cluster"] = results["engine_cluster"][
-            "launches"][name]
+        for phase in ("engine_cluster", "engine_chaos", "serve_frontend"):
+            row[f"launches_{phase}"] = results[phase]["launches"][name]
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

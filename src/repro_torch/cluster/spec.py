@@ -3,8 +3,8 @@
 
 A frozen spec says what the fleet is (model, device classes, replica
 groups, serving template) and which policies run on it (balancer,
-router, timing); runtime instances (params, a pre-built balancer, the
-device) are arguments of ``build``. ``from_cli`` keeps the launcher
+router, recovery, timing); runtime instances (params, a chaos injector,
+a pre-built balancer, the device) are arguments of ``build``. ``from_cli`` keeps the launcher
 syntax (``--devices hbm:1,cxl:2``).
 
 ``build`` gives every engine the same params tensors: one copy of the
@@ -12,8 +12,7 @@ weights on the device, whatever the fleet's size. The device classes
 are the perf model's (``repro_torch.perfmodel.devices``): each engine
 gets its class's batch, pool and latency model, and all of them run on
 the one device given. Replica groups of more than one device
-(``shard > 1``) are not ported yet (ROADMAP Queue 1 item 9), nor is the
-fault-tolerance layer (``recovery``, ``faults``: item 8).
+(``shard > 1``) are not ported yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -24,8 +23,9 @@ from typing import Any, Iterable, Optional
 import torch
 
 from repro_torch.cluster.balancer import BalancerConfig, KVBalancer
-from repro_torch.cluster.router import (FAULT_TOLERANCE_TODO, ClusterDevice,
-                                        ClusterRouter, RouterConfig)
+from repro_torch.cluster.recovery import RecoveryConfig, RecoveryManager
+from repro_torch.cluster.router import (ClusterDevice, ClusterRouter,
+                                        RouterConfig)
 from repro_torch.models.config import ModelConfig
 from repro_torch.perfmodel.devices import (DeviceClass,
                                            make_device_latency_model,
@@ -63,7 +63,7 @@ class ClusterSpec:
     model_desc: Optional[object] = None
     balancer: Optional[BalancerConfig] = None
     router: RouterConfig = RouterConfig()
-    recovery: Optional[object] = None
+    recovery: Optional[RecoveryConfig] = None
     wallclock: bool = False
 
     def __post_init__(self):
@@ -134,14 +134,14 @@ class ClusterSpec:
     # ------------------------------------------------------------- build
     def build(self, params: Any, *, balancer: Optional[KVBalancer] = None,
               device: str | torch.device | None = None,
-              faults=None, recovery=None) -> ClusterRouter:
+              faults=None, recovery: Optional[RecoveryManager] = None
+              ) -> ClusterRouter:
         """The fleet: one engine per replica group on ``device`` (CUDA
         unless named), all sharing ``params``; the perf model's latency
-        per class unless ``wallclock``; a balancer from the spec's
-        config unless one is passed."""
-        if faults is not None or recovery is not None \
-                or self.recovery is not None:
-            raise NotImplementedError(FAULT_TOLERANCE_TODO)
+        per class unless ``wallclock``; a balancer and a recovery manager
+        from the spec's configs unless instances are passed. A bare
+        ``faults`` injector implies a default recovery manager (injected
+        faults without a watchdog would hang the stream)."""
         from repro_torch.perfmodel.model import PAM_LLAMA_7B
         model_desc = self.model_desc or PAM_LLAMA_7B
         scfg = self.serving
@@ -172,10 +172,19 @@ class ClusterSpec:
                    if lat is not None else 0.0)
             devices.append(ClusterDevice(name=name, cls=gdc, engine=eng,
                                          step_prior=prior,
-                                         prefill_tok_prior=ppt))
+                                         prefill_tok_prior=ppt,
+                                         base_latency=lat))
         if balancer is None and self.balancer is not None:
             balancer = KVBalancer(self.balancer)
         if (balancer is not None and not self.wallclock
                 and not balancer.token_bytes):
             balancer.token_bytes = model_desc.kv_bytes_per_token()
-        return ClusterRouter(devices, balancer=balancer, rcfg=self.router)
+        rec = recovery
+        if rec is None:
+            if self.recovery is not None:
+                rec = RecoveryManager(self.recovery, injector=faults)
+            elif faults is not None:
+                rec = RecoveryManager(injector=faults)
+        return ClusterRouter(devices, balancer=balancer,
+                             rcfg=self.router, recovery=rec,
+                             faults=faults)

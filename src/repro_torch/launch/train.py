@@ -9,7 +9,8 @@ without ``--device cpu`` it runs on the GPU, where attention runs the
 ``flash_attention`` forward and backward kernels, or, with ``--arch
 mamba2-780m``, the SSD scan the ``ssd_scan`` kernels. Counterpart of
 ``repro.launch.train`` with the same flags; multi-device sharding and the
-straggler monitor are not ported (ROADMAP Queue 1 item 10). Prints one
+loop's straggler monitoring are not ported (ROADMAP Queue 1 item 10;
+``distributed.elastic.StragglerMonitor`` itself is). Prints one
 line per 10 steps and a JSON summary; step times are the host's wall
 clock, each step ending in a device readback of its loss.
 """

@@ -1271,9 +1271,9 @@ class ServingEngine:
             "token": int(self.tokens_dev[slot]),
             "k": _kv_to_host(k_row),
             "v": _kv_to_host(v_row),
-            "importance": imp.cpu().numpy() if pam else None,
-            "tier": tier.cpu().numpy() if pam else None,
-            "last_hot": lh.cpu().numpy() if pam else None,
+            "importance": _to_host(imp) if pam else None,
+            "tier": _to_host(tier) if pam else None,
+            "last_hot": _to_host(lh) if pam else None,
             "first_token_time": rs.first_token_time,
             "token_times": list(rs.token_times),
             "arrival": rs.request.arrival,
@@ -1397,11 +1397,13 @@ class ServingEngine:
         self.import_request(snap)
 
     # ------------------------------------------------ serving surface
-    def as_router(self):
+    def as_router(self, *, preemptible: bool = False):
         """This engine as a one-device ``ClusterRouter``: admission,
-        events and the ``serve`` generator come from the router."""
+        events and the ``serve`` generator come from the router;
+        ``preemptible`` attaches the suspension machinery SLO admission
+        needs."""
         from repro_torch.cluster.router import ClusterRouter
-        return ClusterRouter.for_engine(self)
+        return ClusterRouter.for_engine(self, preemptible=preemptible)
 
     def serve(self, requests: Optional[Iterable[Request]] = None, *,
               max_ticks: Optional[int] = None) -> Iterator[Any]:
@@ -1481,10 +1483,17 @@ class ServingEngine:
         return float(np.mean(np.asarray(gaps) <= slo_s))
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t`` that owns its memory: on a CPU engine
+    ``.cpu().numpy()`` would alias the live cache or PAM rows, which the
+    slot's next occupant overwrites under a sealed snapshot."""
+    return t.to("cpu", copy=True).numpy()
+
+
 def _kv_to_host(t: torch.Tensor) -> np.ndarray:
     """K or V rows as a host numpy array; bf16 as ``uint16`` bit patterns
     (numpy has no bfloat16), so a snapshot's bytes, ``kv_bytes`` and its
     crc32 are those of the reference's bf16 arrays for the same values."""
     if t.dtype == torch.bfloat16:
-        return t.contiguous().view(torch.int16).cpu().numpy().view(np.uint16)
-    return t.cpu().numpy()
+        return _to_host(t.contiguous().view(torch.int16)).view(np.uint16)
+    return _to_host(t)

@@ -226,23 +226,28 @@ def test_reduced_engine_runs_through_both_kernels(cuda):
     assert ran == [cfg.n_layers * steps] * 2 + [0, 0]
 
 
-def _cluster_run(dev, params, cfg):
+def _cluster_run(dev, params, cfg, chaos=None, pin="cxl0"):
     """The reduced ``hbm:1,cxl:2`` fleet with the balancer over a seeded
-    stream (4 requests pinned to cxl0, 12 Poisson arrivals)."""
-    from repro_torch.cluster import BalancerConfig, ClusterSpec, KVBalancer
+    stream (4 requests pinned to ``pin``, 12 Poisson arrivals); with
+    ``chaos``, that fault trace and the default recovery watchdog."""
+    from repro_torch.cluster import (BalancerConfig, ClusterSpec,
+                                     FaultInjector, KVBalancer,
+                                     RecoveryConfig)
     pam = tpm.PAMManagerConfig(max_tokens=64, hot_capacity=4,
                                warm_capacity=8, compression=4,
                                recency_window=2, schedule_interval=2)
     router = ClusterSpec.from_cli(
         "hbm:1,cxl:2", model=cfg, serving=teng.ServingConfig(
             max_batch=4, max_len=64, block_size=8, hot_window=16,
-            pam=pam)).build(params, device=dev, balancer=KVBalancer(
-                BalancerConfig(rebalance_interval=2, hysteresis=1.1,
-                               cooldown_ticks=4, min_remaining=2)))
+            pam=pam), recovery=RecoveryConfig() if chaos else None).build(
+                params, device=dev, balancer=KVBalancer(
+                    BalancerConfig(rebalance_interval=2, hysteresis=1.1,
+                                   cooldown_ticks=4, min_remaining=2)),
+                faults=FaultInjector.from_spec(chaos) if chaos else None)
     rng = np.random.default_rng(0)
     for i in range(4):
         router.submit_to(teng.Request(i, rng.integers(0, cfg.vocab, 16), 12),
-                         "cxl0")
+                         pin)
     t, rest = 0.0, []
     for i in range(4, 16):
         t += float(rng.exponential(0.002))
@@ -275,6 +280,35 @@ def test_reduced_cluster_card_equals_cpu(cuda):
     steps = sum(d["decode_device_steps"] for d in summ["devices"].values())
     assert ran == [cfg.n_layers * steps] * 2
     assert summ["balancer_migrations"] >= 1 and summ["finished"] == 16
+
+
+@pytest.mark.cuda
+def test_reduced_chaos_fleet_card_equals_cpu(cuda):
+    """Under the mixed chaos trace (stall, kill, corrupted and dropped
+    transfers) the fleet on the card (fp32, TF32 off) gives its CPU
+    run's events, verdicts and recovery counts: the kill replays, the
+    stall drains, and every stream stays gapless."""
+    from repro_torch import tree
+    cfg = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
+    cpu_params = ttf.init_params(cfg, 0, device="cpu")
+    chaos = "stall:cxl0@3x6, kill:cxl1@4, corrupt@2*1, drop@6"
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree.unflatten(cpu_params, [
+            x.to(dev) for x in tree.leaves(cpu_params)])
+        out[str(dev)] = _cluster_run(dev, params, cfg, chaos=chaos,
+                                     pin="cxl1")
+    assert out["cuda"] == out["cpu"]
+    events, summ, _ = out["cuda"]
+    ft = summ["fault_tolerance"]
+    assert summ["finished"] == 16 and ft["kills_detected"] == 1
+    assert ft["replays"] >= 1 and ft["drains"] >= 1
+    assert ft["corruptions_detected"] == ft["transfers_dropped"] == 1
+    assert summ["devices"]["cxl1"]["state"] == "dead"
+    assert summ["devices"]["cxl0"]["state"] == "drained"
+    for rid in range(16):
+        idx = [e[3] for e in events if e[1] == rid]
+        assert idx == list(range(12)), (rid, idx)
 
 
 @pytest.mark.cuda

@@ -143,6 +143,11 @@ bad = sorted(n for n in sys.modules
              if n in ("jax", "repro", "ml_dtypes")
              or n.startswith(("jax.", "repro.", "ml_dtypes.")))
 assert not bad, bad
+# the fault-tolerance layer and the front end are among those walked
+want = {"repro_torch.distributed.elastic", "repro_torch.cluster.faults",
+        "repro_torch.cluster.recovery", "repro_torch.frontend.loadgen",
+        "repro_torch.frontend.admission", "repro_torch.frontend.server"}
+assert want <= set(sys.modules), sorted(want - set(sys.modules))
 print("clean", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
 
@@ -183,3 +188,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_cli.main(["--reduced", "--devices", "hbm:1,cxl:2",
                         "--block-size", "8", "--max-len", "64"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--reduced", "--devices", "hbm:1,cxl:2",
+                        "--block-size", "8", "--max-len", "64",
+                        "--chaos", "kill:cxl1@5"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--reduced", "--serve", "--block-size", "8",
+                        "--max-len", "64"])

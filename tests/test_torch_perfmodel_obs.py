@@ -8,8 +8,9 @@ JAX package's.
 * The same sequence of metrics-registry and trace-collector calls gives
   identical Prometheus renders, snapshots and trace JSON.
 * ``EngineSpec`` / ``ClusterSpec``: the CLI round trips and actionable
-  errors of the reference's ``tests/test_spec_api.py``; sharding and
-  the fault-tolerance options raise naming their ROADMAP items.
+  errors of the reference's ``tests/test_spec_api.py``; sharding raises
+  naming its ROADMAP item, and the fault-tolerance options build the
+  reference's recovery wiring.
 
 Pure Python on both sides except the engine build (reduced qwen3-0.6b,
 fp32, on the CPU).
@@ -32,6 +33,8 @@ from repro.perfmodel import devices as jdev  # noqa: E402
 from repro.perfmodel import latency as jlat  # noqa: E402
 from repro.perfmodel import model as jmodel  # noqa: E402
 from repro_torch.cluster import BalancerConfig, ClusterRouter  # noqa: E402
+from repro_torch.cluster import FaultInjector, RecoveryConfig  # noqa: E402
+from repro_torch.cluster import RecoveryManager  # noqa: E402
 from repro_torch.cluster import ClusterSpec, ReplicaGroup  # noqa: E402
 from repro_torch.models import config as tcfg  # noqa: E402
 from repro_torch.obs import metrics as tmetrics  # noqa: E402
@@ -277,22 +280,40 @@ def test_specs_are_frozen_and_hashable():
 
 
 def test_unported_options_raise_naming_their_items():
-    """Sharding is ROADMAP Queue 1 item 9; fault tolerance item 8. Both
-    raise before any engine is built."""
+    """Sharding is ROADMAP Queue 1 item 9 and raises before any engine is
+    built. The fault-tolerance options (item 8, ported) build the
+    reference's wiring: a spec's ``RecoveryConfig`` becomes a manager
+    with the injector; a bare injector implies a default manager; a
+    passed manager is used as it is."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         EngineSpec(model=_TCF, serving=_scfg(), shard=2).build(
             None, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ClusterSpec.from_cli("cxl:2", model=_TCF, serving=_scfg(),
                              shard=2).build(None, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ClusterSpec.from_cli("hbm:1", model=_TCF, serving=_scfg(),
-                             recovery=object()).build(None, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ClusterSpec.from_cli("hbm:1", model=_TCF, serving=_scfg()).build(
-            None, device="cpu", faults=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ClusterRouter([], recovery=object())
+    from repro_torch.models import transformer as ttf
+    params = ttf.init_params(_TCF, 0, device="cpu")
+    cfg = RecoveryConfig(heartbeat_timeout_s=0.5)
+    inj = FaultInjector.from_spec("kill:hbm0@5")
+    router = ClusterSpec.from_cli("hbm:1", model=_TCF, serving=_scfg(),
+                                  recovery=cfg).build(
+        params, device="cpu", faults=inj)
+    assert router.recovery.cfg is cfg and router.recovery.injector is inj
+    assert router.faults is inj
+    assert router.devices[0].base_latency is router.devices[0].engine \
+        .latency_model
+    router = ClusterSpec.from_cli("hbm:1", model=_TCF, serving=_scfg()).build(
+        params, device="cpu", faults=inj)
+    assert router.recovery.cfg == RecoveryConfig()
+    assert router.recovery.injector is inj
+    rec = RecoveryManager()
+    router = ClusterSpec.from_cli("hbm:1", model=_TCF, serving=_scfg(),
+                                  recovery=cfg).build(
+        params, device="cpu", recovery=rec)
+    assert router.recovery is rec and router.faults is None
+    assert "fault_tolerance" in router.summary()
+    with pytest.raises(ValueError, match="at least one device"):
+        ClusterRouter([], recovery=rec)
 
 
 def test_cluster_build_shares_one_copy_of_the_params():
