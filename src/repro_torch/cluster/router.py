@@ -62,7 +62,8 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.perfmodel.devices import DeviceClass
 from repro_torch.serving.engine import (DONE, RUNNING, Request,
-                                        ServingConfig, ServingEngine)
+                                        ServingConfig, ServingEngine,
+                                        check_prompt_ids)
 from repro_torch.serving.events import ServeEvent
 
 
@@ -227,11 +228,19 @@ class ClusterRouter:
             if phase is not None:
                 tr.end(req.id, phase, t)
 
+    def check_prompt(self, prompt) -> None:
+        """``ValueError`` unless every prompt id lies in ``[0, vocab)``
+        of the fleet's model."""
+        check_prompt_ids(prompt, min(d.engine.cfg.vocab
+                                     for d in self.devices))
+
     def submit(self, req: Request) -> None:
         """Add a request to the shared stream (``req.arrival`` is its
         arrival on the modeled clock; submissions must be time-ordered).
         A request no healthy device can ever serve is rejected (an
-        event)."""
+        event). A prompt id outside ``[0, vocab)`` raises ``ValueError``
+        (``check_prompt``) and registers nothing."""
+        self.check_prompt(req.prompt)
         if self.arrivals and req.arrival < self.arrivals[-1].arrival:
             raise ValueError("submit arrivals in nondecreasing time order")
         window = len(req.prompt) + req.max_new_tokens
@@ -251,7 +260,9 @@ class ClusterRouter:
     def submit_to(self, req: Request, device_name: str) -> None:
         """Pin a request to one device, bypassing cost-based dispatch
         (to pre-load a device; real traffic goes through ``submit``). An
-        unserviceable window rejects (an event) instead of raising."""
+        unserviceable window rejects (an event) instead of raising; a
+        prompt id outside ``[0, vocab)`` raises ``ValueError``."""
+        self.check_prompt(req.prompt)
         dev = self._by_name(device_name)
         window = len(req.prompt) + req.max_new_tokens
         self._requests[req.id] = req

@@ -102,3 +102,14 @@ def schedule_kv(importance: torch.Tensor, tier_of_token: torch.Tensor,
     tier, swaps, moved = _swap_phase(imp, valid, tier, swaps, moved, HOT,
                                      WARM, phase2_cond, cfg.max_swaps)
     return tier, moved, swaps
+
+
+def ratio_error(importance: torch.Tensor, tier_of_token: torch.Tensor,
+                valid: torch.Tensor, cfg: ScheduleConfig) -> torch.Tensor:
+    """Distance of the tier-importance ratios from the ``x : y : 1``
+    target, the quantity Algorithm 2 never increases. Inputs (tokens,)
+    or (B, tokens); returns () or (B,)."""
+    xs, ys = _ratios(importance.float(), tier_of_token, valid, cfg)
+    return (torch.clamp(cfg.x + cfg.y - (xs + ys), min=0.0)
+            + torch.clamp(cfg.x / cfg.y - xs / torch.clamp(ys, min=cfg.eps),
+                          min=0.0))

@@ -144,8 +144,12 @@ class AsyncServer:
                arrival: Optional[float] = None) -> StreamHandle:
         """Register one request and return its stream. ``arrival``
         defaults to the cluster's frontier; explicit arrivals are
-        clamped nondecreasing (the router's stream contract)."""
-        prompt = np.asarray(prompt, dtype=np.int32)
+        clamped nondecreasing (the router's stream contract). A prompt
+        id outside ``[0, vocab)`` raises ``ValueError`` and registers
+        nothing."""
+        prompt = np.asarray(prompt)
+        self.router.check_prompt(prompt)      # before any narrowing cast
+        prompt = prompt.astype(np.int32)
         if rid is None:
             rid = self._next_rid
         if rid in self.records:
@@ -246,7 +250,10 @@ class AsyncServer:
         "id": optional}``, and receives one JSON line per event
         (``{"rid", "token", "index", "time", "done", "rejected"}``). A
         ``{"op": "metrics"}`` line instead returns one line with the live
-        registry snapshot. Returns ``(server, port, pump_task)``; the
+        registry snapshot. A refused request (a prompt id outside
+        ``[0, vocab)``, a duplicate id) gets one ``{"rid", "error"}``
+        line and its connection closes; the endpoint keeps serving.
+        Returns ``(server, port, pump_task)``; the
         caller owns shutdown (cancel the task, close the server)."""
         server = await asyncio.start_server(self._handle_conn, host, port)
         bound = server.sockets[0].getsockname()[1]
@@ -273,9 +280,16 @@ class AsyncServer:
                 }).encode() + b"\n")
                 await writer.drain()
                 return
-            handle = self.submit(np.asarray(msg["prompt"], np.int32),
-                                 int(msg["max_new_tokens"]),
-                                 rid=msg.get("id"))
+            try:
+                handle = self.submit(msg["prompt"],
+                                     int(msg["max_new_tokens"]),
+                                     rid=msg.get("id"))
+            except ValueError as exc:       # refused; the server goes on
+                writer.write(json.dumps({"rid": msg.get("id"),
+                                         "error": str(exc)}).encode()
+                             + b"\n")
+                await writer.drain()
+                return
             async for ev in handle:
                 writer.write(json.dumps({
                     "rid": ev.request_id, "token": ev.token,

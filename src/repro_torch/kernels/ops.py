@@ -9,9 +9,14 @@ also merges its splits; its plain version on the CPU). The masked decode
 functions take the per-token attention mass from the scores those
 kernels return, the values that entered their softmax; the tier merge
 (``online_softmax.merge_partials``) and the mass stay plain tensor code.
+``decode_attention`` is one pool's whole attention; ``pam_decode_attention``
+is Alg. 1 over a list of tier pools, dense or paged, one kernel launch a
+tier and the exact merge across them.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -54,6 +59,65 @@ def decode_attention_partial(q, k, v, mask=None, *, kv_len=None,
     fields (B, H, d) / (B, H)."""
     return osm.AttnPartial(*flash_decode_merged(
         q, k, v, mask, kv_len=kv_len, kv_lens=kv_lens, scale=scale))
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor | None = None, *,
+                     kv_len: int | None = None,
+                     kv_lens: torch.Tensor | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """Single-pool decode attention (local stage and the reduction of
+    its splits, both in ``flash_decode_merged``). q: (B, H, d); k/v: (B,
+    H_kv, S, d); mask: (B, S); ``kv_len`` / ``kv_lens`` as there.
+    Returns (B, H, d) in q's dtype."""
+    part = decode_attention_partial(q, k, v, mask, kv_len=kv_len,
+                                    kv_lens=kv_lens, scale=scale)
+    return osm.finalize(part, out_dtype=q.dtype)
+
+
+class PagedTier(NamedTuple):
+    """A tier held in a paged pool, for ``pam_decode_attention``:
+    single-layer pools (NB+1, block_size, H_kv, d), sentinel last, a (B,
+    nb) block table, and optionally the (B, nb) live entries (a dead
+    entry is skipped without reading its KV)."""
+    k_pool: torch.Tensor
+    v_pool: torch.Tensor
+    block_table: torch.Tensor
+    block_live: torch.Tensor | None = None
+
+
+def pam_decode_attention(q: torch.Tensor,
+                         tier_kv: Sequence[tuple[torch.Tensor, torch.Tensor]
+                                           | PagedTier],
+                         tier_masks: Sequence[torch.Tensor | None], *,
+                         scale: float | None = None) -> torch.Tensor:
+    """PAMattention decode over heterogeneous tier pools (Alg. 1).
+
+    tier_kv: per tier, a dense ``(k_t, v_t)``, each (B, H_kv, S_t, d)
+    (S_t may differ per tier), or a ``PagedTier``; tier_masks: per-tier
+    participation, (B, S_t) for a dense tier or (B, nb * block_size) for
+    a paged one, None for every position. Each tier's partial comes from
+    one merged kernel launch (``flash_decode_merged`` or
+    ``flash_decode_paged_merged``); the partials merge left to right, as
+    the reference's do, and finalize in q's dtype.
+    """
+    acc = None
+    for tier, msk in zip(tier_kv, tier_masks):
+        if isinstance(tier, PagedTier):
+            if msk is None:
+                msk = torch.ones((q.shape[0], tier.block_table.shape[1]
+                                  * tier.k_pool.shape[1]),
+                                 dtype=torch.bool, device=q.device)
+            part = paged_decode_attention_partial(
+                q, tier.k_pool, tier.v_pool, tier.block_table, msk,
+                block_live=tier.block_live, scale=scale)
+        else:
+            part = decode_attention_partial(q, tier[0], tier[1], msk,
+                                            scale=scale)
+        acc = part if acc is None else osm.merge_partials(acc, part)
+    if acc is None:
+        raise ValueError("pam_decode_attention needs at least one tier")
+    return osm.finalize(acc, out_dtype=q.dtype)
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor,

@@ -96,6 +96,21 @@ class Request:
     arrival: float = 0.0
 
 
+def check_prompt_ids(prompt, vocab: int) -> None:
+    """Reject a prompt holding a token id outside ``[0, vocab)``.
+
+    The embedding lookup indexes with the ids: on the CPU a bad id
+    raises mid-step, and on CUDA it fails a device-side assert that
+    leaves the process's context (shared by every engine of a fleet)
+    unusable. The reference's gather clamps such an id and serves a
+    different prompt; the port refuses the request at submission."""
+    ids = np.asarray(prompt)
+    if ids.size and (int(ids.min()) < 0 or int(ids.max()) >= vocab):
+        bad = ids[(ids < 0) | (ids >= vocab)]
+        raise ValueError(f"prompt token ids must lie in [0, {vocab}); "
+                         f"got {bad[:8].tolist()}")
+
+
 @dataclasses.dataclass
 class RequestState:
     request: Request
@@ -415,6 +430,9 @@ class ServingEngine:
 
     # ------------------------------------------------------------ admission
     def submit(self, req: Request) -> None:
+        """Queue a request; a prompt id outside ``[0, cfg.vocab)`` raises
+        ``ValueError`` (``check_prompt_ids``)."""
+        check_prompt_ids(req.prompt, self.cfg.vocab)
         self.requests[req.id] = RequestState(request=req)
         self.waiting.append(req.id)
         tr = obs_trace.COLLECTOR

@@ -1,6 +1,7 @@
 """Paged KV storage (paper §4.2.2): the host's refcounted block
-allocator and prompt-prefix trie, and the device-side helpers the
-serving path uses.
+allocator and prompt-prefix trie, the device-side helpers the serving
+path uses, and ``PagedKVPool``, the pool as one object for tools and
+tests (the engine holds the pool tensors itself).
 
 Counterpart of ``repro.serving.paged_kv``. Pool tensors are shaped
 
@@ -19,6 +20,9 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.core import pam_interface as pam_if
+from repro_torch.device import resolve_device
 
 
 class OutOfBlocks(RuntimeError):
@@ -434,3 +438,104 @@ def gather_sequence(pool: torch.Tensor, table_row: torch.Tensor
     g = pool[:, table_row.long()]           # (L, [n,] nb, bs, Hkv, dh)
     *lead, nb, bs, Hkv, dh = g.shape
     return torch.movedim(g.reshape(*lead, nb * bs, Hkv, dh), -2, -3)
+
+
+def sequence_to_blocks(kv: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Dense cache layout -> pool block layout for one batch row:
+    (L, Hkv, S, dh) -> (L, S // bs, bs, Hkv, dh)."""
+    L, Hkv, S, dh = kv.shape
+    return torch.movedim(kv, 1, 2).reshape(L, S // block_size, block_size,
+                                           Hkv, dh)
+
+
+def gather_logical(pool: torch.Tensor, block_table: torch.Tensor
+                   ) -> torch.Tensor:
+    """Block-table gather of one layer's pool (NB+1, bs, Hkv, dh) into
+    the logical dense layout (B, Hkv, nb * bs, dh) for a (B, nb) table:
+    the §6.2 re-layout unit's ``paged_gather_logical``. Every entry is
+    read (dead ones too); masking is the caller's."""
+    return pam_if.paged_gather_logical(pool, block_table)
+
+
+@dataclasses.dataclass
+class PagedKVPool:
+    """Paged KV storage for the memory hierarchy, as one object.
+
+    K and V pools are shaped ``(L, num_blocks + 1, block_size, H_kv,
+    d_head)``; the trailing physical block is the sentinel unmapped
+    table entries point at. One pool holds the blocks of every tier
+    (residency is per-token metadata), which makes an Alg. 2 migration a
+    table edit. The writes return a new pool and leave this one as it
+    was, as the reference's do.
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    block_size: int
+
+    @classmethod
+    def create(cls, n_layers: int, num_blocks: int, block_size: int,
+               n_kv: int, d_head: int, dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device | None = None) -> "PagedKVPool":
+        """A zeroed pool on ``device`` (CUDA unless named)."""
+        shape = (n_layers, num_blocks + 1, block_size, n_kv, d_head)
+        dev = resolve_device(device)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev),
+                   block_size=block_size)
+
+    @property
+    def num_blocks(self) -> int:
+        """Allocatable blocks (the sentinel excluded)."""
+        return self.k.shape[1] - 1
+
+    @property
+    def sentinel(self) -> int:
+        """Physical id of the trash block unmapped table entries use."""
+        return self.k.shape[1] - 1
+
+    def write_prefill(self, layer_k: torch.Tensor, layer_v: torch.Tensor,
+                      table_row: torch.Tensor) -> "PagedKVPool":
+        """Scatter a prefilled sequence (dense (L, Hkv, S, dh) layout)
+        into the blocks ``table_row`` ((S // bs,) physical ids) names."""
+        out = PagedKVPool(self.k.clone(), self.v.clone(), self.block_size)
+        write_prefill(out.k, layer_k, table_row, self.block_size)
+        write_prefill(out.v, layer_v, table_row, self.block_size)
+        return out
+
+    def gather_logical(self, block_table: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Logical-order gather of every layer: K and V shaped (L, B,
+        Hkv, nb * bs, dh) for a (B, nb) block table."""
+        return (torch.stack([gather_logical(p, block_table) for p in self.k]),
+                torch.stack([gather_logical(p, block_table) for p in self.v]))
+
+    def _index(self, block_ids, slot_ids):
+        dev = self.k.device
+        return (torch.as_tensor(np.asarray(block_ids), device=dev).long(),
+                torch.as_tensor(np.asarray(slot_ids), device=dev).long())
+
+    def write_tokens(self, layer_k: torch.Tensor, layer_v: torch.Tensor,
+                     block_ids: np.ndarray, slot_ids: np.ndarray
+                     ) -> "PagedKVPool":
+        """Scatter single tokens into (block, slot) positions: layer_k/v
+        (L, T, Hkv, dh); block_ids / slot_ids (T,)."""
+        bi, si = self._index(block_ids, slot_ids)
+        k, v = self.k.clone(), self.v.clone()
+        k[:, bi, si] = layer_k.to(k.dtype)
+        v[:, bi, si] = layer_v.to(v.dtype)
+        return PagedKVPool(k, v, self.block_size)
+
+    def gather_tokens(self, block_ids: np.ndarray, slot_ids: np.ndarray
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(L, T, Hkv, dh) K and V at the given token positions."""
+        bi, si = self._index(block_ids, slot_ids)
+        return self.k[:, bi, si], self.v[:, bi, si]
+
+
+def token_to_block_slot(positions: np.ndarray, table: list[int],
+                        block_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Logical token positions -> (physical block id, slot) via a
+    sequence's block table."""
+    pos = np.asarray(positions)
+    phys = np.asarray(table, np.int32)[pos // block_size]
+    return phys, pos % block_size

@@ -258,3 +258,44 @@ def hit_rate_of(last_hot: torch.Tensor, participate: torch.Tensor
     denom = torch.clamp(torch.sum(participate, dim=-1), min=1)
     ratio = inter / denom
     return torch.cumsum(ratio, 0)[-1] * (1.0 / ratio.shape[0])
+
+
+# ------------------------------------------------------------------ manager
+class PAMManager:
+    """PAMState transitions bound to one ``PAMManagerConfig``: the
+    reference's manager object over the functions above. Each method
+    returns a new state and leaves the one it was given as it was."""
+
+    def __init__(self, cfg: PAMManagerConfig):
+        self.cfg = cfg
+
+    def participation(self, state: PAMState, lengths: torch.Tensor
+                      ) -> torch.Tensor:
+        """Step 1: the (B, Smax) tokens read this step."""
+        return participation_mask(self.cfg, state.importance, lengths)
+
+    def observe(self, state: PAMState, scores: torch.Tensor,
+                lengths: torch.Tensor, participate: torch.Tensor
+                ) -> PAMState:
+        """Steps 3 and 4: EMA update, hot append, capacity cascade and,
+        every ``schedule_interval`` steps, Alg. 2."""
+        return observe_update(self.cfg, state, scores, lengths, participate)
+
+    def place_prefill(self, state: PAMState, slot, length) -> PAMState:
+        """Recency fill-down placement of one admitted sequence."""
+        copy = state._replace(importance=state.importance.clone(),
+                              tier=state.tier.clone(),
+                              last_hot=state.last_hot.clone(),
+                              block_table=state.block_table.clone())
+        return place_prefill_state(self.cfg, copy, int(slot), int(length))
+
+    def tier_read_counts(self, state: PAMState, participate: torch.Tensor
+                         ) -> torch.Tensor:
+        """(3,) tokens read per tier (bytes = counts x token bytes)."""
+        return tier_read_counts_of(state.tier, participate)
+
+    def hit_rate(self, state: PAMState, participate: torch.Tensor
+                 ) -> torch.Tensor:
+        """Context locality: share of this step's working set that the
+        previous step also read."""
+        return hit_rate_of(state.last_hot, participate)

@@ -143,10 +143,13 @@ bad = sorted(n for n in sys.modules
              if n in ("jax", "repro", "ml_dtypes")
              or n.startswith(("jax.", "repro.", "ml_dtypes.")))
 assert not bad, bad
-# the fault-tolerance layer and the front end are among those walked
+# the fault-tolerance layer, the front end and the paper's core library
+# are among those walked
 want = {"repro_torch.distributed.elastic", "repro_torch.cluster.faults",
         "repro_torch.cluster.recovery", "repro_torch.frontend.loadgen",
-        "repro_torch.frontend.admission", "repro_torch.frontend.server"}
+        "repro_torch.frontend.admission", "repro_torch.frontend.server",
+        "repro_torch.core.pam_attention", "repro_torch.core.sparsity",
+        "repro_torch.core.mapping"}
 assert want <= set(sys.modules), sorted(want - set(sys.modules))
 print("clean", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
