@@ -50,8 +50,9 @@ final ``ok`` line:
             the SSD tier's dense view into an HBM staging pool, against a
             gather oracle and the moved bytes
   engine_paged_ring   full-width qwen3-0.6b (random weights, bf16) served
-            in paged + hot-ring mode; each merged decode kernel must
-            launch n_layers x decode steps times, the stacked ones never
+            in paged + hot-ring mode; each merged decode wrapper must be
+            called n_layers x the host-run body steps, the stacked ones
+            never
   engine_paged_ring_full   the same with retrieval sparsity off, so
             every token past the ring is read through
             flash_decode_paged_merged
@@ -63,12 +64,12 @@ final ``ok`` line:
             sharing one copy of the weights: 24 requests of 512-1024
             prompt tokens and 64 new, 8 pinned to cxl0, 16 routed at
             Poisson gaps of 2 ms of modeled time; asserts 64 tokens each,
-            >= 1 balancer migration, the merged decode kernels n_layers x
-            the fleet's decode steps; prints wall seconds and tok/s, per
-            device steps, tokens and migrations, export / crc32 / import
-            wall ms, snapshot and live KV bytes, peak memory, and the
-            modeled makespan and tok/s (``modeled_``: the perf model's PIM
-            hardware, not the card)
+            >= 1 balancer migration, the merged decode wrappers n_layers x
+            the fleet's host-run body steps; prints wall seconds and
+            tok/s, per device steps, tokens and migrations, export /
+            crc32 / import wall ms, snapshot and live KV bytes, peak
+            memory, and the modeled makespan and tok/s (``modeled_``:
+            the perf model's PIM hardware, not the card)
   engine_chaos   the same fleet (with engine_cluster's balancer) under
             the mixed chaos trace ``stall:cxl0@25x6, kill:cxl1@40,
             corrupt@30*1, drop@45`` and the recovery watchdog at its
@@ -78,12 +79,14 @@ final ``ok`` line:
             gaps of 2 ms; asserts complete, gapless streams, one kill
             detected, the recovery counts of a CPU dry run of the same
             schedule (scripts/chaos_dry_run.py: the modeled schedule does
-            not depend on the weights), the merged decode kernels n_layers
-            x the fleet's decode steps; prints wall seconds, decode tok/s
-            and goodput beside the fault-free run's, the modeled recovery
-            latency, wall ms of each transfer part (export, crc32 seal,
-            clone, crc32 check, import, whole transfers), the replayed
-            tokens recomputed, peak memory and the dead engine's memory
+            not depend on the weights), the merged decode wrappers
+            n_layers x the fleet's host-run body steps; prints wall
+            seconds, decode tok/s and goodput beside the fault-free run's,
+            the modeled recovery latency, wall ms of each transfer part
+            (export, crc32 seal, clone, crc32 check, import, whole
+            transfers), the replayed tokens recomputed, peak memory and
+            the dead engine's memory (its decode graphs released: none
+            left)
   serve_frontend   the same model behind ``AsyncServer`` with
             ``SLOAdmission(SLOSpec(ttft 250 ms, tpot 50 ms))``: one engine
             (paged + ring, 256-token prefill chunks, batch 8) on the
@@ -101,14 +104,32 @@ final ``ok`` line:
             others once its prompt is in the trie (each hit copy-on-writes
             the shared tail block); asserts 64 tokens each, 7 hits, >= 7
             copies, >= 4 chunked admissions, slices <= 256, the merged
-            decode kernels n_layers x steps, a paged walk over blocks two
+            decode wrappers n_layers x body steps, a paged walk over blocks two
             or more rows map, every token inside its top-50; prints TTFT,
             the counters, the sampler's launches and device ms a step
-  profile   torch.profiler over 4 steady paged + ring decode steps: device
-            time by kernel, launches per step (matmul, gather / scatter
-            and copy kernels apart), the device's idle share, the steps'
-            peak memory, and the calls of the pool gather and grouped
-            QK^T that the union mass no longer needs
+  decode_graph   twin engines in this call, one replaying the decode
+            dispatch's CUDA graphs and one running the eager in-place
+            body, full-width qwen3-0.6b paged + ring, 8 requests of
+            512-1024 prompt tokens and 64 new: greedy; sampled
+            (temperature 0.8, top-50) with the prefix cache and 256-token
+            chunks over the shared-prompt requests; greedy at micro_steps
+            4 with an EOS token. Streams and every StepBufs field must be
+            equal, and each merged decode wrapper must be called n_layers x
+            the host-run body steps on the graph twin; also dense PAM (the
+            merged dense kernel over S 2048) as a twin pair; one replayed
+            step of each graph twin under torch.profiler must run each
+            merged decode kernel n_layers times; prints graphs captured,
+            capture ms, steady step ms and decode tok/s of both twins, the
+            kernel nodes of a single-step graph, and the card
+  profile   torch.profiler over 4 steady paged + ring decode steps (every
+            Alg. 2 phase's graph captured first, so the window holds
+            replays only): graph launches and kernel nodes per step, the
+            decode kernels the card ran (n_layers x 4 each), device time
+            by kernel, kernels per step by class (matmul,
+            gather / scatter and copy kernels apart), the device's idle
+            share, the host events of ``HOST_SYNCS`` per dispatch, the
+            steps' peak memory, and the calls of the pool gather and
+            grouped QK^T that the union mass no longer needs
   profile_prefix_chunk_sampled   the same over 4 decode steps of the
             engine_prefix_chunk_sampled engine once all eight requests run
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
@@ -200,6 +221,18 @@ Bounds: bytes over 3.35 TB/s (HBM3), and operations over 67 TFLOP/s
 or 989 TFLOP/s (bf16 dense tensor cores) for bf16 flash_attention and
 ssd_scan, whose bf16 work a tensor-core kernel can do; NVIDIA's H100 SXM
 data sheet.
+
+Every engine on the card dispatches its decode steps as CUDA graphs
+(``serving/engine.py``): a hook that runs inside the decode body (the
+sampler, a kernel wrapper) must write into device tensors in place, as
+``_Margins`` and the prefix phase's accumulators do, for the graph
+replays to run it. A kernel wrapper counts its calls on the host, where
+it launches its kernel or records it into a graph; a replay calls no
+wrapper. So a serving phase holds each merged decode wrapper at n_layers
+x the micro-steps whose body ran on the host (``decode_body_steps``:
+each graph's eager dispatch and its recording), and the profile phases
+and ``decode_graph`` count the decode kernels the card ran over replayed
+steps with torch.profiler and hold them at n_layers x those steps.
 
 Imports nothing of JAX or of the reference package ``repro``.
 """
@@ -321,17 +354,22 @@ def _compare(got, ref, tol=KERNEL_TOL) -> tuple[float, bool]:
 
 
 # ---------------------------------------------------------------- phases
-def phase_env() -> dict:
-    import torch
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else ""
+
+
+def phase_env() -> dict:
+    import torch
     return dict(torch=torch.__version__, cuda=torch.version.cuda,
                 python=sys.version.split()[0],
                 device=torch.cuda.get_device_name(0),
                 count=torch.cuda.device_count(),
-                nvidia_smi=smi[0] if smi else "")
+                nvidia_smi=_card())
 
 
 SM90_LIBS = ("flash_attention_sm90", "flash_attention_bwd_sm90",
@@ -1214,6 +1252,7 @@ def run_engine(cfg, params, *, n_req: int, new: int, pam_kw=None,
     lens = [len(eng.requests[i].outputs) for i in range(n_req)]
     assert lens == [new] * n_req, f"outputs per request {lens}"
     return dict(summary=summ, launches=launches,
+                body_steps=eng.decode_body_steps,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -1222,8 +1261,9 @@ DECODE_KERNELS = ("flash_decode_merged", "flash_decode_paged_merged",
 
 
 def _assert_decode_launches(launches: dict, want: dict) -> None:
-    """Each decode entry point launched as often as ``want`` says (the
-    merged ones n_layers x decode steps, the stacked ones never)."""
+    """Each decode wrapper called as often as ``want`` says (the merged
+    ones n_layers x the micro-steps whose body ran on the host, the
+    stacked ones never)."""
     for name in DECODE_KERNELS:
         n, w = launches[name], want.get(name, 0)
         assert n == w, f"{name}: {n} launches, want {w}"
@@ -1232,8 +1272,7 @@ def _assert_decode_launches(launches: dict, want: dict) -> None:
 def phase_engine_paged(cfg, params) -> dict:
     r = run_engine(cfg, params, n_req=8, new=64, max_batch=8,
                    max_len=2048, block_size=16, hot_window=256)
-    steps = r["summary"]["decode_device_steps"]
-    want = cfg.n_layers * steps
+    want = cfg.n_layers * r["body_steps"]
     _assert_decode_launches(r["launches"], dict.fromkeys(DECODE_KERNELS[:2],
                                                          want))
     return _engine_line(r, want)
@@ -1248,7 +1287,7 @@ def phase_engine_paged_full(cfg, params) -> dict:
                    max_len=2048, block_size=16, hot_window=256,
                    pam_kw=dict(use_sparsity=False))
     s = r["summary"]
-    want = cfg.n_layers * s["decode_device_steps"]
+    want = cfg.n_layers * r["body_steps"]
     _assert_decode_launches(r["launches"], dict.fromkeys(DECODE_KERNELS[:2],
                                                          want))
     assert s["blocks_touched_per_step"] > 0, s
@@ -1259,6 +1298,52 @@ def phase_engine_paged_full(cfg, params) -> dict:
 PAGED_RING = dict(block_size=16, hot_window=256)
 HOST_SYNCS = ("aten::_local_scalar_dense", "cudaStreamSynchronize",
               "cudaDeviceSynchronize", "cudaMemcpyAsync")
+GRAPH_LAUNCH = "cudaGraphLaunch"
+# the CUDA kernels of the two merged decode wrappers, as torch.profiler
+# names them (the stacked wrappers, never called by the engine, launch the
+# same kernels)
+DECODE_CUDA_KERNELS = ("pam::flash_decode_kernel",
+                       "pam::flash_decode_paged_kernel")
+
+
+def _device_decode_counts(events) -> dict:
+    """Executions on the card of each decode CUDA kernel among
+    torch.profiler's ``key_averages()`` events."""
+    return {name: sum(ev.count for ev in events
+                      if str(ev.device_type).endswith("CUDA")
+                      and name in ev.key)
+            for name in DECODE_CUDA_KERNELS}
+
+
+def _assert_device_decode_counts(counts: dict, kernels, want: int) -> None:
+    """Each decode kernel in ``kernels`` ran ``want`` times on the card,
+    the others never."""
+    for name in DECODE_CUDA_KERNELS:
+        w = want if name in kernels else 0
+        assert counts[name] == w, (f"{name}: ran {counts[name]} times on "
+                                   f"the card, want {w}")
+
+
+def _warm_graphs(eng, max_steps: int = 16) -> None:
+    """Step ``eng`` until the single-step decode graph of every Alg. 2
+    phase exists (a key's first dispatch runs eagerly and captures), so
+    that a profiled window holds replays only. An engine of a tree
+    without decode graphs (``scripts/profile_tree.py`` on a parent)
+    takes three warm steps."""
+    if not hasattr(eng, "_graphs"):
+        for _ in range(3):
+            eng.step()
+        return
+    pcfg = eng.pam_cfg
+    phases = (pcfg.schedule_interval if pcfg is not None
+              and pcfg.use_tiering else 1)
+    want = {(1, p) for p in range(phases)}
+    for _ in range(max_steps):
+        if want <= set(eng._graphs):
+            return
+        eng.step()
+    raise AssertionError(f"decode graphs {sorted(eng._graphs)} after "
+                         f"{max_steps} steps, want {sorted(want)}")
 
 
 # kernel-name classes of the profile phase: the union-mass reconstruction
@@ -1281,15 +1366,21 @@ def _count_calls(module, name: str, counts: dict):
     return orig
 
 
-def phase_profile(cfg, params, layout=PAGED_RING, eng=None) -> dict:
+def phase_profile(cfg, params, layout=PAGED_RING, eng=None,
+                  decode_kernels=DECODE_CUDA_KERNELS) -> dict:
     """Where a decode step's time goes: torch.profiler over 4 steady
-    decode steps of an engine at batch 8 (the paged + ring main path, or
+    decode steps (after 4 timed without it: their step ms, and the
+    device time of their dispatches from CUDA events around each one
+    against the same window's wall time) of an engine at
+    batch 8 (the paged + ring main path, or
     ``layout={}`` for the dense cache, or a ready engine ``eng`` whose
     admissions are done): device time by kernel name, kernel
     launches per step by class (matmul, gather / scatter, copy), the
     device's busy share of the window's wall time, the peak device memory
-    the steps allocate above what the engine holds, the decode kernels'
-    launches, the calls of the union-mass reconstruction's pool gather
+    the steps allocate above what the engine holds, the decode wrappers'
+    calls and the decode kernels the card ran (each of
+    ``decode_kernels`` n_layers x 4 times, the others never), the calls
+    of the union-mass reconstruction's pool gather
     (``paged_gather_logical``) and grouped QK^T (``ops._grouped_scores``),
     and the host events that wait on the device or copy (readbacks)."""
     import torch
@@ -1299,8 +1390,30 @@ def phase_profile(cfg, params, layout=PAGED_RING, eng=None) -> dict:
     if eng is None:
         eng = _engine(cfg, params, 8, 16, max_batch=8, max_len=2048,
                       **layout)
-        for _ in range(3):                   # admission + warm decode
+    _warm_graphs(eng)                    # admission, captures
+    spans = []
+    dispatch = getattr(eng, "_dispatch", None)
+    if dispatch is not None:             # a tree with decode graphs
+
+        def timed(key, bufs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            dispatch(key, bufs)
+            ev[1].record()
+            spans.append(ev)
+        eng._dispatch = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(4):               # the same steps unprofiled
             eng.step()
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    finally:
+        if dispatch is not None:
+            eng._dispatch = dispatch
+    dispatch_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    dispatches = eng.decode_dispatches
     torch.cuda.synchronize()
     calls: dict = {}
     saved = [(m, n, _count_calls(m, n, calls)) for m, n in (
@@ -1321,28 +1434,52 @@ def phase_profile(cfg, params, layout=PAGED_RING, eng=None) -> dict:
             setattr(m, n, orig)
     peak_gb = (torch.cuda.max_memory_allocated() - held) / 2**30
     launches = {k: v for k, v in _launches().items() if k in DECODE_KERNELS}
+    dispatches = eng.decode_dispatches - dispatches
+    assert dispatches == 4, f"{dispatches} decode dispatches in 4 steps"
     rows = []                   # device-side events only (kernels, copies)
-    syncs = {}
+    syncs, graph_launches = {}, 0
     for ev in prof.key_averages():
         if str(ev.device_type).endswith("CUDA"):
             rows.append((ev.self_device_time_total, ev.key, ev.count))
         elif ev.key in HOST_SYNCS:
             syncs[ev.key] = ev.count
+        elif ev.key == GRAPH_LAUNCH:
+            graph_launches = ev.count
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    if not rows:
-        return dict(steps=4, wall_s=wall, device_time="not measured")
+    on_device = _device_decode_counts(prof.key_averages())
+    if rows:
+        _assert_device_decode_counts(on_device, decode_kernels,
+                                     cfg.n_layers * 4)
+    else:
+        return dict(steps=4, wall_s=wall, device_time="not measured",
+                    decode_kernels_on_device="not measured",
+                    graph_launches_per_step=graph_launches / 4)
     classes = {}
     for cls, keys in KERNEL_CLASSES.items():
         sel = [r for r in rows if any(k in r[1] for k in keys)]
         classes[cls] = dict(launches_per_step=sum(r[2] for r in sel) / 4,
                             device_ms_per_step=sum(r[0] for r in sel) / 4e3)
+    kernels = sum(r[2] for r in rows
+                  if not r[1].startswith(("Memcpy", "Memset")))
     return dict(steps=4, wall_s=wall, step_ms=wall / 4 * 1e3,
+                unprofiled_step_ms=plain_wall / 4 * 1e3,
+                unprofiled_dispatch_device_ms_per_step=(
+                    dispatch_s / 4 * 1e3 if spans else "not measured"),
+                unprofiled_device_idle_share=(
+                    1 - dispatch_s / plain_wall if spans
+                    else "not measured"),
                 host_sync_events=syncs,
+                host_sync_events_per_dispatch={
+                    k: v / dispatches for k, v in syncs.items()},
+                graph_launches_per_step=graph_launches / 4,
+                kernel_nodes_per_step=kernels / 4,
+                graphs=sorted(getattr(eng, "_graphs", {})),
                 device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
                 kernel_launches=sum(r[2] for r in rows),
                 launches_per_step=sum(r[2] for r in rows) / 4,
                 kernel_classes=classes, decode_launches=launches,
+                decode_kernels_on_device=on_device,
                 union_mass_calls=calls, peak_step_mem_gb=peak_gb,
                 top=[dict(name=k[:80], device_ms=us / 1e3, count=n,
                           us_per_launch=us / max(n, 1))
@@ -1442,16 +1579,25 @@ def phase_engine_prefix_chunk_sampled(cfg, params) -> dict:
     eng = _prefix_engine(cfg, params)
     scfg = eng.scfg
     prompts = _shared_prompts(cfg.vocab)
-    shared_per_step, in_top_k = [], []
+    # device accumulators the hooks update in place, so that captured
+    # decode graphs update them at every replay: decode steps seen, steps
+    # whose table maps a block from two or more rows, the most such
+    # blocks in a step, tokens sampled outside their row's top-k
+    acc = torch.zeros(4, dtype=torch.int64, device=params["embed"].device)
     calls = [0]
     orig_paged = ops.flash_decode_paged_merged
 
     def paged(q, k_pool, v_pool, table, *a, **kw):
         if calls[0] % cfg.n_layers == 0:          # one table a step
             nb_pool = k_pool.shape[0] - 1         # the sentinel excluded
-            cnt = torch.bincount(table.long().flatten(),
-                                 minlength=nb_pool + 1)[:nb_pool]
-            shared_per_step.append(torch.sum(cnt >= 2))
+            flat = table.long().flatten()
+            cnt = torch.zeros(nb_pool + 1, dtype=torch.int64,
+                              device=flat.device).scatter_add_(
+                0, flat, torch.ones_like(flat))[:nb_pool]
+            shared = torch.sum(cnt >= 2)
+            acc[0] += 1
+            acc[1] += (shared >= 1).long()
+            acc[2] = torch.maximum(acc[2], shared)
         calls[0] += 1
         return orig_paged(q, k_pool, v_pool, table, *a, **kw)
 
@@ -1462,8 +1608,7 @@ def phase_engine_prefix_chunk_sampled(cfg, params) -> dict:
         tok = orig_sample(logits, rids, positions)
         lg = logits.float() * inv_t
         kth = torch.topk(lg, scfg.top_k, dim=-1).values[:, -1]
-        in_top_k.append(torch.all(
-            lg.gather(1, tok.long()[:, None])[:, 0] >= kth))
+        acc[3] += torch.sum(lg.gather(1, tok.long()[:, None])[:, 0] < kth)
         return tok
 
     eng._sample = sample
@@ -1477,7 +1622,7 @@ def phase_engine_prefix_chunk_sampled(cfg, params) -> dict:
         ops.flash_decode_paged_merged = orig_paged
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    shared = [int(x) for x in torch.stack(shared_per_step).cpu()]
+    steps_seen, steps_shared, shared_max, outside = acc.tolist()
     lens = [len(eng.requests[i].outputs) for i in range(len(prompts))]
     assert lens == [64] * len(prompts), f"outputs per request {lens}"
     assert s["prefix_hits"] == 7 and s["cow_copies"] >= 7, s
@@ -1485,11 +1630,11 @@ def phase_engine_prefix_chunk_sampled(cfg, params) -> dict:
     assert s["max_chunk_slice_tokens"] <= 256, s
     assert s["novel_prefill_tokens"] == SYS_PROMPT + sum(TAILS), s
     steps = s["decode_device_steps"]
-    want = cfg.n_layers * steps
+    want = cfg.n_layers * eng.decode_body_steps
     _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
                                                     want))
-    assert len(shared) == steps and max(shared) >= 1, shared
-    assert bool(torch.stack(in_top_k).all()), "a token outside its top-k"
+    assert steps_seen == steps and shared_max >= 1, acc.tolist()
+    assert outside == 0, f"{outside} tokens outside their top-k"
     # the sampler alone at the engine's shapes: (8, vocab) logits
     dev = params["embed"].device
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1504,6 +1649,7 @@ def phase_engine_prefix_chunk_sampled(cfg, params) -> dict:
     sampler_launches, sampler_dev_ms = _profile_calls(draw)
     ttfts = sorted(ttft.values())
     return dict(_engine_line(dict(summary=s, launches=launches,
+                                  body_steps=eng.decode_body_steps,
                                   peak_mem_gb=peak_gb), want),
                 **{k: s[k] for k in (
                     "prefix_hits", "cached_prefix_tokens",
@@ -1513,16 +1659,210 @@ def phase_engine_prefix_chunk_sampled(cfg, params) -> dict:
                     "admit_dispatches")},
                 ttft_s=ttft, ttft_p50_s=ttfts[len(ttfts) // 2],
                 ttft_max_s=ttfts[-1],
-                shared_blocks_max=max(shared),
-                steps_over_shared_blocks=sum(x >= 1 for x in shared),
-                paged_launches_over_shared_blocks=cfg.n_layers * sum(
-                    x >= 1 for x in shared),
+                shared_blocks_max=shared_max,
+                steps_over_shared_blocks=steps_shared,
+                paged_launches_over_shared_blocks=cfg.n_layers
+                * steps_shared, graphs=len(eng._graphs),
                 sampler_launches_per_step=sampler_launches,
                 sampler_device_ms_per_step=sampler_dev_ms,
                 sampler_ms=_time_ms(draw),
                 sampler_shape=[SAMPLER_ROWS, cfg.vocab],
                 sys_prompt=SYS_PROMPT, tails=list(TAILS),
                 sparsity=False, **SAMPLED, **PREFIX_CHUNK)
+
+
+def _recording(eng, eager: bool = False):
+    """Record each decode dispatch of ``eng``: (key, host seconds, the
+    StepBufs it read back); ``eager`` binds the eager body (the twin)."""
+    eng.log = []
+    if eager:
+        eng._dispatch = eng._dispatch_eager
+    decode, dispatch = eng._decode, eng._dispatch
+    keys = []
+
+    def keyed(key, bufs):
+        keys.append(key)
+        return dispatch(key, bufs)
+
+    def recorded(k, active):
+        t0 = time.perf_counter()
+        out = decode(k, active)
+        eng.log.append((keys[-1], time.perf_counter() - t0, out))
+        return out
+    eng._dispatch, eng._decode = keyed, recorded
+    return eng
+
+
+def _step_events(fn) -> dict:
+    """One call of ``fn`` (a steady engine step, one graph replay) under
+    torch.profiler, after a warm call: its kernel nodes, its copies and
+    memsets, graph launches, device ms and the decode kernels the card
+    ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_ATTEMPTS):   # see _device_ms_by_kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = prof.key_averages()
+        dev = [ev for ev in evs if str(ev.device_type).endswith("CUDA")]
+        if dev:
+            break
+    copies = [ev for ev in dev if ev.key.startswith(("Memcpy", "Memset"))]
+    return dict(
+        kernel_nodes=sum(ev.count for ev in dev) - sum(
+            ev.count for ev in copies),
+        copies=sum(ev.count for ev in copies),
+        graph_launches=sum(ev.count for ev in evs
+                           if ev.key == GRAPH_LAUNCH),
+        device_ms=sum(ev.self_device_time_total for ev in dev) / 1e3,
+        decode_kernels_on_device=_device_decode_counts(dev))
+
+
+def _twin_diff(g, e):
+    """None, or the first dispatch and StepBufs field where the graph
+    twin ``g`` and the eager twin ``e`` differ (streams included)."""
+    import numpy as np
+    if len(g.log) != len(e.log):
+        return dict(dispatches=[len(g.log), len(e.log)])
+    for n, ((kg, _, a), (ke, _, b)) in enumerate(zip(g.log, e.log)):
+        if kg != ke:
+            return dict(dispatch=n, keys=[kg, ke])
+        for f in a:
+            if not np.array_equal(a[f], b[f]):
+                return dict(dispatch=n, field=f)
+    for rid, rs in g.requests.items():
+        if rs.outputs != e.requests[rid].outputs:
+            return dict(stream=rid)
+    return None
+
+
+def _twin_line(g, e) -> dict:
+    """Graphs, capture ms, steady step ms and decode tok/s of a twin
+    pair: steady steps are the graph twin's dispatches of an already
+    captured key, and every eager dispatch."""
+    import numpy as np
+    seen, steady = set(), []
+    for key, sec, _ in g.log:
+        if key in seen:
+            steady.append(sec / key[0])
+        seen.add(key)
+    eager = [sec / key[0] for key, sec, _ in e.log]
+    sg, se = g.summary(), e.summary()
+    return dict(
+        graphs_captured=len(g._graphs), keys=sorted(g._graphs),
+        capture_ms_total=g.capture_seconds * 1e3,
+        capture_ms_per_graph=g.capture_seconds * 1e3 / max(len(g._graphs),
+                                                           1),
+        dispatches=sg["decode_dispatches"],
+        decode_device_steps=sg["decode_device_steps"],
+        graph_step_ms_median=float(np.median(steady)) * 1e3,
+        eager_step_ms_median=float(np.median(eager)) * 1e3,
+        graph_decode_tok_s=sg["decode_tok_s"],
+        eager_decode_tok_s=se["decode_tok_s"],
+        graph_decode_time_s=sg["decode_time_s"],
+        eager_decode_time_s=se["decode_time_s"])
+
+
+def phase_decode_graph(cfg, params) -> dict:
+    """Twin engines in one call, one replaying decode graphs and one
+    running the eager in-place body (bound by hand): full-width
+    qwen3-0.6b, paged + ring, 8 requests of 512-1024 prompt tokens and 64
+    new; (a) greedy, (b) dense PAM (engine_dense_pam's 4 requests of
+    32 new), (c) sampled (temperature 0.8, top-50) with the prefix cache
+    and 256-token chunks over the shared-prompt requests, (d) greedy at
+    micro_steps 4 with an EOS token. Streams and every StepBufs field
+    must be equal; the merged decode wrappers are called n_layers x the
+    host-run body steps on the graph twins of (a) and (b); one profiled
+    steady step of each of those graph twins (a replay) runs each of its
+    decode kernels n_layers times on the card and gives the kernel nodes
+    of one single-step graph."""
+    import torch
+    out = dict(card=_card())
+    runs = {}
+    # (a) greedy
+    g = _recording(_engine(cfg, params, 8, 64, max_batch=8, max_len=2048,
+                           **PAGED_RING))
+    torch.cuda.synchronize()
+    _reset_launches()
+    _warm_graphs(g)
+    step_events = _step_events(g.step)
+    g.run()
+    launches = _launches()
+    e = _recording(_engine(cfg, params, 8, 64, max_batch=8, max_len=2048,
+                           **PAGED_RING), eager=True)
+    e.run()
+    body_steps = g.decode_body_steps
+    _assert_decode_launches(launches, dict.fromkeys(
+        DECODE_KERNELS[:2], cfg.n_layers * body_steps))
+    _assert_device_decode_counts(step_events["decode_kernels_on_device"],
+                                 DECODE_CUDA_KERNELS, cfg.n_layers)
+    runs["greedy"] = dict(_twin_line(g, e), diff=_twin_diff(g, e))
+    eos = g.requests[0].outputs[10]
+    del g, e
+    gc.collect()
+    # (b) dense PAM (engine_dense_pam's requests): the merged dense
+    # kernel over the whole 2048-token cache
+    _reset_launches()
+    g = _recording(_engine(cfg, params, 4, 32, max_batch=4, max_len=2048))
+    _warm_graphs(g)
+    dense_step = _step_events(g.step)
+    g.run()
+    dense_launches = _launches()
+    e = _recording(_engine(cfg, params, 4, 32, max_batch=4, max_len=2048),
+                   eager=True)
+    e.run()
+    dense_body_steps = g.decode_body_steps
+    _assert_decode_launches(dense_launches, {
+        "flash_decode_merged": cfg.n_layers * dense_body_steps})
+    _assert_device_decode_counts(dense_step["decode_kernels_on_device"],
+                                 DECODE_CUDA_KERNELS[:1], cfg.n_layers)
+    runs["dense_pam"] = dict(_twin_line(g, e), diff=_twin_diff(g, e))
+    del g, e
+    gc.collect()
+    # (c) sampled, prefix cache, chunked prefill
+    prompts = _shared_prompts(cfg.vocab)
+    pair = []
+    for eager in (False, True):
+        eng = _recording(_prefix_engine(cfg, params), eager)
+        _serve_shared(eng, prompts, 64)
+        pair.append(eng)
+    runs["sampled_prefix_chunk"] = dict(_twin_line(*pair),
+                                        diff=_twin_diff(*pair),
+                                        prefix_hits=pair[0].prefix_hits)
+    del pair
+    gc.collect()
+    # (d) micro_steps 4 with EOS
+    pair = []
+    for eager in (False, True):
+        eng = _recording(_engine(cfg, params, 8, 64, max_batch=8,
+                                 max_len=2048, micro_steps=4, eos_token=eos,
+                                 **PAGED_RING), eager)
+        eng.run()
+        pair.append(eng)
+    runs["micro4_eos"] = dict(_twin_line(*pair), diff=_twin_diff(*pair),
+                              eos=eos, stopped_at_eos=sum(
+                                  rs.outputs[-1] == eos
+                                  for rs in pair[0].requests.values()))
+    del pair
+    gc.collect()
+    out.update(runs, launches=launches, decode_body_steps=body_steps,
+               launches_expected=cfg.n_layers * body_steps,
+               dense_launches=dense_launches,
+               dense_decode_body_steps=dense_body_steps,
+               dense_launches_expected=cfg.n_layers * dense_body_steps,
+               single_step_graph=step_events,
+               dense_single_step_graph=dense_step)
+    for name, r in runs.items():
+        print(f"decode_graph {name}: {json.dumps(r)}", flush=True)
+    bad = {n: r["diff"] for n, r in runs.items() if r["diff"] is not None}
+    assert not bad, f"graph and eager twins differ: {bad}"
+    assert runs["micro4_eos"]["stopped_at_eos"] >= 1, runs["micro4_eos"]
+    assert runs["sampled_prefix_chunk"]["prefix_hits"] == 7, runs
+    return out
 
 
 def phase_profile_prefix_chunk_sampled(cfg, params) -> dict:
@@ -1540,18 +1880,52 @@ def phase_profile_prefix_chunk_sampled(cfg, params) -> dict:
     while eng.waiting or any(r.status == "prefilling"
                              for r in eng.requests.values()):
         eng.step()
-    eng.step()                               # one warm decode step
     return dict(phase_profile(cfg, params, eng=eng),
                 prefix_hits=eng.prefix_hits, cow_copies=eng.cow_copies)
 
 
-def _margins(eng, sampled: bool) -> dict:
+MARGIN_RIDS = 64                         # request ids a margin table holds
+
+
+class _Margins:
+    """Top-2 margins by (rid, position), kept on the card: the sampler
+    hook writes the first margin of each (rid, position) into a (rids,
+    max_len + 1) table in place, so a captured decode dispatch records
+    the write and every replay makes it. ``get((rid, position))`` reads
+    one back (None where nothing was sampled)."""
+
+    def __init__(self, max_len: int, device):
+        import torch
+        self.table = torch.full((MARGIN_RIDS, max_len + 1), float("nan"),
+                                device=device)
+
+    def record(self, rids, positions, margin) -> None:
+        import torch
+        R, P = self.table.shape
+        r = rids.long().clamp(0, R - 1)
+        p = positions.long().clamp(0, P - 1)
+        cur = self.table[r, p]
+        first = (rids < R) & (positions < P) & torch.isnan(cur)
+        self.table[r, p] = torch.where(first, margin.float(), cur)
+
+    def get(self, key):
+        r, p = key
+        R, P = self.table.shape
+        if not (0 <= r < R and 0 <= p < P):
+            return None
+        v = float(self.table[r, p])
+        return None if v != v else v
+
+
+def _margins(eng, sampled: bool, rec: "_Margins | None" = None) -> _Margins:
     """Record, for every sampled (rid, position), the gap between the two
     largest values the draw takes its argmax over (the logits; sampled:
-    the masked, scaled logits plus the row's Gumbel noise)."""
+    the masked, scaled logits plus the row's Gumbel noise), into ``rec``
+    (a new table when None; several engines may share one)."""
     import torch
     from repro_torch.serving import sampling as smp
-    rec: dict = {}
+    if rec is None:
+        rec = _Margins(eng.scfg.max_len, eng.device)
     orig = eng._sample
     scfg = eng.scfg
 
@@ -1567,9 +1941,7 @@ def _margins(eng, sampled: bool) -> dict:
                                           rids.long()), positions.long())
             v = v + smp.gumbel(key, v.shape[-1], v.device)
         top = torch.topk(v, 2, dim=-1).values
-        for r, p, (a, b) in zip(rids.tolist(), positions.tolist(),
-                                top.tolist()):
-            rec.setdefault((r, p), a - b)
+        rec.record(rids, positions, top[:, 0] - top[:, 1])
         return tok
 
     eng._sample = sample
@@ -1690,8 +2062,7 @@ def phase_prefix_chunk_parity() -> dict:
 def phase_engine_dense(cfg, params) -> dict:
     r = run_engine(cfg, params, n_req=4, new=32, max_batch=4,
                    max_len=2048)
-    steps = r["summary"]["decode_device_steps"]
-    want = cfg.n_layers * steps
+    want = cfg.n_layers * r["body_steps"]
     _assert_decode_launches(r["launches"], {"flash_decode_merged": want})
     return _engine_line(r, want)
 
@@ -1834,8 +2205,8 @@ def phase_engine_cluster(cfg, params) -> dict:
     lens = {rid: len(rs.outputs) for rid, rs in router.finished.items()}
     assert s["finished"] == 24 and set(lens.values()) == {64}, lens
     assert s["balancer_migrations"] >= 1, s
-    steps = sum(d["decode_device_steps"] for d in s["devices"].values())
-    want = cfg.n_layers * steps
+    want = cfg.n_layers * sum(d.engine.decode_body_steps
+                              for d in router.devices)
     _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
                                                     want))
     decode_tokens = 24 * 63
@@ -1886,9 +2257,9 @@ def phase_cluster_parity() -> dict:
     from repro_torch.serving import Request, ServingConfig, ServingEngine
     cfg, params = _model("float32")
     router = _cluster(cfg, params, "hbm:1,cxl:1")
-    recs: dict = {}
+    recs = None
     for d in router.devices:
-        recs.update(_margins(d.engine, sampled=False))
+        recs = _margins(d.engine, sampled=False, rec=recs)
     pinned, rest = _cluster_stream(cfg.vocab, 8, 6, 16)
     for r in pinned:
         router.submit_to(r, "cxl0")
@@ -2038,8 +2409,8 @@ def phase_engine_chaos(cfg, params) -> dict:
     call: 16 requests of 512-1024 prompt tokens and 32 new, 4 pinned to
     cxl1 (so the kill lands on running work). Every stream is complete and
     gapless, ``kills_detected`` is 1, the recovery counts equal a CPU dry
-    run of the same schedule, and the merged decode kernels launch
-    n_layers x the fleet's decode steps."""
+    run of the same schedule, and the merged decode wrappers are called
+    n_layers x the fleet's host-run body steps."""
     import torch
     from repro_torch.frontend.loadgen import stream_integrity
     free = chaos_fleet_run(cfg, params, chaos="")
@@ -2061,8 +2432,8 @@ def phase_engine_chaos(cfg, params) -> dict:
     lost, dup = stream_integrity(recs.values())
     counts = {k: ft[k] for k in CHAOS_COUNTS}
     dead = router._by_name("cxl1")
-    steps = sum(d["decode_device_steps"] for d in s["devices"].values())
-    want = cfg.n_layers * steps
+    want = cfg.n_layers * sum(d.engine.decode_body_steps
+                              for d in router.devices)
     decode_tokens = CHAOS_N * (CHAOS_NEW - 1)
     decode_s = sum(d.engine.decode_time for d in router.devices)
     delivered = sum(len(r.tokens) for r in recs.values())
@@ -2091,6 +2462,7 @@ def phase_engine_chaos(cfg, params) -> dict:
         transfers=mig.line(), launches=launches, launches_expected=want,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
         dead_engine_gb=_engine_bytes(dead.engine) / 2**30,
+        dead_engine_graphs=len(dead.engine._graphs),
         modeled_makespan_s=s["makespan_s"],
         fault_free_modeled_makespan_s=fs["makespan_s"])
     for what in ("recovery", "transfers", "devices"):
@@ -2099,6 +2471,7 @@ def phase_engine_chaos(cfg, params) -> dict:
     assert all(len(recs[i].tokens) == CHAOS_NEW and recs[i].done
                for i in range(CHAOS_N)), "a stream is short"
     assert (lost, dup) == (0, 0), (lost, dup)
+    assert out["dead_engine_graphs"] == 0, out["dead_engine_graphs"]
     assert all(recs[rid].tokens == rs.outputs
                for rid, rs in router.finished.items())
     assert ft["kills_detected"] == 1, ft
@@ -2119,9 +2492,9 @@ def _fleet_parity(cfg, params, chaos: str, n: int, serving: dict,
         max_len=2048, pam=_pam(2048), **PAGED_RING, **serving),
         recovery=RecoveryConfig(**rec_kw)).build(
             params, device="cuda", faults=FaultInjector.from_spec(chaos))
-    recs: dict = {}
+    recs = None
     for d in router.devices:
-        recs.update(_margins(d.engine, sampled=True))
+        recs = _margins(d.engine, sampled=True, rec=recs)
     for i, r in enumerate(reqs[:n]):
         router.submit_to(r, f"hbm{i % 2}")
     events = list(router.serve())
@@ -2267,10 +2640,10 @@ def phase_serve_frontend(cfg, params) -> dict:
     ``SLOAdmission(SLOSpec(ttft 250 ms, tpot 50 ms))``: an onoff trace of
     32 requests (prompts 128-1024, 16-64 new, seed 0) whose ON windows
     overload the batch of 8. Streams are gapless, the shed / preempt /
-    resume decisions equal a CPU dry run's, and the merged decode kernels
-    launch n_layers x the engine's decode steps. Host-wall TTFT (release
-    to the shared queue -> first token) and TPOT percentiles; SLO
-    attainment on the modeled clock."""
+    resume decisions equal a CPU dry run's, and the merged decode wrappers
+    are called n_layers x the engine's host-run body steps. Host-wall
+    TTFT (release to the shared queue -> first token) and TPOT
+    percentiles; SLO attainment on the modeled clock."""
     import numpy as np
     import torch
     from repro_torch.frontend.loadgen import score
@@ -2296,7 +2669,7 @@ def phase_serve_frontend(cfg, params) -> dict:
                     p99=float(np.percentile(xs, 99)), n=len(xs)) \
             if xs else dict(n=0)
     counts = _serve_counts(run)
-    want = cfg.n_layers * eng.decode_device_steps
+    want = cfg.n_layers * eng.decode_body_steps
     out = dict(
         trace=dict(SERVE_TRACE, rate_rps=SERVE_RATE), slo=SERVE_SLO,
         wall_s=run["wall"], host_wall_ttft_s=pct(ttft),
@@ -2338,7 +2711,8 @@ def _engine_line(r: dict, want: int) -> dict:
             "p50_tpot_s", "p99_tpot_s", "tier_reads", "moved_tokens",
             "blocks_touched_per_step", "blocks_window_per_step",
             "pool_occupancy_peak", "hot_bytes_per_slot")
-    return dict({k: s[k] for k in keep if k in s}, launches=r["launches"],
+    return dict({k: s[k] for k in keep if k in s},
+                decode_body_steps=r["body_steps"], launches=r["launches"],
                 launches_expected=want, peak_mem_gb=r["peak_mem_gb"])
 
 
@@ -2712,6 +3086,7 @@ def main() -> int:
         run("serve_frontend", phase_serve_frontend, *model)
         run("engine_prefix_chunk_sampled",
             phase_engine_prefix_chunk_sampled, *model)
+        run("decode_graph", phase_decode_graph, *model)
         run("profile", phase_profile, *model)
         run("profile_prefix_chunk_sampled",
             phase_profile_prefix_chunk_sampled, *model)
@@ -2745,7 +3120,7 @@ def main() -> int:
         emit("model_ssm", ok=False, error=repr(exc))
     if ssm is not None:
         run("engine_ssm", phase_engine_ssm, *ssm)
-        run("profile_ssm", phase_profile, *ssm, {})
+        run("profile_ssm", phase_profile, *ssm, {}, None, ())
         del ssm
 
     if failed:
@@ -2801,6 +3176,21 @@ def main() -> int:
                     "max_abs_err", "ms", "kernel_device_ms", "bound_ms",
                     "pct_of_bound")}
     rows[1]["launches_in"] = "engine_dense_pam"
+    dg = results["decode_graph"]
+    rows[1]["launches_decode_graph"] = dg["dense_launches"][
+        "flash_decode_merged"]
+    # executions on the card, from torch.profiler: one replayed step of
+    # decode_graph's graph twins, and the profile phase's 4 replayed steps
+    rows[1]["device_launches_decode_graph_step"] = dg[
+        "dense_single_step_graph"]["decode_kernels_on_device"][
+        DECODE_CUDA_KERNELS[0]]
+    for row, kern in ((rows[0], DECODE_CUDA_KERNELS[0]),
+                      (rows[2], DECODE_CUDA_KERNELS[1])):
+        row["device_launches_decode_graph_step"] = dg["single_step_graph"][
+            "decode_kernels_on_device"][kern]
+        on_device = results["profile"]["decode_kernels_on_device"]
+        row["device_launches_profile"] = (
+            on_device[kern] if isinstance(on_device, dict) else on_device)
     pam = results["pam_core"]["launches"]
     rows[0]["launches_pam_core"] = pam["flash_decode_merged"]
     rows[2]["launches_pam_core"] = pam["flash_decode_paged_merged"]
@@ -2808,7 +3198,8 @@ def main() -> int:
     for row, name in ((rows[0], "flash_decode_merged"),
                       (rows[2], "flash_decode_paged_merged")):
         row["launches_engine_prefix_chunk_sampled"] = pcs[name]
-        for phase in ("engine_cluster", "engine_chaos", "serve_frontend"):
+        for phase in ("engine_cluster", "engine_chaos", "serve_frontend",
+                      "decode_graph"):
             row[f"launches_{phase}"] = results[phase]["launches"][name]
     for row in rows:
         if row["name"].endswith("_bwd"):

@@ -53,8 +53,10 @@ def main(argv: list[str]) -> int:
     r = cs.phase_profile(*cs._model("bfloat16"))
     keep = ("step_ms", "device_busy_s", "device_idle_share",
             "kernel_launches", "launches_per_step", "kernel_classes",
-            "decode_launches", "union_mass_calls", "peak_step_mem_gb",
-            "host_sync_events")
+            "decode_launches", "decode_kernels_on_device",
+            "union_mass_calls", "peak_step_mem_gb",
+            "host_sync_events", "graph_launches_per_step",
+            "kernel_nodes_per_step")
     print(json.dumps({"tree": tag, "device": torch.cuda.get_device_name(0),
                       **{k: r.get(k) for k in keep},
                       "top": r.get("top", [])[:8]}))

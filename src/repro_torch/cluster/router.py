@@ -470,9 +470,11 @@ class ClusterRouter:
                     tr.begin(rid, "queued", self.now(), replay=True)
             self.queue.append(req)
         # the dead engine's host bookkeeping is gone with it; its pool
-        # and rows stay allocated, as the reference's do
+        # and rows stay allocated, as the reference's do, and its decode
+        # graphs are released
         eng.waiting.clear()
         eng.slots = [None] * len(eng.slots)
+        eng.release_graphs()
 
     def _drain(self, dev: ClusterDevice) -> None:
         """Graceful drain of a flagged (alive but degraded) device: its

@@ -20,8 +20,9 @@ dense layout:
   in bounded slices, one per engine step, interleaved with decode; the
   slot is claimed but ``PREFILLING`` (out of the decode mask) until the
   final slice's suffix commit samples its first token.
-* ``_decode_body`` is one decode step of the full PAM pipeline in the
-  reference's order (``_fused_decode_body``): participation mask, hot
+* ``_decode_body_`` is one decode step of the full PAM pipeline in the
+  reference's order (``_fused_decode_body``), in place over the
+  engine's own tensors: participation mask, hot
   clamp and tier split, ``decode_step`` (hot-ring partial through
   ``flash_decode_merged`` ⊕ paged partial through
   ``flash_decode_paged_merged``, or ``flash_decode_merged`` over the
@@ -35,8 +36,17 @@ dense layout:
   into the slot, and feeds the importance EMA recency-only scores (the
   reference's, for an attention-free model). It refuses paged pools and
   the hot ring, as the reference does.
-* ``micro_steps = k`` runs ``k`` such steps back to back and reads the
-  host buffers once; every readback synchronises with the device.
+* A decode dispatch runs ``k`` such steps (``micro_steps = k``: the
+  largest power of two no running request overshoots) and reads one
+  ``StepBufs`` back, which synchronises with the device. On CUDA the
+  dispatch is a CUDA graph, the counterpart of the reference's donated
+  ``_fused_decode_fn``: keyed by ``(k, Alg. 2 phase)`` (the position of
+  its first step modulo ``schedule_interval``, which fixes where Alg. 2
+  runs inside it), run eagerly at its first dispatch and captured right
+  after, replayed at every later one. Anything that writes engine state
+  between dispatches (admission, chunk slices, import, EOS teardown)
+  writes in place, so the graphs' addresses stay valid. On the CPU the
+  same in-place body runs eagerly.
 * Time: with a ``latency_model`` (``repro_torch.perfmodel``) each step
   advances ``clock`` by the model's seconds for the step's stats dict
   (the reference's keys: ``prefill_tokens``, ``active``, ``tier_reads``,
@@ -62,8 +72,10 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
-from typing import Any, Callable, Iterable, Iterator, Optional
+from typing import (Any, Callable, Iterable, Iterator, NamedTuple,
+                    Optional)
 
 import numpy as np
 import torch
@@ -168,6 +180,55 @@ class ServingConfig:
     prefill_chunk: int = 0             # chunked prefill budget (0 = off)
     bucket_prefill: bool = True        # pow-2 prompt-length buckets
     sample_seed: int = 0               # per-request sampling key seed
+
+
+class StepBufs(NamedTuple):
+    """Per-dispatch device->host readback of ``k`` decode steps, the
+    reference's ``StepBufs`` (same names and dtypes): the only thing the
+    host copies back from a decode dispatch."""
+    tokens: torch.Tensor      # (k, B) int32 tokens after each step
+    tier_reads: torch.Tensor  # (k, 3) int32 participating tokens per tier
+    hit_rate: torch.Tensor    # (k,)   fp32 context-locality hit rate
+    moved: torch.Tensor       # (k,)   int32 Alg. 2 migrations this step
+    lengths: torch.Tensor     # (k, B) int32 post-step cache lengths
+    blocks: torch.Tensor      # (k, 2) int32 (paged pages touched, dense
+    #                                        window pages), paged mode
+
+
+def _step_bufs(flat: torch.Tensor, k: int, B: int) -> StepBufs:
+    """``StepBufs`` as views of one flat int32 buffer of ``k (2B + 7)``
+    words (``hit_rate`` reinterprets its words as fp32)."""
+    t, r, h, m, n, b = torch.split(flat, (k * B, k * 3, k, k, k * B, k * 2))
+    return StepBufs(tokens=t.view(k, B), tier_reads=r.view(k, 3),
+                    hit_rate=h.view(torch.float32), moved=m,
+                    lengths=n.view(k, B), blocks=b.view(k, 2))
+
+
+@dataclasses.dataclass
+class _Readback:
+    """A ``k``-step ``StepBufs`` on the engine's device (zeroed: the
+    fields a mode does not write read 0) and its host copy (pinned on
+    CUDA): one device-to-host copy a dispatch."""
+    flat: torch.Tensor
+    host: torch.Tensor
+    bufs: StepBufs
+    host_bufs: StepBufs
+
+    @classmethod
+    def make(cls, k: int, B: int, device: torch.device) -> "_Readback":
+        n = k * (2 * B + 7)
+        flat = torch.zeros(n, dtype=torch.int32, device=device)
+        host = torch.zeros(n, dtype=torch.int32,
+                           pin_memory=device.type == "cuda")
+        return cls(flat, host, _step_bufs(flat, k, B),
+                   _step_bufs(host, k, B))
+
+    def read(self) -> dict[str, np.ndarray]:
+        """Copy the device buffer back (waits for the dispatch) and
+        return each field as its own numpy array."""
+        self.host.copy_(self.flat)
+        return {f: getattr(self.host_bufs, f).numpy().copy()
+                for f in StepBufs._fields}
 
 
 class ServingEngine:
@@ -284,6 +345,23 @@ class ServingEngine:
         self.tokens_dev = torch.zeros(B, dtype=torch.int32, device=dev)
         # per-slot request ids, the sampling keys' operand
         self.rids_dev = torch.zeros(B, dtype=torch.int64, device=dev)
+        # the decode mask, filled from the host copy before a dispatch
+        self._active = torch.zeros(B, dtype=torch.bool, device=dev)
+        self._active_host = torch.zeros(B, dtype=torch.bool,
+                                        pin_memory=dev.type == "cuda")
+        self._readbacks: dict[int, _Readback] = {}
+        # CUDA graphs by dispatch key (k, Alg. 2 phase), in one memory
+        # pool the engine's graphs share
+        self._graphs: dict[tuple[int, int], torch.cuda.CUDAGraph] = {}
+        self._graph_pool = None
+        self._graph_stream = None
+        self.capture_seconds = 0.0
+        # micro-steps whose body ran on the host, op by op or recorded
+        # into a graph (every decode step on the CPU); the decode
+        # wrappers are called n_layers times for each
+        self.decode_body_steps = 0
+        self._dispatch = (self._dispatch_graph if dev.type == "cuda"
+                          else self._dispatch_eager)
         self.decode_time = 0.0           # wall-clock seconds in decode
         self.steps = 0
         self.decode_dispatches = 0       # host readbacks of decode steps
@@ -895,14 +973,19 @@ class ServingEngine:
             self._trace_finish(rs)
 
     # ------------------------------------------------------------ decoding
-    def _decode_body(self, tokens: torch.Tensor, active: torch.Tensor):
+    def _decode_body_(self, i: int, bufs: StepBufs, schedule: bool) -> None:
         """ONE decode step of the full PAM pipeline, in the reference's
-        order: participation -> tier split -> decode -> observe ->
-        sample. Updates ``self.cache``/``self.pam_state``; returns
-        (tokens, active, per-step stats as device tensors)."""
+        order (participation -> tier split -> decode -> observe ->
+        sample), entirely in place: it reads the engine's ``tokens_dev``,
+        ``_active`` and ``rids_dev``, updates the cache, the PAM state,
+        the tokens and the active mask in their own storage, and writes
+        the step's stats into row ``i`` of ``bufs``. It rebinds nothing
+        and reads no device value on the host, so a CUDA graph can
+        capture it. ``schedule`` says whether Alg. 2 runs this step."""
         cfg, pcfg, dev = self.cfg, self.pam_cfg, self.device
         smax, bs = self.scfg.max_len, self.block_size
         cache, st = self.cache, self.pam_state
+        tokens, active = self.tokens_dev, self._active
         B = active.shape[0]
         lengths = cache.lengths + active.to(torch.int32)
         pos_all = torch.arange(smax, device=dev)[None, :]
@@ -911,13 +994,12 @@ class ServingEngine:
         else:
             participate = pos_all < lengths[:, None]
         paged_append = None
-        blocks = torch.zeros(2, dtype=torch.int32, device=dev)
         if bs:
             nb = smax // bs
             if self.hot_window:
                 # ring demotion: tokens that slid out of the window are
                 # re-tagged so the split reads them from the pool
-                st = st._replace(tier=tiers_mod.clamp_hot_to_window(
+                st.tier.copy_(tiers_mod.clamp_hot_to_window(
                     st.tier, lengths, self.hot_window))
             hot_m, pgd_m, block_live = pm.paged_participation_split(
                 participate, st.tier, lengths, bs, self.hot_window)
@@ -937,54 +1019,133 @@ class ServingEngine:
                             (pos % bs).to(torch.int32))
             window = pkv.token_block_mask(pos_all < lengths[:, None], bs)
             act = active[:, None]
-            blocks = torch.stack([torch.sum(block_live & act),
-                                  torch.sum(window & act)]).to(torch.int32)
+            bufs.blocks[i, 0] = torch.sum(block_live & act)
+            bufs.blocks[i, 1] = torch.sum(window & act)
         else:
             d_fn = pm.make_masked_decode_attn(participate)
-        old_lens = cache.lengths
-        logits, cache, scores = tf.decode_step(
+        logits, stepped, scores = tf.decode_step(
             cfg, self.params, tokens, cache, decode_attn_fn=d_fn,
             paged_append=paged_append)
-        cache = cache._replace(
-            lengths=torch.where(active, cache.lengths, old_lens))
+        # inactive slots keep their lengths
+        cache.lengths.copy_(torch.where(active, stepped.lengths,
+                                        cache.lengths))
         if pcfg is not None:
-            read_mask = participate & active[:, None]
-            tier_reads = pm.tier_read_counts_of(st.tier, read_mask)
-            hit = pm.hit_rate_of(st.last_hot, participate)
+            bufs.tier_reads[i] = pm.tier_read_counts_of(
+                st.tier, participate & active[:, None])
+            bufs.hit_rate[i] = pm.hit_rate_of(st.last_hot, participate)
             if scores is None:     # attention-free: recency-only scores
                 scores = (pos_all == (cache.lengths - 1)[:, None]).float()
-            before = st.moved_tokens
-            st = pm.observe_update(pcfg, st, scores, cache.lengths,
-                                   participate)
-            moved = st.moved_tokens - before
-        else:
-            tier_reads = torch.zeros(3, dtype=torch.int32, device=dev)
-            hit = torch.zeros((), device=dev)
-            moved = torch.zeros((), dtype=torch.int32, device=dev)
+            bufs.moved[i] = pm.observe_update_(
+                pcfg, st, scores, cache.lengths, participate,
+                schedule=schedule)
         # the sampled token's absolute position is the post-append
         # length; (rid, position) key the per-request draw
         nxt = self._sample(logits, self.rids_dev, cache.lengths)
-        tokens = torch.where(active, nxt, tokens)
+        tokens.copy_(torch.where(active, nxt, tokens))
         if self.scfg.eos_token >= 0:
-            active = active & (tokens != self.scfg.eos_token)
-        self.cache, self.pam_state = cache, st
-        return tokens, active, (tokens, tier_reads, hit, moved,
-                                cache.lengths, blocks)
+            active &= tokens != self.scfg.eos_token
+        bufs.tokens[i] = tokens
+        bufs.lengths[i] = cache.lengths
+
+    def _schedule_flags(self, key: tuple[int, int]) -> list[bool]:
+        """Whether Alg. 2 runs in each micro-step of dispatch ``key``."""
+        k, phase = key
+        return [self.pam_cfg is not None
+                and pm.runs_schedule(self.pam_cfg, phase + i)
+                for i in range(k)]
+
+    def _dispatch_eager(self, key: tuple[int, int], bufs: StepBufs) -> None:
+        """The ``k`` micro-steps of ``key``, op by op (the CPU's path, and
+        on the card an eager twin's, bound by the caller)."""
+        for i, schedule in enumerate(self._schedule_flags(key)):
+            self._decode_body_(i, bufs, schedule)
+        self.decode_body_steps += key[0]
+
+    def _dispatch_graph(self, key: tuple[int, int], bufs: StepBufs) -> None:
+        """The counterpart of the reference's ``_fused_decode_fn`` /
+        ``_get_micro``: the first dispatch of ``key`` runs eagerly (it
+        builds the kernels, creates the cuBLAS handles and warms the
+        allocator), then captures the ``k`` micro-steps as one CUDA
+        graph; every later dispatch of ``key`` replays it. A failed
+        capture or replay raises, naming the key."""
+        graph = self._graphs.get(key)
+        if graph is None:
+            self._dispatch_eager(key, bufs)
+            self._graphs[key] = self._capture(key, bufs)
+            return
+        try:
+            graph.replay()
+        except Exception as exc:
+            raise RuntimeError(f"{self.name}: replay of the decode graph "
+                               f"{key} (micro-steps, Alg. 2 phase) failed"
+                               ) from exc
+
+    def _capture(self, key: tuple[int, int],
+                 bufs: StepBufs) -> torch.cuda.CUDAGraph:
+        """Record dispatch ``key`` into a CUDA graph over the engine's own
+        tensors, in the engine's shared memory pool. Recording advances
+        no state."""
+        t0 = time.perf_counter()
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(self.device)
+        stream = self._graph_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph()
+        # the cycle collector frees dropped engines (they sit in reference
+        # cycles); one freed while this thread records ends the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=self._graph_pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    self._dispatch_eager(key, bufs)
+                finally:
+                    graph.capture_end()
+        except Exception as exc:
+            raise RuntimeError(f"{self.name}: CUDA graph capture of the "
+                               f"decode dispatch {key} (micro-steps, "
+                               f"Alg. 2 phase) failed") from exc
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self.capture_seconds += time.perf_counter() - t0
+        return graph
+
+    def release_graphs(self) -> None:
+        """Drop the captured decode graphs and their memory pool (an
+        engine torn down: a chaos kill, the end of a fleet)."""
+        if self._graphs:
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
+        self._graph_pool = None
+
+    def _readback(self, k: int) -> _Readback:
+        """The ``k``-step ``StepBufs`` (made at the first dispatch of
+        ``k``)."""
+        rb = self._readbacks.get(k)
+        if rb is None:
+            rb = self._readbacks[k] = _Readback.make(
+                k, self.scfg.max_batch, self.device)
+        return rb
 
     def _decode(self, k: int, active_np: np.ndarray) -> dict[str, np.ndarray]:
-        """``k`` decode steps back to back, one host readback."""
+        """``k`` decode steps in one dispatch (a graph replay on CUDA),
+        one host readback of ``StepBufs``."""
         t0 = time.perf_counter()
-        active = torch.as_tensor(active_np, device=self.device)
-        tokens = self.tokens_dev
-        per_step = []
-        for _ in range(k):
-            tokens, active, bufs = self._decode_body(tokens, active)
-            per_step.append(bufs)
-        self.tokens_dev = tokens
-        names = ("tokens", "tier_reads", "hit_rate", "moved", "lengths",
-                 "blocks")
-        out = {name: torch.stack([b[i] for b in per_step]).cpu().numpy()
-               for i, name in enumerate(names)}
+        rb = self._readback(k)
+        self._active_host.copy_(torch.from_numpy(active_np))
+        self._active.copy_(self._active_host, non_blocking=True)
+        step0 = self.pam_state.step
+        tiering = self.pam_cfg is not None and self.pam_cfg.use_tiering
+        key = (k, step0 % self.pam_cfg.schedule_interval if tiering else 0)
+        self._dispatch(key, rb.bufs)
+        out = rb.read()
+        if self.pam_cfg is not None:
+            self.pam_state = self.pam_state._replace(step=step0 + k)
         out["tier_reads"] = out["tier_reads"].astype(np.int64)
         self.decode_time += time.perf_counter() - t0
         self.decode_dispatches += 1

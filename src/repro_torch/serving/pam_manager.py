@@ -161,11 +161,11 @@ def _enforce_capacity(imp, tier, valid, t_from: int, cap: int, t_to: int):
     return torch.where(demote, torch.full_like(tier, t_to), tier)
 
 
-def observe_update(cfg: PAMManagerConfig, state: PAMState,
-                   scores: torch.Tensor, lengths: torch.Tensor,
-                   participate: torch.Tensor) -> PAMState:
-    """After a decode step: EMA update + hot append + capacity cascade
-    + (every ``schedule_interval`` steps) Algorithm 2."""
+def _observed(cfg: PAMManagerConfig, state: PAMState, scores: torch.Tensor,
+              lengths: torch.Tensor, schedule: bool
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step's (importance, tier, Alg. 2 moves ``()`` int32) after a
+    decode step; ``schedule`` runs Alg. 2 (with tiering on)."""
     B, Smax = state.importance.shape
     dev = state.importance.device
     valid = torch.arange(Smax, device=dev)[None, :] < lengths[:, None]
@@ -177,7 +177,8 @@ def observe_update(cfg: PAMManagerConfig, state: PAMState,
     bidx = torch.arange(B, device=dev)
     new_pos = torch.clamp(lengths - 1, min=0).long()
     tier = state.tier.clone()
-    tier[bidx, new_pos] = HOT
+    # a tensor value: a Python scalar would be copied from the host
+    tier[bidx, new_pos] = torch.full_like(new_pos, HOT, dtype=tier.dtype)
     imp[bidx, new_pos] = torch.maximum(imp[bidx, new_pos],
                                        torch.amax(imp, dim=-1))
     moved = torch.zeros((), dtype=torch.int32, device=dev)
@@ -186,13 +187,50 @@ def observe_update(cfg: PAMManagerConfig, state: PAMState,
                                  WARM)
         tier = _enforce_capacity(imp, tier, valid, WARM, cfg.warm_capacity,
                                  COLD)
-        if (state.step + 1) % cfg.schedule_interval == 0:
+        if schedule:
             tier, moved_mask, _ = scheduling.schedule_kv(imp, tier, valid,
                                                          cfg.schedule)
             moved = moved_mask.sum().to(torch.int32)
+    return imp, tier, moved
+
+
+def runs_schedule(cfg: PAMManagerConfig, step: int) -> bool:
+    """Whether Alg. 2 runs in the decode step that follows ``step``
+    observed ones (the reference's ``lax.cond`` predicate)."""
+    return cfg.use_tiering and (step + 1) % cfg.schedule_interval == 0
+
+
+def observe_update(cfg: PAMManagerConfig, state: PAMState,
+                   scores: torch.Tensor, lengths: torch.Tensor,
+                   participate: torch.Tensor) -> PAMState:
+    """After a decode step: EMA update + hot append + capacity cascade
+    + (every ``schedule_interval`` steps) Algorithm 2."""
+    imp, tier, moved = _observed(cfg, state, scores, lengths,
+                                 runs_schedule(cfg, state.step))
     return PAMState(importance=imp, tier=tier, step=state.step + 1,
                     moved_tokens=state.moved_tokens + moved,
                     last_hot=participate, block_table=state.block_table)
+
+
+def observe_update_(cfg: PAMManagerConfig, state: PAMState,
+                    scores: torch.Tensor, lengths: torch.Tensor,
+                    participate: torch.Tensor, *, schedule: bool
+                    ) -> torch.Tensor:
+    """``observe_update`` in place, safe to capture in a CUDA graph: the
+    same importance, tier and previous participation are copied into
+    the tensors ``state`` holds (their storage never changes) and the
+    step's moves are added to ``moved_tokens``. ``schedule`` (a static
+    bool, ``runs_schedule`` of the host step count) says whether Alg. 2
+    runs: the reference's ``lax.cond`` at
+    ``repro/serving/pam_manager.py:239-240``, resolved when the step is
+    built. ``state.step`` is the caller's to advance. Returns this
+    step's moves (``()`` int32)."""
+    imp, tier, moved = _observed(cfg, state, scores, lengths, schedule)
+    state.importance.copy_(imp)
+    state.tier.copy_(tier)
+    state.last_hot.copy_(participate)
+    state.moved_tokens.add_(moved)
+    return moved
 
 
 def place_prefill_state(cfg: PAMManagerConfig, state: PAMState, slot: int,

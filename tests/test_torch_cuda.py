@@ -220,16 +220,20 @@ def test_reduced_engine_runs_through_both_kernels(cuda):
            tfd.flash_decode, tfd.flash_decode_paged)
     n0 = [f.launches for f in fns]
     summ = eng.run()
-    steps = summ["decode_device_steps"]
     assert summ["finished"] == 4 and summ["total_tokens"] == 64
+    # a wrapper counts its host calls: each graph's eager dispatch and
+    # its recording, not the replays
+    body = eng.decode_body_steps
+    assert 0 < body < summ["decode_device_steps"]
     ran = [f.launches - n for f, n in zip(fns, n0)]
-    assert ran == [cfg.n_layers * steps] * 2 + [0, 0]
+    assert ran == [cfg.n_layers * body] * 2 + [0, 0]
 
 
-def _cluster_run(dev, params, cfg, chaos=None, pin="cxl0"):
+def _cluster_run(dev, params, cfg, chaos=None, pin="cxl0", routers=None):
     """The reduced ``hbm:1,cxl:2`` fleet with the balancer over a seeded
     stream (4 requests pinned to ``pin``, 12 Poisson arrivals); with
-    ``chaos``, that fault trace and the default recovery watchdog."""
+    ``chaos``, that fault trace and the default recovery watchdog. The
+    router is appended to ``routers`` where one is given."""
     from repro_torch.cluster import (BalancerConfig, ClusterSpec,
                                      FaultInjector, KVBalancer,
                                      RecoveryConfig)
@@ -256,6 +260,8 @@ def _cluster_run(dev, params, cfg, chaos=None, pin="cxl0"):
                                  12, arrival=t))
     events = [(e.time, e.request_id, e.token, e.index, e.device, e.done)
               for e in router.serve(rest)]
+    if routers is not None:
+        routers.append(router)
     return events, router.summary(), router.balancer.log
 
 
@@ -267,18 +273,19 @@ def test_reduced_cluster_card_equals_cpu(cuda):
     from repro_torch import tree
     cfg = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
     cpu_params = ttf.init_params(cfg, 0, device="cpu")
-    out = {}
+    out, routers = {}, []
     for dev in ("cpu", cuda):
         params = tree.unflatten(cpu_params, [
             x.to(dev) for x in tree.leaves(cpu_params)])
         fns = (tfd.flash_decode_merged, tfd.flash_decode_paged_merged)
         n0 = [f.launches for f in fns]
-        out[str(dev)] = _cluster_run(dev, params, cfg)
+        out[str(dev)] = _cluster_run(dev, params, cfg, routers=routers)
         ran = [f.launches - n for f, n in zip(fns, n0)]
     assert out["cuda"] == out["cpu"]
     summ = out["cuda"][1]
-    steps = sum(d["decode_device_steps"] for d in summ["devices"].values())
-    assert ran == [cfg.n_layers * steps] * 2
+    # the wrappers count host calls: replays of the decode graphs add none
+    body = sum(d.engine.decode_body_steps for d in routers[-1].devices)
+    assert ran == [cfg.n_layers * body] * 2
     assert summ["balancer_migrations"] >= 1 and summ["finished"] == 16
 
 

@@ -119,6 +119,39 @@ def test_observe_update_matches_jax(step, tiering):
     assert to.step == int(jo.step)
 
 
+@pytest.mark.parametrize("step", [0, 1])     # step 1 runs Alg. 2
+@pytest.mark.parametrize("tiering", [True, False])
+def test_observe_update_in_place_matches_jax(step, tiering):
+    """``observe_update_`` (the engine's captured decode body calls it)
+    writes what the JAX ``observe_update`` returns into the tensors the
+    state already holds, with Alg. 2 taken from the static flag the
+    engine derives from the host step count."""
+    imp, tier, lens = _state(5, ties=False)
+    r = np.random.default_rng(6)
+    scores = (r.random(imp.shape) * 2).astype(np.float32)
+    part = r.random(imp.shape) < 0.4
+    jc, tc = _cfgs(use_tiering=tiering)
+    js = _jax_state(imp, tier, lens, step)
+    jo = jpm.observe_update(jc, js, jnp.asarray(scores), jnp.asarray(lens),
+                            jnp.asarray(part))
+    ts = bridge.pam_state_from_jax(js, "cpu")
+    ptrs = [t.data_ptr() for t in ts if isinstance(t, torch.Tensor)]
+    sched = tpm.runs_schedule(tc, step)
+    assert sched == (tiering and step == 1)
+    moved = tpm.observe_update_(tc, ts, _t(scores), _t(lens), _t(part),
+                                schedule=sched)
+    assert [t.data_ptr() for t in ts if isinstance(t, torch.Tensor)] == ptrs
+    np.testing.assert_allclose(ts.importance.numpy(),
+                               np.asarray(jo.importance), rtol=1e-6,
+                               atol=1e-6)
+    _eq(ts.tier, jo.tier)
+    _eq(ts.moved_tokens, jo.moved_tokens)
+    _eq(ts.last_hot, jo.last_hot)
+    assert moved.dtype == torch.int32
+    assert int(moved) == int(jo.moved_tokens) - int(js.moved_tokens)
+    assert ts.step == step          # the caller advances the host count
+
+
 @pytest.mark.parametrize("length", [1, 7, 33, 40])
 def test_place_prefill_state_matches_jax(length):
     B, S, nb = 3, 40, 10
