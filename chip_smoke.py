@@ -16,7 +16,10 @@ final ``ok`` line:
   kernels   each kernel against its plain PyTorch version on the card at
             main-path shapes (decode: B=8, H=16, Hkv=8, d=128, bf16
             storage, each kernel under the reference's stacked contract
-            and merged with its scores, the serving path's; attention:
+            and merged with its scores, the serving path's, at ring S 256,
+            S 2048 and the paged pool; the same six rows at H 64, Hkv 4,
+            qwen3-moe-235b-a22b's GQA group 16, keys ending ``_g16``;
+            attention:
             the train shape in bf16 through the wgmma
             kernels, also S 1000 non-causal, and the CUDA-core kernels in
             fp32 at train_parity's B 2, S 500; ssd_scan: the wgmma kernels
@@ -120,7 +123,10 @@ final ``ok`` line:
             step of each graph twin under torch.profiler must run each
             merged decode kernel n_layers times; prints graphs captured,
             capture ms, steady step ms and decode tok/s of both twins, the
-            kernel nodes of a single-step graph, and the card
+            kernel nodes of a single-step graph, and the card; then the
+            same twin pair for full-width qwen3-moe-235b-a22b (``engine_moe``'s
+            model, 8 requests, 16 new): equal streams and StepBufs, the
+            group-16 merged wrappers n_layers x the host-run body steps
   profile   torch.profiler over 4 steady paged + ring decode steps (every
             Alg. 2 phase's graph captured first, so the window holds
             replays only): graph launches and kernel nodes per step, the
@@ -132,6 +138,26 @@ final ``ok`` line:
             grouped QK^T that the union mass no longer needs
   profile_prefix_chunk_sampled   the same over 4 decode steps of the
             engine_prefix_chunk_sampled engine once all eight requests run
+  engine_moe  qwen3-moe-235b-a22b at full width (d 4096, 64 q / 4 kv heads
+            of 128: GQA group 16; 128 experts of d_expert 1536, top-8;
+            vocab 151936; random weights from seed 0, bf16), its 94 layers
+            cut to ``MOE_LAYERS`` = 4 (about 22 GB of weights), served
+            paged + ring with the serving template (8 requests of 512-1024
+            prompt tokens, 64 new, batch 8, max_len 2048, block 16, ring
+            256, the PAM of engine_paged_ring), decode through the graphs;
+            asserts 64 tokens a request, each merged decode wrapper
+            n_layers x the host-run body steps and the stacked ones never,
+            each group-16 decode kernel n_layers times on the card in one
+            profiled replayed step; prints decode tok/s, the steady step's
+            wall ms and the device's idle share of it, peak memory, the
+            share of (token, expert) assignments dropped at capacity at
+            prefill and at decode, and the weight bytes a step reads (all,
+            the top-k's, and the experts the dense-shape dispatch reads)
+  moe_parity  reduced qwen3-moe (4 experts, top-2) in fp32, TF32 off: the
+            engine on the card and on the CPU (weights made on the CPU and
+            copied) give equal greedy streams, paged + ring, 6 requests
+            through 4 slots, at GQA group 2 and at group 16 (32 q heads
+            over 2 kv heads, the decode kernels' wide path at head dim 16)
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
@@ -433,10 +459,10 @@ def phase_build() -> dict:
                 hgmma_in_sass=hgmma)
 
 
-def _dense_case(S, seed, dead_split):
+def _dense_case(S, seed, dead_split, heads=(16, 8)):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, H, Hkv, d = 8, 16, 8, 128
+    (H, Hkv), B, d = heads, 8, 128
     q = torch.randn((B, H, d), generator=g, device="cuda")
     k = torch.randn((B, Hkv, S, d), generator=g, device="cuda").bfloat16()
     v = torch.randn((B, Hkv, S, d), generator=g, device="cuda").bfloat16()
@@ -479,13 +505,16 @@ def _decode_row(name, call, plain, nbytes, flops, **case) -> dict:
                 bound_ms=bound, bound_by=by, bytes=nbytes)
 
 
-def kernel_flash_decode(S: int, merged: bool = False) -> dict:
-    """The dense kernel at B 8, H 16, Hkv 8, d 128, bf16 K/V: stacked over
-    the reference's 512-token splits, or merged (``flash_decode_merged``:
-    the split from ``split_len``, the merge in the kernel, and the
-    scores, whose (B, H, S) fp32 write the bound counts)."""
+def kernel_flash_decode(S: int, merged: bool = False,
+                        heads=(16, 8)) -> dict:
+    """The dense kernel at B 8, (H, Hkv) ``heads`` (qwen3-0.6b's 16 / 8 by
+    default), d 128, bf16 K/V: stacked over the reference's 512-token
+    splits, or merged (``flash_decode_merged``: the split from
+    ``split_len``, the merge in the kernel, and the scores, whose (B, H,
+    S) fp32 write the bound counts)."""
     from repro_torch.kernels import flash_decode as fd
-    q, k, v, mask, lens = _dense_case(S, seed=S, dead_split=S > 512)
+    q, k, v, mask, lens = _dense_case(S, seed=S, dead_split=S > 512,
+                                      heads=heads)
     B, H, d = q.shape
     Hkv = k.shape[1]
     scale = 1.0 / d ** 0.5
@@ -514,17 +543,18 @@ def kernel_flash_decode(S: int, merged: bool = False) -> dict:
                                            block_s)[:3],
             nbytes, n_live * H * d * 4, S=S, nsplit=nsplit,
             grid_blocks=nsplit * Hkv * B)
-    return dict(row, live_tokens=n_live,
+    return dict(row, live_tokens=n_live, H=H, Hkv=Hkv,
                 library_ms=_sdpa_ms(q, k, v, mask, lens))
 
 
-def _paged_case():
-    """The paged kernels' inputs: B 8, H 16, Hkv 8, d 128, bs 16, nb 128 (a
-    2048-token window), bf16 pools of 1,024 blocks, a quarter of the first
-    100 table entries live, 60 % of their tokens participating."""
+def _paged_case(heads=(16, 8)):
+    """The paged kernels' inputs: B 8, (H, Hkv) ``heads``, d 128, bs 16, nb
+    128 (a 2048-token window), bf16 pools of 1,024 blocks, a quarter of
+    the first 100 table entries live, 60 % of their tokens
+    participating."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(7)
-    B, H, Hkv, d, bs, nb, NB = 8, 16, 8, 128, 16, 128, 1024
+    (H, Hkv), B, d, bs, nb, NB = heads, 8, 128, 16, 128, 1024
     q = torch.randn((B, H, d), generator=g, device="cuda")
     kp = torch.randn((NB + 1, bs, Hkv, d), generator=g,
                      device="cuda").bfloat16()
@@ -540,14 +570,14 @@ def _paged_case():
     return q, kp, vp, table, mask, live_blk
 
 
-def kernel_flash_decode_paged(merged: bool = False) -> dict:
+def kernel_flash_decode_paged(merged: bool = False, heads=(16, 8)) -> dict:
     """The paged kernel on ``_paged_case``'s inputs: stacked (one partial
     per logical block, the reference's contract) or
     merged (``flash_decode_paged_merged``: runs from ``split_len``, the
     merge in the kernel, and the scores). No single PyTorch call computes
     paged attention, so ``library_ms`` is null."""
     from repro_torch.kernels import flash_decode as fd
-    q, kp, vp, table, mask, live_blk = _paged_case()
+    q, kp, vp, table, mask, live_blk = _paged_case(heads)
     B, H, d = q.shape
     bs, Hkv = kp.shape[1], kp.shape[2]
     nb = table.shape[1]
@@ -556,7 +586,7 @@ def kernel_flash_decode_paged(merged: bool = False) -> dict:
     nbytes = (n_live * Hkv * d * 2 * 2 + q.numel() * 4 + mask.numel()
               + table.numel() * 4 + live_blk.numel())
     case = dict(live_tokens=n_live, live_blocks=int(live_blk.sum()),
-                library_ms=None)
+                library_ms=None, H=H, Hkv=Hkv)
     if merged:
         split = fd.split_len(B, Hkv, nb * bs, fd._sm_count(q.device),
                              block=bs)
@@ -1211,10 +1241,13 @@ def phase_pam_core() -> dict:
                 tiers=list(PAM_TIERS), block_size=PAM_BLOCK)
 
 
-def _model(dtype: str, arch: str = "qwen3-0.6b"):
+def _model(dtype: str, arch: str = "qwen3-0.6b",
+           n_layers: int | None = None):
     from repro_torch.models import transformer as tf
     from repro_torch.models.config import get_config
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return cfg, tf.init_params(cfg, 0, device="cuda")
 
 
@@ -1767,14 +1800,16 @@ def _twin_line(g, e) -> dict:
         eager_decode_time_s=se["decode_time_s"])
 
 
-def phase_decode_graph(cfg, params) -> dict:
+def phase_decode_graph(cfg, params, moe=None) -> dict:
     """Twin engines in one call, one replaying decode graphs and one
     running the eager in-place body (bound by hand): full-width
     qwen3-0.6b, paged + ring, 8 requests of 512-1024 prompt tokens and 64
     new; (a) greedy, (b) dense PAM (engine_dense_pam's 4 requests of
     32 new), (c) sampled (temperature 0.8, top-50) with the prefix cache
     and 256-token chunks over the shared-prompt requests, (d) greedy at
-    micro_steps 4 with an EOS token. Streams and every StepBufs field
+    micro_steps 4 with an EOS token, and (e) with ``moe`` (its (cfg,
+    params)) the full-width qwen3-moe pair of ``_moe_twins``. Streams and
+    every StepBufs field
     must be equal; the merged decode wrappers are called n_layers x the
     host-run body steps on the graph twins of (a) and (b); one profiled
     steady step of each of those graph twins (a replay) runs each of its
@@ -1849,6 +1884,8 @@ def phase_decode_graph(cfg, params) -> dict:
                                   for rs in pair[0].requests.values()))
     del pair
     gc.collect()
+    if moe is not None:       # (e) the MoE family, group-16 kernels
+        runs["moe_greedy"] = _moe_twins(*moe)
     out.update(runs, launches=launches, decode_body_steps=body_steps,
                launches_expected=cfg.n_layers * body_steps,
                dense_launches=dense_launches,
@@ -2993,13 +3030,244 @@ def phase_train_parity(arch: str = "qwen3-0.6b") -> dict:
                 wgmma_launches=wgmma)
 
 
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_LAYERS = 4      # of 94: about 22 GB of bf16 weights on the 80 GB card
+
+
+class _Drops:
+    """Counts the MoE's (token, expert) assignments and those dropped at
+    capacity, at prefill and at decode (a decode call routes the
+    engine's ``batch`` slots, idle ones included), in device tensors
+    written in place, so that a replayed decode graph adds to them too
+    (``moe.route`` wrapped while the object is open)."""
+
+    def __init__(self, batch: int):
+        import torch
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.route = moe_mod, moe_mod.route
+        self.acc = {k: torch.zeros(2, dtype=torch.int64, device="cuda")
+                    for k in ("prefill", "decode")}
+
+        def counted(p, xf, cfg):
+            r = self.route(p, xf, cfg)
+            acc = self.acc["decode" if xf.shape[0] == batch else "prefill"]
+            acc[0].add_(r.keep.numel())
+            acc[1].add_(torch.sum(~r.keep))
+            return r
+        moe_mod.route = counted
+
+    def close(self) -> dict:
+        self.mod.route = self.route
+        out = {}
+        for k, a in self.acc.items():
+            n, dropped = (int(x) for x in a.cpu())
+            out[k] = dict(assignments=n, dropped=dropped,
+                          dropped_share=dropped / n if n else None)
+        return out
+
+
+def _moe_weights(cfg) -> dict:
+    """Weight bytes (bf16) behind one decode step of the cut model: all
+    of them, those a token's top-k experts use (``active_param_count``),
+    and the expert matrices the dense-shape dispatch reads (the batched
+    products take every expert's three matrices, whatever its capacity
+    holds), each with its time at the HBM rate."""
+    m = cfg.moe
+    experts = cfg.n_layers * 3 * m.num_experts * cfg.d_model * m.d_expert
+    out = dict(all=cfg.param_count() * 2, active=cfg.active_param_count() * 2,
+               dispatch_experts=experts * 2)
+    return {k: dict(bytes=v, hbm_ms=v / HBM_BYTES_PER_S * 1e3)
+            for k, v in out.items()}
+
+
+def phase_engine_moe(cfg, params) -> dict:
+    """qwen3-moe-235b-a22b at full width (d 4096, 64 q / 4 kv heads of
+    128, 128 experts of 1536, top-8, vocab 151936, bf16, random weights
+    from seed 0), depth cut to ``MOE_LAYERS``, served paged + ring with
+    the serving phases' template (8 requests of 512-1024 prompt tokens,
+    64 new, batch 8, max_len 2048, block 16, ring 256, ``_pam``'s PAM),
+    decode through the graphs. Asserts 64 tokens a request, each merged
+    decode wrapper n_layers x the host-run body steps and the stacked
+    ones never, and each group-16 decode kernel n_layers times on the
+    card in one profiled replayed step. Prints decode tok/s, the steady
+    step's wall ms (host clock, synchronised) and the device's idle
+    share of it (one minus the profiled step's kernel time over the
+    median unprofiled step), peak memory, the share of (token, expert)
+    assignments dropped at capacity, and the weight bytes a step reads."""
+    import numpy as np
+    import torch
+    drops = _Drops(8)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        g = _engine(cfg, params, 8, 64, max_batch=8, max_len=2048,
+                    **PAGED_RING)
+        t0 = time.perf_counter()
+        _warm_graphs(g)                      # admission, captures
+        warm_s = time.perf_counter() - t0
+        step = _step_events(g.step)
+        walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            g.step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        summ = g.run()
+        launches = _launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        dropped = drops.close()
+    lens = [len(rs.outputs) for rs in g.requests.values()]
+    assert lens == [64] * 8, f"outputs per request {lens}"
+    want = cfg.n_layers * g.decode_body_steps
+    _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
+                                                    want))
+    _assert_device_decode_counts(step["decode_kernels_on_device"],
+                                 DECODE_CUDA_KERNELS, cfg.n_layers)
+    step_ms = float(np.median(walls)) * 1e3
+    out = dict(card=_card(), arch=cfg.name, n_layers=cfg.n_layers,
+               n_layers_published=94, d_model=cfg.d_model,
+               heads=[cfg.n_heads, cfg.n_kv_heads],
+               experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+               decode_tok_s=summ["decode_tok_s"],
+               decode_time_s=summ["decode_time_s"],
+               p50_tpot_s=summ["p50_tpot_s"], p99_tpot_s=summ["p99_tpot_s"],
+               steady_step_ms_median=step_ms,
+               steady_step_ms=[w * 1e3 for w in walls],
+               replayed_step=step,
+               device_idle_share=1.0 - step["device_ms"] / step_ms,
+               warm_s=warm_s, graphs=sorted(g._graphs),
+               capture_ms_per_graph=g.capture_seconds * 1e3
+               / max(len(g._graphs), 1),
+               peak_mem_gb=peak_gb, dropped=dropped,
+               weights=_moe_weights(cfg), launches=launches,
+               decode_body_steps=g.decode_body_steps,
+               launches_expected=want)
+    del g
+    gc.collect()
+    assert dropped["decode"]["assignments"] > 0, dropped
+    return out
+
+
+def _moe_twins(cfg, params) -> dict:
+    """decode_graph's MoE pair: graph and eager twins of the full-width
+    qwen3-moe engine (``MOE_LAYERS`` layers, paged + ring, 8 requests of
+    512-1024 prompt tokens, 16 new). Streams and every StepBufs field
+    must be equal, and the merged decode wrappers are called n_layers x
+    the graph twin's host-run body steps."""
+    _reset_launches()
+    g = _recording(_engine(cfg, params, 8, 16, max_batch=8, max_len=2048,
+                           **PAGED_RING))
+    g.run()
+    launches = _launches()
+    e = _recording(_engine(cfg, params, 8, 16, max_batch=8, max_len=2048,
+                           **PAGED_RING), eager=True)
+    e.run()
+    want = cfg.n_layers * g.decode_body_steps
+    _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
+                                                    want))
+    out = dict(_twin_line(g, e), diff=_twin_diff(g, e), arch=cfg.name,
+               n_layers=cfg.n_layers, launches=launches,
+               launches_expected=want)
+    del g, e
+    gc.collect()
+    return out
+
+
+def _moe_parity_cfg(group16: bool):
+    """The reduced qwen3-moe (E 4, top-2, d 64, 4 q / 2 kv heads of 16,
+    fp32), or the same with 32 q heads over 2 kv heads (group 16, the
+    decode kernels' wide path at head dim 16)."""
+    from repro_torch.models.config import get_config, reduced
+    cfg = reduced(get_config(MOE_ARCH))
+    if group16:
+        cfg = dataclasses.replace(cfg, name=cfg.name + "-g16", n_heads=32)
+    return cfg
+
+
+def phase_moe_parity() -> dict:
+    """The port's MoE engine on the card and on the CPU give equal greedy
+    streams: reduced qwen3-moe in fp32 (TF32 off), seed-0 weights made
+    on the CPU and copied, paged + ring (block 8, ring 32), 6 requests of
+    20-60 prompt tokens through 4 slots (idle slots at the end ride in
+    the routing), 24 new; once at the reduced GQA group 2 and once at
+    group 16. A stream that differs fails the phase with the position
+    and both runs' top-2 margins there."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (PAMManagerConfig, Request,
+                                     ServingConfig, ServingEngine)
+    out = dict(dtype="float32", tf32=False)
+    for group16 in (False, True):
+        cfg = _moe_parity_cfg(group16)
+        host = tf.init_params(cfg, 0, device="cpu")
+        rng = np.random.default_rng(11)
+        prompts = [rng.integers(0, cfg.vocab, int(n))
+                   for n in rng.integers(20, 61, 6)]
+        streams, recs, launches = {}, {}, None
+        for dev in ("cuda", "cpu"):
+            params = (host if dev == "cpu" else
+                      tree.tree_map(lambda t: t.to(dev), host))
+            eng = ServingEngine(cfg, params, ServingConfig(
+                pam=PAMManagerConfig(max_tokens=128, hot_capacity=16,
+                                     warm_capacity=16, compression=2,
+                                     recency_window=4, schedule_interval=2),
+                max_batch=4, max_len=128, block_size=8, hot_window=32),
+                device=dev)
+            recs[dev] = _margins(eng, sampled=False)
+            if dev == "cuda":
+                _reset_launches()
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, p, 24))
+            eng.run()
+            if dev == "cuda":
+                launches = _launches()
+                body = eng.decode_body_steps
+            streams[dev] = {i: eng.requests[i].outputs for i in range(6)}
+            del eng, params
+        torch.cuda.empty_cache()
+        div = _first_divergence(prompts, streams["cuda"], streams["cpu"],
+                                recs["cuda"], recs["cpu"])
+        key = "group16" if group16 else "group2"
+        out[key] = dict(heads=[cfg.n_heads, cfg.n_kv_heads],
+                        streams_equal=div is None, divergence=div,
+                        tokens=sum(len(v) for v in streams["cuda"].values()),
+                        launches=launches,
+                        launches_expected=cfg.n_layers * body)
+        _assert_decode_launches(launches, dict.fromkeys(
+            DECODE_KERNELS[:2], cfg.n_layers * body))
+        assert div is None, f"{key}: card and CPU streams differ: {div}"
+    return out
+
+
+def _decode_rows(tag: str = "", heads=(16, 8)) -> dict:
+    """Both decode kernels, stacked and merged, at ring S 256, S 2048 and
+    the paged pool, for (H, Hkv) ``heads``; keys end in ``tag``."""
+    return {f"flash_decode_ring{tag}": kernel_flash_decode(256, False, heads),
+            f"flash_decode_2048{tag}": kernel_flash_decode(2048, False,
+                                                           heads),
+            f"flash_decode_paged{tag}": kernel_flash_decode_paged(False,
+                                                                  heads),
+            f"flash_decode_merged_ring{tag}": kernel_flash_decode(256, True,
+                                                                  heads),
+            f"flash_decode_merged_2048{tag}": kernel_flash_decode(2048, True,
+                                                                  heads),
+            f"flash_decode_paged_merged{tag}": kernel_flash_decode_paged(
+                True, heads)}
+
+
+# qwen3-moe-235b-a22b's attention: 64 query heads over 4 kv heads (GQA
+# group 16), the decode kernels' wide path; its kernels-phase rows end in
+# ``_g16``
+G16_HEADS = (64, 4)
+
+
 def phase_kernels() -> dict:
-    out = dict(flash_decode_ring=kernel_flash_decode(256),
-               flash_decode_2048=kernel_flash_decode(2048),
-               flash_decode_paged=kernel_flash_decode_paged(),
-               flash_decode_merged_ring=kernel_flash_decode(256, True),
-               flash_decode_merged_2048=kernel_flash_decode(2048, True),
-               flash_decode_paged_merged=kernel_flash_decode_paged(True))
+    out = _decode_rows()
+    out.update(_decode_rows("_g16", G16_HEADS))
     for S, causal in ((TRAIN_S, True), (1000, False)):
         r = kernel_flash_attention(S, causal)
         tag = "2048" if causal else "ragged_1000_noncausal"
@@ -3018,7 +3286,10 @@ def phase_kernels() -> dict:
 # merged row that launches the same CUDA kernel on the serving path
 STACKED_ROWS = {"flash_decode_merged_ring": "flash_decode_ring",
                 "flash_decode_merged_2048": "flash_decode_2048",
-                "flash_decode_paged_merged": "flash_decode_paged"}
+                "flash_decode_paged_merged": "flash_decode_paged",
+                "flash_decode_merged_ring_g16": "flash_decode_ring_g16",
+                "flash_decode_merged_2048_g16": "flash_decode_2048_g16",
+                "flash_decode_paged_merged_g16": "flash_decode_paged_g16"}
 
 
 # ------------------------------------------------------------------ main
@@ -3086,11 +3357,23 @@ def main() -> int:
         run("serve_frontend", phase_serve_frontend, *model)
         run("engine_prefix_chunk_sampled",
             phase_engine_prefix_chunk_sampled, *model)
-        run("decode_graph", phase_decode_graph, *model)
+    moe = None
+    try:            # qwen3-moe-235b-a22b at full width, MOE_LAYERS deep
+        moe = _model("bfloat16", MOE_ARCH, MOE_LAYERS)
+    except Exception as exc:
+        failed.append("model_moe")
+        emit("model_moe", ok=False, error=repr(exc))
+    if model is not None:
+        run("decode_graph", phase_decode_graph, *model, moe)
         run("profile", phase_profile, *model)
         run("profile_prefix_chunk_sampled",
             phase_profile_prefix_chunk_sampled, *model)
         del model
+    if moe is not None:
+        run("engine_moe", phase_engine_moe, *moe)
+        del moe
+    torch.cuda.empty_cache()
+    run("moe_parity", phase_moe_parity)
     torch.cuda.empty_cache()
     run("train", phase_train)
     torch.cuda.empty_cache()
@@ -3132,6 +3415,7 @@ def main() -> int:
     fp32_run = results["train_parity"]["launches"]
     ssm_run = results["train_ssm"]["launches"]
     ssm_fp32_run = results["train_parity_ssm"]["launches"]
+    moe_run = results["engine_moe"]["launches"]
     rows = []
     for key, src, replaces, launches in (
             ("flash_decode_merged_ring", "flash_decode.cu",
@@ -3155,10 +3439,15 @@ def main() -> int:
             ("ssd_scan_fp32_500", "ssd_scan.cu", "ssd_scan.py:36",
              ssm_fp32_run["ssd_scan"]),
             ("ssd_scan_bwd_fp32_500", "ssd_scan_bwd.cu", "ssd_scan.py:36",
-             ssm_fp32_run["ssd_scan_bwd"])):
+             ssm_fp32_run["ssd_scan_bwd"]),
+            ("flash_decode_merged_ring_g16", "flash_decode.cu",
+             "flash_decode.py:98", moe_run["flash_decode_merged"]),
+            ("flash_decode_paged_merged_g16", "flash_decode_paged.cu",
+             "flash_decode.py:202", moe_run["flash_decode_paged_merged"])):
         k = kernels[key]
         rows.append(dict(
-            name=k["name"], route="cuda",
+            name=k["name"] + ("_g16" if key.endswith("_g16") else ""),
+            route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/{replaces}",
             launches=launches, max_abs_err=k["max_abs_err"],
@@ -3166,7 +3455,8 @@ def main() -> int:
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
         for extra in ("S", "split", "variant", "dtype", "tflops",
-                      "pct_of_bound", "executed_tflops", "sdpa_max_abs_err"):
+                      "pct_of_bound", "executed_tflops", "sdpa_max_abs_err",
+                      "H", "Hkv"):
             if extra in k:
                 rows[-1][extra] = k[extra]
         stacked = STACKED_ROWS.get(key)
@@ -3201,6 +3491,18 @@ def main() -> int:
         for phase in ("engine_cluster", "engine_chaos", "serve_frontend",
                       "decode_graph"):
             row[f"launches_{phase}"] = results[phase]["launches"][name]
+    moe_step = results["engine_moe"]["replayed_step"]
+    moe_twins = results["decode_graph"]["moe_greedy"]["launches"]
+    for row, name, kern in ((rows[-2], "flash_decode_merged",
+                             DECODE_CUDA_KERNELS[0]),
+                            (rows[-1], "flash_decode_paged_merged",
+                             DECODE_CUDA_KERNELS[1])):
+        row["launches_in"] = "engine_moe"
+        row["device_launches_engine_moe_step"] = moe_step[
+            "decode_kernels_on_device"][kern]
+        row["launches_decode_graph_moe"] = moe_twins[name]
+        row["launches_moe_parity_group16"] = results["moe_parity"][
+            "group16"]["launches"][name]
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

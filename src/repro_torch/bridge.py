@@ -42,8 +42,9 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
                     device: str | torch.device | None = None) -> dict:
     """The reference's ``tf.init_params(cfg, key)`` pytree as the port's
     parameter dict (same keys, same shapes and dtypes: the SSM family's
-    fp32 ``dt_bias``, ``a_log`` and ``d_skip`` stay fp32 in a bf16
-    model)."""
+    fp32 ``dt_bias``, ``a_log`` and ``d_skip`` and the MoE family's fp32
+    ``router`` stay fp32 in a bf16 model; the MoE's zero-size shared
+    leaves cross as they are)."""
     _require_ported(cfg)
     return _tree(tree, resolve_device(device))
 

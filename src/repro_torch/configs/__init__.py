@@ -5,4 +5,4 @@ Importing this package registers every config; select with
 """
 
 from repro_torch.configs import (mamba2_780m, pam_llama_7b,  # noqa: F401
-                                 qwen3_0_6b)
+                                 qwen3_0_6b, qwen3_moe_235b_a22b)

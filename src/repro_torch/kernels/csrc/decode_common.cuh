@@ -43,6 +43,10 @@
 //      mbarrier (release, cluster scope), then exits; rank 0 waits for
 //      every arrival and reduces the partials in run order, so no partial
 //      goes through device memory and the arithmetic has no atomics.
+// Groups above 2 (16 is built) take attend_run_wide below: the same
+// steps 1 and 2, then each warp owns whole heads and walks every staged
+// row, and the merge reads the runs' partials over distributed shared
+// memory.
 // exp is __expf (ex2.approx): its relative error, about 2^-21 near the
 // arguments softmax uses, is far inside the tolerance against the plain
 // version (rtol 1e-4); the scores are exact fp32 dot products.
@@ -239,6 +243,95 @@ struct Outputs {
   bool merged;
 };
 
+// 1. Participation of kPerThread candidates a thread, their loads all in
+// flight together, then compaction in token order into `list`; a
+// non-participating token scores -1e30 for every head. The q values (qv,
+// QPT a thread, loaded by the caller) land in q_smem (REP, D) on the way.
+// Returns the number of listed tokens. Every thread of the block calls it.
+template <int REP, int D, int QPT, typename Src>
+__device__ __forceinline__ int list_participants(
+    const Src& src, const float (&qv)[QPT], float* q_smem,
+    int (&warp_count)[kPerThread][kWarps], int* list, long row0,
+    const Outputs& out) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int n_live = 0;
+  for (int p0 = 0; p0 < src.n; p0 += kPerThread * kThreads) {
+    typename Src::Raw raw[kPerThread];
+#pragma unroll
+    for (int c = 0; c < kPerThread; ++c) {
+      const int t = p0 + c * kThreads + tid;
+      if (t < src.n) raw[c] = src.fetch(t);
+    }
+    if (p0 == 0) {
+#pragma unroll
+      for (int k = 0; k < QPT; ++k) {
+        const int i = tid + k * kThreads;
+        if (i < REP * D) q_smem[i] = qv[k];
+      }
+    }
+    bool lv[kPerThread];
+    unsigned ballot[kPerThread];
+#pragma unroll
+    for (int c = 0; c < kPerThread; ++c) {
+      const int t = p0 + c * kThreads + tid;
+      lv[c] = t < src.n && src.live(t, raw[c]);
+      if (t < src.n && !lv[c] && out.scores != nullptr) {
+#pragma unroll
+        for (int r = 0; r < REP; ++r)
+          out.scores[(row0 + r) * out.n_pos + src.pos(t)] = kNegInf;
+      }
+      ballot[c] = __ballot_sync(0xffffffffu, lv[c]);
+      if (lane == 0) warp_count[c][warp] = __popc(ballot[c]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kPerThread; ++c) {
+      int before = n_live;
+      int total = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int cnt = warp_count[c][w];
+        before += w < warp ? cnt : 0;
+        total += cnt;
+      }
+      if (lv[c])
+        list[before + __popc(ballot[c] & ((1u << lane) - 1u))] =
+            p0 + c * kThreads + tid;
+      n_live += total;
+    }
+    __syncthreads();
+  }
+  return n_live;
+}
+
+// 2. Staging: tile i of the list into stage i % 2 ([stage][K|V][tile]
+// rows of R::kPitch bytes), a warp copying 32 / kChunks rows a step, one
+// 16-byte chunk a lane, committed as one cp.async group.
+template <typename T, int D, typename Src>
+__device__ __forceinline__ void issue_tile(const Src& src, const int* list,
+                                           unsigned char* stage, int tile,
+                                           int n_live, int i) {
+  using R = Row<T, D>;
+  constexpr int kRowsPerStep = 32 / R::kChunks;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned char* buf = stage + 2L * (i & 1) * tile * R::kPitch;
+  const int j0 = i * tile;
+  const int rows = min(tile, n_live - j0);
+  const int ch = (lane % R::kChunks) * 16;
+  for (int j = warp * kRowsPerStep + lane / R::kChunks; j < rows;
+       j += kWarps * kRowsPerStep) {
+    const int t = list[j0 + j];
+    cp_async16(buf + (long)j * R::kPitch + ch,
+               reinterpret_cast<const unsigned char*>(src.row(t, 0)) + ch);
+    cp_async16(buf + (long)(tile + j) * R::kPitch + ch,
+               reinterpret_cast<const unsigned char*>(src.row(t, 1)) + ch);
+  }
+  cp_async_commit();
+}
+
 // Attend the REP query heads of kv head h of batch b over one run. Src is
 // the run's token source:
 //   int n                    candidate tokens of the run
@@ -278,74 +371,14 @@ __device__ __forceinline__ void attend_run(
     qv[k] = i < REP * D ? to_float(q[i]) : 0.f;
   }
 
-  // 1. participation of kPerThread candidates a thread, their loads all
-  // in flight together, then compaction in token order
-  int n_live = 0;
-  for (int p0 = 0; p0 < src.n; p0 += kPerThread * kThreads) {
-    typename Src::Raw raw[kPerThread];
-#pragma unroll
-    for (int c = 0; c < kPerThread; ++c) {
-      const int t = p0 + c * kThreads + tid;
-      if (t < src.n) raw[c] = src.fetch(t);
-    }
-    if (p0 == 0) {
-#pragma unroll
-      for (int k = 0; k < QPT; ++k) {
-        const int i = tid + k * kThreads;
-        if (i < REP * D) sm.q[i / D][i % D] = qv[k];
-      }
-    }
-    bool lv[kPerThread];
-    unsigned ballot[kPerThread];
-#pragma unroll
-    for (int c = 0; c < kPerThread; ++c) {
-      const int t = p0 + c * kThreads + tid;
-      lv[c] = t < src.n && src.live(t, raw[c]);
-      if (t < src.n && !lv[c] && out.scores != nullptr) {
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-          out.scores[(row0 + r) * out.n_pos + src.pos(t)] = kNegInf;
-      }
-      ballot[c] = __ballot_sync(0xffffffffu, lv[c]);
-      if (lane == 0) sm.warp_count[c][warp] = __popc(ballot[c]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kPerThread; ++c) {
-      int before = n_live;
-      int total = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int cnt = sm.warp_count[c][w];
-        before += w < warp ? cnt : 0;
-        total += cnt;
-      }
-      if (lv[c])
-        list[before + __popc(ballot[c] & ((1u << lane) - 1u))] =
-            p0 + c * kThreads + tid;
-      n_live += total;
-    }
-    __syncthreads();
-  }
+  // 1. participation and compaction
+  const int n_live = list_participants<REP, D>(src, qv, &sm.q[0][0],
+                                               sm.warp_count, list, row0, out);
 
-  // 2. staging: tile i of the list into stage i % 2, a warp copying
-  // 32 / kChunks rows a step, one 16-byte chunk a lane
+  // 2. staging, two tiles deep
   const int ntiles = (n_live + tile - 1) / tile;
   auto issue = [&](int i) {
-    constexpr int kRowsPerStep = 32 / R::kChunks;
-    unsigned char* buf = stage + 2L * (i & 1) * tile * R::kPitch;
-    const int j0 = i * tile;
-    const int rows = min(tile, n_live - j0);
-    const int ch = (lane % R::kChunks) * 16;
-    for (int j = warp * kRowsPerStep + lane / R::kChunks; j < rows;
-         j += kWarps * kRowsPerStep) {
-      const int t = list[j0 + j];
-      cp_async16(buf + (long)j * R::kPitch + ch,
-                 reinterpret_cast<const unsigned char*>(src.row(t, 0)) + ch);
-      cp_async16(buf + (long)(tile + j) * R::kPitch + ch,
-                 reinterpret_cast<const unsigned char*>(src.row(t, 1)) + ch);
-    }
-    cp_async_commit();
+    issue_tile<T, D>(src, list, stage, tile, n_live, i);
   };
   if (ntiles > 0) issue(0);
   if (ntiles > 1) issue(1);
@@ -557,6 +590,257 @@ __device__ __forceinline__ void attend_run(
   }
 }
 
+// Groups above kMaxNarrowRep take the wide path (attend_run_wide): one
+// lane per (head, row) no longer fits a warp, and the narrow path's
+// per-warp partials and rank-0 merge slots (RunSmem, MergeSlots) would
+// exceed the 48 KB of static shared memory at group 16, head dim 128.
+constexpr int kMaxNarrowRep = 2;
+
+// Per-block state of the wide path outside the staged tiles: the query
+// rows, the run's partial (each warp owns whole heads, so the partial
+// needs no merge across warps; rank 0 of a merged launch reads its peers'
+// copies over distributed shared memory) and rank 0's merge weights.
+// 16.6 KB at group 16, head dim 128.
+template <int D, int REP>
+struct WideSmem {
+  alignas(16) float q[REP][D];
+  alignas(16) float o[REP][D];
+  float m[REP];
+  float l[REP];
+  float w[kMaxSplits][REP];
+  int warp_count[kPerThread][kWarps];
+};
+
+// The static shared memory of a decode kernel of group REP.
+template <int D, int REP, bool MERGED, bool WIDE = (REP > kMaxNarrowRep)>
+struct BlockSmem {
+  using type = RunSmem<D, REP, MERGED>;
+};
+template <int D, int REP, bool MERGED>
+struct BlockSmem<D, REP, MERGED, true> {
+  using type = WideSmem<D, REP>;
+};
+
+// attend_run for a wide group (REP a multiple of kWarps, 16 built): the
+// same participation, compaction and cp.async staging, then each warp
+// owns REP / kWarps heads and walks every staged row of a tile in
+// sub-tiles of 32 rows:
+//   3. QK^T, one lane per row: the lane reads its K row's 16-byte chunks
+//      once (padded pitch: distinct banks) and does the dot products of
+//      the warp's heads from q in shared memory (broadcast reads);
+//   4. online softmax per head over the sub-tile, fp32, by warp shuffles,
+//      the running (m, l) in registers;
+//   5. PV, one lane per output dimension (EPL of them), P broadcast by
+//      shuffle from the row's lane;
+//   6. merge (merged launch): every run leaves its partial in its own
+//      shared memory, one cluster barrier, rank 0 reads the runs'
+//      partials over distributed shared memory and reduces them in run
+//      order, and a second barrier keeps the peers' memory alive until
+//      it has. No atomics, no partial through device memory.
+// Arguments as attend_run's.
+template <typename T, typename TQ, int D, int REP, bool MERGED,
+          typename Src>
+__device__ __forceinline__ void attend_run_wide(
+    const Src& src, const TQ* __restrict__ q, float scale, int tile,
+    int cap, long row0, const Outputs& out, WideSmem<D, REP>& sm,
+    unsigned char* dyn) {
+  using R = Row<T, D>;
+  static_assert(REP % kWarps == 0, "whole heads a warp");
+  constexpr int QPT = (REP * D + kThreads - 1) / kThreads;
+  constexpr int HPW = REP / kWarps;           // heads a warp owns
+  constexpr int EPL = D >= 32 ? D / 32 : 1;   // output dims a lane holds
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int h0 = warp * HPW;                  // the warp's first head
+  int* list = reinterpret_cast<int*>(dyn);
+  unsigned char* stage = dyn + list_bytes(cap);
+
+  float qv[QPT];    // in flight with the participation loads
+#pragma unroll
+  for (int k = 0; k < QPT; ++k) {
+    const int i = tid + k * kThreads;
+    qv[k] = i < REP * D ? to_float(q[i]) : 0.f;
+  }
+  const int n_live = list_participants<REP, D>(src, qv, &sm.q[0][0],
+                                               sm.warp_count, list, row0, out);
+  const int ntiles = (n_live + tile - 1) / tile;
+  if (ntiles > 0) issue_tile<T, D>(src, list, stage, tile, n_live, 0);
+  if (ntiles > 1) issue_tile<T, D>(src, list, stage, tile, n_live, 1);
+
+  const bool has_dims = lane * EPL < D;
+  float m_run[HPW];
+  float l_run[HPW];
+  float acc[HPW][EPL];
+#pragma unroll
+  for (int h = 0; h < HPW; ++h) {
+    m_run[h] = kNegInf;
+    l_run[h] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[h][e] = 0.f;
+  }
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // every thread's copies of tile i have landed
+    const unsigned char* kbuf = stage + 2L * (i & 1) * tile * R::kPitch;
+    const unsigned char* vbuf = kbuf + (long)tile * R::kPitch;
+    const int j0 = i * tile;
+    const int rows = min(tile, n_live - j0);
+    for (int u0 = 0; u0 < rows; u0 += 32) {
+      const int nr = min(32, rows - u0);
+      const bool mine = lane < nr;
+      // 3. QK^T: this lane's row against the warp's heads
+      float s[HPW];
+#pragma unroll
+      for (int h = 0; h < HPW; ++h) s[h] = kNegInf;
+      if (mine) {
+        const uint4* kr =
+            reinterpret_cast<const uint4*>(kbuf + (u0 + lane) * R::kPitch);
+        float a[HPW][4];
+#pragma unroll
+        for (int h = 0; h < HPW; ++h)
+          a[h][0] = a[h][1] = a[h][2] = a[h][3] = 0.f;
+#pragma unroll
+        for (int c = 0; c < R::kChunks; ++c) {
+          float kf[R::kElems];
+          chunk_to_float<T>(kr[c], kf);
+#pragma unroll
+          for (int h = 0; h < HPW; ++h) {
+            const float4* q4 = reinterpret_cast<const float4*>(sm.q[h0 + h]);
+#pragma unroll
+            for (int e4 = 0; e4 < R::kElems / 4; ++e4) {
+              const float4 qv4 = q4[c * (R::kElems / 4) + e4];
+              a[h][0] = fmaf(qv4.x, kf[4 * e4], a[h][0]);
+              a[h][1] = fmaf(qv4.y, kf[4 * e4 + 1], a[h][1]);
+              a[h][2] = fmaf(qv4.z, kf[4 * e4 + 2], a[h][2]);
+              a[h][3] = fmaf(qv4.w, kf[4 * e4 + 3], a[h][3]);
+            }
+          }
+        }
+        const long pos = src.pos(list[j0 + u0 + lane]);
+#pragma unroll
+        for (int h = 0; h < HPW; ++h) {
+          s[h] = ((a[h][0] + a[h][1]) + (a[h][2] + a[h][3])) * scale;
+          if (out.scores != nullptr)
+            out.scores[(row0 + h0 + h) * out.n_pos + pos] = s[h];
+        }
+      }
+      // 4. online softmax over the sub-tile's rows, per head
+      float p[HPW];
+#pragma unroll
+      for (int h = 0; h < HPW; ++h) {
+        float mx = s[h];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m_run[h], mx);
+        const float corr = __expf(m_run[h] - m_new);
+        p[h] = mine ? __expf(s[h] - m_new) : 0.f;
+        float sum = p[h];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        l_run[h] = l_run[h] * corr + sum;
+        m_run[h] = m_new;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[h][e] *= corr;
+      }
+      // 5. PV: lane-per-dimension, P broadcast from the row's lane
+      for (int u = 0; u < nr; ++u) {
+        float pr[HPW];
+#pragma unroll
+        for (int h = 0; h < HPW; ++h)
+          pr[h] = __shfl_sync(0xffffffffu, p[h], u);
+        if (has_dims) {
+          float v[EPL];
+          load_dims<T, EPL>(reinterpret_cast<const T*>(
+              vbuf + (u0 + u) * R::kPitch) + lane * EPL, v);
+#pragma unroll
+          for (int h = 0; h < HPW; ++h) {
+#pragma unroll
+            for (int e = 0; e < EPL; ++e)
+              acc[h][e] = fmaf(pr[h], v[e], acc[h][e]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for tile i + 2
+    if (i + 2 < ntiles)
+      issue_tile<T, D>(src, list, stage, tile, n_live, i + 2);
+  }
+
+  const int run = blockIdx.x;
+  if constexpr (!MERGED) {   // the run's partial, straight from registers
+#pragma unroll
+    for (int h = 0; h < HPW; ++h) {
+      const long prow = (row0 + h0 + h) * out.nsplit + run;
+      if (has_dims) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          out.o[prow * D + lane * EPL + e] = acc[h][e];
+      }
+      if (lane == 0) {
+        out.m[prow] = m_run[h];
+        out.l[prow] = l_run[h];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < HPW; ++h) {
+      if (lane == 0) {
+        sm.m[h0 + h] = m_run[h];
+        sm.l[h0 + h] = l_run[h];
+      }
+      if (has_dims) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) sm.o[h0 + h][lane * EPL + e] = acc[h][e];
+      }
+    }
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();   // every run's partial is in its shared memory
+    if (run == 0) {
+      const int ns = out.nsplit;
+      if (tid < REP) {
+        const int r = tid;
+        float mx = kNegInf;
+        for (int s = 0; s < ns; ++s)
+          mx = fmaxf(mx, *cluster.map_shared_rank(&sm.m[r], s));
+        float l = 0.f;
+        for (int s = 0; s < ns; ++s) {
+          const float w = __expf(*cluster.map_shared_rank(&sm.m[r], s) - mx);
+          sm.w[s][r] = w;     // all dead: 1, and o = l = 0
+          l += w * *cluster.map_shared_rank(&sm.l[r], s);
+        }
+        out.m[row0 + r] = mx;
+        out.l[row0 + r] = l;
+      }
+      __syncthreads();
+      constexpr int kVec = REP * D / 4;
+      for (int idx = tid; idx < kVec; idx += kThreads) {
+        const int r = idx * 4 / D;
+        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s = 0; s < ns; ++s) {
+          const float4 x = cluster.map_shared_rank(
+              reinterpret_cast<float4*>(&sm.o[0][0]), s)[idx];
+          const float w = sm.w[s][r];
+          o.x = fmaf(w, x.x, o.x);
+          o.y = fmaf(w, x.y, o.y);
+          o.z = fmaf(w, x.z, o.z);
+          o.w = fmaf(w, x.w, o.w);
+        }
+        reinterpret_cast<float4*>(out.o + row0 * D)[idx] = o;
+      }
+    }
+    cluster.sync();   // the peers' memory outlives rank 0's reads
+  }
+}
+
 // Dynamic shared memory of a launch: the token list of a run of L
 // candidates, then the stages of `tile` K and V rows (one stage when a run
 // fits one tile).
@@ -568,8 +852,8 @@ inline size_t dyn_smem_bytes(int tile, int L) {
 
 // Dispatch over the built (K/V dtype, q dtype, head dim, group size): the
 // dims and GQA groups of the port's configs (qwen3-0.6b: 128/2,
-// pam-llama-7b: 128/1, their reduced variants: 16/2). The Python wrappers
-// check the same sets before launching. Launch must be a functor template:
+// pam-llama-7b: 128/1, qwen3-moe-235b-a22b: 128/16, the reduced variants:
+// 16/2). The Python wrappers check the same sets before launching. Launch must be a functor template:
 // Launch<T, TQ, D, REP>::run(args, stream) returning a cudaError_t.
 template <template <typename, typename, int, int> class Launch, typename T,
           typename TQ, int D, typename Args>
@@ -577,6 +861,7 @@ int dispatch_rep(int rep, const Args& a, cudaStream_t stream) {
   switch (rep) {
     case 1: return static_cast<int>(Launch<T, TQ, D, 1>::run(a, stream));
     case 2: return static_cast<int>(Launch<T, TQ, D, 2>::run(a, stream));
+    case 16: return static_cast<int>(Launch<T, TQ, D, 16>::run(a, stream));
     default: return -1;
   }
 }

@@ -61,7 +61,7 @@ struct DenseSrc {
 template <typename T, typename TQ, int D, int REP, bool MERGED>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_kernel(DenseArgs a) {
-  __shared__ RunSmem<D, REP, MERGED> sm;
+  __shared__ typename BlockSmem<D, REP, MERGED>::type sm;
   extern __shared__ __align__(16) unsigned char dyn[];
   const int split = blockIdx.x;
   const int h = blockIdx.y;
@@ -77,8 +77,13 @@ __global__ void __launch_bounds__(kThreads)
   src.n = (int)min((long)a.L, a.S - t0);
   src.limit = (int)max(-1L, min((long)a.kv_len - t0, (long)a.L));
   const long row0 = (long)b * a.H + (long)h * REP;
-  attend_run<T, TQ, D, REP, MERGED>(src, static_cast<const TQ*>(a.q) + row0 * D,
-                            a.scale, a.tile, a.L, row0, a.out, sm, dyn);
+  const TQ* q = static_cast<const TQ*>(a.q) + row0 * D;
+  if constexpr (REP > kMaxNarrowRep)
+    attend_run_wide<T, TQ, D, REP, MERGED>(src, q, a.scale, a.tile, a.L,
+                                           row0, a.out, sm, dyn);
+  else
+    attend_run<T, TQ, D, REP, MERGED>(src, q, a.scale, a.tile, a.L, row0,
+                                      a.out, sm, dyn);
 }
 
 template <typename T, typename TQ, int D, int REP>

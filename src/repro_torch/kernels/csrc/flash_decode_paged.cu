@@ -79,7 +79,7 @@ struct PagedSrc {
 template <typename T, typename TQ, int D, int REP, bool MERGED>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_paged_kernel(PagedArgs a) {
-  __shared__ RunSmem<D, REP, MERGED> sm;
+  __shared__ typename BlockSmem<D, REP, MERGED>::type sm;
   __shared__ int phys[kMaxRunPages];
   extern __shared__ __align__(16) unsigned char dyn[];
   const int run = blockIdx.x;
@@ -102,9 +102,13 @@ __global__ void __launch_bounds__(kThreads)
   src.nb_local = a.nb_local;
   src.block_offset = a.block_offset;
   const long row0 = (long)b * a.H + (long)h * REP;
-  attend_run<T, TQ, D, REP, MERGED>(src, static_cast<const TQ*>(a.q) + row0 * D,
-                            a.scale, a.tile, a.R * a.bs, row0, a.out, sm,
-                            dyn);
+  const TQ* q = static_cast<const TQ*>(a.q) + row0 * D;
+  if constexpr (REP > kMaxNarrowRep)
+    attend_run_wide<T, TQ, D, REP, MERGED>(src, q, a.scale, a.tile,
+                                           a.R * a.bs, row0, a.out, sm, dyn);
+  else
+    attend_run<T, TQ, D, REP, MERGED>(src, q, a.scale, a.tile, a.R * a.bs,
+                                      row0, a.out, sm, dyn);
 }
 
 template <typename T, typename TQ, int D, int REP>

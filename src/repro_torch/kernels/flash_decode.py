@@ -44,7 +44,7 @@ from repro_torch.core import online_softmax as osm
 NEG_INF = -1e30
 DEFAULT_BLOCK_S = 512
 SUPPORTED_D = (16, 128)          # head dims built (the port's configs)
-SUPPORTED_REP = (1, 2)           # GQA group sizes built
+SUPPORTED_REP = (1, 2, 16)       # GQA group sizes built
 RUN_LENGTHS = (512, 256, 128, 64, 32, 16)   # tokens a CUDA block walks
 MAX_RUN_PAGES = 128              # table entries a paged CUDA block walks
 MAX_SPLITS = 8                   # runs a merged launch reduces (a cluster)

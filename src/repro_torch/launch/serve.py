@@ -6,8 +6,10 @@ stream, printing the engine's JSON summary.
 
 runs full-width ``qwen3-0.6b`` (random weights from seed 0) on the GPU;
 ``--arch mamba2-780m`` serves the Mamba-2 model (dense cache only, as in
-the reference); ``--reduced --device cpu`` runs the smoke-size model on
-the CPU; ``--temperature``/``--top-k`` sample, ``--prefill-chunk``
+the reference), ``--arch qwen3-moe-235b-a22b`` the GQA mixture-of-experts
+model (128 experts, top-8; its 94 layers need several cards at full
+depth, and ``--layers`` cuts the depth); ``--reduced --device cpu`` runs
+the smoke-size model on the CPU; ``--temperature``/``--top-k`` sample, ``--prefill-chunk``
 admits long prompts in slices. The flags mirror ``repro.launch.serve``'s batch mode; the defaults are sized
 for the GPU (8 requests of 512 prompt tokens, 64 new tokens each,
 ``max_len`` 2048) rather than for the reference's CPU smoke runs. Times
@@ -55,6 +57,7 @@ Without ``--device cpu`` every mode runs on the GPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
@@ -74,6 +77,10 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model's depth to this many layers "
+                         "(full-width qwen3-moe-235b-a22b fits one 80 GB "
+                         "card at a few of its 94)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen-len", type=int, default=64)
@@ -161,6 +168,8 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = tfm.init_params(cfg, 0, device=args.device)
     pam_cfg = PAMManagerConfig(
         max_tokens=args.max_len,

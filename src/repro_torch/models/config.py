@@ -85,6 +85,53 @@ class ModelConfig:
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
 
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND model-FLOPs)."""
+        d, L, V = self.d_model, self.n_layers, self.vocab
+        dh, H, Hkv = self.head_dim, self.n_heads, self.n_kv_heads
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            assert self.ssm is not None
+            di = self.ssm.d_inner(d)
+            nh = self.ssm.n_heads(d)
+            per = (d * (2 * di + 2 * self.ssm.n_groups * self.ssm.d_state + nh)
+                   + di * self.ssm.conv_kernel + di * d + 2 * d)
+            return emb + L * per
+        attn = d * (H * dh) + 2 * d * (Hkv * dh) + (H * dh) * d
+        if self.mla is not None:
+            m = self.mla
+            dq = H * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+            attn = (d * dq + d * m.kv_lora_rank + d * m.qk_rope_head_dim
+                    + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+                    + H * m.v_head_dim * d)
+        if self.moe is not None:
+            e = self.moe
+            ffn = ((e.num_experts + e.num_shared) * 3 * d * e.d_expert
+                   + d * e.num_experts)
+        else:
+            ffn = 3 * d * self.d_ff
+        if self.family == "hybrid":
+            assert self.hybrid is not None and self.ssm is not None
+            hb = self.hybrid
+            n_mamba = hb.n_groups * hb.mamba_per_group + hb.tail_mamba
+            di = self.ssm.d_inner(d)
+            nh = self.ssm.n_heads(d)
+            mamba_per = (d * (2 * di + 2 * self.ssm.n_groups * self.ssm.d_state
+                              + nh) + di * self.ssm.conv_kernel + di * d + 2 * d)
+            shared = attn + 3 * d * self.d_ff + 2 * d
+            return emb + n_mamba * mamba_per + shared
+        return emb + L * (attn + ffn + 2 * d)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        total = self.param_count()
+        all_experts = e.num_experts * 3 * self.d_model * e.d_expert
+        active_experts = e.top_k * 3 * self.d_model * e.d_expert
+        return total - self.n_layers * (all_experts - active_experts)
+
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -100,6 +147,10 @@ def get_config(name: str) -> ModelConfig:
         import repro_torch.configs  # noqa: F401
     return _REGISTRY[name]
 
+
+def all_configs() -> dict[str, ModelConfig]:
+    import repro_torch.configs  # noqa: F401
+    return dict(_REGISTRY)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

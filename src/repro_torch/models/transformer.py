@@ -1,14 +1,18 @@
-"""Model assembly for the dense and SSM families: init, the training
-forward and loss, prefill, decode.
+"""Model assembly for the dense, GQA MoE and SSM families: init, the
+training forward and loss, prefill, decode.
 
-Counterpart of ``repro.models.transformer`` (dense GQA family and the
-Mamba-2 ``ssm`` family). Layer parameters are stacked on a leading axis
-exactly as in the JAX pytree — ``params["layers"]["attn"]["wq"]`` is (L,
-d, H*dh) in the ``x @ W`` orientation, ``params["layers"]["ssm"]`` the
-stacked ``SSMParams`` fields — so ``repro_torch.bridge`` moves weights
-as plain copies; the layer loop is a Python loop over per-layer views
-of that axis, each leaf unbound once (``_layers``; ``remat`` checkpoints
-each layer with ``torch.utils.checkpoint``).
+Counterpart of ``repro.models.transformer`` (dense GQA family, the GQA
+mixture-of-experts family — attention as dense, the FFN routed by
+``models/moe.py`` — and the Mamba-2 ``ssm`` family). Layer parameters
+are stacked on a leading axis exactly as in the JAX pytree —
+``params["layers"]["attn"]["wq"]`` is (L, d, H*dh) in the ``x @ W``
+orientation, ``params["layers"]["moe"]`` the stacked ``MoEParams``
+fields (zero-size shared leaves without shared experts),
+``params["layers"]["ssm"]`` the stacked ``SSMParams`` fields — so
+``repro_torch.bridge`` moves weights as plain copies; the layer loop is
+a Python loop over per-layer views of that axis, each leaf unbound once
+(``_layers``; ``remat`` checkpoints each layer with
+``torch.utils.checkpoint``).
 Other families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -23,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (init_embedding, init_linear,
@@ -37,14 +42,21 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+def _gqa_moe(cfg: ModelConfig) -> bool:
+    """The MoE family on GQA attention (MLA is not ported)."""
+    return (cfg.family == "moe" and cfg.moe is not None
+            and cfg.mla is None)
+
+
 def _require_ported(cfg: ModelConfig) -> None:
-    """The dense family (GQA, no MoE / MLA) and the pure SSM family are
-    ported; the others raise."""
+    """The dense family (GQA, no MoE / MLA), the GQA MoE family and the
+    pure SSM family are ported; the others raise."""
     dense = (cfg.family == "dense" and cfg.moe is None and cfg.mla is None)
-    if not (dense or (cfg.family == "ssm" and cfg.ssm is not None)):
+    if not (dense or _gqa_moe(cfg)
+            or (cfg.family == "ssm" and cfg.ssm is not None)):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 7: moe, mla, hybrid, vlm, audio)")
+            f"(ROADMAP Queue 1 item 7: mla, hybrid, vlm, audio)")
 
 
 # ============================================================ init
@@ -66,6 +78,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
+    def moe():
+        """The stacked MoE leaves, allocated once and filled layer by
+        layer (stacking per-layer copies would double the peak: one
+        layer's experts are 4.8 GB at qwen3-moe-235b-a22b's width)."""
+        st = {n: torch.empty((L,) + s, dtype=torch.float32 if n == "router"
+                             else dtype, device=dev)
+              for n, s in moe_mod.moe_shapes(d, cfg.moe).items()}
+        for i in range(L):
+            moe_mod.fill_moe(gen, d, cfg.moe, moe_mod.MoEParams(
+                **{n: t[i] for n, t in st.items()}))
+        return st
+
     params: Params = {
         "embed": init_embedding(gen, cfg.vocab, d, dtype, dev),
         "final_norm": ones(d),
@@ -84,9 +108,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
             "attn": {"wq": lin(d, H * dh), "wk": lin(d, Hkv * dh),
                      "wv": lin(d, Hkv * dh), "wo": lin(H * dh, d),
                      "q_norm": ones(L, nd), "k_norm": ones(L, nd)},
-            "mlp": {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
-                    "down": lin(cfg.d_ff, d)},
         }
+        if cfg.moe is not None:      # the routed FFN in place of the MLP
+            params["layers"]["moe"] = moe()
+        else:
+            params["layers"]["mlp"] = {
+                "gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
+                "down": lin(cfg.d_ff, d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, d, cfg.vocab, dtype, dev)
     return params
@@ -117,6 +145,19 @@ def _mlp(lp: Params, h: torch.Tensor) -> torch.Tensor:
     return swiglu(h, m["gate"], m["up"], m["down"])
 
 
+def _moe_params(lp: Params) -> moe_mod.MoEParams:
+    m = lp["moe"]
+    return moe_mod.MoEParams(**{f: m[f] if m[f].numel() else None
+                                for f in moe_mod.MoEParams._fields})
+
+
+def _moe(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    """The routed FFN of a serving call, its aux loss unused (as in the
+    reference's prefill and decode). h: (B, S, d); the router's capacity
+    couples all B * S rows of the call."""
+    return moe_mod.moe_forward(_moe_params(lp), h, cfg.moe)[0]
+
+
 def _ssm_params(lp: Params) -> ssm_mod.SSMParams:
     return ssm_mod.SSMParams(**{f: lp["ssm"][f]
                                 for f in ssm_mod.SSMParams._fields})
@@ -136,6 +177,10 @@ def _dense_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
         n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=cfg.causal,
         rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
         use_kernel=use_kernel)
+    if cfg.moe is not None:     # (x, the layer's aux loss)
+        y, aux = moe_mod.moe_forward(
+            _moe_params(lp), rms_norm(x, lp["ln2"], cfg.rms_eps), cfg.moe)
+        return x + y, aux
     return x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
 
 
@@ -151,8 +196,9 @@ def _ssm_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             *, use_kernel: bool = False, remat: bool = False,
             activation_spec=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), aux_loss scalar fp32; 0 for the dense
-    and SSM families). ``remat`` recomputes each layer in the backward
+    """Returns (logits (B, S, V), aux_loss scalar fp32: the MoE layers'
+    summed load-balance losses, 0 for the dense and SSM families).
+    ``remat`` recomputes each layer in the backward
     pass (``torch.utils.checkpoint``, non-reentrant), so the forward
     kernel runs twice per layer and step; the stacked leaves are unbound
     once, outside the checkpoints (``_layers``)."""
@@ -163,14 +209,20 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             "ported yet (ROADMAP Queue 1 item 9, sharding)")
     block = _ssm_block if cfg.family == "ssm" else _dense_block
     x = params["embed"][batch["tokens"]]
+    auxes = []
     for lp in _layers(params):      # unbound here, outside the checkpoints
         if remat:
             x = checkpoint(block, cfg, lp, x, use_kernel,
                            use_reentrant=False)
         else:
             x = block(cfg, lp, x, use_kernel)
+        if cfg.moe is not None:
+            x, aux = x
+            auxes.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = x @ _head(cfg, params)
+    if cfg.moe is not None:
+        return logits, torch.sum(torch.stack(auxes))
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -234,7 +286,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
     k, v, conv, state, pk, pv = z(0), z(0), z(0), z(0), z(0), z(0)
     if paged_blocks:
-        if cfg.family != "dense":
+        if not (cfg.family == "dense" or _gqa_moe(cfg)):
             raise ValueError(f"paged KV pools require a GQA k/v cache; "
                              f"family {cfg.family} stores none")
         pk = z(L, paged_blocks + 1, block_size, Hkv, dh)
@@ -295,6 +347,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         cache.k[i, :, :, :S] = k
         cache.v[i, :, :, :S] = v
         x = x + attn_out
+        if cfg.moe is not None:
+            x = x + _moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
+            continue
         x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if true_len is None:
@@ -321,8 +376,8 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (L, B, Hkv, P, dh) logical layout, live below ``prefix_len`` ((B,)
     or scalar); true_len: real suffix length per row (``None``: all of
     S). Returns (logits at the last real suffix token (B, V), suffix K/V
-    (L, B, Hkv, S, dh)). GQA-cache families only, as in the reference
-    (and of those, the port has the dense family).
+    (L, B, Hkv, S, dh)). GQA-cache families only (dense and GQA MoE),
+    as in the reference.
     """
     if not (cfg.family == "dense"
             or (cfg.family == "moe" and cfg.mla is None)):
@@ -347,7 +402,10 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
             rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps)
         x = x + attn_out
-        x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
+        if cfg.moe is not None:
+            x = x + _moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
+        else:
+            x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -404,6 +462,10 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 decode_attn_fn=d_fn, paged=paged)
             x = x + res[0]
             masses.append(res[1])
+            if cfg.moe is not None:  # (B, 1, d) as the reference: T = B
+                hn = rms_norm(x, lp["ln2"], cfg.rms_eps)
+                x = x + _moe(cfg, lp, hn[:, None])[:, 0]
+                continue
             x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
         scores = torch.mean(torch.stack(masses), dim=0)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)

@@ -1,9 +1,12 @@
 """The PAM serving engine (paper §4): request pool, continuous batching
 with prefill priority, PAM-managed decode loop.
 
-Counterpart of ``repro.serving.engine`` for the dense family, on a dense
-or a paged + hot-ring KV layout, and of the Mamba-2 (SSM) family on the
-dense layout:
+Counterpart of ``repro.serving.engine`` for the dense and the GQA
+mixture-of-experts families (whose K/V cache is the dense family's), on
+a dense or a paged + hot-ring KV layout, and of the Mamba-2 (SSM) family
+on the dense layout. The MoE's capacity couples the rows routed
+together, so prefill buckets, chunk slices and every decode slot (idle
+ones included) reach the model in the reference's shapes:
 
 * Admission buckets prompt lengths to powers of two (or takes them
   exactly, ``bucket_prefill=False``); same-bucket admissions commit as a
