@@ -10,7 +10,9 @@ final ``ok`` line:
   env       torch / CUDA versions, the card and its power limit
   build     nvcc builds of the CUDA kernels (sm_90a), seconds taken;
             registers and spills of the main-path kernels from the
-            ``-Xptxas -v`` logs; the four wgmma libraries (attention and
+            ``-Xptxas -v`` logs, and of every decode instantiation with
+            bf16 K/V (the engines' storage; none may spill); the four
+            wgmma libraries (attention and
             SSD scan) must hold HGMMA instructions in their SASS
             (``cuobjdump -sass``) and their kernels must not spill
   kernels   each kernel against its plain PyTorch version on the card at
@@ -18,8 +20,10 @@ final ``ok`` line:
             storage, each kernel under the reference's stacked contract
             and merged with its scores, the serving path's, at ring S 256,
             S 2048 and the paged pool; the same six rows at H 64, Hkv 4,
-            qwen3-moe-235b-a22b's GQA group 16, keys ending ``_g16``;
-            attention:
+            qwen3-moe-235b-a22b's GQA group 16, keys ending ``_g16``, at
+            H 40, Hkv 8 (qwen3-14b's group 5, ``_g5``), H 64, Hkv 8
+            (deepseek-67b's group 8, ``_g8``) and H 36, Hkv 36, d 64
+            (minicpm-2b's MHA at head dim 64, ``_d64``); attention:
             the train shape in bf16 through the wgmma
             kernels, also S 1000 non-causal, and the CUDA-core kernels in
             fp32 at train_parity's B 2, S 500; ssd_scan: the wgmma kernels
@@ -144,20 +148,43 @@ final ``ok`` line:
             cut to ``MOE_LAYERS`` = 4 (about 22 GB of weights), served
             paged + ring with the serving template (8 requests of 512-1024
             prompt tokens, 64 new, batch 8, max_len 2048, block 16, ring
-            256, the PAM of engine_paged_ring), decode through the graphs;
-            asserts 64 tokens a request, each merged decode wrapper
-            n_layers x the host-run body steps and the stacked ones never,
-            each group-16 decode kernel n_layers times on the card in one
-            profiled replayed step; prints decode tok/s, the steady step's
-            wall ms and the device's idle share of it, peak memory, the
-            share of (token, expert) assignments dropped at capacity at
-            prefill and at decode, and the weight bytes a step reads (all,
-            the top-k's, and the experts the dense-shape dispatch reads)
+            256, the PAM of engine_paged_ring), decode through the graphs,
+            with the checks and readings of the wider dense family's
+            engine phases below (one body); adds the share of (token,
+            expert) assignments dropped at capacity at prefill and at
+            decode, and the weight bytes a step reads (all, the top-k's,
+            and the experts the dense-shape dispatch reads)
   moe_parity  reduced qwen3-moe (4 experts, top-2) in fp32, TF32 off: the
             engine on the card and on the CPU (weights made on the CPU and
             copied) give equal greedy streams, paged + ring, 6 requests
             through 4 slots, at GQA group 2 and at group 16 (32 q heads
             over 2 kv heads, the decode kernels' wide path at head dim 16)
+  engine_qwen3_14b, engine_deepseek_67b, engine_minicpm_2b   the wider
+            dense family at full width (random weights from seed 0,
+            bf16), one model on the card at a time: qwen3-14b (40 layers,
+            40 q / 8 kv heads of 128: GQA group 5, 29.5 GB), deepseek-67b
+            (64 / 8 of 128: group 8; its 95 layers, 134.8 GB, cut to 20,
+            about 31 GB) and minicpm-2b (40 layers, 36 / 36 heads of 64:
+            MHA at head dim 64, 6.0 GB), each served paged + ring with the
+            serving template, decode through the graphs; asserts 64
+            tokens a request, each merged decode wrapper n_layers x the
+            host-run body steps and the stacked ones never, and each
+            merged decode kernel of the model's (head dim, group) n_layers
+            times on the card in one profiled replayed step; prints decode
+            tok/s, the steady step's wall ms, the replays' device span and
+            idle share over the same steps, kernel nodes a step, peak
+            memory, the weight bytes a step reads beside their time at the
+            HBM rate, KV bytes a token, tier reads and pool blocks read a
+            step
+  engine_qwen3_14b_full_pool, ... (one a model)   the same model as
+            engine_paged_ring_full: sparsity off, 8 requests, 16 new;
+            asserts warm and cold tier reads and pool blocks read, so the
+            model's paged decode kernel walks live blocks
+  gqa_parity  the same family reduced in fp32, TF32 off (qwen3-14b with
+            10 q / 2 kv heads: group 5; deepseek-67b with 16 / 2: group 8;
+            minicpm-2b with 4 / 4 heads of 64): the engine on the card and
+            on the CPU give equal greedy streams, paged + ring, as
+            moe_parity
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
@@ -447,6 +474,10 @@ def phase_build() -> dict:
                     if "Used" in x or "spill" in x:
                         info.append(x.split(":", 1)[-1].strip())
                 regs[key] = "; ".join(info)
+    decode = _decode_registers()
+    spills = {k: v for k, v in decode.items()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", v)}
+    assert not spills, f"bf16-K/V decode kernels spill: {spills}"
     hgmma = {name: _sass_count(name) for name in SM90_LIBS}
     assert all(n > 0 for n in hgmma.values()), f"no HGMMA in {hgmma}"
     spills = {k: v for k, v in regs.items() if ("sm90" in k or "ssd90" in k)
@@ -456,13 +487,40 @@ def phase_build() -> dict:
     assert SSD_WGMMA_KERNELS <= set(regs), sorted(regs)
     return dict(build_s=time.perf_counter() - t0, per_library=per,
                 libraries=sorted(build.SOURCES), registers=regs,
-                hgmma_in_sass=hgmma)
+                decode_registers_bf16_kv=decode, hgmma_in_sass=hgmma)
 
 
-def _dense_case(S, seed, dead_split, heads=(16, 8)):
+def _decode_registers() -> dict:
+    """Registers, shared memory and spills from the ``-Xptxas -v`` logs of
+    every decode kernel instantiated with bf16 K/V (the engines' storage),
+    keyed ``kernel<q dtype, head dim, group, stacked|merged>``."""
+    import re
+    from repro_torch.kernels import build
+    out = {}
+    for name in ("flash_decode", "flash_decode_paged"):
+        lines = build.build_log(name).splitlines()
+        for i, line in enumerate(lines):
+            m = re.search(r"(flash_decode(?:_paged)?_kernel)I13__nv_bfloat16"
+                          r"(f|S\d*_)Li(\d+)ELi(\d+)ELb([01])E", line)
+            if "Compiling entry" not in line or m is None:
+                continue
+            kern, tq, d, rep, merged = m.groups()
+            info = []
+            for x in lines[i + 1:]:
+                if "Compiling entry" in x:
+                    break
+                if "Used" in x or "spill" in x:
+                    info.append(x.split(":", 1)[-1].strip())
+            q = "fp32" if tq == "f" else "bf16"
+            kind = "merged" if merged == "1" else "stacked"
+            out[f"{kern}<{q}, {d}, {rep}, {kind}>"] = "; ".join(info)
+    return out
+
+
+def _dense_case(S, seed, dead_split, heads=(16, 8), d=128):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    (H, Hkv), B, d = heads, 8, 128
+    (H, Hkv), B = heads, 8
     q = torch.randn((B, H, d), generator=g, device="cuda")
     k = torch.randn((B, Hkv, S, d), generator=g, device="cuda").bfloat16()
     v = torch.randn((B, Hkv, S, d), generator=g, device="cuda").bfloat16()
@@ -506,15 +564,15 @@ def _decode_row(name, call, plain, nbytes, flops, **case) -> dict:
 
 
 def kernel_flash_decode(S: int, merged: bool = False,
-                        heads=(16, 8)) -> dict:
+                        heads=(16, 8), d: int = 128) -> dict:
     """The dense kernel at B 8, (H, Hkv) ``heads`` (qwen3-0.6b's 16 / 8 by
-    default), d 128, bf16 K/V: stacked over the reference's 512-token
+    default), head dim ``d``, bf16 K/V: stacked over the reference's 512-token
     splits, or merged (``flash_decode_merged``: the split from
     ``split_len``, the merge in the kernel, and the scores, whose (B, H,
     S) fp32 write the bound counts)."""
     from repro_torch.kernels import flash_decode as fd
     q, k, v, mask, lens = _dense_case(S, seed=S, dead_split=S > 512,
-                                      heads=heads)
+                                      heads=heads, d=d)
     B, H, d = q.shape
     Hkv = k.shape[1]
     scale = 1.0 / d ** 0.5
@@ -543,18 +601,18 @@ def kernel_flash_decode(S: int, merged: bool = False,
                                            block_s)[:3],
             nbytes, n_live * H * d * 4, S=S, nsplit=nsplit,
             grid_blocks=nsplit * Hkv * B)
-    return dict(row, live_tokens=n_live, H=H, Hkv=Hkv,
+    return dict(row, live_tokens=n_live, H=H, Hkv=Hkv, d=d,
                 library_ms=_sdpa_ms(q, k, v, mask, lens))
 
 
-def _paged_case(heads=(16, 8)):
-    """The paged kernels' inputs: B 8, (H, Hkv) ``heads``, d 128, bs 16, nb
-    128 (a 2048-token window), bf16 pools of 1,024 blocks, a quarter of
-    the first 100 table entries live, 60 % of their tokens
+def _paged_case(heads=(16, 8), d=128):
+    """The paged kernels' inputs: B 8, (H, Hkv) ``heads``, head dim ``d``,
+    bs 16, nb 128 (a 2048-token window), bf16 pools of 1,024 blocks, a
+    quarter of the first 100 table entries live, 60 % of their tokens
     participating."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(7)
-    (H, Hkv), B, d, bs, nb, NB = heads, 8, 128, 16, 128, 1024
+    (H, Hkv), B, bs, nb, NB = heads, 8, 16, 128, 1024
     q = torch.randn((B, H, d), generator=g, device="cuda")
     kp = torch.randn((NB + 1, bs, Hkv, d), generator=g,
                      device="cuda").bfloat16()
@@ -570,14 +628,15 @@ def _paged_case(heads=(16, 8)):
     return q, kp, vp, table, mask, live_blk
 
 
-def kernel_flash_decode_paged(merged: bool = False, heads=(16, 8)) -> dict:
+def kernel_flash_decode_paged(merged: bool = False, heads=(16, 8),
+                              d: int = 128) -> dict:
     """The paged kernel on ``_paged_case``'s inputs: stacked (one partial
     per logical block, the reference's contract) or
     merged (``flash_decode_paged_merged``: runs from ``split_len``, the
     merge in the kernel, and the scores). No single PyTorch call computes
     paged attention, so ``library_ms`` is null."""
     from repro_torch.kernels import flash_decode as fd
-    q, kp, vp, table, mask, live_blk = _paged_case(heads)
+    q, kp, vp, table, mask, live_blk = _paged_case(heads, d)
     B, H, d = q.shape
     bs, Hkv = kp.shape[1], kp.shape[2]
     nb = table.shape[1]
@@ -586,7 +645,7 @@ def kernel_flash_decode_paged(merged: bool = False, heads=(16, 8)) -> dict:
     nbytes = (n_live * Hkv * d * 2 * 2 + q.numel() * 4 + mask.numel()
               + table.numel() * 4 + live_blk.numel())
     case = dict(live_tokens=n_live, live_blocks=int(live_blk.sum()),
-                library_ms=None, H=H, Hkv=Hkv)
+                library_ms=None, H=H, Hkv=Hkv, d=d)
     if merged:
         split = fd.split_len(B, Hkv, nb * bs, fd._sm_count(q.device),
                              block=bs)
@@ -1379,9 +1438,42 @@ def _warm_graphs(eng, max_steps: int = 16) -> None:
                          f"{max_steps} steps, want {sorted(want)}")
 
 
+def _steady_steps(eng, n: int = 4) -> tuple[list, float | None]:
+    """``n`` steady steps of ``eng``, each synchronised: their walls (host
+    clock, s) and the device span of their decode dispatches (CUDA events
+    around each dispatch, s; None on a tree without decode graphs). One
+    minus span over the walls' sum is the device's idle share of the
+    window."""
+    import torch
+    dispatch, spans, walls = getattr(eng, "_dispatch", None), [], []
+    if dispatch is not None:             # a tree with decode graphs
+
+        def timed(key, bufs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            dispatch(key, bufs)
+            ev[1].record()
+            spans.append(ev)
+        eng._dispatch = timed
+    torch.cuda.synchronize()
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        if dispatch is not None:
+            eng._dispatch = dispatch
+    if not spans:
+        return walls, None
+    return walls, sum(a.elapsed_time(b) for a, b in spans) / 1e3
+
+
 # kernel-name classes of the profile phase: the union-mass reconstruction
 # of PR 11-16 showed as pool gathers, copies and grouped-score products
-KERNEL_CLASSES = {"matmul": ("gemm", "gemv", "cutlass", "cublas"),
+# (cuBLAS on the H100 names its batch-8 GEMV kernels ``nvjet_*``)
+KERNEL_CLASSES = {"matmul": ("gemm", "gemv", "cutlass", "cublas", "nvjet"),
                   "gather_scatter": ("index", "gather", "scatter"),
                   "copy": ("copy", "Copy")}
 
@@ -1424,28 +1516,8 @@ def phase_profile(cfg, params, layout=PAGED_RING, eng=None,
         eng = _engine(cfg, params, 8, 16, max_batch=8, max_len=2048,
                       **layout)
     _warm_graphs(eng)                    # admission, captures
-    spans = []
-    dispatch = getattr(eng, "_dispatch", None)
-    if dispatch is not None:             # a tree with decode graphs
-
-        def timed(key, bufs):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            dispatch(key, bufs)
-            ev[1].record()
-            spans.append(ev)
-        eng._dispatch = timed
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        for _ in range(4):               # the same steps unprofiled
-            eng.step()
-        torch.cuda.synchronize()
-        plain_wall = time.perf_counter() - t0
-    finally:
-        if dispatch is not None:
-            eng._dispatch = dispatch
-    dispatch_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    walls, dispatch_s = _steady_steps(eng)      # the same steps unprofiled
+    plain_wall = sum(walls)
     dispatches = eng.decode_dispatches
     torch.cuda.synchronize()
     calls: dict = {}
@@ -1498,10 +1570,11 @@ def phase_profile(cfg, params, layout=PAGED_RING, eng=None,
     return dict(steps=4, wall_s=wall, step_ms=wall / 4 * 1e3,
                 unprofiled_step_ms=plain_wall / 4 * 1e3,
                 unprofiled_dispatch_device_ms_per_step=(
-                    dispatch_s / 4 * 1e3 if spans else "not measured"),
+                    "not measured" if dispatch_s is None
+                    else dispatch_s / 4 * 1e3),
                 unprofiled_device_idle_share=(
-                    1 - dispatch_s / plain_wall if spans
-                    else "not measured"),
+                    "not measured" if dispatch_s is None
+                    else 1 - dispatch_s / plain_wall),
                 host_sync_events=syncs,
                 host_sync_events_per_dispatch={
                     k: v / dispatches for k, v in syncs.items()},
@@ -1729,8 +1802,9 @@ def _recording(eng, eager: bool = False):
 def _step_events(fn) -> dict:
     """One call of ``fn`` (a steady engine step, one graph replay) under
     torch.profiler, after a warm call: its kernel nodes, its copies and
-    memsets, graph launches, device ms and the decode kernels the card
-    ran."""
+    memsets, graph launches, device ms (all, by ``KERNEL_CLASSES``, and
+    the eight longest kernels) and the decode kernels the card ran (by
+    name, and by instantiation)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1752,7 +1826,17 @@ def _step_events(fn) -> dict:
         graph_launches=sum(ev.count for ev in evs
                            if ev.key == GRAPH_LAUNCH),
         device_ms=sum(ev.self_device_time_total for ev in dev) / 1e3,
-        decode_kernels_on_device=_device_decode_counts(dev))
+        decode_kernels_on_device=_device_decode_counts(dev),
+        device_ms_by_class={
+            cls: sum(ev.self_device_time_total for ev in dev
+                     if any(k in ev.key for k in keys)) / 1e3
+            for cls, keys in KERNEL_CLASSES.items()},
+        top=[dict(name=ev.key[:80], device_ms=ev.self_device_time_total / 1e3,
+                  count=ev.count)
+             for ev in sorted(dev, key=lambda e: -e.self_device_time_total)
+             [:8]],
+        decode_instantiations={ev.key: ev.count for ev in dev
+                               if "pam::flash_decode" in ev.key})
 
 
 def _twin_diff(g, e):
@@ -3082,72 +3166,18 @@ def _moe_weights(cfg) -> dict:
 
 def phase_engine_moe(cfg, params) -> dict:
     """qwen3-moe-235b-a22b at full width (d 4096, 64 q / 4 kv heads of
-    128, 128 experts of 1536, top-8, vocab 151936, bf16, random weights
-    from seed 0), depth cut to ``MOE_LAYERS``, served paged + ring with
-    the serving phases' template (8 requests of 512-1024 prompt tokens,
-    64 new, batch 8, max_len 2048, block 16, ring 256, ``_pam``'s PAM),
-    decode through the graphs. Asserts 64 tokens a request, each merged
-    decode wrapper n_layers x the host-run body steps and the stacked
-    ones never, and each group-16 decode kernel n_layers times on the
-    card in one profiled replayed step. Prints decode tok/s, the steady
-    step's wall ms (host clock, synchronised) and the device's idle
-    share of it (one minus the profiled step's kernel time over the
-    median unprofiled step), peak memory, the share of (token, expert)
-    assignments dropped at capacity, and the weight bytes a step reads."""
-    import numpy as np
-    import torch
+    128, 128 experts of 1536, top-8, vocab 151936), depth cut to
+    ``MOE_LAYERS``, through ``phase_engine_served``; adds the share of
+    (token, expert) assignments dropped at capacity (some decode
+    assignments must be routed) and the MoE's weight bytes a step."""
     drops = _Drops(8)
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
-        g = _engine(cfg, params, 8, 64, max_batch=8, max_len=2048,
-                    **PAGED_RING)
-        t0 = time.perf_counter()
-        _warm_graphs(g)                      # admission, captures
-        warm_s = time.perf_counter() - t0
-        step = _step_events(g.step)
-        walls = []
-        for _ in range(4):
-            t0 = time.perf_counter()
-            g.step()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        summ = g.run()
-        launches = _launches()
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        out = phase_engine_served(cfg, params, _moe_weights(cfg))
     finally:
         dropped = drops.close()
-    lens = [len(rs.outputs) for rs in g.requests.values()]
-    assert lens == [64] * 8, f"outputs per request {lens}"
-    want = cfg.n_layers * g.decode_body_steps
-    _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
-                                                    want))
-    _assert_device_decode_counts(step["decode_kernels_on_device"],
-                                 DECODE_CUDA_KERNELS, cfg.n_layers)
-    step_ms = float(np.median(walls)) * 1e3
-    out = dict(card=_card(), arch=cfg.name, n_layers=cfg.n_layers,
-               n_layers_published=94, d_model=cfg.d_model,
-               heads=[cfg.n_heads, cfg.n_kv_heads],
-               experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
-               decode_tok_s=summ["decode_tok_s"],
-               decode_time_s=summ["decode_time_s"],
-               p50_tpot_s=summ["p50_tpot_s"], p99_tpot_s=summ["p99_tpot_s"],
-               steady_step_ms_median=step_ms,
-               steady_step_ms=[w * 1e3 for w in walls],
-               replayed_step=step,
-               device_idle_share=1.0 - step["device_ms"] / step_ms,
-               warm_s=warm_s, graphs=sorted(g._graphs),
-               capture_ms_per_graph=g.capture_seconds * 1e3
-               / max(len(g._graphs), 1),
-               peak_mem_gb=peak_gb, dropped=dropped,
-               weights=_moe_weights(cfg), launches=launches,
-               decode_body_steps=g.decode_body_steps,
-               launches_expected=want)
-    del g
-    gc.collect()
     assert dropped["decode"]["assignments"] > 0, dropped
-    return out
+    return dict(out, experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                dropped=dropped)
 
 
 def _moe_twins(cfg, params) -> dict:
@@ -3186,88 +3216,241 @@ def _moe_parity_cfg(group16: bool):
     return cfg
 
 
-def phase_moe_parity() -> dict:
-    """The port's MoE engine on the card and on the CPU give equal greedy
-    streams: reduced qwen3-moe in fp32 (TF32 off), seed-0 weights made
-    on the CPU and copied, paged + ring (block 8, ring 32), 6 requests of
-    20-60 prompt tokens through 4 slots (idle slots at the end ride in
-    the routing), 24 new; once at the reduced GQA group 2 and once at
-    group 16. A stream that differs fails the phase with the position
-    and both runs' top-2 margins there."""
+def _card_cpu_streams(cfg) -> dict:
+    """Greedy streams of ``cfg``'s engine on the card and on the CPU (seed-0
+    weights made on the CPU and copied; fp32, TF32 off): paged + ring
+    (block 8, ring 32), 6 requests of 20-60 prompt tokens through 4
+    slots, 24 new. Returns the heads, whether the streams are equal, the
+    first divergence (the position and both runs' top-2 margins there),
+    the tokens and the card's decode wrapper calls beside n_layers x its
+    host-run body steps."""
     import numpy as np
     import torch
     from repro_torch import tree
     from repro_torch.models import transformer as tf
     from repro_torch.serving import (PAMManagerConfig, Request,
                                      ServingConfig, ServingEngine)
+    host = tf.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, int(n))
+               for n in rng.integers(20, 61, 6)]
+    streams, recs, launches = {}, {}, None
+    for dev in ("cuda", "cpu"):
+        params = (host if dev == "cpu" else
+                  tree.tree_map(lambda t: t.to(dev), host))
+        eng = ServingEngine(cfg, params, ServingConfig(
+            pam=PAMManagerConfig(max_tokens=128, hot_capacity=16,
+                                 warm_capacity=16, compression=2,
+                                 recency_window=4, schedule_interval=2),
+            max_batch=4, max_len=128, block_size=8, hot_window=32),
+            device=dev)
+        recs[dev] = _margins(eng, sampled=False)
+        if dev == "cuda":
+            _reset_launches()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p, 24))
+        eng.run()
+        if dev == "cuda":
+            launches = _launches()
+            body = eng.decode_body_steps
+        streams[dev] = {i: eng.requests[i].outputs for i in range(6)}
+        del eng, params
+    torch.cuda.empty_cache()
+    div = _first_divergence(prompts, streams["cuda"], streams["cpu"],
+                            recs["cuda"], recs["cpu"])
+    return dict(heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+                streams_equal=div is None, divergence=div,
+                tokens=sum(len(v) for v in streams["cuda"].values()),
+                launches=launches, launches_expected=cfg.n_layers * body)
+
+
+def _assert_parity_line(key: str, line: dict) -> None:
+    _assert_decode_launches(line["launches"], dict.fromkeys(
+        DECODE_KERNELS[:2], line["launches_expected"]))
+    assert line["divergence"] is None, (f"{key}: card and CPU streams "
+                                        f"differ: {line['divergence']}")
+
+
+def phase_moe_parity() -> dict:
+    """The port's MoE engine on the card and on the CPU give equal greedy
+    streams (``_card_cpu_streams``: reduced qwen3-moe in fp32, TF32 off,
+    paged + ring, 6 requests through 4 slots, so idle slots at the end
+    ride in the routing); once at the reduced GQA group 2 and once at
+    group 16. A stream that differs fails the phase with the position
+    and both runs' top-2 margins there."""
     out = dict(dtype="float32", tf32=False)
     for group16 in (False, True):
-        cfg = _moe_parity_cfg(group16)
-        host = tf.init_params(cfg, 0, device="cpu")
-        rng = np.random.default_rng(11)
-        prompts = [rng.integers(0, cfg.vocab, int(n))
-                   for n in rng.integers(20, 61, 6)]
-        streams, recs, launches = {}, {}, None
-        for dev in ("cuda", "cpu"):
-            params = (host if dev == "cpu" else
-                      tree.tree_map(lambda t: t.to(dev), host))
-            eng = ServingEngine(cfg, params, ServingConfig(
-                pam=PAMManagerConfig(max_tokens=128, hot_capacity=16,
-                                     warm_capacity=16, compression=2,
-                                     recency_window=4, schedule_interval=2),
-                max_batch=4, max_len=128, block_size=8, hot_window=32),
-                device=dev)
-            recs[dev] = _margins(eng, sampled=False)
-            if dev == "cuda":
-                _reset_launches()
-            for i, p in enumerate(prompts):
-                eng.submit(Request(i, p, 24))
-            eng.run()
-            if dev == "cuda":
-                launches = _launches()
-                body = eng.decode_body_steps
-            streams[dev] = {i: eng.requests[i].outputs for i in range(6)}
-            del eng, params
-        torch.cuda.empty_cache()
-        div = _first_divergence(prompts, streams["cuda"], streams["cpu"],
-                                recs["cuda"], recs["cpu"])
         key = "group16" if group16 else "group2"
-        out[key] = dict(heads=[cfg.n_heads, cfg.n_kv_heads],
-                        streams_equal=div is None, divergence=div,
-                        tokens=sum(len(v) for v in streams["cuda"].values()),
-                        launches=launches,
-                        launches_expected=cfg.n_layers * body)
-        _assert_decode_launches(launches, dict.fromkeys(
-            DECODE_KERNELS[:2], cfg.n_layers * body))
-        assert div is None, f"{key}: card and CPU streams differ: {div}"
+        out[key] = _card_cpu_streams(_moe_parity_cfg(group16))
+        _assert_parity_line(key, out[key])
     return out
 
 
-def _decode_rows(tag: str = "", heads=(16, 8)) -> dict:
+def phase_gqa_parity() -> dict:
+    """The wider dense family's engine on the card and on the CPU give
+    equal greedy streams (``_card_cpu_streams``: fp32, TF32 off, paged +
+    ring, 6 requests through 4 slots) at each model's reduced variant in
+    ``WIDE_DENSE``: groups 5 and 8 on the decode kernels' wide path, head
+    dim 64 on the narrow one. A stream that differs fails the phase with
+    the position and both runs' top-2 margins there."""
+    from repro_torch.models.config import get_config, reduced
+    out = dict(dtype="float32", tf32=False)
+    for arch, (_, _, heads) in WIDE_DENSE.items():
+        cfg = dataclasses.replace(reduced(get_config(arch)), **heads)
+        out[arch] = _card_cpu_streams(cfg)
+        _assert_parity_line(arch, out[arch])
+    return out
+
+
+# the wider dense family at full width, by arch: the depth served on the
+# card (None: the published depth), the tag of its kernels-phase rows,
+# and the heads of its reduced gqa_parity variant (group 5, group 8, MHA
+# at head dim 64). deepseek-67b's 95 layers are 134.8 GB of bf16 weights,
+# which no 80 GB card holds; a layer is 1.384 GB and the untied embedding
+# and head 3.36 GB, so 20 layers are about 31.0 GB
+WIDE_DENSE = {
+    "qwen3-14b": (None, "_g5", dict(n_heads=10, n_kv_heads=2)),
+    "deepseek-67b": (20, "_g8", dict(n_heads=16, n_kv_heads=2)),
+    "minicpm-2b": (None, "_d64", dict(n_heads=4, n_kv_heads=4, d_head=64))}
+
+
+def _wide_heads(arch: str) -> tuple[int, int, int]:
+    """(H, Hkv, d) of ``arch`` at full width: its kernels-phase rows' shape."""
+    from repro_torch.models.config import get_config
+    cfg = get_config(arch)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+
+def _dense_weights(cfg) -> dict:
+    """bf16 weight bytes of the model and of what one decode step reads
+    (every matrix but an untied input embedding, of which a step gathers
+    a row a slot), each with its time at the HBM rate: the floor of a
+    step at batch 8."""
+    total = cfg.param_count() * 2
+    read = total - (0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model * 2)
+    return {k: dict(bytes=v, hbm_ms=v / HBM_BYTES_PER_S * 1e3)
+            for k, v in (("all", total), ("read_per_step", read))}
+
+
+def _merged_instantiations(step: dict, d: int, rep: int) -> dict:
+    """Executions on the card, in a profiled step (``_step_events``), of
+    each merged decode kernel instantiated for head dim ``d`` and group
+    ``rep``."""
+    import re
+    pat = re.compile(rf"\b{d},\s*{rep},\s*true>")
+    return {name: sum(n for key, n in step["decode_instantiations"].items()
+                      if name in key and pat.search(key))
+            for name in DECODE_CUDA_KERNELS}
+
+
+def phase_engine_served(cfg, params, weights=None) -> dict:
+    """A full-width model on the card (bf16, random weights from seed 0,
+    its depth maybe cut: the cut is listed in ``reduced``), served paged
+    + ring with the serving phases' template (8 requests of 512-1024
+    prompt tokens, 64 new, batch 8, max_len 2048, block 16, ring 256,
+    ``_pam``'s PAM), decode through the graphs. Asserts 64 tokens a
+    request, each merged decode wrapper n_layers x the host-run body
+    steps and the stacked ones never, and each merged decode kernel of
+    the model's (head dim, group) n_layers times on the card in one
+    profiled replayed step. Prints decode tok/s, the steady step's wall
+    ms (``_steady_steps``: 4 steps after every graph is captured), the
+    replays' device span over those steps and the device's idle share
+    (one minus span over wall, the same window), the profiled step's
+    kernel nodes, peak memory, the weight bytes a step reads
+    (``weights``, default ``_dense_weights``) beside their time at the
+    HBM rate, KV bytes a token and read a step (the tier reads, tokens
+    over the run, times a token's bytes, over the decode steps), and the
+    pool blocks read a step."""
+    import numpy as np
+    import torch
+    from repro_torch.models.config import get_config
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    g = _engine(cfg, params, 8, 64, max_batch=8, max_len=2048, **PAGED_RING)
+    t0 = time.perf_counter()
+    _warm_graphs(g)                      # admission, captures
+    warm_s = time.perf_counter() - t0
+    walls, span_s = _steady_steps(g)
+    step = _step_events(g.step)
+    summ = g.run()
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    lens = [len(rs.outputs) for rs in g.requests.values()]
+    assert lens == [64] * 8, f"outputs per request {lens}"
+    want = cfg.n_layers * g.decode_body_steps
+    _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
+                                                    want))
+    group = cfg.n_heads // cfg.n_kv_heads
+    mine = _merged_instantiations(step, cfg.head_dim, group)
+    _assert_device_decode_counts(mine, DECODE_CUDA_KERNELS, cfg.n_layers)
+    published = get_config(cfg.name).n_layers
+    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    out = dict(card=_card(), arch=cfg.name, n_layers=cfg.n_layers,
+               n_layers_published=published,
+               reduced=([] if cfg.n_layers == published else
+                        [f"n_layers {published} -> {cfg.n_layers}"]),
+               d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+               head_dim=cfg.head_dim, group=group,
+               decode_tok_s=summ["decode_tok_s"],
+               decode_time_s=summ["decode_time_s"],
+               p50_tpot_s=summ["p50_tpot_s"], p99_tpot_s=summ["p99_tpot_s"],
+               steady_step_ms_median=float(np.median(walls)) * 1e3,
+               steady_step_ms=[w * 1e3 for w in walls],
+               replay_device_ms_per_step=span_s / len(walls) * 1e3,
+               device_idle_share=1.0 - span_s / sum(walls),
+               replayed_step=step, merged_kernels_on_device=mine,
+               warm_s=warm_s, graphs=sorted(g._graphs),
+               capture_ms_per_graph=g.capture_seconds * 1e3
+               / max(len(g._graphs), 1),
+               peak_mem_gb=peak_gb,
+               weights=weights or _dense_weights(cfg),
+               kv_bytes_per_token=kv_token,
+               kv_read_bytes_per_step=sum(summ["tier_reads"]) * kv_token
+               / summ["decode_device_steps"],
+               tier_reads=summ["tier_reads"],
+               decode_device_steps=summ["decode_device_steps"],
+               blocks_touched_per_step=summ.get("blocks_touched_per_step"),
+               blocks_window_per_step=summ.get("blocks_window_per_step"),
+               launches=launches, decode_body_steps=g.decode_body_steps,
+               launches_expected=want)
+    del g
+    gc.collect()
+    return out
+
+
+def _decode_rows(tag: str = "", heads=(16, 8), d: int = 128) -> dict:
     """Both decode kernels, stacked and merged, at ring S 256, S 2048 and
-    the paged pool, for (H, Hkv) ``heads``; keys end in ``tag``."""
-    return {f"flash_decode_ring{tag}": kernel_flash_decode(256, False, heads),
+    the paged pool, for (H, Hkv) ``heads`` and head dim ``d``; keys end
+    in ``tag``."""
+    return {f"flash_decode_ring{tag}": kernel_flash_decode(256, False, heads,
+                                                           d),
             f"flash_decode_2048{tag}": kernel_flash_decode(2048, False,
-                                                           heads),
+                                                           heads, d),
             f"flash_decode_paged{tag}": kernel_flash_decode_paged(False,
-                                                                  heads),
+                                                                  heads, d),
             f"flash_decode_merged_ring{tag}": kernel_flash_decode(256, True,
-                                                                  heads),
+                                                                  heads, d),
             f"flash_decode_merged_2048{tag}": kernel_flash_decode(2048, True,
-                                                                  heads),
+                                                                  heads, d),
             f"flash_decode_paged_merged{tag}": kernel_flash_decode_paged(
-                True, heads)}
+                True, heads, d)}
 
 
 # qwen3-moe-235b-a22b's attention: 64 query heads over 4 kv heads (GQA
 # group 16), the decode kernels' wide path; its kernels-phase rows end in
 # ``_g16``
 G16_HEADS = (64, 4)
+def _engine_phase(arch: str) -> str:
+    return "engine_" + arch.replace("-", "_").replace(".", "_")
 
 
 def phase_kernels() -> dict:
     out = _decode_rows()
     out.update(_decode_rows("_g16", G16_HEADS))
+    for arch, (_, tag, _) in WIDE_DENSE.items():
+        H, Hkv, d = _wide_heads(arch)
+        out.update(_decode_rows(tag, (H, Hkv), d))
     for S, causal in ((TRAIN_S, True), (1000, False)):
         r = kernel_flash_attention(S, causal)
         tag = "2048" if causal else "ragged_1000_noncausal"
@@ -3289,7 +3472,13 @@ STACKED_ROWS = {"flash_decode_merged_ring": "flash_decode_ring",
                 "flash_decode_paged_merged": "flash_decode_paged",
                 "flash_decode_merged_ring_g16": "flash_decode_ring_g16",
                 "flash_decode_merged_2048_g16": "flash_decode_2048_g16",
-                "flash_decode_paged_merged_g16": "flash_decode_paged_g16"}
+                "flash_decode_paged_merged_g16": "flash_decode_paged_g16",
+                **{f"{merged}{tag}": f"{stacked}{tag}"
+                   for _, tag, _ in WIDE_DENSE.values()
+                   for merged, stacked in (
+                       ("flash_decode_merged_ring", "flash_decode_ring"),
+                       ("flash_decode_merged_2048", "flash_decode_2048"),
+                       ("flash_decode_paged_merged", "flash_decode_paged"))}}
 
 
 # ------------------------------------------------------------------ main
@@ -3375,6 +3564,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     run("moe_parity", phase_moe_parity)
     torch.cuda.empty_cache()
+    for arch, (n_layers, _, _) in WIDE_DENSE.items():  # one model at once
+        wide = None
+        try:
+            wide = _model("bfloat16", arch, n_layers)
+        except Exception as exc:
+            failed.append(f"model_{arch}")
+            emit(f"model_{arch}", ok=False, error=repr(exc))
+        if wide is not None:
+            run(_engine_phase(arch), phase_engine_served, *wide)
+            # sparsity off: the pool tiers are read, so the model's paged
+            # kernel walks live blocks
+            run(_engine_phase(arch) + "_full_pool", phase_engine_paged_full,
+                *wide)
+            del wide
+        gc.collect()
+        torch.cuda.empty_cache()
+    run("gqa_parity", phase_gqa_parity)
+    torch.cuda.empty_cache()
     run("train", phase_train)
     torch.cuda.empty_cache()
     run("profile_train", phase_profile_train)
@@ -3417,6 +3624,33 @@ def main() -> int:
     ssm_fp32_run = results["train_parity_ssm"]["launches"]
     moe_run = results["engine_moe"]["launches"]
     rows = []
+
+    def add_row(key, src, replaces, launches):
+        k = kernels[key]
+        tag = next((t for t in ("_g16", *(w[1] for w in WIDE_DENSE.values()))
+                    if key.endswith(t)), "")
+        row = dict(
+            name=k["name"] + tag, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=f"src/repro/kernels/{replaces}",
+            launches=launches, max_abs_err=k["max_abs_err"],
+            ms=k["ms"], kernel_device_ms=k["kernel_device_ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"])
+        for extra in ("S", "split", "variant", "dtype", "tflops",
+                      "pct_of_bound", "executed_tflops", "sdpa_max_abs_err",
+                      "H", "Hkv", "d"):
+            if extra in k:
+                row[extra] = k[extra]
+        stacked = STACKED_ROWS.get(key)
+        if stacked:             # the same CUDA kernel, reference contract
+            row["stacked"] = {
+                f: kernels[stacked][f] for f in (
+                    "max_abs_err", "ms", "kernel_device_ms", "bound_ms",
+                    "pct_of_bound")}
+        rows.append(row)
+        return row
+
     for key, src, replaces, launches in (
             ("flash_decode_merged_ring", "flash_decode.cu",
              "flash_decode.py:98", paged_run["flash_decode_merged"]),
@@ -3444,27 +3678,7 @@ def main() -> int:
              "flash_decode.py:98", moe_run["flash_decode_merged"]),
             ("flash_decode_paged_merged_g16", "flash_decode_paged.cu",
              "flash_decode.py:202", moe_run["flash_decode_paged_merged"])):
-        k = kernels[key]
-        rows.append(dict(
-            name=k["name"] + ("_g16" if key.endswith("_g16") else ""),
-            route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{src}",
-            replaces=f"src/repro/kernels/{replaces}",
-            launches=launches, max_abs_err=k["max_abs_err"],
-            ms=k["ms"], kernel_device_ms=k["kernel_device_ms"],
-            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=k["library_ms"]))
-        for extra in ("S", "split", "variant", "dtype", "tflops",
-                      "pct_of_bound", "executed_tflops", "sdpa_max_abs_err",
-                      "H", "Hkv"):
-            if extra in k:
-                rows[-1][extra] = k[extra]
-        stacked = STACKED_ROWS.get(key)
-        if stacked:             # the same CUDA kernel, reference contract
-            rows[-1]["stacked"] = {
-                f: kernels[stacked][f] for f in (
-                    "max_abs_err", "ms", "kernel_device_ms", "bound_ms",
-                    "pct_of_bound")}
+        add_row(key, src, replaces, launches)
     rows[1]["launches_in"] = "engine_dense_pam"
     dg = results["decode_graph"]
     rows[1]["launches_decode_graph"] = dg["dense_launches"][
@@ -3503,6 +3717,26 @@ def main() -> int:
         row["launches_decode_graph_moe"] = moe_twins[name]
         row["launches_moe_parity_group16"] = results["moe_parity"][
             "group16"]["launches"][name]
+    # the wider dense family: launches from each model's engine phases, and
+    # the card's executions in its profiled replayed step
+    for arch, (_, tag, _) in WIDE_DENSE.items():
+        wide = results[_engine_phase(arch)]
+        full = results[_engine_phase(arch) + "_full_pool"]
+        for key, src, replaces, name, kern in (
+                (f"flash_decode_merged_ring{tag}", "flash_decode.cu",
+                 "flash_decode.py:98", "flash_decode_merged",
+                 DECODE_CUDA_KERNELS[0]),
+                (f"flash_decode_paged_merged{tag}", "flash_decode_paged.cu",
+                 "flash_decode.py:202", "flash_decode_paged_merged",
+                 DECODE_CUDA_KERNELS[1])):
+            row = add_row(key, src, replaces, wide["launches"][name])
+            row["launches_in"] = _engine_phase(arch)
+            row[f"device_launches_{_engine_phase(arch)}_step"] = wide[
+                "merged_kernels_on_device"][kern]
+            row[f"launches_{_engine_phase(arch)}_full_pool"] = full[
+                "launches"][name]
+            row["launches_gqa_parity"] = results["gqa_parity"][arch][
+                "launches"][name]
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

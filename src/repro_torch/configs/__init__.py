@@ -4,5 +4,6 @@ Importing this package registers every config; select with
 ``repro_torch.models.config.get_config(name)`` or ``--arch <id>``.
 """
 
-from repro_torch.configs import (mamba2_780m, pam_llama_7b,  # noqa: F401
-                                 qwen3_0_6b, qwen3_moe_235b_a22b)
+from repro_torch.configs import (deepseek_67b, mamba2_780m,  # noqa: F401
+                                 minicpm_2b, pam_llama_7b, qwen3_0_6b,
+                                 qwen3_14b, qwen3_moe_235b_a22b)

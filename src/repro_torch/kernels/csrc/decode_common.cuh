@@ -43,10 +43,10 @@
 //      mbarrier (release, cluster scope), then exits; rank 0 waits for
 //      every arrival and reduces the partials in run order, so no partial
 //      goes through device memory and the arithmetic has no atomics.
-// Groups above 2 (16 is built) take attend_run_wide below: the same
-// steps 1 and 2, then each warp owns whole heads and walks every staged
-// row, and the merge reads the runs' partials over distributed shared
-// memory.
+// Groups above 2 (5, 8 and 16 are built) take attend_run_wide below: the
+// same steps 1 and 2, then each warp owns whole heads and walks every
+// staged row, and the merge reads the runs' partials over distributed
+// shared memory.
 // exp is __expf (ex2.approx): its relative error, about 2^-21 near the
 // arguments softmax uses, is far inside the tolerance against the plain
 // version (rtol 1e-4); the scores are exact fp32 dot products.
@@ -197,12 +197,21 @@ struct MergeSlots {
 };
 struct NoSlots {};
 
-// EPL consecutive elements of a staged row as fp32 (EPL 1 or 4).
+// EPL consecutive elements of a staged row as fp32 (EPL 1, 2 or 4: head
+// dim 16, 64 or 128), one load a lane.
 template <typename T, int EPL>
 __device__ __forceinline__ void load_dims(const T* p, float (&v)[EPL]) {
-  static_assert(EPL == 1 || EPL == 4, "head dim 16 or 128");
+  static_assert(EPL == 1 || EPL == 2 || EPL == 4, "head dim 16, 64 or 128");
   if constexpr (EPL == 1) {
     v[0] = to_float(p[0]);
+  } else if constexpr (EPL == 2 && std::is_same<T, float>::value) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else if constexpr (EPL == 2) {   // two bf16 in one 32-bit load
+    const unsigned x = *reinterpret_cast<const unsigned*>(p);
+    v[0] = __uint_as_float(x << 16);
+    v[1] = __uint_as_float(x & 0xffff0000u);
   } else if constexpr (std::is_same<T, float>::value) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     v[0] = x.x;
@@ -600,7 +609,8 @@ constexpr int kMaxNarrowRep = 2;
 // rows, the run's partial (each warp owns whole heads, so the partial
 // needs no merge across warps; rank 0 of a merged launch reads its peers'
 // copies over distributed shared memory) and rank 0's merge weights.
-// 16.6 KB at group 16, head dim 128.
+// 16.6 KB at group 16, 8.6 KB at group 8, 5.4 KB at group 5 (head dim
+// 128).
 template <int D, int REP>
 struct WideSmem {
   alignas(16) float q[REP][D];
@@ -621,10 +631,23 @@ struct BlockSmem<D, REP, MERGED, true> {
   using type = WideSmem<D, REP>;
 };
 
-// attend_run for a wide group (REP a multiple of kWarps, 16 built): the
-// same participation, compaction and cp.async staging, then each warp
-// owns REP / kWarps heads and walks every staged row of a tile in
-// sub-tiles of 32 rows:
+// The heads warp w owns on the wide path: [w * REP / kWarps, (w + 1) *
+// REP / kWarps). Every warp gets floor or ceil(REP / kWarps) heads (group
+// 5: 1, 1, 1, 2; groups 8 and 16: 2 and 4 each), so the warp a tile's
+// barrier waits for holds ceil(REP / kWarps) heads, the fewest any layout
+// allows, and from group 4 up no warp is left without a head (the
+// alternative 2, 2, 1, 0 has the same slowest warp and one idle warp).
+// A warp's head count is warp-uniform, so the guards below never split
+// a warp's shuffles.
+template <int REP>
+__device__ __forceinline__ int wide_first_head(int warp) {
+  return warp * REP / kWarps;
+}
+
+// attend_run for a wide group (REP > kMaxNarrowRep; 5, 8 and 16 built):
+// the same participation, compaction and cp.async staging, then each warp
+// owns whole heads (wide_first_head: at most HPW = ceil(REP / kWarps)) and
+// walks every staged row of a tile in sub-tiles of 32 rows:
 //   3. QK^T, one lane per row: the lane reads its K row's 16-byte chunks
 //      once (padded pitch: distinct banks) and does the dot products of
 //      the warp's heads from q in shared memory (broadcast reads);
@@ -645,14 +668,17 @@ __device__ __forceinline__ void attend_run_wide(
     int cap, long row0, const Outputs& out, WideSmem<D, REP>& sm,
     unsigned char* dyn) {
   using R = Row<T, D>;
-  static_assert(REP % kWarps == 0, "whole heads a warp");
+  static_assert(REP > kMaxNarrowRep, "the narrow path takes groups 1, 2");
   constexpr int QPT = (REP * D + kThreads - 1) / kThreads;
-  constexpr int HPW = REP / kWarps;           // heads a warp owns
+  constexpr int HPW = (REP + kWarps - 1) / kWarps;   // most heads a warp owns
   constexpr int EPL = D >= 32 ? D / 32 : 1;   // output dims a lane holds
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int h0 = warp * HPW;                  // the warp's first head
+  const int h0 = wide_first_head<REP>(warp);  // the warp's heads [h0, h0 + nh)
+  const int nh = wide_first_head<REP>(warp + 1) - h0;
+  // whether the warp owns its h-th head slot (always, when REP divides)
+  auto owns = [nh](int h) { return HPW * kWarps == REP || h < nh; };
   int* list = reinterpret_cast<int*>(dyn);
   unsigned char* stage = dyn + list_bytes(cap);
 
@@ -711,6 +737,7 @@ __device__ __forceinline__ void attend_run_wide(
           chunk_to_float<T>(kr[c], kf);
 #pragma unroll
           for (int h = 0; h < HPW; ++h) {
+            if (!owns(h)) continue;   // warp-uniform
             const float4* q4 = reinterpret_cast<const float4*>(sm.q[h0 + h]);
 #pragma unroll
             for (int e4 = 0; e4 < R::kElems / 4; ++e4) {
@@ -725,6 +752,7 @@ __device__ __forceinline__ void attend_run_wide(
         const long pos = src.pos(list[j0 + u0 + lane]);
 #pragma unroll
         for (int h = 0; h < HPW; ++h) {
+          if (!owns(h)) continue;
           s[h] = ((a[h][0] + a[h][1]) + (a[h][2] + a[h][3])) * scale;
           if (out.scores != nullptr)
             out.scores[(row0 + h0 + h) * out.n_pos + pos] = s[h];
@@ -734,6 +762,8 @@ __device__ __forceinline__ void attend_run_wide(
       float p[HPW];
 #pragma unroll
       for (int h = 0; h < HPW; ++h) {
+        p[h] = 0.f;
+        if (!owns(h)) continue;   // warp-uniform
         float mx = s[h];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
@@ -762,6 +792,7 @@ __device__ __forceinline__ void attend_run_wide(
               vbuf + (u0 + u) * R::kPitch) + lane * EPL, v);
 #pragma unroll
           for (int h = 0; h < HPW; ++h) {
+            if (!owns(h)) continue;
 #pragma unroll
             for (int e = 0; e < EPL; ++e)
               acc[h][e] = fmaf(pr[h], v[e], acc[h][e]);
@@ -778,6 +809,7 @@ __device__ __forceinline__ void attend_run_wide(
   if constexpr (!MERGED) {   // the run's partial, straight from registers
 #pragma unroll
     for (int h = 0; h < HPW; ++h) {
+      if (!owns(h)) continue;
       const long prow = (row0 + h0 + h) * out.nsplit + run;
       if (has_dims) {
 #pragma unroll
@@ -792,6 +824,7 @@ __device__ __forceinline__ void attend_run_wide(
   } else {
 #pragma unroll
     for (int h = 0; h < HPW; ++h) {
+      if (!owns(h)) continue;
       if (lane == 0) {
         sm.m[h0 + h] = m_run[h];
         sm.l[h0 + h] = l_run[h];
@@ -850,30 +883,31 @@ inline size_t dyn_smem_bytes(int tile, int L) {
   return list_bytes(L) + stages * 2 * tile * Row<T, D>::kPitch;
 }
 
-// Dispatch over the built (K/V dtype, q dtype, head dim, group size): the
-// dims and GQA groups of the port's configs (qwen3-0.6b: 128/2,
-// pam-llama-7b: 128/1, qwen3-moe-235b-a22b: 128/16, the reduced variants:
-// 16/2). The Python wrappers check the same sets before launching. Launch must be a functor template:
-// Launch<T, TQ, D, REP>::run(args, stream) returning a cudaError_t.
-template <template <typename, typename, int, int> class Launch, typename T,
-          typename TQ, int D, typename Args>
-int dispatch_rep(int rep, const Args& a, cudaStream_t stream) {
-  switch (rep) {
-    case 1: return static_cast<int>(Launch<T, TQ, D, 1>::run(a, stream));
-    case 2: return static_cast<int>(Launch<T, TQ, D, 2>::run(a, stream));
-    case 16: return static_cast<int>(Launch<T, TQ, D, 16>::run(a, stream));
-    default: return -1;
-  }
-}
+// The built (head dim, GQA group) pairs, listed once: the port's configs'
+// (qwen3-0.6b 128/2, pam-llama-7b 128/1, qwen3-14b 128/5, deepseek-67b
+// 128/8, qwen3-moe-235b-a22b 128/16, minicpm-2b 64/1) and the reduced
+// variants the tests and parity runs use (head dim 16 at every built
+// group, 64 at group 2). kernels/flash_decode.py::BUILT holds the same
+// list (a CPU test compares the two) and refuses any other pair before a
+// launch; here another pair returns -1. Each pair is four (K/V dtype, q
+// dtype) instantiations, stacked and merged, so the list is kept short.
+#define PAM_DECODE_BUILT(X) \
+  X(16, 1) X(16, 2) X(16, 5) X(16, 8) X(16, 16) \
+  X(64, 1) X(64, 2) \
+  X(128, 1) X(128, 2) X(128, 5) X(128, 8) X(128, 16)
 
+// Dispatch over the built (K/V dtype, q dtype, head dim, group size).
+// Launch must be a functor template: Launch<T, TQ, D, REP>::run(args,
+// stream) returning a cudaError_t.
 template <template <typename, typename, int, int> class Launch, typename T,
           typename TQ, typename Args>
 int dispatch_d(int d, int rep, const Args& a, cudaStream_t stream) {
-  switch (d) {
-    case 16: return dispatch_rep<Launch, T, TQ, 16>(rep, a, stream);
-    case 128: return dispatch_rep<Launch, T, TQ, 128>(rep, a, stream);
-    default: return -1;
-  }
+#define PAM_DECODE_CASE(D, REP)                                         \
+  if (d == D && rep == REP)                                             \
+    return static_cast<int>(Launch<T, TQ, D, REP>::run(a, stream));
+  PAM_DECODE_BUILT(PAM_DECODE_CASE)
+#undef PAM_DECODE_CASE
+  return -1;
 }
 
 template <template <typename, typename, int, int> class Launch, typename T,

@@ -39,10 +39,15 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_decode import (_DTYPE_CODE, _check_cuda, _ptr,
-                                              _stream)
+from repro_torch.kernels.flash_decode import (_DTYPE_CODE, _ptr, _stream,
+                                              check_launch)
 
 NEG_INF = -1e30
+# (head dim, GQA group) pairs the forward and backward kernels are built
+# for, whatever the dtype: csrc/attention_common.cuh's dispatch and the
+# wgmma launchers (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu)
+# take groups 1 and 2 at head dims 16 and 128
+BUILT = tuple((d, g) for d in (16, 128) for g in (1, 2))
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 SM90_PAD = 128          # row padding of the wgmma backward's fp32 scratch
@@ -51,8 +56,9 @@ SM90_PAD = 128          # row padding of the wgmma backward's fp32 scratch
 def _variant(dtype: torch.dtype, d: int) -> str:
     """The kernel variant of operands of ``dtype`` and head dim ``d``:
     ``"wgmma"`` for bf16 with d = 128, ``"cuda_core"`` otherwise (fp32,
-    or d = 16). Each (dtype, d, group) has exactly one kernel; a case
-    that kernel was not built for raises in the wrapper."""
+    or d = 16). Each (dtype, d, group) has exactly one kernel; a (d,
+    group) pair outside ``BUILT`` raises in the wrapper before any
+    launch."""
     return "wgmma" if dtype == torch.bfloat16 and d == 128 else "cuda_core"
 
 
@@ -164,8 +170,8 @@ def _check_args(name, q, k, v):
 def _fwd_cuda(q, k, v, causal, scale):
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    check_launch("flash_attention", d, H // Hkv, q, k, v, built=BUILT)
     _check_args("flash_attention", q, k, v)
-    _check_cuda("flash_attention", d, H // Hkv, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     variant = _variant(q.dtype, d)
@@ -244,11 +250,12 @@ def _bwd_rounded(q, k, v, o, lse, do, causal, scale):
 def _bwd_cuda(q, k, v, o, lse, do, causal, scale):
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    check_launch("flash_attention_bwd", d, H // Hkv, q, k, v, o, lse, do,
+                 built=BUILT)
     _check_args("flash_attention_bwd", q, k, v)
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError("flash_attention_bwd: o and do must have q's "
                          "dtype")
-    _check_cuda("flash_attention_bwd", d, H // Hkv, q, k, v, o, lse, do)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
     variant = _variant(q.dtype, d)

@@ -43,8 +43,13 @@ from repro_torch.core import online_softmax as osm
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_S = 512
-SUPPORTED_D = (16, 128)          # head dims built (the port's configs)
-SUPPORTED_REP = (1, 2, 16)       # GQA group sizes built
+# (head dim, GQA group) pairs the kernels are built for, the list of
+# csrc/decode_common.cuh's PAM_DECODE_BUILT: the port's configs' (128 at
+# groups 1, 2, 5, 8, 16; 64 at group 1) and the reduced variants' (16 at
+# every built group, 64 at group 2)
+BUILT = ((16, 1), (16, 2), (16, 5), (16, 8), (16, 16),
+         (64, 1), (64, 2),
+         (128, 1), (128, 2), (128, 5), (128, 8), (128, 16))
 RUN_LENGTHS = (512, 256, 128, 64, 32, 16)   # tokens a CUDA block walks
 MAX_RUN_PAGES = 128              # table entries a paged CUDA block walks
 MAX_SPLITS = 8                   # runs a merged launch reduces (a cluster)
@@ -101,11 +106,16 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_cuda(name: str, d: int, rep: int, *tensors: torch.Tensor) -> None:
-    if d not in SUPPORTED_D or rep not in SUPPORTED_REP:
+def check_launch(name: str, d: int, rep: int, *tensors: torch.Tensor,
+                 built=BUILT) -> None:
+    """Refuse a launch before it starts: a (head dim ``d``, GQA group
+    ``rep``) pair outside ``built`` (the decode kernels' unless given)
+    first, whatever the operands, then operands that are not contiguous,
+    16-byte aligned CUDA tensors."""
+    if (d, rep) not in built:
         raise ValueError(f"{name}: head dim {d} / group size {rep} not "
-                         f"built (head dims {SUPPORTED_D}, groups "
-                         f"{SUPPORTED_REP})")
+                         f"built (built (head dim, group) pairs: "
+                         f"{sorted(built)})")
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: all operands must be CUDA tensors")
@@ -230,7 +240,7 @@ def _flash_decode_cuda(q, k, v, mask, kv_lens, kv_len, scale, L, *, merged,
     if k.dtype not in _DTYPE_CODE or v.dtype != k.dtype:
         raise ValueError(f"flash_decode: K/V dtype {k.dtype} not built")
     q = _q_operand(q)
-    _check_cuda("flash_decode", d, H // Hkv, q, k, v)
+    check_launch("flash_decode", d, H // Hkv, q, k, v)
     mask = _byte_mask("flash_decode", mask)
     lens = _int32("flash_decode", kv_lens)
     bufs = _buffers(q, nsplit, S, merged, scores)
@@ -377,7 +387,7 @@ def _flash_decode_paged_cuda(q, k_pool, v_pool, table, block_live, mask,
     if isinstance(block_offset, torch.Tensor):
         raise TypeError("flash_decode_paged: block_offset must be an int")
     q = _q_operand(q)
-    _check_cuda("flash_decode_paged", d, H // Hkv, q, k_pool, v_pool)
+    check_launch("flash_decode_paged", d, H // Hkv, q, k_pool, v_pool)
     table = _int32("flash_decode_paged", table)
     block_live = _byte_mask("flash_decode_paged", block_live)
     mask = _byte_mask("flash_decode_paged", mask)

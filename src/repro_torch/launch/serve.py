@@ -8,7 +8,11 @@ runs full-width ``qwen3-0.6b`` (random weights from seed 0) on the GPU;
 ``--arch mamba2-780m`` serves the Mamba-2 model (dense cache only, as in
 the reference), ``--arch qwen3-moe-235b-a22b`` the GQA mixture-of-experts
 model (128 experts, top-8; its 94 layers need several cards at full
-depth, and ``--layers`` cuts the depth); ``--reduced --device cpu`` runs
+depth, and ``--layers`` cuts the depth); the wider dense models are
+``--arch qwen3-14b`` (GQA group 5; its 40 layers fit one card),
+``--arch minicpm-2b`` (MHA, head dim 64) and ``--arch deepseek-67b``
+(group 8; 95 layers, about 135 GB in bf16, so one card takes it with
+``--layers 20``); ``--reduced --device cpu`` runs
 the smoke-size model on the CPU; ``--temperature``/``--top-k`` sample, ``--prefill-chunk``
 admits long prompts in slices. The flags mirror ``repro.launch.serve``'s batch mode; the defaults are sized
 for the GPU (8 requests of 512 prompt tokens, 64 new tokens each,

@@ -203,8 +203,8 @@ def test_cuda_launch_checks_refuse_unbuilt_shapes_and_host_operands():
     groups outside the built set, and operands not on the card, raise."""
     t = torch.zeros(4)
     with pytest.raises(ValueError, match="not built"):
-        tfd._check_cuda("flash_decode", 64, 2, t)
+        tfd.check_launch("flash_decode", 112, 2, t)
     with pytest.raises(ValueError, match="not built"):
-        tfd._check_cuda("flash_decode", 128, 4, t)
+        tfd.check_launch("flash_decode", 128, 4, t)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tfd._check_cuda("flash_decode_paged", 128, 2, t)
+        tfd.check_launch("flash_decode_paged", 128, 2, t)

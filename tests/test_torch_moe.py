@@ -249,7 +249,8 @@ def test_config_matches_reference():
         dataclasses.asdict(reduced(get_config(ARCH)))
 
 
-PORT_CONFIGS = ["mamba2-780m", "pam-llama-7b", "qwen3-0.6b", ARCH]
+PORT_CONFIGS = ["deepseek-67b", "mamba2-780m", "minicpm-2b", "pam-llama-7b",
+                "qwen3-0.6b", "qwen3-14b", ARCH]
 
 
 @pytest.mark.parametrize("arch", PORT_CONFIGS)
@@ -464,19 +465,21 @@ def test_mla_moe_names_its_roadmap_item():
 
 # ------------------------------------------------------------ kernels
 def test_decode_kernels_built_for_group_16_only_among_wide_groups():
-    """The decode kernels are built for GQA groups (1, 2, 16) at head
-    dims 16 and 128: the launch check accepts group 16 and still refuses
-    groups 4, 5 and 8 and head dim 64 (a host tensor then fails the
-    operand check, after the shape check passed)."""
-    assert tfd.SUPPORTED_REP == (1, 2, 16)
-    assert tfd.SUPPORTED_D == (16, 128)
+    """The decode kernels are built for the listed (head dim, GQA group)
+    pairs: the launch check accepts group 16 at head dims 128 and 16 (a
+    host tensor then fails the operand check, after the shape check
+    passed) and still refuses groups 4 and 7 and head dims 80 and 112,
+    which no built pair holds."""
+    assert {(128, 16), (16, 16)} <= set(tfd.BUILT)
+    assert not {4, 7} & {rep for _, rep in tfd.BUILT}
+    assert not {80, 112} & {d for d, _ in tfd.BUILT}
     t = torch.zeros(4)
     for d, rep in ((128, 16), (16, 16)):
         with pytest.raises(ValueError, match="CUDA tensors"):
-            tfd._check_cuda("flash_decode", d, rep, t)
-    for d, rep in ((128, 4), (128, 5), (128, 8), (64, 2)):
+            tfd.check_launch("flash_decode", d, rep, t)
+    for d, rep in ((128, 4), (128, 7), (112, 1), (80, 1)):
         with pytest.raises(ValueError, match="not built"):
-            tfd._check_cuda("flash_decode_paged", d, rep, t)
+            tfd.check_launch("flash_decode_paged", d, rep, t)
 
 
 _WALK = """
