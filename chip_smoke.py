@@ -185,6 +185,28 @@ final ``ok`` line:
             minicpm-2b with 4 / 4 heads of 64): the engine on the card and
             on the CPU give equal greedy streams, paged + ring, as
             moe_parity
+  engine_deepseek_v2_lite_16b   the MLA mixture-of-experts family at
+            full width and full depth (27 layers, d 2048, 16 heads, latent
+            rank 512 + rope key 64, 64 experts of 1408, top-6 + 2 shared,
+            vocab 102400; random weights from seed 0, bf16, 32.4 GB),
+            served on dense PAM (the only layout the reference serves MLA
+            on) with the serving template, decode through the graphs;
+            asserts 64 tokens a request, no decode wrapper called (the
+            reference's latent attention is an einsum, no Pallas kernel),
+            the latent attention n_layers x the host-run body steps, and
+            no decode kernel on the card in one profiled replayed step;
+            prints the engine phases' readings with the latent bytes a
+            token and read a step, the weight bytes (all, and the experts
+            the dispatch reads) beside their HBM time, the dropped
+            assignments, and the device ms of one step's latent attention
+            (27 calls captured as a graph) beside the dense-PAM GQA
+            decode kernel at like KV bytes (16 q / 2 kv heads of 128)
+  mla_parity  reduced deepseek-v2-lite-16b (4 heads, r 32, 4 experts
+            top-2 + 1 shared) in fp32, TF32 off: the engine on the card
+            and on the CPU give equal greedy streams on dense PAM, 6
+            requests through 4 slots, one of them to max_len exactly, at
+            micro_steps 1 and 4 (graphs); no decode wrapper called, the
+            latent attention n_layers x the host-run body steps
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
@@ -3164,20 +3186,25 @@ def _moe_weights(cfg) -> dict:
             for k, v in out.items()}
 
 
-def phase_engine_moe(cfg, params) -> dict:
-    """qwen3-moe-235b-a22b at full width (d 4096, 64 q / 4 kv heads of
-    128, 128 experts of 1536, top-8, vocab 151936), depth cut to
-    ``MOE_LAYERS``, through ``phase_engine_served``; adds the share of
-    (token, expert) assignments dropped at capacity (some decode
-    assignments must be routed) and the MoE's weight bytes a step."""
+def phase_engine_moe(cfg, params, layout=PAGED_RING,
+                     latent: bool = False) -> dict:
+    """A mixture-of-experts model at full width through
+    ``phase_engine_served`` on ``layout``: qwen3-moe-235b-a22b (d 4096,
+    64 q / 4 kv heads of 128, 128 experts of 1536, top-8, vocab 151936),
+    depth cut to ``MOE_LAYERS``, paged + ring; or deepseek-v2-lite-16b
+    at full depth on dense PAM with the latent checks (``latent``). Adds
+    the share of (token, expert) assignments dropped at capacity (some
+    decode assignments must be routed) and the MoE's weight bytes a
+    step."""
     drops = _Drops(8)
     try:
-        out = phase_engine_served(cfg, params, _moe_weights(cfg))
+        out = phase_engine_served(cfg, params, _moe_weights(cfg), layout,
+                                  latent)
     finally:
         dropped = drops.close()
     assert dropped["decode"]["assignments"] > 0, dropped
     return dict(out, experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
-                dropped=dropped)
+                shared_experts=cfg.moe.num_shared, dropped=dropped)
 
 
 def _moe_twins(cfg, params) -> dict:
@@ -3216,14 +3243,21 @@ def _moe_parity_cfg(group16: bool):
     return cfg
 
 
-def _card_cpu_streams(cfg) -> dict:
+PARITY_RING = dict(block_size=8, hot_window=32)
+
+
+def _card_cpu_streams(cfg, layout=PARITY_RING, fill: bool = False,
+                      micro_steps: int = 1) -> dict:
     """Greedy streams of ``cfg``'s engine on the card and on the CPU (seed-0
-    weights made on the CPU and copied; fp32, TF32 off): paged + ring
-    (block 8, ring 32), 6 requests of 20-60 prompt tokens through 4
-    slots, 24 new. Returns the heads, whether the streams are equal, the
-    first divergence (the position and both runs' top-2 margins there),
-    the tokens and the card's decode wrapper calls beside n_layers x its
-    host-run body steps."""
+    weights made on the CPU and copied; fp32, TF32 off): ``layout``
+    (default paged + ring, block 8, ring 32; ``{}`` dense PAM), 6
+    requests of 20-60 prompt tokens through 4 slots, 24 new (with
+    ``fill`` the last prompt is 104 tokens: prompt + new = max_len 128),
+    ``micro_steps`` a dispatch. Returns the heads, whether the streams
+    are equal, the first divergence (the position and both runs' top-2
+    margins there), the tokens, the card's decode wrapper calls and its
+    latent attention calls (an MLA model) beside n_layers x its host-run
+    body steps."""
     import numpy as np
     import torch
     from repro_torch import tree
@@ -3234,6 +3268,8 @@ def _card_cpu_streams(cfg) -> dict:
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, cfg.vocab, int(n))
                for n in rng.integers(20, 61, 6)]
+    if fill:
+        prompts[-1] = rng.integers(0, cfg.vocab, 128 - 24)
     streams, recs, launches = {}, {}, None
     for dev in ("cuda", "cpu"):
         params = (host if dev == "cpu" else
@@ -3242,17 +3278,23 @@ def _card_cpu_streams(cfg) -> dict:
             pam=PAMManagerConfig(max_tokens=128, hot_capacity=16,
                                  warm_capacity=16, compression=2,
                                  recency_window=4, schedule_interval=2),
-            max_batch=4, max_len=128, block_size=8, hot_window=32),
+            max_batch=4, max_len=128, micro_steps=micro_steps, **layout),
             device=dev)
         recs[dev] = _margins(eng, sampled=False)
         if dev == "cuda":
             _reset_launches()
-        for i, p in enumerate(prompts):
-            eng.submit(Request(i, p, 24))
-        eng.run()
+            latent = _LatentCalls()
+        try:
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, p, 24))
+            eng.run()
+        finally:
+            if dev == "cuda":
+                latent_calls = latent.close()
         if dev == "cuda":
             launches = _launches()
             body = eng.decode_body_steps
+            dispatches = eng.decode_dispatches
         streams[dev] = {i: eng.requests[i].outputs for i in range(6)}
         del eng, params
     torch.cuda.empty_cache()
@@ -3261,6 +3303,9 @@ def _card_cpu_streams(cfg) -> dict:
     return dict(heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
                 streams_equal=div is None, divergence=div,
                 tokens=sum(len(v) for v in streams["cuda"].values()),
+                prompt_lens=[len(p) for p in prompts],
+                micro_steps=micro_steps, decode_dispatches=dispatches,
+                decode_body_steps=body, latent_calls=latent_calls,
                 launches=launches, launches_expected=cfg.n_layers * body)
 
 
@@ -3283,6 +3328,60 @@ def phase_moe_parity() -> dict:
         key = "group16" if group16 else "group2"
         out[key] = _card_cpu_streams(_moe_parity_cfg(group16))
         _assert_parity_line(key, out[key])
+    return out
+
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+
+
+class _LatentCalls:
+    """Counts the host calls of the MLA latent attention that the
+    engine's decode body builds (``pam_manager.make_masked_latent_attn``,
+    wrapped while the object is open): n_layers a micro-step whose body
+    runs on the host, eagerly or recorded into a graph; a replay makes
+    none."""
+
+    def __init__(self):
+        from repro_torch.serving import pam_manager as pm
+        self.pm, self.make, self.n = pm, pm.make_masked_latent_attn, 0
+
+        def make(participate):
+            fn = self.make(participate)
+
+            def counted(*a, **kw):
+                self.n += 1
+                return fn(*a, **kw)
+            return counted
+        pm.make_masked_latent_attn = make
+
+    def close(self) -> int:
+        self.pm.make_masked_latent_attn = self.make
+        return self.n
+
+
+def phase_mla_parity() -> dict:
+    """The port's MLA engine on the card and on the CPU give equal greedy
+    streams (``_card_cpu_streams``: reduced deepseek-v2-lite-16b in fp32,
+    TF32 off, dense PAM, 6 requests through 4 slots, one of them to
+    max_len exactly), at micro_steps 1 and 4, decode through the graphs.
+    No decode wrapper may be called, and the latent attention n_layers x
+    the host-run body steps. A stream that differs fails the phase with
+    the position and both runs' top-2 margins there."""
+    from repro_torch.models.config import get_config, reduced
+    cfg = reduced(get_config(MLA_ARCH))
+    out = dict(dtype="float32", tf32=False, layout="dense_pam")
+    for k in (1, 4):
+        key = f"micro_steps_{k}"
+        line = out[key] = _card_cpu_streams(cfg, {}, fill=True,
+                                            micro_steps=k)
+        _assert_decode_launches(line["launches"], {})
+        assert line["latent_calls"] == line["launches_expected"] > 0, (
+            f"{key}: latent attention called {line['latent_calls']} "
+            f"times, want {line['launches_expected']}")
+        assert line["divergence"] is None, (f"{key}: card and CPU streams "
+                                            f"differ: {line['divergence']}")
+    assert (out["micro_steps_4"]["decode_dispatches"]
+            < out["micro_steps_1"]["decode_dispatches"]), out
     return out
 
 
@@ -3343,16 +3442,104 @@ def _merged_instantiations(step: dict, d: int, rep: int) -> dict:
             for name in DECODE_CUDA_KERNELS}
 
 
-def phase_engine_served(cfg, params, weights=None) -> dict:
+def _kv_bytes_per_token(cfg) -> int:
+    """Decode-cache bytes (bf16) a token holds over all layers: K and V
+    of each kv head, or an MLA model's latent and shared rope key."""
+    if cfg.mla is not None:
+        return cfg.n_layers * (cfg.mla.kv_lora_rank
+                               + cfg.mla.qk_rope_head_dim) * 2
+    return 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+
+
+def _graph_device_ms(fn) -> dict:
+    """``fn`` captured as one CUDA graph and replayed under torch.profiler
+    (``_step_events``): its kernel nodes and device ms, kernels only, no
+    launch gaps; CUDA events around a replay where the profiler saw no
+    device event."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ev = _step_events(graph.replay)
+    ms = ev["device_ms"] or _time_ms(graph.replay, flush_bytes=1)
+    return dict(device_ms=ms, kernel_nodes=ev["kernel_nodes"],
+                top=ev["top"][:4])
+
+
+def _latent_attention_ms(eng) -> dict:
+    """Device ms of one decode step's latent attention on ``eng``'s live
+    state (a running MLA engine): the participation-masked latent
+    attention of every layer over its latent cache (B 8, Smax 2048, r
+    512 + rope 64, bf16), at the lengths and participation the next step
+    reads, random queries; beside the dense-PAM GQA decode of as many
+    layers at like KV bytes (16 q / 2 kv heads of 128, 1,024 B a token
+    and layer against the latent's 1,152: ``masked_decode_attention``,
+    the merged decode kernel over the dense cache), on the same lengths
+    and participation. Each set is captured as one graph and replayed
+    under the profiler."""
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import pam_manager as pm
+    cfg, cache, st = eng.cfg, eng.cache, eng.pam_state
+    m, B, smax = cfg.mla, cache.lengths.shape[0], eng.scfg.max_len
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lens = torch.clamp(cache.lengths + 1, max=smax)
+    part = pm.participation_mask(eng.pam_cfg, st.importance, lens)
+    l_fn = pm.make_masked_latent_attn(part)
+    q_eff = torch.randn((B, cfg.n_heads, m.kv_lora_rank
+                         + m.qk_rope_head_dim), generator=gen,
+                        device="cuda").to(cache.ckv.dtype)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+    def latent():
+        for i in range(cfg.n_layers):
+            l_fn(q_eff, cache.ckv[i], cache.krope[i], lens, scale=scale)
+    H, Hkv, d = 16, 2, 128
+    kv = [torch.randn((B, Hkv, smax, d), generator=gen, device="cuda")
+          .to(torch.bfloat16) for _ in range(2)]
+    q = torch.randn((B, H, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def gqa():
+        for _ in range(cfg.n_layers):
+            ops.masked_decode_attention(q, kv[0], kv[1], part, lens)
+    live = int(torch.sum(part & (torch.arange(smax, device="cuda")[None]
+                                 < lens[:, None])))
+    token = (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+    return dict(latent=_graph_device_ms(latent),
+                gqa_like=dict(_graph_device_ms(gqa), heads=[H, Hkv],
+                              head_dim=d, kv_bytes_per_token_layer=2 * Hkv
+                              * d * 2),
+                layers=cfg.n_layers, participating_tokens=live,
+                kv_bytes_per_token_layer=token,
+                latent_read_bytes=live * token * cfg.n_layers,
+                latent_read_hbm_ms=live * token * cfg.n_layers
+                / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_engine_served(cfg, params, weights=None, layout=PAGED_RING,
+                        latent: bool = False) -> dict:
     """A full-width model on the card (bf16, random weights from seed 0,
-    its depth maybe cut: the cut is listed in ``reduced``), served paged
-    + ring with the serving phases' template (8 requests of 512-1024
-    prompt tokens, 64 new, batch 8, max_len 2048, block 16, ring 256,
-    ``_pam``'s PAM), decode through the graphs. Asserts 64 tokens a
-    request, each merged decode wrapper n_layers x the host-run body
-    steps and the stacked ones never, and each merged decode kernel of
-    the model's (head dim, group) n_layers times on the card in one
-    profiled replayed step. Prints decode tok/s, the steady step's wall
+    its depth maybe cut: the cut is listed in ``reduced``), served with
+    the serving phases' template (8 requests of 512-1024 prompt tokens,
+    64 new, batch 8, max_len 2048, ``_pam``'s PAM) on ``layout`` (paged
+    + ring, block 16, ring 256; ``{}``: dense PAM), decode through the
+    graphs. Asserts 64 tokens a request, each merged decode wrapper
+    n_layers x the host-run body steps and the stacked ones never, and
+    each merged decode kernel of the model's (head dim, group) n_layers
+    times on the card in one profiled replayed step; or, ``latent`` (an
+    MLA model, whose latent attention is plain tensor code as in the
+    reference), no decode wrapper called, no decode kernel on the card
+    in that step, the latent attention n_layers x the host-run body
+    steps, and its device ms a step (``_latent_attention_ms``). Prints
+    decode tok/s, the steady step's wall
     ms (``_steady_steps``: 4 steps after every graph is captured), the
     replays' device span over those steps and the device's idle share
     (one minus span over wall, the same window), the profiled step's
@@ -3367,25 +3554,38 @@ def phase_engine_served(cfg, params, weights=None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    g = _engine(cfg, params, 8, 64, max_batch=8, max_len=2048, **PAGED_RING)
-    t0 = time.perf_counter()
-    _warm_graphs(g)                      # admission, captures
-    warm_s = time.perf_counter() - t0
-    walls, span_s = _steady_steps(g)
-    step = _step_events(g.step)
-    summ = g.run()
+    calls = _LatentCalls() if latent else None
+    try:
+        g = _engine(cfg, params, 8, 64, max_batch=8, max_len=2048,
+                    **layout)
+        t0 = time.perf_counter()
+        _warm_graphs(g)                      # admission, captures
+        warm_s = time.perf_counter() - t0
+        walls, span_s = _steady_steps(g)
+        step = _step_events(g.step)
+        summ = g.run()
+    finally:
+        latent_calls = calls.close() if latent else None
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     lens = [len(rs.outputs) for rs in g.requests.values()]
     assert lens == [64] * 8, f"outputs per request {lens}"
     want = cfg.n_layers * g.decode_body_steps
-    _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
-                                                    want))
     group = cfg.n_heads // cfg.n_kv_heads
-    mine = _merged_instantiations(step, cfg.head_dim, group)
-    _assert_device_decode_counts(mine, DECODE_CUDA_KERNELS, cfg.n_layers)
+    if latent:
+        _assert_decode_launches(launches, {})
+        assert latent_calls == want, (f"latent attention called "
+                                      f"{latent_calls} times, want {want}")
+        mine = step["decode_kernels_on_device"]
+        _assert_device_decode_counts(mine, (), 0)
+    else:
+        _assert_decode_launches(launches, dict.fromkeys(
+            DECODE_KERNELS[:2], want))
+        mine = _merged_instantiations(step, cfg.head_dim, group)
+        _assert_device_decode_counts(mine, DECODE_CUDA_KERNELS,
+                                     cfg.n_layers)
     published = get_config(cfg.name).n_layers
-    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    kv_token = _kv_bytes_per_token(cfg)
     out = dict(card=_card(), arch=cfg.name, n_layers=cfg.n_layers,
                n_layers_published=published,
                reduced=([] if cfg.n_layers == published else
@@ -3413,7 +3613,13 @@ def phase_engine_served(cfg, params, weights=None) -> dict:
                blocks_touched_per_step=summ.get("blocks_touched_per_step"),
                blocks_window_per_step=summ.get("blocks_window_per_step"),
                launches=launches, decode_body_steps=g.decode_body_steps,
-               launches_expected=want)
+               launches_expected=want,
+               layout="paged_ring" if layout else "dense_pam")
+    if latent:
+        out.update(mla=dataclasses.asdict(cfg.mla),
+                   latent_attention_calls=latent_calls,
+                   latent_attention_expected=want,
+                   latent_attention=_latent_attention_ms(g))
     del g
     gc.collect()
     return out
@@ -3581,6 +3787,19 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     run("gqa_parity", phase_gqa_parity)
+    torch.cuda.empty_cache()
+    mla = None
+    try:            # deepseek-v2-lite-16b at full width and depth
+        mla = _model("bfloat16", MLA_ARCH)
+    except Exception as exc:
+        failed.append("model_mla")
+        emit("model_mla", ok=False, error=repr(exc))
+    if mla is not None:
+        run(_engine_phase(MLA_ARCH), phase_engine_moe, *mla, {}, True)
+        del mla
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("mla_parity", phase_mla_parity)
     torch.cuda.empty_cache()
     run("train", phase_train)
     torch.cuda.empty_cache()

@@ -44,7 +44,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
     parameter dict (same keys, same shapes and dtypes: the SSM family's
     fp32 ``dt_bias``, ``a_log`` and ``d_skip`` and the MoE family's fp32
     ``router`` stay fp32 in a bf16 model; the MoE's zero-size shared
-    leaves cross as they are)."""
+    leaves cross as they are; an MLA model's ``layers/mla`` holds the
+    stacked ``MLAParams`` fields)."""
     _require_ported(cfg)
     return _tree(tree, resolve_device(device))
 
@@ -52,7 +53,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
 def cache_from_jax(cache: Any,
                    device: str | torch.device | None = None) -> DecodeCache:
     """A reference ``DecodeCache`` (the dense family's ``k``/``v`` and
-    pools, the SSM family's ``conv``/``state``) as the port's."""
+    pools, the MLA family's latent ``ckv``/``krope``, the SSM family's
+    ``conv``/``state``) as the port's, field by field by name."""
     dev = resolve_device(device)
     return DecodeCache(*(to_tensor(getattr(cache, f), dev)
                          for f in DecodeCache._fields))

@@ -4,6 +4,7 @@ Importing this package registers every config; select with
 ``repro_torch.models.config.get_config(name)`` or ``--arch <id>``.
 """
 
-from repro_torch.configs import (deepseek_67b, mamba2_780m,  # noqa: F401
+from repro_torch.configs import (deepseek_67b,  # noqa: F401
+                                 deepseek_v2_lite_16b, mamba2_780m,
                                  minicpm_2b, pam_llama_7b, qwen3_0_6b,
                                  qwen3_14b, qwen3_moe_235b_a22b)

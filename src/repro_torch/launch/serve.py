@@ -12,7 +12,11 @@ depth, and ``--layers`` cuts the depth); the wider dense models are
 ``--arch qwen3-14b`` (GQA group 5; its 40 layers fit one card),
 ``--arch minicpm-2b`` (MHA, head dim 64) and ``--arch deepseek-67b``
 (group 8; 95 layers, about 135 GB in bf16, so one card takes it with
-``--layers 20``); ``--reduced --device cpu`` runs
+``--layers 20``); ``--arch deepseek-v2-lite-16b`` serves the MLA
+mixture-of-experts model (latent KV cache, 64 experts top-6 + 2 shared;
+27 layers, 32.4 GB in bf16, one card at full depth) on the dense layout
+only, as the reference does: ``--block-size`` / ``--hot-window`` raise
+its ``ValueError``; ``--reduced --device cpu`` runs
 the smoke-size model on the CPU; ``--temperature``/``--top-k`` sample, ``--prefill-chunk``
 admits long prompts in slices. The flags mirror ``repro.launch.serve``'s batch mode; the defaults are sized
 for the GPU (8 requests of 512 prompt tokens, 64 new tokens each,

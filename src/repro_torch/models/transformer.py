@@ -1,9 +1,11 @@
-"""Model assembly for the dense, GQA MoE and SSM families: init, the
+"""Model assembly for the dense, MoE and SSM families: init, the
 training forward and loss, prefill, decode.
 
 Counterpart of ``repro.models.transformer`` (dense GQA family, the GQA
 mixture-of-experts family — attention as dense, the FFN routed by
-``models/moe.py`` — and the Mamba-2 ``ssm`` family). Layer parameters
+``models/moe.py`` — the MLA mixture-of-experts family, served only —
+``params["layers"]["mla"]`` in place of ``attn``, a latent decode cache
+— and the Mamba-2 ``ssm`` family). Layer parameters
 are stacked on a leading axis exactly as in the JAX pytree —
 ``params["layers"]["attn"]["wq"]`` is (L, d, H*dh) in the ``x @ W``
 orientation, ``params["layers"]["moe"]`` the stacked ``MoEParams``
@@ -13,7 +15,8 @@ fields (zero-size shared leaves without shared experts),
 a Python loop over per-layer views of that axis, each leaf unbound once
 (``_layers``; ``remat`` checkpoints each layer with
 ``torch.utils.checkpoint``).
-Other families raise ``NotImplementedError`` naming their ROADMAP item.
+Other families raise ``NotImplementedError`` naming their ROADMAP item,
+and so do ``forward`` / ``loss_fn`` on an MLA model.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
@@ -48,15 +52,22 @@ def _gqa_moe(cfg: ModelConfig) -> bool:
             and cfg.mla is None)
 
 
+def _mla_moe(cfg: ModelConfig) -> bool:
+    """The MoE family on MLA attention (a latent decode cache)."""
+    return (cfg.family == "moe" and cfg.moe is not None
+            and cfg.mla is not None)
+
+
 def _require_ported(cfg: ModelConfig) -> None:
-    """The dense family (GQA, no MoE / MLA), the GQA MoE family and the
-    pure SSM family are ported; the others raise."""
+    """The dense family (GQA, no MoE / MLA), the GQA and MLA MoE
+    families and the pure SSM family are ported; the others raise."""
     dense = (cfg.family == "dense" and cfg.moe is None and cfg.mla is None)
-    if not (dense or _gqa_moe(cfg)
+    if not (dense or _gqa_moe(cfg) or _mla_moe(cfg)
             or (cfg.family == "ssm" and cfg.ssm is not None)):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 7: mla, hybrid, vlm, audio)")
+            f"(ROADMAP Queue 1 item 7: hybrid, vlm, audio)")
+
 
 
 # ============================================================ init
@@ -101,6 +112,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
             "ln": ones(L, d),
             "ssm": {f: torch.stack([getattr(p, f) for p in layers])
                     for f in ssm_mod.SSMParams._fields}}
+    elif _mla_moe(cfg):     # MLA in place of attn, the routed FFN
+        layers = [mla_mod.init_mla(gen, d, H, cfg.mla, dtype, dev)
+                  for _ in range(L)]
+        params["layers"] = {
+            "ln1": ones(L, d), "ln2": ones(L, d),
+            "mla": {f: torch.stack([getattr(p, f) for p in layers])
+                    for f in mla_mod.MLAParams._fields},
+            "moe": moe()}
     else:
         nd = dh if cfg.qk_norm else 0
         params["layers"] = {
@@ -158,6 +177,11 @@ def _moe(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     return moe_mod.moe_forward(_moe_params(lp), h, cfg.moe)[0]
 
 
+def _mla_params(lp: Params) -> mla_mod.MLAParams:
+    return mla_mod.MLAParams(**{f: lp["mla"][f]
+                                for f in mla_mod.MLAParams._fields})
+
+
 def _ssm_params(lp: Params) -> ssm_mod.SSMParams:
     return ssm_mod.SSMParams(**{f: lp["ssm"][f]
                                 for f in ssm_mod.SSMParams._fields})
@@ -203,6 +227,10 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
     kernel runs twice per layer and step; the stacked leaves are unbound
     once, outside the checkpoints (``_layers``)."""
     _require_ported(cfg)
+    if _mla_moe(cfg):        # served only
+        raise NotImplementedError(
+            f"{cfg.name}: the MLA forward / loss / train step is not "
+            f"ported yet (ROADMAP Queue 1 item 14); the port serves it")
     if activation_spec is not None:
         raise NotImplementedError(
             "activation_spec (sequence-parallel residual sharding) is not "
@@ -248,7 +276,9 @@ class DecodeCache(NamedTuple):
 
     ``k``/``v`` are the hot-tier buffers of the dense family — a ring of W
     slots when the engine runs a hot window (position p at slot ``p %
-    W``), else W = Smax. ``conv``/``state`` are the SSM family's conv ring
+    W``), else W = Smax. ``ckv``/``krope`` are the MLA family's latent
+    cache (the normed latent and the roped shared key of each token).
+    ``conv``/``state`` are the SSM family's conv ring
     and fp32 recurrent state. ``pk``/``pv`` are the paged warm/cold pools
     (final physical block a write sentinel), size-0 unless created with
     paged blocks. Decode steps write these tensors in place.
@@ -260,6 +290,8 @@ class DecodeCache(NamedTuple):
     pk: torch.Tensor         # (L, NB+1, bs, Hkv, dh) or size 0
     pv: torch.Tensor
     lengths: torch.Tensor    # (B,) int32 tokens already cached
+    ckv: torch.Tensor        # (L, B, Smax, r) or size 0
+    krope: torch.Tensor      # (L, B, Smax, dr) or size 0
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -270,8 +302,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """Zero decode cache for ``batch`` sequences of up to ``max_len``
     tokens; ``paged_blocks`` > 0 adds the pools, ``hot_window`` > 0
     shrinks ``k``/``v`` to a ring (which needs the pools). The SSM
-    family keeps ``conv``/``state`` instead of ``k``/``v`` and refuses
-    pools, as the reference does."""
+    family keeps ``conv``/``state`` instead of ``k``/``v``, the MLA
+    family ``ckv``/``krope``; both refuse pools, as the reference
+    does."""
     _require_ported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
@@ -285,6 +318,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         return torch.zeros(shape, dtype=dt, device=dev)
 
     k, v, conv, state, pk, pv = z(0), z(0), z(0), z(0), z(0), z(0)
+    ckv, krope = z(0), z(0)
     if paged_blocks:
         if not (cfg.family == "dense" or _gqa_moe(cfg)):
             raise ValueError(f"paged KV pools require a GQA k/v cache; "
@@ -296,11 +330,15 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         conv = z(L, batch, cfg.ssm.conv_kernel - 1, conv_dim)
         state = z(L, batch, H, cfg.ssm.d_state, cfg.ssm.head_dim,
                   dt=torch.float32)
+    elif _mla_moe(cfg):
+        ckv = z(L, batch, max_len, cfg.mla.kv_lora_rank)
+        krope = z(L, batch, max_len, cfg.mla.qk_rope_head_dim)
     else:
         k, v = z(L, batch, Hkv, kv_len, dh), z(L, batch, Hkv, kv_len, dh)
     return DecodeCache(k=k, v=v, conv=conv, state=state, pk=pk, pv=pv,
                        lengths=torch.zeros(batch, dtype=torch.int32,
-                                           device=dev))
+                                           device=dev),
+                       ckv=ckv, krope=krope)
 
 
 # ============================================================ prefill
@@ -338,6 +376,16 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             cache.conv[i] = c.conv
             cache.state[i] = c.state
             x = x + out
+            continue
+        if _mla_moe(cfg):
+            attn_out, ckv, krp = mla_mod.mla_prefill(
+                _mla_params(lp), rms_norm(x, lp["ln1"], cfg.rms_eps),
+                cfg.mla, n_heads=cfg.n_heads, rope_theta=cfg.rope_theta,
+                rms_eps=cfg.rms_eps, causal=cfg.causal)
+            cache.ckv[i, :, :S] = ckv
+            cache.krope[i, :, :S] = krp
+            x = x + attn_out
+            x = x + _moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
             continue
         hn = rms_norm(x, lp["ln1"], cfg.rms_eps)
         attn_out, k, v = attn_mod.attention_prefill(
@@ -417,7 +465,8 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: DecodeCache, *,
                 decode_attn_fn: Optional[Callable] = None,
-                paged_append: Optional[tuple] = None
+                paged_append: Optional[tuple] = None,
+                latent_attn_fn: Optional[Callable] = None
                 ) -> tuple[torch.Tensor, DecodeCache, Optional[torch.Tensor]]:
     """One autoregressive step. tokens: (B,) int. Returns (logits (B, V),
     cache with lengths + 1, scores (B, Smax) or None) — ``scores`` is the
@@ -429,6 +478,9 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     sentinel for inactive rows) must be given; each layer then mirrors
     its appended K/V into the pool and ``decode_attn_fn`` is called with
     the layer's pool slices ``(q, k_cache, v_cache, pk, pv, kv_lens)``.
+    The MLA family writes its latent cache in place and calls
+    ``latent_attn_fn`` (default ``mla.mla_latent_decode_attn``; the
+    engine's participation-masked one) in place of ``decode_attn_fn``.
     """
     _require_ported(cfg)
     d_fn = decode_attn_fn or attn_mod.dense_decode_attn
@@ -449,6 +501,20 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             cache.state[i] = new.state
             x = x + out
         scores = None
+    elif _mla_moe(cfg):
+        l_fn = latent_attn_fn or mla_mod.mla_latent_decode_attn
+        masses = []
+        for i, lp in enumerate(layers):
+            attn_out, mass, _, _ = mla_mod.mla_decode(
+                _mla_params(lp), rms_norm(x, lp["ln1"], cfg.rms_eps),
+                cache.ckv[i], cache.krope[i], lens, cfg.mla,
+                n_heads=cfg.n_heads, rope_theta=cfg.rope_theta,
+                rms_eps=cfg.rms_eps, latent_attn_fn=l_fn)
+            x = x + attn_out
+            masses.append(mass)
+            hn = rms_norm(x, lp["ln2"], cfg.rms_eps)
+            x = x + _moe(cfg, lp, hn[:, None])[:, 0]
+        scores = torch.mean(torch.stack(masses), dim=0)
     else:
         masses = []
         for i, lp in enumerate(layers):

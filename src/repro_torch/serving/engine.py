@@ -39,6 +39,14 @@ ones included) reach the model in the reference's shapes:
   into the slot, and feeds the importance EMA recency-only scores (the
   reference's, for an attention-free model). It refuses paged pools and
   the hot ring, as the reference does.
+* The MLA mixture-of-experts family (``deepseek-v2-lite-16b``) serves on
+  the dense layout only, as in the reference: its cache is one latent
+  and one shared rope key a token (``ckv`` / ``krope``), which the
+  commit scatters into the slot; each decode step attends over the
+  participating latent tokens (``pam_manager.make_masked_latent_attn``,
+  plain tensor code as the reference's einsums) and PAM's importance,
+  tiers and Alg. 2 run on latent tokens. Pools (hence the ring, the
+  prefix cache and chunked prefill) and migration refuse it.
 * A decode dispatch runs ``k`` such steps (``micro_steps = k``: the
   largest power of two no running request overshoots) and reads one
   ``StepBufs`` back, which synchronises with the device. On CUDA the
@@ -694,15 +702,19 @@ class ServingEngine:
                 table_rows: Optional[torch.Tensor]) -> torch.Tensor:
         """Install a prefilled group (the reference's admission commit):
         pool write of the full logical rows, ring re-layout of the last
-        ``hot_window`` tokens, slot scatter (K/V, or the SSM conv ring and
-        state), first tokens sampled at position ``lens[i]``, PAM
-        placement. Returns the first tokens (n,)."""
+        ``hot_window`` tokens, slot scatter (K/V, the MLA latent and rope
+        key, or the SSM conv ring and state), first tokens sampled at
+        position ``lens[i]``, PAM placement. Returns the first tokens
+        (n,)."""
         idx = torch.as_tensor(slots, device=self.device)
         lengths = torch.as_tensor(lens, device=self.device)
         firsts = self._sample(logits, rids, lengths)
         if self.cfg.family == "ssm":
             self.cache.conv[:, idx] = sub.conv
             self.cache.state[:, idx] = sub.state
+        elif tf._mla_moe(self.cfg):
+            self.cache.ckv[:, idx] = sub.ckv
+            self.cache.krope[:, idx] = sub.krope
         else:
             self._commit_kv(sub, slots, lengths, table_rows, idx)
         self.cache.lengths[idx] = lengths
@@ -1026,9 +1038,11 @@ class ServingEngine:
             bufs.blocks[i, 1] = torch.sum(window & act)
         else:
             d_fn = pm.make_masked_decode_attn(participate)
+        l_fn = (pm.make_masked_latent_attn(participate)
+                if tf._mla_moe(cfg) else None)
         logits, stepped, scores = tf.decode_step(
             cfg, self.params, tokens, cache, decode_attn_fn=d_fn,
-            paged_append=paged_append)
+            paged_append=paged_append, latent_attn_fn=l_fn)
         # inactive slots keep their lengths
         cache.lengths.copy_(torch.where(active, stepped.lengths,
                                         cache.lengths))
@@ -1399,6 +1413,7 @@ class ServingEngine:
         return {rid: float(mass[slot]) for slot, rid in running}
 
     def _require_migratable(self) -> None:
+        # an MLA model's latent cache leaves k empty: refused here too
         if self.cache.k.numel() == 0 or self.cache.conv.numel() > 0:
             raise ValueError(f"{self.cfg.name}: KV migration requires a "
                              f"pure GQA decode cache")

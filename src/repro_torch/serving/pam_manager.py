@@ -91,6 +91,23 @@ def make_masked_decode_attn(participate: torch.Tensor):
     return d_fn
 
 
+def make_masked_latent_attn(participate: torch.Tensor):
+    """MLA flavour: absorbed attention over the participating latent
+    tokens (plain tensor code, as the reference's einsums); signature
+    ``mla_latent_decode_attn``'s. The mass is the head-mean probability
+    times the live count (not ``kv_lens``, as the unmasked one)."""
+    def l_fn(q_eff, kv_latent, k_rope, kv_lens, *, scale):
+        from repro_torch.models.mla import latent_attention
+        Smax = kv_latent.shape[1]
+        live = ((torch.arange(Smax, device=q_eff.device)[None, :]
+                 < kv_lens[:, None]) & participate)
+        out, p = latent_attention(q_eff, kv_latent, k_rope, live, scale)
+        n_live = torch.sum(live, dim=-1, keepdim=True).float()
+        return out, torch.mean(p, dim=1) * n_live
+
+    return l_fn
+
+
 def make_paged_decode_attn(hot_mask: torch.Tensor, paged_mask: torch.Tensor,
                            block_table: torch.Tensor,
                            block_live: torch.Tensor):

@@ -249,8 +249,9 @@ def test_config_matches_reference():
         dataclasses.asdict(reduced(get_config(ARCH)))
 
 
-PORT_CONFIGS = ["deepseek-67b", "mamba2-780m", "minicpm-2b", "pam-llama-7b",
-                "qwen3-0.6b", "qwen3-14b", ARCH]
+PORT_CONFIGS = ["deepseek-67b", "deepseek-v2-lite-16b", "mamba2-780m",
+                "minicpm-2b", "pam-llama-7b", "qwen3-0.6b", "qwen3-14b",
+                ARCH]
 
 
 @pytest.mark.parametrize("arch", PORT_CONFIGS)
@@ -455,12 +456,12 @@ def test_params_from_jax_carries_the_moe_subtree(num_shared):
 
 
 def test_mla_moe_names_its_roadmap_item():
-    """The MoE family on MLA attention is not ported: it raises naming
-    ROADMAP Queue 1 item 7."""
-    mla = tcfg.reduced(tcfg.get_config(ARCH))
-    mla = dataclasses.replace(mla, mla=tcfg.MLAConfig())
+    """A family that stays unported (here the vision-language one) raises
+    naming ROADMAP Queue 1 item 7."""
+    vlm = tcfg.reduced(tcfg.get_config(ARCH))
+    vlm = dataclasses.replace(vlm, family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        ttf.init_params(mla, 0, device="cpu")
+        ttf.init_params(vlm, 0, device="cpu")
 
 
 # ------------------------------------------------------------ kernels
@@ -491,6 +492,8 @@ for n in names:
     importlib.import_module(n)
 assert "repro_torch.models.moe" in names, names
 assert "repro_torch.configs.qwen3_moe_235b_a22b" in names, names
+assert "repro_torch.models.mla" in names, names
+assert "repro_torch.configs.deepseek_v2_lite_16b" in names, names
 bad = sorted(n for n in sys.modules
              if n in ("jax", "repro", "triton")
              or n.startswith(("jax.", "repro.", "triton.")))
@@ -501,8 +504,8 @@ print("walked", len(names))
 
 def test_import_walk_reaches_the_moe_module():
     """The port's import walk (as ``tests/test_torch_engine.py`` does it)
-    reaches the MoE module and config and loads neither JAX, the
-    reference package nor triton."""
+    reaches the MoE and MLA modules and their configs and loads neither
+    JAX, the reference package nor triton."""
     out = subprocess.run([sys.executable, "-c", _WALK], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
