@@ -23,7 +23,10 @@ final ``ok`` line:
             qwen3-moe-235b-a22b's GQA group 16, keys ending ``_g16``, at
             H 40, Hkv 8 (qwen3-14b's group 5, ``_g5``), H 64, Hkv 8
             (deepseek-67b's group 8, ``_g8``) and H 36, Hkv 36, d 64
-            (minicpm-2b's MHA at head dim 64, ``_d64``); attention:
+            (minicpm-2b's MHA at head dim 64, ``_d64``); the merged
+            dense kernel at S 2048 and the merged paged one at H 32, Hkv
+            32, d 112 (zamba2-7b's group 1 at head dim 112, ``_d112``;
+            the paged row lies on no model's path); attention:
             the train shape in bf16 through the wgmma
             kernels, also S 1000 non-causal, and the CUDA-core kernels in
             fp32 at train_parity's B 2, S 500; ssd_scan: the wgmma kernels
@@ -207,6 +210,28 @@ final ``ok`` line:
             requests through 4 slots, one of them to max_len exactly, at
             micro_steps 1 and 4 (graphs); no decode wrapper called, the
             latent attention n_layers x the host-run body steps
+  engine_zamba2_7b   the hybrid family at full width and full depth
+            (zamba2-7b: 13 groups of 5 Mamba-2 layers, each followed by
+            one shared attention + MLP block with its own KV cache site,
+            then 3 Mamba-2 layers, 81 blocks; 32 q / 32 kv heads of 112,
+            d 3584, vocab 32000; random weights from seed 0, bf16, 11.47
+            GB), served on dense PAM (pools are refused, as in the
+            reference) with the serving template, decode through the
+            graphs; asserts 64 tokens a request, flash_decode_merged
+            n_groups (13) x the host-run body steps and the paged and
+            stacked wrappers never, and the (112, 1) merged kernel 13
+            times on the card in one profiled replayed step; prints the
+            engine phases' readings with the KV bytes a token (13 sites),
+            the weight bytes a step (the shared block read at each of
+            its 13 sites) and the recurrent state's bytes a sequence
+            (fp32 state and bf16 conv ring, read and written every step)
+  hybrid_parity  reduced zamba2-7b (2 groups of 1 Mamba-2 layer + a
+            tail layer, 4 q / 2 kv heads of 16), and the same with 4 q /
+            4 kv heads of 112, in fp32, TF32 off: the engine on the card
+            and on the CPU give equal greedy streams on dense PAM, 6
+            requests through 4 slots, one of them to max_len exactly, at
+            micro_steps 1 and 4 (graphs); flash_decode_merged n_groups x
+            the host-run body steps, the paged wrapper never
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
@@ -3256,8 +3281,8 @@ def _card_cpu_streams(cfg, layout=PARITY_RING, fill: bool = False,
     ``micro_steps`` a dispatch. Returns the heads, whether the streams
     are equal, the first divergence (the position and both runs' top-2
     margins there), the tokens, the card's decode wrapper calls and its
-    latent attention calls (an MLA model) beside n_layers x its host-run
-    body steps."""
+    latent attention calls (an MLA model) beside its attention sites
+    (``_attention_sites``) x its host-run body steps."""
     import numpy as np
     import torch
     from repro_torch import tree
@@ -3306,7 +3331,8 @@ def _card_cpu_streams(cfg, layout=PARITY_RING, fill: bool = False,
                 prompt_lens=[len(p) for p in prompts],
                 micro_steps=micro_steps, decode_dispatches=dispatches,
                 decode_body_steps=body, latent_calls=latent_calls,
-                launches=launches, launches_expected=cfg.n_layers * body)
+                launches=launches,
+                launches_expected=_attention_sites(cfg) * body)
 
 
 def _assert_parity_line(key: str, line: dict) -> None:
@@ -3332,6 +3358,7 @@ def phase_moe_parity() -> dict:
 
 
 MLA_ARCH = "deepseek-v2-lite-16b"
+HYBRID_ARCH = "zamba2-7b"
 
 
 class _LatentCalls:
@@ -3382,6 +3409,48 @@ def phase_mla_parity() -> dict:
                                             f"differ: {line['divergence']}")
     assert (out["micro_steps_4"]["decode_dispatches"]
             < out["micro_steps_1"]["decode_dispatches"]), out
+    return out
+
+
+def _attention_sites(cfg) -> int:
+    """Attention calls a decode step makes: a hybrid model's n_groups
+    shared-attention sites, else one a layer."""
+    return cfg.hybrid.n_groups if cfg.hybrid is not None else cfg.n_layers
+
+
+def _hybrid_parity_cfgs() -> dict:
+    """Reduced zamba2-7b (4 q / 2 kv heads of 16) and the same with 4 q /
+    4 kv heads of 112 (the (112, 1) decode kernels inside the engine)."""
+    from repro_torch.models.config import get_config, reduced
+    cfg = reduced(get_config(HYBRID_ARCH))
+    return {"reduced": cfg,
+            "d112": dataclasses.replace(cfg, name=cfg.name + "-d112",
+                                        n_heads=4, n_kv_heads=4,
+                                        d_head=112)}
+
+
+def phase_hybrid_parity() -> dict:
+    """The port's hybrid engine on the card and on the CPU give equal
+    greedy streams (``_card_cpu_streams``: fp32, TF32 off, dense PAM, 6
+    requests through 4 slots, one of them to max_len exactly) at
+    ``_hybrid_parity_cfgs``' two widths and at micro_steps 1 and 4,
+    decode through the graphs. flash_decode_merged is called n_groups x
+    the host-run body steps and no other decode wrapper. A stream that
+    differs fails the phase with the position and both runs' top-2
+    margins there."""
+    out = dict(dtype="float32", tf32=False, layout="dense_pam")
+    for name, cfg in _hybrid_parity_cfgs().items():
+        for k in (1, 4):
+            key = f"{name}_micro_steps_{k}"
+            line = out[key] = _card_cpu_streams(cfg, {}, fill=True,
+                                                micro_steps=k)
+            _assert_decode_launches(line["launches"], {
+                "flash_decode_merged": line["launches_expected"]})
+            assert line["launches_expected"] > 0, line
+            assert line["divergence"] is None, (
+                f"{key}: card and CPU streams differ: {line['divergence']}")
+        assert (out[f"{name}_micro_steps_4"]["decode_dispatches"]
+                < out[f"{name}_micro_steps_1"]["decode_dispatches"]), out
     return out
 
 
@@ -3444,11 +3513,51 @@ def _merged_instantiations(step: dict, d: int, rep: int) -> dict:
 
 def _kv_bytes_per_token(cfg) -> int:
     """Decode-cache bytes (bf16) a token holds over all layers: K and V
-    of each kv head, or an MLA model's latent and shared rope key."""
+    of each kv head at each attention site (a hybrid model's n_groups),
+    or an MLA model's latent and shared rope key."""
     if cfg.mla is not None:
         return cfg.n_layers * (cfg.mla.kv_lora_rank
                                + cfg.mla.qk_rope_head_dim) * 2
-    return 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    return 2 * _attention_sites(cfg) * cfg.n_kv_heads * cfg.head_dim * 2
+
+
+def _hybrid_weights(cfg) -> dict:
+    """bf16 weight bytes of the hybrid model and of what one decode step
+    reads: every matrix but the untied input embedding (a row a slot),
+    with the shared attention + MLP block read once at each of its
+    n_groups sites; and the shared block alone, once and at every site;
+    each with its time at the HBM rate."""
+    d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    shared = (2 * d * hd + 2 * d * kvd + 3 * d * cfg.d_ff + 2 * d) * 2
+    total = cfg.param_count() * 2
+    sites = cfg.hybrid.n_groups
+    read = (total - (0 if cfg.tie_embeddings else cfg.vocab * d * 2)
+            + (sites - 1) * shared)
+    return {k: dict(bytes=v, hbm_ms=v / HBM_BYTES_PER_S * 1e3)
+            for k, v in (("all", total), ("read_per_step", read),
+                         ("shared_block", shared),
+                         ("shared_block_all_sites", sites * shared))}
+
+
+def _recurrent_bytes(cfg, batch: int = 8) -> dict:
+    """A hybrid model's recurrent decode state: the fp32 SSD state (H, N,
+    P) and the bf16 conv ring (conv_kernel - 1, conv_dim) of every
+    Mamba-2 layer, bytes a sequence, and the bytes a decode step at
+    ``batch`` reads and writes (each once each way) beside their time at
+    the HBM rate."""
+    ssm, hb = cfg.ssm, cfg.hybrid
+    layers = hb.n_groups * hb.mamba_per_group + hb.tail_mamba
+    di = ssm.d_inner(cfg.d_model)
+    H = ssm.n_heads(cfg.d_model)
+    conv_dim = di + 2 * ssm.n_groups * ssm.d_state
+    state = layers * H * ssm.d_state * ssm.head_dim * 4
+    conv = layers * (ssm.conv_kernel - 1) * conv_dim * 2
+    step = 2 * batch * (state + conv)
+    return dict(mamba_layers=layers, state_bytes_per_seq=state,
+                conv_bytes_per_seq=conv, batch=batch,
+                read_write_bytes_per_step=step,
+                read_write_hbm_ms=step / HBM_BYTES_PER_S * 1e3)
 
 
 def _graph_device_ms(fn) -> dict:
@@ -3531,10 +3640,12 @@ def phase_engine_served(cfg, params, weights=None, layout=PAGED_RING,
     the serving phases' template (8 requests of 512-1024 prompt tokens,
     64 new, batch 8, max_len 2048, ``_pam``'s PAM) on ``layout`` (paged
     + ring, block 16, ring 256; ``{}``: dense PAM), decode through the
-    graphs. Asserts 64 tokens a request, each merged decode wrapper
-    n_layers x the host-run body steps and the stacked ones never, and
-    each merged decode kernel of the model's (head dim, group) n_layers
-    times on the card in one profiled replayed step; or, ``latent`` (an
+    graphs. Asserts 64 tokens a request, each merged decode wrapper of
+    the layout (dense PAM: flash_decode_merged only) attention sites x
+    the host-run body steps (sites: ``_attention_sites``, n_layers but
+    for a hybrid model's n_groups) and the others never, and each merged
+    decode kernel of the layout at the model's (head dim, group) once a
+    site on the card in one profiled replayed step; or, ``latent`` (an
     MLA model, whose latent attention is plain tensor code as in the
     reference), no decode wrapper called, no decode kernel on the card
     in that step, the latent attention n_layers x the host-run body
@@ -3547,7 +3658,8 @@ def phase_engine_served(cfg, params, weights=None, layout=PAGED_RING,
     (``weights``, default ``_dense_weights``) beside their time at the
     HBM rate, KV bytes a token and read a step (the tier reads, tokens
     over the run, times a token's bytes, over the decode steps), and the
-    pool blocks read a step."""
+    pool blocks read a step; for a hybrid model also its attention sites
+    and its recurrent state's bytes (``_recurrent_bytes``)."""
     import numpy as np
     import torch
     from repro_torch.models.config import get_config
@@ -3570,8 +3682,10 @@ def phase_engine_served(cfg, params, weights=None, layout=PAGED_RING,
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     lens = [len(rs.outputs) for rs in g.requests.values()]
     assert lens == [64] * 8, f"outputs per request {lens}"
-    want = cfg.n_layers * g.decode_body_steps
+    sites = _attention_sites(cfg)
+    want = sites * g.decode_body_steps
     group = cfg.n_heads // cfg.n_kv_heads
+    used = 2 if layout else 1          # dense PAM: the dense kernel only
     if latent:
         _assert_decode_launches(launches, {})
         assert latent_calls == want, (f"latent attention called "
@@ -3580,10 +3694,10 @@ def phase_engine_served(cfg, params, weights=None, layout=PAGED_RING,
         _assert_device_decode_counts(mine, (), 0)
     else:
         _assert_decode_launches(launches, dict.fromkeys(
-            DECODE_KERNELS[:2], want))
+            DECODE_KERNELS[:used], want))
         mine = _merged_instantiations(step, cfg.head_dim, group)
-        _assert_device_decode_counts(mine, DECODE_CUDA_KERNELS,
-                                     cfg.n_layers)
+        _assert_device_decode_counts(mine, DECODE_CUDA_KERNELS[:used],
+                                     sites)
     published = get_config(cfg.name).n_layers
     kv_token = _kv_bytes_per_token(cfg)
     out = dict(card=_card(), arch=cfg.name, n_layers=cfg.n_layers,
@@ -3615,6 +3729,9 @@ def phase_engine_served(cfg, params, weights=None, layout=PAGED_RING,
                launches=launches, decode_body_steps=g.decode_body_steps,
                launches_expected=want,
                layout="paged_ring" if layout else "dense_pam")
+    if cfg.hybrid is not None:
+        out.update(hybrid=dataclasses.asdict(cfg.hybrid),
+                   attention_sites=sites, recurrent=_recurrent_bytes(cfg))
     if latent:
         out.update(mla=dataclasses.asdict(cfg.mla),
                    latent_attention_calls=latent_calls,
@@ -3647,6 +3764,9 @@ def _decode_rows(tag: str = "", heads=(16, 8), d: int = 128) -> dict:
 # group 16), the decode kernels' wide path; its kernels-phase rows end in
 # ``_g16``
 G16_HEADS = (64, 4)
+D112 = "_d112"                  # tag of zamba2-7b's kernels-phase rows
+
+
 def _engine_phase(arch: str) -> str:
     return "engine_" + arch.replace("-", "_").replace(".", "_")
 
@@ -3657,6 +3777,14 @@ def phase_kernels() -> dict:
     for arch, (_, tag, _) in WIDE_DENSE.items():
         H, Hkv, d = _wide_heads(arch)
         out.update(_decode_rows(tag, (H, Hkv), d))
+    # zamba2-7b's attention (32 q / 32 kv heads of 112): the merged dense
+    # kernel its engine runs, and the merged paged one (no path: the
+    # hybrid refuses pools)
+    H, Hkv, d = _wide_heads(HYBRID_ARCH)
+    out[f"flash_decode_merged_2048{D112}"] = kernel_flash_decode(
+        2048, True, (H, Hkv), d)
+    out[f"flash_decode_paged_merged{D112}"] = kernel_flash_decode_paged(
+        True, (H, Hkv), d)
     for S, causal in ((TRAIN_S, True), (1000, False)):
         r = kernel_flash_attention(S, causal)
         tag = "2048" if causal else "ragged_1000_noncausal"
@@ -3801,6 +3929,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     run("mla_parity", phase_mla_parity)
     torch.cuda.empty_cache()
+    hybrid = None
+    try:            # zamba2-7b at full width and depth
+        hybrid = _model("bfloat16", HYBRID_ARCH)
+    except Exception as exc:
+        failed.append("model_hybrid")
+        emit("model_hybrid", ok=False, error=repr(exc))
+    if hybrid is not None:
+        run(_engine_phase(HYBRID_ARCH), phase_engine_served, *hybrid,
+            _hybrid_weights(hybrid[0]), {})
+        del hybrid
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("hybrid_parity", phase_hybrid_parity)
+    torch.cuda.empty_cache()
     run("train", phase_train)
     torch.cuda.empty_cache()
     run("profile_train", phase_profile_train)
@@ -3846,7 +3988,8 @@ def main() -> int:
 
     def add_row(key, src, replaces, launches):
         k = kernels[key]
-        tag = next((t for t in ("_g16", *(w[1] for w in WIDE_DENSE.values()))
+        tag = next((t for t in ("_g16", D112,
+                                *(w[1] for w in WIDE_DENSE.values()))
                     if key.endswith(t)), "")
         row = dict(
             name=k["name"] + tag, route="cuda",
@@ -3956,6 +4099,25 @@ def main() -> int:
                 "launches"][name]
             row["launches_gqa_parity"] = results["gqa_parity"][arch][
                 "launches"][name]
+    # the hybrid family: zamba2-7b's merged dense kernel from its engine
+    # phase and hybrid_parity's head-dim-112 variant; the paged one lies
+    # on no path (the hybrid refuses pools)
+    hyb = results[_engine_phase(HYBRID_ARCH)]
+    row = add_row(f"flash_decode_merged_2048{D112}", "flash_decode.cu",
+                  "flash_decode.py:98",
+                  hyb["launches"]["flash_decode_merged"])
+    row["launches_in"] = _engine_phase(HYBRID_ARCH)
+    row[f"device_launches_{_engine_phase(HYBRID_ARCH)}_step"] = hyb[
+        "merged_kernels_on_device"][DECODE_CUDA_KERNELS[0]]
+    row["launches_hybrid_parity_d112"] = sum(
+        results["hybrid_parity"][f"d112_micro_steps_{k}"]["launches"][
+            "flash_decode_merged"] for k in (1, 4))
+    row = add_row(f"flash_decode_paged_merged{D112}", "flash_decode_paged.cu",
+                  "flash_decode.py:202",
+                  hyb["launches"]["flash_decode_paged_merged"])
+    row["note"] = ("on no model's path: the hybrid family refuses paged "
+                   "pools, as the reference does; built from the shared "
+                   "(head dim, group) list and held to its plain version")
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

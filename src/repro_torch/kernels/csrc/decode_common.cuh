@@ -33,7 +33,8 @@
 //      the warp's rows of a head by shuffles in a 16-lane segment, the
 //      running (m, l) in registers, so the warps never wait on each other
 //      inside a tile (two block barriers a tile, both for the staging);
-//   5. PV, one lane per output dimension (4 of them at head dim 128), P
+//   5. PV, one lane per output dimension (4 of them at head dim 128; at
+//      head dim 112 lanes 0-27 hold 4 and lanes 28-31 none), P
 //      broadcast by shuffle from the lane that scored the row, the
 //      accumulators in registers; the four warps' partials merge in warp
 //      order at the end of the run;
@@ -197,11 +198,21 @@ struct MergeSlots {
 };
 struct NoSlots {};
 
-// EPL consecutive elements of a staged row as fp32 (EPL 1, 2 or 4: head
-// dim 16, 64 or 128), one load a lane.
+// Output dimensions a lane holds in PV (EPL): the fewest of 1, 2 or 4 that
+// cover the head dim with the warp's 32 lanes (head dim 16: 1, lanes 0-15;
+// 64: 2; 112: 4, lanes 0-27; 128: 4). A lane with lane * EPL >= D holds
+// none.
+template <int D>
+__host__ __device__ constexpr int dims_per_lane() {
+  static_assert(D <= 4 * 32, "at most 4 output dims a lane");
+  return D <= 32 ? 1 : D <= 64 ? 2 : 4;
+}
+
+// EPL consecutive elements of a staged row as fp32 (EPL 1, 2 or 4:
+// dims_per_lane), one load a lane.
 template <typename T, int EPL>
 __device__ __forceinline__ void load_dims(const T* p, float (&v)[EPL]) {
-  static_assert(EPL == 1 || EPL == 2 || EPL == 4, "head dim 16, 64 or 128");
+  static_assert(EPL == 1 || EPL == 2 || EPL == 4, "1, 2 or 4 dims a lane");
   if constexpr (EPL == 1) {
     v[0] = to_float(p[0]);
   } else if constexpr (EPL == 2 && std::is_same<T, float>::value) {
@@ -317,7 +328,9 @@ __device__ __forceinline__ int list_participants(
 
 // 2. Staging: tile i of the list into stage i % 2 ([stage][K|V][tile]
 // rows of R::kPitch bytes), a warp copying 32 / kChunks rows a step, one
-// 16-byte chunk a lane, committed as one cp.async group.
+// 16-byte chunk a lane (where kChunks does not divide 32, as the 14 of a
+// bf16 row of 112, the lanes past the last whole row stay idle),
+// committed as one cp.async group.
 template <typename T, int D, typename Src>
 __device__ __forceinline__ void issue_tile(const Src& src, const int* list,
                                            unsigned char* stage, int tile,
@@ -330,8 +343,10 @@ __device__ __forceinline__ void issue_tile(const Src& src, const int* list,
   const int j0 = i * tile;
   const int rows = min(tile, n_live - j0);
   const int ch = (lane % R::kChunks) * 16;
-  for (int j = warp * kRowsPerStep + lane / R::kChunks; j < rows;
-       j += kWarps * kRowsPerStep) {
+  const int first = lane < kRowsPerStep * R::kChunks
+                        ? warp * kRowsPerStep + lane / R::kChunks
+                        : rows;
+  for (int j = first; j < rows; j += kWarps * kRowsPerStep) {
     const int t = list[j0 + j];
     cp_async16(buf + (long)j * R::kPitch + ch,
                reinterpret_cast<const unsigned char*>(src.row(t, 0)) + ch);
@@ -360,7 +375,6 @@ __device__ __forceinline__ void attend_run(
     int cap, long row0, const Outputs& out, RunSmem<D, REP, MERGED>& sm,
     unsigned char* dyn) {
   using R = Row<T, D>;
-  static_assert(kThreads % D == 0, "head dim divides the block");
   constexpr int QPT = (REP * D + kThreads - 1) / kThreads;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -397,7 +411,7 @@ __device__ __forceinline__ void attend_run(
   // banks) and keeps its own online softmax: lane (r, u) = (lane / 16,
   // lane % 16) scores the warp's row u for head r; for PV, a lane holds
   // head dims [lane * EPL, lane * EPL + EPL) of every head.
-  constexpr int EPL = D >= 32 ? D / 32 : 1;
+  constexpr int EPL = dims_per_lane<D>();
   constexpr int kRowsPerWarp = kMaxTile / kWarps;
   static_assert(REP * kRowsPerWarp <= 32, "one lane per (head, row)");
   const bool has_dims = lane * EPL < D;
@@ -671,7 +685,7 @@ __device__ __forceinline__ void attend_run_wide(
   static_assert(REP > kMaxNarrowRep, "the narrow path takes groups 1, 2");
   constexpr int QPT = (REP * D + kThreads - 1) / kThreads;
   constexpr int HPW = (REP + kWarps - 1) / kWarps;   // most heads a warp owns
-  constexpr int EPL = D >= 32 ? D / 32 : 1;   // output dims a lane holds
+  constexpr int EPL = dims_per_lane<D>();     // output dims a lane holds
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -885,15 +899,17 @@ inline size_t dyn_smem_bytes(int tile, int L) {
 
 // The built (head dim, GQA group) pairs, listed once: the port's configs'
 // (qwen3-0.6b 128/2, pam-llama-7b 128/1, qwen3-14b 128/5, deepseek-67b
-// 128/8, qwen3-moe-235b-a22b 128/16, minicpm-2b 64/1) and the reduced
-// variants the tests and parity runs use (head dim 16 at every built
-// group, 64 at group 2). kernels/flash_decode.py::BUILT holds the same
-// list (a CPU test compares the two) and refuses any other pair before a
-// launch; here another pair returns -1. Each pair is four (K/V dtype, q
-// dtype) instantiations, stacked and merged, so the list is kept short.
+// 128/8, qwen3-moe-235b-a22b 128/16, minicpm-2b 64/1, zamba2-7b 112/1)
+// and the reduced variants the tests and parity runs use (head dim 16 at
+// every built group, 64 at group 2). kernels/flash_decode.py::BUILT
+// holds the same list (a CPU test compares the two) and refuses any other
+// pair before a launch; here another pair returns -1. Each pair is four
+// (K/V dtype, q dtype) instantiations, stacked and merged, so the list is
+// kept short.
 #define PAM_DECODE_BUILT(X) \
   X(16, 1) X(16, 2) X(16, 5) X(16, 8) X(16, 16) \
   X(64, 1) X(64, 2) \
+  X(112, 1) \
   X(128, 1) X(128, 2) X(128, 5) X(128, 8) X(128, 16)
 
 // Dispatch over the built (K/V dtype, q dtype, head dim, group size).

@@ -16,7 +16,10 @@ depth, and ``--layers`` cuts the depth); the wider dense models are
 mixture-of-experts model (latent KV cache, 64 experts top-6 + 2 shared;
 27 layers, 32.4 GB in bf16, one card at full depth) on the dense layout
 only, as the reference does: ``--block-size`` / ``--hot-window`` raise
-its ``ValueError``; ``--reduced --device cpu`` runs
+its ``ValueError``; ``--arch zamba2-7b`` serves the hybrid model (68
+Mamba-2 layers around one shared attention block at 13 sites, 11.47 GB
+in bf16, one card at full depth; ``--layers`` does not apply) on the
+dense layout likewise; ``--reduced --device cpu`` runs
 the smoke-size model on the CPU; ``--temperature``/``--top-k`` sample, ``--prefill-chunk``
 admits long prompts in slices. The flags mirror ``repro.launch.serve``'s batch mode; the defaults are sized
 for the GPU (8 requests of 512 prompt tokens, 64 new tokens each,
@@ -177,6 +180,9 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = reduced(cfg)
     if args.layers is not None:
+        if cfg.family == "hybrid":
+            ap.error("--layers cuts a stacked layer axis; the hybrid "
+                     "family's depth is its groups")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = tfm.init_params(cfg, 0, device=args.device)
     pam_cfg = PAMManagerConfig(

@@ -1,11 +1,15 @@
-"""Model assembly for the dense, MoE and SSM families: init, the
-training forward and loss, prefill, decode.
+"""Model assembly for the dense, MoE, SSM and hybrid families: init,
+the training forward and loss, prefill, decode.
 
 Counterpart of ``repro.models.transformer`` (dense GQA family, the GQA
 mixture-of-experts family — attention as dense, the FFN routed by
 ``models/moe.py`` — the MLA mixture-of-experts family, served only —
 ``params["layers"]["mla"]`` in place of ``attn``, a latent decode cache
-— and the Mamba-2 ``ssm`` family). Layer parameters
+— the Mamba-2 ``ssm`` family, and the Zamba2-style ``hybrid`` family,
+served only: groups of Mamba-2 layers, ``params["mamba_groups"]``
+stacked (n_groups, mamba_per_group, ...), each group followed by one
+shared attention + MLP block, ``params["shared_attn"]`` unstacked, at
+its own KV cache site, then ``params["tail_mamba"]``). Layer parameters
 are stacked on a leading axis exactly as in the JAX pytree —
 ``params["layers"]["attn"]["wq"]`` is (L, d, H*dh) in the ``x @ W``
 orientation, ``params["layers"]["moe"]`` the stacked ``MoEParams``
@@ -16,11 +20,12 @@ a Python loop over per-layer views of that axis, each leaf unbound once
 (``_layers``; ``remat`` checkpoints each layer with
 ``torch.utils.checkpoint``).
 Other families raise ``NotImplementedError`` naming their ROADMAP item,
-and so do ``forward`` / ``loss_fn`` on an MLA model.
+and so do ``forward`` / ``loss_fn`` on an MLA or a hybrid model.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -58,15 +63,23 @@ def _mla_moe(cfg: ModelConfig) -> bool:
             and cfg.mla is not None)
 
 
+def _hybrid(cfg: ModelConfig) -> bool:
+    """The Zamba2-style hybrid family (Mamba-2 groups around one shared
+    attention block)."""
+    return (cfg.family == "hybrid" and cfg.hybrid is not None
+            and cfg.ssm is not None)
+
+
 def _require_ported(cfg: ModelConfig) -> None:
     """The dense family (GQA, no MoE / MLA), the GQA and MLA MoE
-    families and the pure SSM family are ported; the others raise."""
+    families, the pure SSM family and the hybrid family are ported; the
+    others raise."""
     dense = (cfg.family == "dense" and cfg.moe is None and cfg.mla is None)
-    if not (dense or _gqa_moe(cfg) or _mla_moe(cfg)
+    if not (dense or _gqa_moe(cfg) or _mla_moe(cfg) or _hybrid(cfg)
             or (cfg.family == "ssm" and cfg.ssm is not None)):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 7: hybrid, vlm, audio)")
+            f"(ROADMAP Queue 1 item 7: vlm, audio)")
 
 
 
@@ -112,6 +125,34 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
             "ln": ones(L, d),
             "ssm": {f: torch.stack([getattr(p, f) for p in layers])
                     for f in ssm_mod.SSMParams._fields}}
+    elif _hybrid(cfg):   # the reference's keys: groups, tail, shared block
+        hb = cfg.hybrid
+
+        def mamba(*lead):
+            """Stacked (*lead, ...) Mamba-2 layers, allocated once and
+            filled layer by layer (65 layers are 10 GB at full width)."""
+            st = {}
+            for i in range(math.prod(lead)):
+                p = ssm_mod.init_ssm(gen, d, cfg.ssm, dtype, dev)._asdict()
+                for f, t in p.items():
+                    if f not in st:
+                        st[f] = torch.empty(lead + t.shape, dtype=t.dtype,
+                                            device=dev)
+                    st[f].view((-1,) + t.shape)[i] = t
+            return {"ln": ones(*lead, d), "ssm": st}
+        params["mamba_groups"] = mamba(hb.n_groups, hb.mamba_per_group)
+        params["tail_mamba"] = mamba(hb.tail_mamba)
+        nd = dh if cfg.qk_norm else 0
+
+        def one(d_in, d_out):
+            return init_linear(gen, d_in, d_out, dtype, dev)
+        params["shared_attn"] = {
+            "ln1": ones(d), "ln2": ones(d),
+            "attn": {"wq": one(d, H * dh), "wk": one(d, Hkv * dh),
+                     "wv": one(d, Hkv * dh), "wo": one(H * dh, d),
+                     "q_norm": ones(nd), "k_norm": ones(nd)},
+            "mlp": {"gate": one(d, cfg.d_ff), "up": one(d, cfg.d_ff),
+                    "down": one(cfg.d_ff, d)}}
     elif _mla_moe(cfg):     # MLA in place of attn, the routed FFN
         layers = [mla_mod.init_mla(gen, d, H, cfg.mla, dtype, dev)
                   for _ in range(L)]
@@ -149,6 +190,23 @@ def _layers(params: Params) -> list[Params]:
     split = [torch.unbind(leaf, 0) for leaf in tree.leaves(lyr)]
     return [tree.unflatten(lyr, [s[i] for s in split])
             for i in range(len(split[0]))]
+
+
+def _hybrid_layers(cfg: ModelConfig, params: Params
+                   ) -> tuple[list[list[Params]], list[Params]]:
+    """Per-layer views of a hybrid model's Mamba-2 layers: (one list of
+    ``mamba_per_group`` layer dicts per group, the tail's layer dicts).
+    Each stacked leaf is unbound once, as in ``_layers`` (a group leaf's
+    two layer axes flattened into one first, a view)."""
+    def views(sub: Params, lead: int) -> list[Params]:
+        split = [torch.unbind(torch.flatten(leaf, 0, lead - 1), 0)
+                 for leaf in tree.leaves(sub)]
+        return [tree.unflatten(sub, [s[i] for s in split])
+                for i in range(len(split[0]))]
+    npg = cfg.hybrid.mamba_per_group
+    flat = views(params["mamba_groups"], 2)
+    groups = [flat[g:g + npg] for g in range(0, len(flat), npg)]
+    return groups, views(params["tail_mamba"], 1)
 
 
 def _attn_params(lp: Params) -> attn_mod.AttnParams:
@@ -231,6 +289,10 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
         raise NotImplementedError(
             f"{cfg.name}: the MLA forward / loss / train step is not "
             f"ported yet (ROADMAP Queue 1 item 14); the port serves it")
+    if _hybrid(cfg):         # served only
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid forward / loss / train step is not "
+            f"ported yet (ROADMAP Queue 1 item 17); the port serves it")
     if activation_spec is not None:
         raise NotImplementedError(
             "activation_spec (sequence-parallel residual sharding) is not "
@@ -276,12 +338,15 @@ class DecodeCache(NamedTuple):
 
     ``k``/``v`` are the hot-tier buffers of the dense family — a ring of W
     slots when the engine runs a hot window (position p at slot ``p %
-    W``), else W = Smax. ``ckv``/``krope`` are the MLA family's latent
-    cache (the normed latent and the roped shared key of each token).
-    ``conv``/``state`` are the SSM family's conv ring
-    and fp32 recurrent state. ``pk``/``pv`` are the paged warm/cold pools
-    (final physical block a write sentinel), size-0 unless created with
-    paged blocks. Decode steps write these tensors in place.
+    W``), else W = Smax — and of the hybrid family, one (B, Hkv, Smax,
+    dh) cache per shared-attention site (n_groups of them).
+    ``ckv``/``krope`` are the MLA family's latent cache (the normed
+    latent and the roped shared key of each token). ``conv``/``state``
+    are the SSM family's conv ring and fp32 recurrent state (the
+    hybrid's: one a Mamba-2 layer, the groups' in order, then the
+    tail's). ``pk``/``pv`` are the paged warm/cold pools (final physical
+    block a write sentinel), size-0 unless created with paged blocks.
+    Decode steps write these tensors in place.
     """
     k: torch.Tensor          # (L, B, Hkv, W, dh)
     v: torch.Tensor
@@ -303,8 +368,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     tokens; ``paged_blocks`` > 0 adds the pools, ``hot_window`` > 0
     shrinks ``k``/``v`` to a ring (which needs the pools). The SSM
     family keeps ``conv``/``state`` instead of ``k``/``v``, the MLA
-    family ``ckv``/``krope``; both refuse pools, as the reference
-    does."""
+    family ``ckv``/``krope``, the hybrid family both ``conv``/``state``
+    and a ``k``/``v`` site a group; all three refuse pools, as the
+    reference does."""
     _require_ported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
@@ -333,6 +399,16 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     elif _mla_moe(cfg):
         ckv = z(L, batch, max_len, cfg.mla.kv_lora_rank)
         krope = z(L, batch, max_len, cfg.mla.qk_rope_head_dim)
+    elif _hybrid(cfg):
+        hb = cfg.hybrid
+        n_mamba = hb.n_groups * hb.mamba_per_group + hb.tail_mamba
+        di, H, conv_dim = ssm_mod._dims(cfg.d_model, cfg.ssm)
+        conv = z(n_mamba, batch, cfg.ssm.conv_kernel - 1, conv_dim)
+        state = z(n_mamba, batch, H, cfg.ssm.d_state, cfg.ssm.head_dim,
+                  dt=torch.float32)
+        # one KV cache per shared-attention site
+        k = z(hb.n_groups, batch, Hkv, max_len, dh)
+        v = z(hb.n_groups, batch, Hkv, max_len, dh)
     else:
         k, v = z(L, batch, Hkv, kv_len, dh), z(L, batch, Hkv, kv_len, dh)
     return DecodeCache(k=k, v=v, conv=conv, state=state, pk=pk, pv=pv,
@@ -352,13 +428,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     length when ``tokens`` is right-padded to a pow-2 bucket: causality
     keeps the first ``true_len`` positions exact, logits come from
     position ``true_len - 1`` and the padded K/V past it is dead. The SSM
-    family takes prompts at their exact length: its running state would
-    absorb the padding, so ``true_len`` raises there.
+    and hybrid families take prompts at their exact length: their running
+    state would absorb the padding, so ``true_len`` raises there.
     """
     _require_ported(cfg)
     B, S = tokens.shape
     assert S <= max_len, (max_len, S)
-    if true_len is not None and cfg.family == "ssm":
+    if true_len is not None and cfg.family in ("ssm", "hybrid"):
         raise ValueError("bucketed prefill (true_len) requires a "
                          "positional cache; SSM state absorbs padding")
     cache = init_decode_cache(cfg, B, max_len, device=tokens.device)
@@ -368,7 +444,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         lens = torch.as_tensor(true_len, dtype=torch.int32,
                                device=tokens.device).expand(B).clone()
     x = params["embed"][tokens]
-    for i, lp in enumerate(_layers(params)):
+    if _hybrid(cfg):
+        x = _hybrid_prefill(cfg, params, x, cache)
+    for i, lp in enumerate(() if _hybrid(cfg) else _layers(params)):
         if cfg.family == "ssm":
             out, c = ssm_mod.ssm_prefill(
                 _ssm_params(lp), rms_norm(x, lp["ln"], cfg.rms_eps),
@@ -406,6 +484,42 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         last = x[torch.arange(B, device=x.device), (lens - 1).long()]
     logits = last @ _head(cfg, params)
     return logits, cache._replace(lengths=lens)
+
+
+def _hybrid_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                    cache: DecodeCache) -> torch.Tensor:
+    """The hybrid blocks of ``prefill`` over x (B, S, d): each group's
+    Mamba-2 layers (conv tail and state into their cache rows), then the
+    shared attention (causal) + MLP with its K/V into the group's site;
+    then the tail. Returns the residual stream."""
+    S = x.shape[1]
+    shared = params["shared_attn"]
+    groups, tail = _hybrid_layers(cfg, params)
+    i = 0
+
+    def mamba(lp, x):
+        nonlocal i
+        out, c = ssm_mod.ssm_prefill(
+            _ssm_params(lp), rms_norm(x, lp["ln"], cfg.rms_eps), cfg.ssm,
+            rms_eps=cfg.rms_eps)
+        cache.conv[i] = c.conv
+        cache.state[i] = c.state
+        i += 1
+        return x + out
+    for g, layers in enumerate(groups):
+        for lp in layers:
+            x = mamba(lp, x)
+        attn_out, k, v = attn_mod.attention_prefill(
+            _attn_params(shared), rms_norm(x, shared["ln1"], cfg.rms_eps),
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+            causal=True, rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps)
+        cache.k[g, :, :, :S] = k
+        cache.v[g, :, :, :S] = v
+        x = x + attn_out
+        x = x + _mlp(shared, rms_norm(x, shared["ln2"], cfg.rms_eps))
+    for lp in tail:
+        x = mamba(lp, x)
+    return x
 
 
 def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -478,6 +592,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     sentinel for inactive rows) must be given; each layer then mirrors
     its appended K/V into the pool and ``decode_attn_fn`` is called with
     the layer's pool slices ``(q, k_cache, v_cache, pk, pv, kv_lens)``.
+    The hybrid family calls ``decode_attn_fn`` once a shared-attention
+    site (n_groups times a step); its ``scores`` are the sites' mean.
     The MLA family writes its latent cache in place and calls
     ``latent_attn_fn`` (default ``mla.mla_latent_decode_attn``; the
     engine's participation-masked one) in place of ``decode_attn_fn``.
@@ -490,7 +606,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                          "paged_append=(dst_block, dst_slot)")
     lens = cache.lengths
     x = params["embed"][tokens]                           # (B, d)
-    layers = _layers(params)
+    layers = () if _hybrid(cfg) else _layers(params)
     if cfg.family == "ssm":
         for i, lp in enumerate(layers):
             out, new = ssm_mod.ssm_decode(
@@ -501,6 +617,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             cache.state[i] = new.state
             x = x + out
         scores = None
+    elif _hybrid(cfg):
+        x, scores = _hybrid_decode(cfg, params, x, cache, d_fn)
     elif _mla_moe(cfg):
         l_fn = latent_attn_fn or mla_mod.mla_latent_decode_attn
         masses = []
@@ -537,3 +655,43 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = x @ _head(cfg, params)
     return logits, cache._replace(lengths=lens + 1), scores
+
+
+def _hybrid_decode(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   cache: DecodeCache, d_fn: Callable
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The hybrid blocks of ``decode_step`` for x (B, d): each group's
+    Mamba-2 layers (conv ring and state in place), then the shared
+    attention at the group's site through ``d_fn`` + MLP, then the tail.
+    Returns (x, scores: the mean of the sites' masses (B, Smax))."""
+    lens = cache.lengths
+    shared = params["shared_attn"]
+    groups, tail = _hybrid_layers(cfg, params)
+    i = 0
+
+    def mamba(lp, x):
+        nonlocal i
+        out, new = ssm_mod.ssm_decode(
+            _ssm_params(lp), rms_norm(x, lp["ln"], cfg.rms_eps),
+            ssm_mod.SSMCache(cache.conv[i], cache.state[i]), cfg.ssm,
+            rms_eps=cfg.rms_eps)
+        cache.conv[i] = new.conv
+        cache.state[i] = new.state
+        i += 1
+        return x + out
+    masses = []
+    for g, layers in enumerate(groups):
+        for lp in layers:
+            x = mamba(lp, x)
+        attn_out, mass, _, _ = attn_mod.attention_decode(
+            _attn_params(shared), rms_norm(x, shared["ln1"], cfg.rms_eps),
+            cache.k[g], cache.v[g], lens, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+            rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
+            decode_attn_fn=d_fn)
+        x = x + attn_out
+        x = x + _mlp(shared, rms_norm(x, shared["ln2"], cfg.rms_eps))
+        masses.append(mass)
+    for lp in tail:
+        x = mamba(lp, x)
+    return x, torch.mean(torch.stack(masses), dim=0)

@@ -47,6 +47,14 @@ ones included) reach the model in the reference's shapes:
   plain tensor code as the reference's einsums) and PAM's importance,
   tiers and Alg. 2 run on latent tokens. Pools (hence the ring, the
   prefix cache and chunked prefill) and migration refuse it.
+* The hybrid family (``zamba2-7b``: groups of Mamba-2 layers, each
+  followed by one shared attention block with a KV cache site of its
+  own) serves on the dense layout only, as in the reference: it
+  prefills at exact length (as the SSM family), commits the conv ring
+  and state and every site's K/V rows into the slot, and each decode
+  step attends the participating tokens at every site
+  (``flash_decode_merged`` n_groups times); PAM's importance, tiers and
+  Alg. 2 run on the sites' mean mass. Pools and migration refuse it.
 * A decode dispatch runs ``k`` such steps (``micro_steps = k``: the
   largest power of two no running request overshoots) and reads one
   ``StepBufs`` back, which synchronises with the device. On CUDA the
@@ -369,7 +377,8 @@ class ServingEngine:
         self.capture_seconds = 0.0
         # micro-steps whose body ran on the host, op by op or recorded
         # into a graph (every decode step on the CPU); the decode
-        # wrappers are called n_layers times for each
+        # wrappers are called n_layers times for each (a hybrid model's
+        # n_groups attention sites)
         self.decode_body_steps = 0
         self._dispatch = (self._dispatch_graph if dev.type == "cuda"
                           else self._dispatch_eager)
@@ -534,9 +543,10 @@ class ServingEngine:
 
     def _bucket_len(self, s_len: int) -> int:
         """Pow-2 prefill buckets (as the reference's jit-cache cap); the
-        exact length without ``bucket_prefill`` and for the SSM family,
-        whose state can't absorb padding."""
-        if not self.scfg.bucket_prefill or self.cfg.family == "ssm":
+        exact length without ``bucket_prefill`` and for the SSM and
+        hybrid families, whose state can't absorb padding."""
+        if (not self.scfg.bucket_prefill
+                or self.cfg.family in ("ssm", "hybrid")):
             return s_len
         b = 1
         while b < s_len:
@@ -669,7 +679,7 @@ class ServingEngine:
             padded[i, :s_len] = prompt
             lens[i] = s_len
         lens_t = torch.as_tensor(lens, device=dev)
-        exact = self.cfg.family == "ssm"
+        exact = self.cfg.family in ("ssm", "hybrid")
         logits, sub = tf.prefill(self.cfg, self.params,
                                  torch.as_tensor(padded, device=dev),
                                  self.scfg.max_len,
@@ -703,7 +713,8 @@ class ServingEngine:
         """Install a prefilled group (the reference's admission commit):
         pool write of the full logical rows, ring re-layout of the last
         ``hot_window`` tokens, slot scatter (K/V, the MLA latent and rope
-        key, or the SSM conv ring and state), first tokens sampled at
+        key, the SSM conv ring and state, or the hybrid's conv ring,
+        state and every site's K/V), first tokens sampled at
         position ``lens[i]``, PAM placement. Returns the first tokens
         (n,)."""
         idx = torch.as_tensor(slots, device=self.device)
@@ -715,6 +726,10 @@ class ServingEngine:
         elif tf._mla_moe(self.cfg):
             self.cache.ckv[:, idx] = sub.ckv
             self.cache.krope[:, idx] = sub.krope
+        elif tf._hybrid(self.cfg):    # no pool and no ring to fill
+            self.cache.conv[:, idx] = sub.conv
+            self.cache.state[:, idx] = sub.state
+            self._install_hot_rows(sub.k, sub.v, lengths, idx)
         else:
             self._commit_kv(sub, slots, lengths, table_rows, idx)
         self.cache.lengths[idx] = lengths
@@ -1413,7 +1428,8 @@ class ServingEngine:
         return {rid: float(mass[slot]) for slot, rid in running}
 
     def _require_migratable(self) -> None:
-        # an MLA model's latent cache leaves k empty: refused here too
+        # an MLA model's latent cache leaves k empty, a hybrid model's
+        # cache holds conv / state: both refused here too
         if self.cache.k.numel() == 0 or self.cache.conv.numel() > 0:
             raise ValueError(f"{self.cfg.name}: KV migration requires a "
                              f"pure GQA decode cache")

@@ -215,6 +215,6 @@ def test_paged_cache_without_append_raises(model):
 
 def test_other_families_name_their_roadmap_item():
     cfg = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
-    hybrid = dataclasses.replace(cfg, family="hybrid")
+    audio = dataclasses.replace(cfg, family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_params(hybrid, 0, device="cpu")
+        ttf.init_params(audio, 0, device="cpu")

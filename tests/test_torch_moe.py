@@ -251,7 +251,7 @@ def test_config_matches_reference():
 
 PORT_CONFIGS = ["deepseek-67b", "deepseek-v2-lite-16b", "mamba2-780m",
                 "minicpm-2b", "pam-llama-7b", "qwen3-0.6b", "qwen3-14b",
-                ARCH]
+                ARCH, "zamba2-7b"]
 
 
 @pytest.mark.parametrize("arch", PORT_CONFIGS)
@@ -469,18 +469,24 @@ def test_decode_kernels_built_for_group_16_only_among_wide_groups():
     """The decode kernels are built for the listed (head dim, GQA group)
     pairs: the launch check accepts group 16 at head dims 128 and 16 (a
     host tensor then fails the operand check, after the shape check
-    passed) and still refuses groups 4 and 7 and head dims 80 and 112,
-    which no built pair holds."""
+    passed) and still refuses groups 4 and 7; head dim 112 is built at
+    group 1 only (zamba2-7b's pair), head dim 80 at none, so both
+    kernels refuse (112, 2) and (80, 1)."""
     assert {(128, 16), (16, 16)} <= set(tfd.BUILT)
     assert not {4, 7} & {rep for _, rep in tfd.BUILT}
-    assert not {80, 112} & {d for d, _ in tfd.BUILT}
+    assert 80 not in {d for d, _ in tfd.BUILT}
+    assert [rep for d, rep in tfd.BUILT if d == 112] == [1]
     t = torch.zeros(4)
-    for d, rep in ((128, 16), (16, 16)):
+    for d, rep in ((128, 16), (16, 16), (112, 1)):
         with pytest.raises(ValueError, match="CUDA tensors"):
             tfd.check_launch("flash_decode", d, rep, t)
-    for d, rep in ((128, 4), (128, 7), (112, 1), (80, 1)):
+    for d, rep in ((128, 4), (128, 7)):
         with pytest.raises(ValueError, match="not built"):
             tfd.check_launch("flash_decode_paged", d, rep, t)
+    for name in ("flash_decode", "flash_decode_paged"):
+        for d, rep in ((112, 2), (80, 1)):
+            with pytest.raises(ValueError, match="not built"):
+                tfd.check_launch(name, d, rep, t)
 
 
 _WALK = """
@@ -494,6 +500,7 @@ assert "repro_torch.models.moe" in names, names
 assert "repro_torch.configs.qwen3_moe_235b_a22b" in names, names
 assert "repro_torch.models.mla" in names, names
 assert "repro_torch.configs.deepseek_v2_lite_16b" in names, names
+assert "repro_torch.configs.zamba2_7b" in names, names
 bad = sorted(n for n in sys.modules
              if n in ("jax", "repro", "triton")
              or n.startswith(("jax.", "repro.", "triton.")))
@@ -504,8 +511,8 @@ print("walked", len(names))
 
 def test_import_walk_reaches_the_moe_module():
     """The port's import walk (as ``tests/test_torch_engine.py`` does it)
-    reaches the MoE and MLA modules and their configs and loads neither
-    JAX, the reference package nor triton."""
+    reaches the MoE and MLA modules, their configs and the hybrid config,
+    and loads neither JAX, the reference package nor triton."""
     out = subprocess.run([sys.executable, "-c", _WALK], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
