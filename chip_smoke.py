@@ -11,8 +11,10 @@ final ``ok`` line:
   build     nvcc builds of the CUDA kernels (sm_90a), seconds taken;
             registers and spills of the main-path kernels from the
             ``-Xptxas -v`` logs, and of every decode instantiation with
-            bf16 K/V (the engines' storage; none may spill); the four
-            wgmma libraries (attention and
+            bf16 K/V (the engines' storage; none may spill) and of every
+            CUDA-core attention forward (the bf16 ones at (64, 7) and
+            (80, 1), internvl2-1b's and hubert-xlarge's, may not
+            spill); the four wgmma libraries (attention and
             SSD scan) must hold HGMMA instructions in their SASS
             (``cuobjdump -sass``) and their kernels must not spill
   kernels   each kernel against its plain PyTorch version on the card at
@@ -23,13 +25,18 @@ final ``ok`` line:
             qwen3-moe-235b-a22b's GQA group 16, keys ending ``_g16``, at
             H 40, Hkv 8 (qwen3-14b's group 5, ``_g5``), H 64, Hkv 8
             (deepseek-67b's group 8, ``_g8``) and H 36, Hkv 36, d 64
-            (minicpm-2b's MHA at head dim 64, ``_d64``); the merged
+            (minicpm-2b's MHA at head dim 64, ``_d64``) and H 14, Hkv 2,
+            d 64 (internvl2-1b's group 7, ``_g7``); the merged
             dense kernel at S 2048 and the merged paged one at H 32, Hkv
             32, d 112 (zamba2-7b's group 1 at head dim 112, ``_d112``;
             the paged row lies on no model's path); attention:
             the train shape in bf16 through the wgmma
             kernels, also S 1000 non-causal, and the CUDA-core kernels in
-            fp32 at train_parity's B 2, S 500; ssd_scan: the wgmma kernels
+            fp32 at train_parity's B 2, S 500, and the CUDA-core forward
+            alone in bf16 at its two forward-only builds:
+            ``flash_attention_vlm_2048`` (B 4, H 14, Hkv 2, d 64, S 2048
+            causal) and ``flash_attention_audio_1500_noncausal`` (B 8, H
+            16 = Hkv, d 80, S 1500); ssd_scan: the wgmma kernels
             in bf16 at mamba2-780m's train shape B 4, L 2048, H 48, P 64,
             N 128, chunk 128, x / B / C as views of the conv output, and
             the CUDA-core kernels in fp32 at train_parity_ssm's B 2, L
@@ -185,9 +192,34 @@ final ``ok`` line:
             model's paged decode kernel walks live blocks
   gqa_parity  the same family reduced in fp32, TF32 off (qwen3-14b with
             10 q / 2 kv heads: group 5; deepseek-67b with 16 / 2: group 8;
-            minicpm-2b with 4 / 4 heads of 64): the engine on the card and
-            on the CPU give equal greedy streams, paged + ring, as
-            moe_parity
+            minicpm-2b with 4 / 4 heads of 64; internvl2-1b with 14 / 2
+            of 64: group 7): the engine on the card and on the CPU give
+            equal greedy streams, paged + ring, as moe_parity
+  engine_internvl2_1b, engine_internvl2_1b_full_pool   the vlm family
+            (24 layers, d 896, 14 q / 2 kv heads of 64: GQA group 7, 0.99
+            GB, tied embeddings; random weights from seed 0, bf16) in the
+            wider dense family's loop and phases, served text-only as the
+            reference's engine serves it (the (64, 7) decode kernels)
+  vlm_forward   the same model through its patch prefix:
+            ``forward(use_kernel=True)`` with 256 patches of 1024 before
+            1792 tokens at B 4 (the (64, 7) causal attention forward once
+            a layer) against ``use_kernel=False``; ``prefill(patches=)``
+            at B 8 (256 patches + 512 tokens, max_len 2048) and 16
+            greedy decode steps through ``flash_decode_merged`` against a
+            twin decoded by the plain grouped attention; launches, ms,
+            the attention kernel's device ms, peak memory
+  encoder_hubert_xlarge   the audio family at full width and depth (48
+            layers, 16 / 16 heads of 80, bidirectional, 2.52 GB, bf16):
+            ``forward(use_kernel=True)`` under no_grad over B 8 x 1500
+            frames, one warm-up and 5 timed (48 attention launches each),
+            logits against ``use_kernel=False``; median ms, frames a
+            second, the attention kernel's device ms and share, peak
+            memory
+  vlm_audio_parity   reduced internvl2-1b (4 / 2 heads of 16, and 14 /
+            2 of 64) and hubert-xlarge (4 / 2 of 16, and 4 / 4 of 80) in
+            fp32, TF32 off, card against CPU: the vlm forward with
+            patches, prefill(patches=) and 4 decode steps; the audio
+            forward
   engine_deepseek_v2_lite_16b   the MLA mixture-of-experts family at
             full width and full depth (27 layers, d 2048, 16 heads, latent
             rank 512 + rope key 64, 64 experts of 1408, top-6 + 2 shared,
@@ -308,7 +340,13 @@ Tolerances (each kernel against its plain version on the same inputs):
       atol is scaled by max(1, the leaf's largest entry)
   train_parity (both models): loss relative difference <= 1e-5, and per
       gradient leaf max |kernel - plain| / max |plain| <= 1e-3
-  parity: max |dlogit| / max(1, max |logit|) <= 1e-3
+  parity: max |dlogit| / max(1, max |logit|) <= 1e-3 (vlm_audio_parity
+      too)
+  vlm_forward, encoder_hubert_xlarge (bf16, attention kernel against
+      the plain attention through the whole model): max |dlogit| /
+      max(1, max |logit|) <= 5e-2 (``BF16_MODEL_TOL``: each layer's
+      attention output rounds to bf16 on both sides and may differ by
+      one bf16 step, which the bf16 residual stream carries on)
   pam_core: the tier-list call (fp32 q, bf16 K/V) against its plain
       versions and one dense launch at the decode kernels' rtol 1e-4,
       atol 1e-3; pam_attention_step and the approximate scores on the
@@ -525,6 +563,13 @@ def phase_build() -> dict:
     spills = {k: v for k, v in decode.items()
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", v)}
     assert not spills, f"bf16-K/V decode kernels spill: {spills}"
+    attn = _attention_registers()
+    main = [f"flash_attention_fwd_kernel<bf16, {d}, {rep}>"
+            for d, rep in ((64, 7), (80, 1))]
+    assert set(main) <= set(attn), sorted(attn)
+    spills = {k: attn[k] for k in main
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", attn[k])}
+    assert not spills, f"bf16 attention forward kernels spill: {spills}"
     hgmma = {name: _sass_count(name) for name in SM90_LIBS}
     assert all(n > 0 for n in hgmma.values()), f"no HGMMA in {hgmma}"
     spills = {k: v for k, v in regs.items() if ("sm90" in k or "ssd90" in k)
@@ -534,7 +579,9 @@ def phase_build() -> dict:
     assert SSD_WGMMA_KERNELS <= set(regs), sorted(regs)
     return dict(build_s=time.perf_counter() - t0, per_library=per,
                 libraries=sorted(build.SOURCES), registers=regs,
-                decode_registers_bf16_kv=decode, hgmma_in_sass=hgmma)
+                decode_registers_bf16_kv=decode,
+                attention_forward_registers=attn,
+                hgmma_in_sass=hgmma)
 
 
 def _decode_registers() -> dict:
@@ -561,6 +608,33 @@ def _decode_registers() -> dict:
             q = "fp32" if tq == "f" else "bf16"
             kind = "merged" if merged == "1" else "stacked"
             out[f"{kern}<{q}, {d}, {rep}, {kind}>"] = "; ".join(info)
+    return out
+
+
+def _attention_registers() -> dict:
+    """Registers, shared memory and spills from the ``-Xptxas -v`` log of
+    every instantiation of the CUDA-core ``flash_attention`` forward,
+    keyed ``kernel<dtype, head dim, group>``. The bf16 ones at (64, 7)
+    and (80, 1) run internvl2-1b's and hubert-xlarge's forward (none may
+    spill); the fp32 ones run only the parity phases."""
+    import re
+    from repro_torch.kernels import build
+    out = {}
+    lines = build.build_log("flash_attention").splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"flash_attention_fwd_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)ELi(\d+)E", line)
+        if "Compiling entry" not in line or m is None:
+            continue
+        info = []
+        for x in lines[i + 1:]:
+            if "Compiling entry" in x:
+                break
+            if "Used" in x or "spill" in x:
+                info.append(x.split(":", 1)[-1].strip())
+        dt = "fp32" if m.group(1) == "f" else "bf16"
+        out[f"flash_attention_fwd_kernel<{dt}, {m.group(2)}, "
+            f"{m.group(3)}>"] = "; ".join(info)
     return out
 
 
@@ -717,12 +791,13 @@ def kernel_flash_decode_paged(merged: bool = False, heads=(16, 8),
 
 
 def _attn_case(S: int, causal: bool, seed: int, B: int = TRAIN_B,
-               dtype: str = "bfloat16"):
-    """q, k, v, dO at the training path's heads (H 16, Hkv 8, d 128),
-    batch ``B`` and sequence ``S``, in ``dtype``."""
+               dtype: str = "bfloat16", heads=(16, 8), d: int = 128):
+    """q, k, v, dO at (H, Hkv) ``heads`` and head dim ``d`` (the training
+    path's 16 / 8 of 128 by default), batch ``B`` and sequence ``S``, in
+    ``dtype``."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    H, Hkv, d = 16, 8, 128
+    H, Hkv = heads
     return [torch.randn(shape, generator=g, device="cuda").to(
                 getattr(torch, dtype))
             for shape in ((B, H, S, d), (B, Hkv, S, d), (B, Hkv, S, d),
@@ -738,6 +813,66 @@ def _attn_work(q, k, causal: bool) -> tuple[int, int]:
     return B * H * pairs, d
 
 
+def _attn_timed(fn, flops, bound) -> dict:
+    dev = _device_ms(fn, iters=10)
+    return dict(ms=_time_ms(fn, iters=10), kernel_device_ms=dev,
+                tflops=flops / (dev * 1e-3) / 1e12,
+                pct_of_bound=100.0 * bound / dev)
+
+
+def _attn_fwd_row(q, k, v, causal: bool) -> tuple[dict, object, object]:
+    """The forward kernel against its plain version on q, k, v (bf16
+    through wgmma also against ``_fwd_rounded``), its times, bound and
+    the SDPA yardstick with SDPA's own error against the same plain
+    version. Returns (row, o, lse)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    scale = 1.0 / q.shape[-1] ** 0.5
+    variant = fa._variant(q.dtype, q.shape[-1])
+    bf16 = q.dtype == torch.bfloat16
+    tol = ATTN_BF16_TOL if bf16 else KERNEL_TOL
+    n0 = fa.flash_attention.wgmma_launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ref_o, ref_lse = fa._fwd_plain(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    ran = fa.flash_attention.wgmma_launches - n0
+    assert ran == (1 if variant == "wgmma" else 0), (variant, ran)
+    err_o, ok_o = _compare([o], [ref_o], tol)
+    err_l, ok_l = _compare([lse], [ref_lse])
+    extra = {}
+    if variant == "wgmma":
+        rnd_o, _ = fa._fwd_rounded(q, k, v, causal, scale)
+        extra["max_abs_err_vs_rounded"] = _compare([o], [rnd_o])[0]
+        del rnd_o
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+    with torch.no_grad():
+        sdpa_err = _compare([sdpa()], [ref_o])[0]
+        sdpa_ms = _time_ms(sdpa, iters=10)
+    del ref_o, ref_lse
+    pairs, d = _attn_work(q, k, causal)
+    el = q.element_size()
+    nbytes = (q.numel() * 2 + k.numel() * 2) * el + lse.numel() * 4
+    flops = 4 * d * pairs
+    bound, by = _bound_ms(nbytes, flops, BF16_FLOPS if bf16 else FP32_FLOPS)
+    row = dict(S=q.shape[2], causal=causal, B=q.shape[0], H=q.shape[1],
+               Hkv=k.shape[1], d=d, dtype=str(q.dtype).split(".")[-1],
+               variant=variant, live_pairs=pairs, name="flash_attention",
+               ok=ok_o and ok_l, max_abs_err=max(err_o, err_l),
+               max_abs_err_o=err_o, max_abs_err_lse=err_l, tol=tol,
+               sdpa_max_abs_err=sdpa_err, **extra,
+               **_attn_timed(lambda: fa.flash_attention_fwd(
+                   q, k, v, causal=causal), flops, bound),
+               plain_ms=_time_ms(lambda: fa._fwd_plain(q, k, v, causal,
+                                                       scale), iters=5),
+               bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+               library_ms=sdpa_ms)
+    return row, o, lse
+
+
 def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
                            dtype: str = "bfloat16") -> dict:
     """Forward and backward kernels against their plain versions on the
@@ -751,88 +886,62 @@ def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
     from repro_torch.kernels import flash_attention as fa
     q, k, v, do = _attn_case(S, causal, seed=S, B=B, dtype=dtype)
     scale = 1.0 / q.shape[-1] ** 0.5
-    variant = fa._variant(q.dtype, q.shape[-1])
+    fwd, o, lse = _attn_fwd_row(q, k, v, causal)
     bf16 = q.dtype == torch.bfloat16
-    fwd_tol = ATTN_BF16_TOL if bf16 else KERNEL_TOL
     bwd_tol = ATTN_BF16_TOL if bf16 else ATTN_FP32_BWD_TOL
-    n0 = (fa.flash_attention.wgmma_launches,
-          fa.flash_attention_bwd.wgmma_launches)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-    ref_o, ref_lse = fa._fwd_plain(q, k, v, causal, scale)
+    n0 = fa.flash_attention_bwd.wgmma_launches
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     ref_g = fa._bwd_plain(q, k, v, o, lse, do, causal, scale)
     torch.cuda.synchronize()
-    ran = (fa.flash_attention.wgmma_launches - n0[0],
-           fa.flash_attention_bwd.wgmma_launches - n0[1])
-    assert ran == ((1, 1) if variant == "wgmma" else (0, 0)), (variant, ran)
-    err_o, ok_o = _compare([o], [ref_o], fwd_tol)
-    err_l, ok_l = _compare([lse], [ref_lse])
+    ran = fa.flash_attention_bwd.wgmma_launches - n0
+    assert ran == (1 if fwd["variant"] == "wgmma" else 0), ran
     err_g, ok_g = _compare(grads, ref_g, bwd_tol)
-    extra_f, extra_b = {}, {}
+    extra_b = {}
     if bf16:
-        rnd_o, _ = fa._fwd_rounded(q, k, v, causal, scale)
-        extra_f["max_abs_err_vs_rounded"] = _compare([o], [rnd_o])[0]
-        del rnd_o
         rnd_g = fa._bwd_rounded(q, k, v, o, lse, do, causal, scale)
         extra_b["max_abs_err_vs_rounded"] = _compare(grads, rnd_g)[0]
         del rnd_g
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
-                                              enable_gqa=True)
-
     def sdpa_fb():
-        sdpa().backward(do)
+        F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                       enable_gqa=True).backward(do)
 
-    so = sdpa()
-    sg = torch.autograd.grad(so, (qr, kr, vr), do)
-    sdpa_err_o = _compare([so.detach()], [ref_o])[0]
-    sdpa_err_g = _compare(sg, ref_g)[0]
-    del ref_o, ref_lse, ref_g, so, sg
+    so = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                        enable_gqa=True)
+    sdpa_err_g = _compare(torch.autograd.grad(so, (qr, kr, vr), do),
+                          ref_g)[0]
+    del ref_g, so
     pairs, d = _attn_work(q, k, causal)
     el = q.element_size()
-    peak = BF16_FLOPS if bf16 else FP32_FLOPS
-    fwd_bytes = (q.numel() * 2 + k.numel() * 2) * el + lse.numel() * 4
     bwd_bytes = ((q.numel() * 3 + k.numel() * 2) * el + lse.numel() * 4
                  + (q.numel() + k.numel() * 2) * el)
-    fwd_flops, bwd_flops = 4 * d * pairs, 10 * d * pairs
-    fwd_bound, fwd_by = _bound_ms(fwd_bytes, fwd_flops, peak)
-    bwd_bound, bwd_by = _bound_ms(bwd_bytes, bwd_flops, peak)
-    with torch.no_grad():
-        sdpa_fwd_ms = _time_ms(sdpa, iters=10)
+    bwd_flops = 10 * d * pairs
+    bwd_bound, bwd_by = _bound_ms(bwd_bytes, bwd_flops,
+                                  BF16_FLOPS if bf16 else FP32_FLOPS)
     sdpa_fb_ms = _time_ms(sdpa_fb, iters=10)
-    case = dict(S=S, causal=causal, B=q.shape[0], H=q.shape[1],
-                Hkv=k.shape[1], d=d, dtype=dtype, variant=variant,
-                live_pairs=pairs)
-
-    def timed(fn, flops, bound):
-        dev = _device_ms(fn, iters=10)
-        return dict(ms=_time_ms(fn, iters=10), kernel_device_ms=dev,
-                    tflops=flops / (dev * 1e-3) / 1e12,
-                    pct_of_bound=100.0 * bound / dev)
-    fwd = dict(case, name="flash_attention", ok=ok_o and ok_l,
-               max_abs_err=max(err_o, err_l), max_abs_err_o=err_o,
-               max_abs_err_lse=err_l, tol=fwd_tol,
-               sdpa_max_abs_err=sdpa_err_o, **extra_f,
-               **timed(lambda: fa.flash_attention_fwd(
-                   q, k, v, causal=causal), fwd_flops, fwd_bound),
-               plain_ms=_time_ms(lambda: fa._fwd_plain(q, k, v, causal,
-                                                       scale), iters=5),
-               bound_ms=fwd_bound, bound_by=fwd_by, bytes=fwd_bytes,
-               flops=fwd_flops, library_ms=sdpa_fwd_ms)
+    case = {f: fwd[f] for f in ("S", "causal", "B", "H", "Hkv", "d",
+                                "dtype", "variant", "live_pairs")}
     bwd = dict(case, name="flash_attention_bwd", ok=ok_g,
                max_abs_err=err_g, tol=bwd_tol, sdpa_max_abs_err=sdpa_err_g,
                **extra_b,
-               **timed(lambda: fa.flash_attention_bwd(
+               **_attn_timed(lambda: fa.flash_attention_bwd(
                    q, k, v, o, lse, do, causal=causal), bwd_flops,
                    bwd_bound),
                plain_ms=_time_ms(lambda: fa._bwd_plain(
                    q, k, v, o, lse, do, causal, scale), iters=5),
                bound_ms=bwd_bound, bound_by=bwd_by, bytes=bwd_bytes,
                flops=bwd_flops,
-               library_ms=max(sdpa_fb_ms - sdpa_fwd_ms, 0.0))
+               library_ms=max(sdpa_fb_ms - fwd["library_ms"], 0.0))
     return dict(fwd=fwd, bwd=bwd)
+
+
+def kernel_flash_attention_fwd(S: int, causal: bool, B: int, heads,
+                               d: int) -> dict:
+    """The forward alone (no backward is built at this pair) at (H, Hkv)
+    ``heads``, head dim ``d``, bf16: the CUDA-core kernel."""
+    q, k, v, _ = _attn_case(S, causal, seed=S + d, B=B, heads=heads, d=d)
+    return _attn_fwd_row(q, k, v, causal)[0]
 
 
 def _ssd_case(dtype, seed: int = 0, B: int = TRAIN_B, L: int = TRAIN_S):
@@ -3458,8 +3567,8 @@ def phase_gqa_parity() -> dict:
     """The wider dense family's engine on the card and on the CPU give
     equal greedy streams (``_card_cpu_streams``: fp32, TF32 off, paged +
     ring, 6 requests through 4 slots) at each model's reduced variant in
-    ``WIDE_DENSE``: groups 5 and 8 on the decode kernels' wide path, head
-    dim 64 on the narrow one. A stream that differs fails the phase with
+    ``WIDE_DENSE``: groups 5, 8 and (head dim 64) 7 on the decode
+    kernels' wide path, head dim 64 at group 1 on the narrow one. A stream that differs fails the phase with
     the position and both runs' top-2 margins there."""
     from repro_torch.models.config import get_config, reduced
     out = dict(dtype="float32", tf32=False)
@@ -3473,13 +3582,296 @@ def phase_gqa_parity() -> dict:
 # the wider dense family at full width, by arch: the depth served on the
 # card (None: the published depth), the tag of its kernels-phase rows,
 # and the heads of its reduced gqa_parity variant (group 5, group 8, MHA
-# at head dim 64). deepseek-67b's 95 layers are 134.8 GB of bf16 weights,
-# which no 80 GB card holds; a layer is 1.384 GB and the untied embedding
-# and head 3.36 GB, so 20 layers are about 31.0 GB
+# at head dim 64, group 7 at head dim 64). deepseek-67b's 95 layers are
+# 134.8 GB of bf16 weights, which no 80 GB card holds; a layer is 1.384 GB
+# and the untied embedding and head 3.36 GB, so 20 layers are about 31.0
+# GB. internvl2-1b (the vlm family) is served text-only, as the
+# reference's engine serves it
 WIDE_DENSE = {
     "qwen3-14b": (None, "_g5", dict(n_heads=10, n_kv_heads=2)),
     "deepseek-67b": (20, "_g8", dict(n_heads=16, n_kv_heads=2)),
-    "minicpm-2b": (None, "_d64", dict(n_heads=4, n_kv_heads=4, d_head=64))}
+    "minicpm-2b": (None, "_d64", dict(n_heads=4, n_kv_heads=4, d_head=64)),
+    "internvl2-1b": (None, "_g7", dict(n_heads=14, n_kv_heads=2,
+                                       d_head=64))}
+
+
+VLM_ARCH = "internvl2-1b"
+AUDIO_ARCH = "hubert-xlarge"
+VLM_FORWARD = dict(B=4, text=1792, seq=2048)  # 256 patches + 1792 tokens
+VLM_PREFILL = dict(B=8, text=512, max_len=2048, steps=16)
+ENCODER = dict(B=8, frames=1500, iters=5)   # 30 s clips at 50 frames / s
+ENCODER_PHASE = "encoder_hubert_xlarge"
+# the kernels-phase rows of the two forward-only flash_attention builds
+ATTN_ROWS = {VLM_ARCH: "flash_attention_vlm_2048",
+             AUDIO_ARCH: "flash_attention_audio_1500_noncausal"}
+# bf16 logits through the attention kernels against the plain attention
+# on the card, max |dlogit| / max(1, max |logit|): both round each
+# layer's attention output to bf16 and may differ there by one bf16 step
+# (2^-8 relative) where their fp32 sums round apart, and the bf16
+# residual stream carries such steps through every later layer; 5e-2 is
+# about 13 bf16 steps of the largest logit. A wrong kernel moves logits
+# by their own size; the fp32 vlm_audio_parity phase holds the same
+# paths to 1e-3
+BF16_MODEL_TOL = 5e-2
+
+
+def _rel_diff(got, ref) -> float:
+    return (float((got.float() - ref.float()).abs().max())
+            / max(1.0, float(ref.float().abs().max())))
+
+
+def _logit_line(got, ref) -> dict:
+    """bf16 logits of the kernel path against the plain path's."""
+    return dict(max_rel_logit_diff=_rel_diff(got, ref),
+                mean_abs_logit_diff=float((got.float() - ref.float())
+                                          .abs().mean()),
+                argmax_agreement=float((got.argmax(-1) == ref.argmax(-1))
+                                       .float().mean()),
+                tol=BF16_MODEL_TOL)
+
+
+def _event_ms(fn, iters: int) -> list:
+    """Wall ms of each of ``iters`` calls by CUDA events (no L2 flush:
+    a forward's weights and activations far exceed it)."""
+    import torch
+    out = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def phase_vlm_forward(cfg, params) -> dict:
+    """Full-width internvl2-1b (24 layers, bf16, random weights from seed
+    0) through its patch prefix: ``forward(use_kernel=True)`` with 256
+    patches of 1024 before 1792 tokens at B 4 (S 2048: the (64, 7)
+    causal ``flash_attention`` forward once a layer) against
+    ``use_kernel=False`` on the card; then ``prefill(patches=)`` at B 8
+    (256 patches + 512 tokens, max_len 2048) and 16 greedy
+    ``decode_step``s through ``flash_decode_merged`` (the engine's dense
+    decode attention over every cached token: the (64, 7) merged kernel
+    once a layer), each step's logits against a twin cache decoded by
+    the plain grouped attention, teacher-forced. Launch counts from this
+    main-path run; then ms (median of 3), device ms of the attention
+    kernel a forward, peak memory."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import pam_manager as pm
+    dt = tf.torch_dtype(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, P, T = VLM_FORWARD["B"], cfg.num_patches, VLM_FORWARD["text"]
+    assert P + T == VLM_FORWARD["seq"], (P, T)
+    batch = dict(tokens=torch.randint(0, cfg.vocab, (B, T), generator=g,
+                                      device="cuda"),
+                 patches=torch.randn((B, P, cfg.frontend_dim), generator=g,
+                                     device="cuda").to(dt))
+    pb, pt, smax = VLM_PREFILL["B"], VLM_PREFILL["text"], \
+        VLM_PREFILL["max_len"]
+    ptoks = torch.randint(0, cfg.vocab, (pb, pt), generator=g,
+                          device="cuda")
+    ppatch = torch.randn((pb, P, cfg.frontend_dim), generator=g,
+                         device="cuda").to(dt)
+    part = torch.ones((pb, smax), dtype=torch.bool, device="cuda")
+    kernel_attn = pm.make_masked_decode_attn(part)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with torch.no_grad():                       # the main path
+        logits, _ = tf.forward(cfg, params, batch, use_kernel=True)
+        lg, cache = tf.prefill(cfg, params, ptoks, smax, patches=ppatch)
+        twin = tf.DecodeCache(*(t.clone() for t in cache))
+        plain_l, worst = lg, 0.0
+        for _ in range(VLM_PREFILL["steps"]):
+            nxt = torch.argmax(lg, -1).to(torch.int32)
+            lg, cache, _ = tf.decode_step(cfg, params, nxt, cache,
+                                          decode_attn_fn=kernel_attn)
+            plain_l, twin, _ = tf.decode_step(
+                cfg, params, nxt, twin,
+                decode_attn_fn=attn_mod.dense_decode_attn)
+            worst = max(worst, _rel_diff(lg, plain_l))
+    torch.cuda.synchronize()
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    assert launches["flash_attention"] == cfg.n_layers, launches
+    _assert_decode_launches(launches, {
+        "flash_decode_merged": cfg.n_layers * VLM_PREFILL["steps"]})
+    assert tuple(logits.shape) == (B, T, cfg.vocab), logits.shape
+    assert bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(lg).all())
+    assert cache.lengths.tolist() == [P + pt + VLM_PREFILL["steps"]] * pb
+    with torch.no_grad():
+        plain, _ = tf.forward(cfg, params, batch, use_kernel=False)
+        fwd_line = _logit_line(logits, plain)
+        del plain, logits
+        assert fwd_line["max_rel_logit_diff"] <= BF16_MODEL_TOL, fwd_line
+        assert worst <= BF16_MODEL_TOL, f"decode logits differ: {worst}"
+
+        def fwd():
+            tf.forward(cfg, params, batch, use_kernel=True)
+
+        def fwd_plain():
+            tf.forward(cfg, params, batch, use_kernel=False)
+        fwd_ms = sorted(_event_ms(fwd, 3))[1]
+        plain_ms = sorted(_event_ms(fwd_plain, 3))[1]
+        attn_ms = _device_ms_by_kernel(fwd, iters=3)
+        prefill_ms = sorted(_event_ms(lambda: tf.prefill(
+            cfg, params, ptoks, smax, patches=ppatch), 3))[1]
+        c = tf.DecodeCache(*(t.clone() for t in cache))
+        nxt = torch.argmax(lg, -1).to(torch.int32)
+        step_ms = sorted(_event_ms(lambda: tf.decode_step(
+            cfg, params, nxt, c, decode_attn_fn=kernel_attn), 3))[1]
+    return dict(card=_card(), arch=cfg.name, n_layers=cfg.n_layers,
+                heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+                forward=dict(B=B, patches=P, text=T, seq=P + T,
+                             ms=fwd_ms, plain_attention_ms=plain_ms,
+                             attention_device_ms=attn_ms,
+                             tokens_per_s=B * (P + T) / (fwd_ms / 1e3),
+                             **fwd_line),
+                prefill=dict(B=pb, patches=P, text=pt, max_len=smax,
+                             ms=prefill_ms),
+                decode=dict(steps=VLM_PREFILL["steps"],
+                            eager_step_ms=step_ms,
+                            max_rel_logit_diff=worst, tol=BF16_MODEL_TOL,
+                            lengths_after=P + pt + VLM_PREFILL["steps"]),
+                launches=launches, peak_mem_gb=peak_gb)
+
+
+def phase_encoder(cfg, params) -> dict:
+    """Full-width, full-depth hubert-xlarge (48 layers, 16 / 16 heads of
+    80, bf16, random weights from seed 0): ``forward(use_kernel=True)``
+    under ``no_grad`` over B 8 x 1500 frames (30 s clips at 50 frames a
+    second; the bidirectional (80, 1) ``flash_attention`` forward once a
+    layer). One warm-up forward, then 5 timed by CUDA events; launches
+    counted over those 6 (48 each); logits against ``use_kernel=False``
+    on the card; median ms, frames a second, the attention kernel's
+    device ms a forward and its share, peak memory."""
+    import statistics
+    import torch
+    from repro_torch.models import transformer as tf
+    B, S = ENCODER["B"], ENCODER["frames"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = dict(frames=torch.randn((B, S, cfg.frontend_dim), generator=g,
+                                    device="cuda").to(tf.torch_dtype(cfg)))
+
+    def fwd():
+        return tf.forward(cfg, params, batch, use_kernel=True)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with torch.no_grad():                       # the main path
+        logits = fwd()
+        ms = _event_ms(fwd, ENCODER["iters"])
+    torch.cuda.synchronize()
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    forwards = 1 + ENCODER["iters"]
+    assert launches["flash_attention"] == cfg.n_layers * forwards, launches
+    _assert_decode_launches(launches, {})
+    assert tuple(logits.shape) == (B, S, cfg.vocab), logits.shape
+    assert bool(torch.isfinite(logits).all())
+    with torch.no_grad():
+        plain = tf.forward(cfg, params, batch, use_kernel=False)[0]
+        line = _logit_line(logits, plain)
+        assert line["max_rel_logit_diff"] <= BF16_MODEL_TOL, line
+        plain_ms = sorted(_event_ms(lambda: tf.forward(
+            cfg, params, batch, use_kernel=False), 3))[1]
+        attn = _device_ms_by_kernel(fwd, iters=3)
+    med = statistics.median(ms)
+    return dict(card=_card(), arch=cfg.name, n_layers=cfg.n_layers,
+                heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+                causal=cfg.causal, B=B, frames=S, forward_ms=ms,
+                forward_ms_median=med, frames_per_s=B * S / (med / 1e3),
+                plain_attention_forward_ms=plain_ms,
+                attention_device_ms=attn,
+                attention_share=sum(attn.values()) / med,
+                forwards=forwards, launches=launches,
+                weights=_dense_weights(cfg), peak_mem_gb=peak_gb, **line)
+
+
+def phase_vlm_audio_parity() -> dict:
+    """Reduced internvl2-1b and hubert-xlarge in fp32, TF32 off, weights
+    made on the CPU and copied: the card against the CPU (whose wrappers
+    run the plain versions). vlm, at the reduced heads (4 q / 2 kv of 16)
+    and at 14 / 2 of 64 (the (64, 7) builds): ``forward(use_kernel=True)``
+    with patches, ``prefill(patches=)`` and 4 decode steps through
+    ``flash_decode_merged`` (teacher-forced with the CPU's tokens);
+    audio, at the reduced heads (4 / 2 of 16) and at 4 / 4 of 80 (the
+    (80, 1) build): the bidirectional ``forward(use_kernel=True)``. Each
+    within ``PARITY_TOL``; flash_attention n_layers a forward and
+    flash_decode_merged n_layers a decode step."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import get_config, reduced
+    from repro_torch.serving import pam_manager as pm
+    out = dict(dtype="float32", tf32=False, tol=PARITY_TOL)
+    cases = (("vlm", VLM_ARCH, {}),
+             ("vlm_g7", VLM_ARCH, dict(n_heads=14, n_kv_heads=2, d_head=64)),
+             ("audio", AUDIO_ARCH, {}),
+             ("audio_d80", AUDIO_ARCH, dict(n_heads=4, n_kv_heads=4,
+                                            d_head=80)))
+    total = dict.fromkeys(("flash_attention", "flash_decode_merged"), 0)
+    for key, arch, heads in cases:
+        cfg = dataclasses.replace(reduced(get_config(arch)), **heads)
+        host = tf.init_params(cfg, 0, device="cpu")
+        dev = tree.tree_map(lambda t: t.to("cuda"), host)
+        rng = np.random.default_rng(len(key))
+        line, worst = {}, 0.0
+        _reset_launches()
+        if cfg.family == "audio":
+            batch = {"frames": torch.from_numpy(rng.standard_normal(
+                (2, 150, cfg.frontend_dim), np.float32))}
+        else:
+            batch = {"tokens": torch.from_numpy(
+                         rng.integers(0, cfg.vocab, (2, 96))),
+                     "patches": torch.from_numpy(rng.standard_normal(
+                         (2, cfg.num_patches, cfg.frontend_dim),
+                         np.float32))}
+        with torch.no_grad():
+            ref, _ = tf.forward(cfg, host, batch, use_kernel=True)
+            got, _ = tf.forward(cfg, dev, {k: v.cuda() for k, v in
+                                           batch.items()}, use_kernel=True)
+            line["forward"] = _rel_diff(got.cpu(), ref)
+            if cfg.family == "vlm":
+                toks, patches = batch["tokens"], batch["patches"]
+                lc, cc = tf.prefill(cfg, host, toks, 128, patches=patches)
+                lg, cg = tf.prefill(cfg, dev, toks.cuda(), 128,
+                                    patches=patches.cuda())
+                line["prefill"] = _rel_diff(lg.cpu(), lc)
+                part = torch.ones((2, 128), dtype=torch.bool)
+                for _ in range(4):
+                    nxt = torch.argmax(lc, -1).to(torch.int32)
+                    lc, cc, _ = tf.decode_step(
+                        cfg, host, nxt, cc,
+                        decode_attn_fn=pm.make_masked_decode_attn(part))
+                    lg, cg, _ = tf.decode_step(
+                        cfg, dev, nxt.cuda(), cg,
+                        decode_attn_fn=pm.make_masked_decode_attn(
+                            part.cuda()))
+                    worst = max(worst, _rel_diff(lg.cpu(), lc))
+                line["decode_4_steps"] = worst
+        launches = _launches()
+        want = dict(flash_attention=cfg.n_layers,
+                    flash_decode_merged=4 * cfg.n_layers
+                    if cfg.family == "vlm" else 0)
+        for name, n in want.items():
+            assert launches[name] == n, (key, name, launches[name], n)
+            total[name] += n
+        bad = {k: v for k, v in line.items() if v > PARITY_TOL}
+        assert not bad, f"{key}: card and CPU differ: {bad}"
+        out[key] = dict(line, heads=[cfg.n_heads, cfg.n_kv_heads],
+                        head_dim=cfg.head_dim, causal=cfg.causal,
+                        launches={k: launches[k] for k in want})
+        del host, dev
+    out["launches"] = total
+    return out
 
 
 def _wide_heads(arch: str) -> tuple[int, int, int]:
@@ -3795,6 +4187,16 @@ def phase_kernels() -> dict:
     r = kernel_flash_attention(PARITY_S, True, B=PARITY_B, dtype="float32")
     out["flash_attention_fp32_500"] = r["fwd"]
     out["flash_attention_bwd_fp32_500"] = r["bwd"]
+    # the CUDA-core forward at its two forward-only builds, bf16 at the
+    # main paths' shapes: internvl2-1b's (64, 7) causal at vlm_forward's
+    # B 4, S 2048, and hubert-xlarge's (80, 1) bidirectional at the
+    # encoder's B 8 x 1500 frames (a ragged last tile)
+    H, Hkv, d = _wide_heads(VLM_ARCH)
+    out[ATTN_ROWS[VLM_ARCH]] = kernel_flash_attention_fwd(
+        VLM_FORWARD["seq"], True, VLM_FORWARD["B"], (H, Hkv), d)
+    H, Hkv, d = _wide_heads(AUDIO_ARCH)
+    out[ATTN_ROWS[AUDIO_ARCH]] = kernel_flash_attention_fwd(
+        ENCODER["frames"], False, ENCODER["B"], (H, Hkv), d)
     out.update(kernel_ssd_scan())
     return out
 
@@ -3911,10 +4313,25 @@ def main() -> int:
             # kernel walks live blocks
             run(_engine_phase(arch) + "_full_pool", phase_engine_paged_full,
                 *wide)
+            if arch == VLM_ARCH:     # its patch prefix: forward, prefill
+                run("vlm_forward", phase_vlm_forward, *wide)
             del wide
         gc.collect()
         torch.cuda.empty_cache()
     run("gqa_parity", phase_gqa_parity)
+    torch.cuda.empty_cache()
+    audio = None
+    try:            # hubert-xlarge at full width and depth
+        audio = _model("bfloat16", AUDIO_ARCH)
+    except Exception as exc:
+        failed.append("model_audio")
+        emit("model_audio", ok=False, error=repr(exc))
+    if audio is not None:
+        run(ENCODER_PHASE, phase_encoder, *audio)
+        del audio
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("vlm_audio_parity", phase_vlm_audio_parity)
     torch.cuda.empty_cache()
     mla = None
     try:            # deepseek-v2-lite-16b at full width and depth
@@ -3986,20 +4403,20 @@ def main() -> int:
     moe_run = results["engine_moe"]["launches"]
     rows = []
 
-    def add_row(key, src, replaces, launches):
+    def add_row(key, src, replaces, launches, name=None):
         k = kernels[key]
         tag = next((t for t in ("_g16", D112,
                                 *(w[1] for w in WIDE_DENSE.values()))
                     if key.endswith(t)), "")
         row = dict(
-            name=k["name"] + tag, route="cuda",
+            name=name or k["name"] + tag, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/{replaces}",
             launches=launches, max_abs_err=k["max_abs_err"],
             ms=k["ms"], kernel_device_ms=k["kernel_device_ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"])
-        for extra in ("S", "split", "variant", "dtype", "tflops",
+        for extra in ("S", "split", "variant", "dtype", "tflops", "causal",
                       "pct_of_bound", "executed_tflops", "sdpa_max_abs_err",
                       "H", "Hkv", "d"):
             if extra in k:
@@ -4118,6 +4535,24 @@ def main() -> int:
     row["note"] = ("on no model's path: the hybrid family refuses paged "
                    "pools, as the reference does; built from the shared "
                    "(head dim, group) list and held to its plain version")
+    # the forward-only flash_attention builds: internvl2-1b's (64, 7)
+    # causal from vlm_forward, hubert-xlarge's (80, 1) bidirectional from
+    # the encoder phase, each also from vlm_audio_parity's fp32 variants
+    vap = results["vlm_audio_parity"]
+    for arch, phase, tag, case in ((VLM_ARCH, "vlm_forward", "_d64_g7",
+                                    "vlm_g7"),
+                                   (AUDIO_ARCH, ENCODER_PHASE,
+                                    "_d80_noncausal", "audio_d80")):
+        row = add_row(ATTN_ROWS[arch], "flash_attention.cu",
+                      "flash_attention.py:31",
+                      results[phase]["launches"]["flash_attention"],
+                      name="flash_attention" + tag)
+        row["launches_in"] = phase
+        row["launches_vlm_audio_parity"] = vap[case]["launches"][
+            "flash_attention"]
+        row["note"] = ("forward only: the backward is not built at this "
+                       "pair (training this family is ROADMAP Queue 1 "
+                       "item 18)")
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

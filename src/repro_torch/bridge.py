@@ -45,7 +45,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
     fp32 ``dt_bias``, ``a_log`` and ``d_skip`` and the MoE family's fp32
     ``router`` stay fp32 in a bf16 model; the MoE's zero-size shared
     leaves cross as they are; an MLA model's ``layers/mla`` holds the
-    stacked ``MLAParams`` fields)."""
+    stacked ``MLAParams`` fields; the vlm and audio families' patch or
+    frame projection is ``frontend``)."""
     _require_ported(cfg)
     return _tree(tree, resolve_device(device))
 

@@ -10,8 +10,9 @@
 // padded row stride (D + 1), so a half-warp reading one column of 16
 // different rows touches 16 different banks. All products run on the CUDA
 // cores in fp32: these kernels serve fp32 operands (whose tensor-core
-// product would be TF32) and head dim 16 (the reduced configs); bf16 with
-// head dim 128 runs the wgmma kernels of attention_sm90.cuh.
+// product would be TF32) and bf16 below head dim 128 (16: the reduced
+// configs; 64 and 80: internvl2-1b and hubert-xlarge, forward only); bf16
+// with head dim 128 runs the wgmma kernels of attention_sm90.cuh.
 #pragma once
 
 #include "decode_common.cuh"
@@ -122,42 +123,62 @@ __device__ __forceinline__ void mul_tile(const float* __restrict__ P,
   }
 }
 
-// Launch over the GQA group sizes built (1 and 2) and the head dims (16
-// and 128): Launch<T, D, REP>::run(args, stream); 0 or a CUDA error code.
-template <template <typename, int, int> class Launch, typename T, int D,
+// The built (head dim, GQA group) pairs, listed once each for the
+// forward and the backward: the configs' (qwen3-0.6b 128/2, pam-llama-7b
+// 128/1, internvl2-1b 64/7 and hubert-xlarge 80/1, forward only: their
+// training is not ported) and the reduced variants' (head dim 16 at
+// groups 1 and 2). kernels/flash_attention.py's BUILT and BUILT_BWD hold
+// the same lists (a CPU test compares them) and refuse any other pair
+// before a launch; here another pair returns -1. Each pair is an fp32 and,
+// below head dim 128, a bf16 instantiation (bf16 at head dim 128 runs the
+// wgmma kernels of flash_attention_sm90.cu / flash_attention_bwd_sm90.cu,
+// which take groups 1 and 2), so the lists are kept short.
+#define PAM_ATTN_FWD_BUILT(X) \
+  X(16, 1) X(16, 2) \
+  X(64, 7) \
+  X(80, 1) \
+  X(128, 1) X(128, 2)
+#define PAM_ATTN_BWD_BUILT(X) \
+  X(16, 1) X(16, 2) \
+  X(128, 1) X(128, 2)
+
+// One built pair: Launch<T, D, REP>::run(args, stream) for dtype 0 (fp32)
+// or 1 (bf16, below head dim 128); 0 or a CUDA error code, -1 for another
+// dtype.
+template <template <typename, int, int> class Launch, int D, int REP,
           typename Args>
-int dispatch_rep(int rep, const Args& a, cudaStream_t stream) {
-  switch (rep) {
-    case 1: Launch<T, D, 1>::run(a, stream); break;
-    case 2: Launch<T, D, 2>::run(a, stream); break;
-    default: return -1;
+int launch_pair(int dtype, const Args& a, cudaStream_t stream) {
+  if (dtype == 0) {
+    Launch<float, D, REP>::run(a, stream);
+  } else if constexpr (D != 128) {
+    if (dtype != 1) return -1;
+    Launch<__nv_bfloat16, D, REP>::run(a, stream);
+  } else {
+    return -1;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <template <typename, int, int> class Launch, typename T,
-          typename Args>
-int dispatch_d(int d, int rep, const Args& a, cudaStream_t stream) {
-  switch (d) {
-    case 16: return dispatch_rep<Launch, T, 16>(rep, a, stream);
-    case 128: return dispatch_rep<Launch, T, 128>(rep, a, stream);
-    default: return -1;
-  }
-}
+#define PAM_ATTN_CASE(D, REP) \
+  if (d == D && rep == REP)        \
+    return launch_pair<Launch, D, REP>(dtype, a, stream);
 
-// Dispatch over the (dtype, head dim, group size) triples these kernels
-// serve: fp32 with head dim 16 or 128, and bf16 with head dim 16. bf16 with
-// head dim 128 runs the wgmma kernels (flash_attention_sm90.cu,
-// flash_attention_bwd_sm90.cu) and is not built here, so each triple has
-// one kernel; -1 for any other triple.
+// Dispatch of the forward / the backward over their built pairs; -1 for
+// any other (dtype, head dim, group size).
 template <template <typename, int, int> class Launch, typename Args>
-int dispatch_cuda_core(int dtype, int d, int rep, const Args& a,
-                       cudaStream_t stream) {
-  if (dtype == 0) return dispatch_d<Launch, float>(d, rep, a, stream);
-  if (dtype == 1 && d == 16)
-    return dispatch_rep<Launch, __nv_bfloat16, 16>(rep, a, stream);
+int dispatch_fwd(int dtype, int d, int rep, const Args& a,
+                 cudaStream_t stream) {
+  PAM_ATTN_FWD_BUILT(PAM_ATTN_CASE)
   return -1;
 }
+
+template <template <typename, int, int> class Launch, typename Args>
+int dispatch_bwd(int dtype, int d, int rep, const Args& a,
+                 cudaStream_t stream) {
+  PAM_ATTN_BWD_BUILT(PAM_ATTN_CASE)
+  return -1;
+}
+#undef PAM_ATTN_CASE
 
 // Key tiles a query tile starting at q0 must visit: all of them, or under
 // the causal mask (kpos <= qpos from position 0) those starting at or

@@ -44,7 +44,7 @@
 //      mbarrier (release, cluster scope), then exits; rank 0 waits for
 //      every arrival and reduces the partials in run order, so no partial
 //      goes through device memory and the arithmetic has no atomics.
-// Groups above 2 (5, 8 and 16 are built) take attend_run_wide below: the
+// Groups above 2 (5, 7, 8 and 16 are built) take attend_run_wide below: the
 // same steps 1 and 2, then each warp owns whole heads and walks every
 // staged row, and the merge reads the runs' partials over distributed
 // shared memory.
@@ -647,10 +647,11 @@ struct BlockSmem<D, REP, MERGED, true> {
 
 // The heads warp w owns on the wide path: [w * REP / kWarps, (w + 1) *
 // REP / kWarps). Every warp gets floor or ceil(REP / kWarps) heads (group
-// 5: 1, 1, 1, 2; groups 8 and 16: 2 and 4 each), so the warp a tile's
-// barrier waits for holds ceil(REP / kWarps) heads, the fewest any layout
-// allows, and from group 4 up no warp is left without a head (the
-// alternative 2, 2, 1, 0 has the same slowest warp and one idle warp).
+// 5: 1, 1, 1, 2; group 7: 1, 2, 2, 2; groups 8 and 16: 2 and 4 each), so
+// the warp a tile's barrier waits for holds ceil(REP / kWarps) heads, the
+// fewest any layout allows, and from group 4 up no warp is left without a
+// head (the alternative 2, 2, 1, 0 has the same slowest warp and one idle
+// warp).
 // A warp's head count is warp-uniform, so the guards below never split
 // a warp's shuffles.
 template <int REP>
@@ -658,7 +659,7 @@ __device__ __forceinline__ int wide_first_head(int warp) {
   return warp * REP / kWarps;
 }
 
-// attend_run for a wide group (REP > kMaxNarrowRep; 5, 8 and 16 built):
+// attend_run for a wide group (REP > kMaxNarrowRep; 5, 7, 8 and 16 built):
 // the same participation, compaction and cp.async staging, then each warp
 // owns whole heads (wide_first_head: at most HPW = ceil(REP / kWarps)) and
 // walks every staged row of a tile in sub-tiles of 32 rows:
@@ -899,7 +900,8 @@ inline size_t dyn_smem_bytes(int tile, int L) {
 
 // The built (head dim, GQA group) pairs, listed once: the port's configs'
 // (qwen3-0.6b 128/2, pam-llama-7b 128/1, qwen3-14b 128/5, deepseek-67b
-// 128/8, qwen3-moe-235b-a22b 128/16, minicpm-2b 64/1, zamba2-7b 112/1)
+// 128/8, qwen3-moe-235b-a22b 128/16, minicpm-2b 64/1, internvl2-1b 64/7,
+// zamba2-7b 112/1)
 // and the reduced variants the tests and parity runs use (head dim 16 at
 // every built group, 64 at group 2). kernels/flash_decode.py::BUILT
 // holds the same list (a CPU test compares the two) and refuses any other
@@ -908,7 +910,7 @@ inline size_t dyn_smem_bytes(int tile, int L) {
 // kept short.
 #define PAM_DECODE_BUILT(X) \
   X(16, 1) X(16, 2) X(16, 5) X(16, 8) X(16, 16) \
-  X(64, 1) X(64, 2) \
+  X(64, 1) X(64, 2) X(64, 7) \
   X(112, 1) \
   X(128, 1) X(128, 2) X(128, 5) X(128, 8) X(128, 16)
 

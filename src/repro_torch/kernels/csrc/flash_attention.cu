@@ -17,10 +17,14 @@
 // CUDA cores in fp32 (exact to the plain version up to the order of sums),
 // with causal tiles past the diagonal skipped. It serves fp32 operands
 // (the fp32 train_parity path: a tensor-core product would be TF32) and
-// head dim 16 (the reduced configs), bound by their FLOPs over the 67
-// TFLOP/s fp32 peak. bf16 with head dim 128, the full-width train path,
-// runs flash_attention_sm90.cu (wgmma on TMA-staged bf16 tiles) instead;
-// kernels/flash_attention.py::_variant chooses.
+// bf16 below head dim 128 (16: the reduced configs; 64 at group 7:
+// internvl2-1b; 80 at group 1, bidirectional: hubert-xlarge's encoder),
+// bound by their FLOPs over the 67 TFLOP/s fp32 peak. At head dim 80 the
+// fp32 tiles (three of 64 x 81 and the 64 x 65 score tile, 77 KB) take
+// the dynamic shared memory opt-in above 48 KB, as at 128. bf16 with head
+// dim 128, the full-width train path, runs flash_attention_sm90.cu (wgmma
+// on TMA-staged bf16 tiles) instead; kernels/flash_attention.py::_variant
+// chooses.
 #include "attention_common.cuh"
 
 namespace pam {
@@ -150,7 +154,8 @@ struct LaunchFwd {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o). Returns 0, a CUDA
 // error code from cudaGetLastError(), or -1 for an unsupported
-// (dtype, D, H / Hkv), bf16 with D = 128 among them (flash_attention_sm90.cu).
+// (dtype, D, H / Hkv): a pair outside PAM_ATTN_FWD_BUILT, or bf16 with
+// D = 128 (flash_attention_sm90.cu).
 extern "C" int pam_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int H, int Hkv, int Sq, int Sk,
@@ -169,6 +174,6 @@ extern "C" int pam_flash_attention_fwd(const void* q, const void* k,
   a.Sk = Sk;
   a.causal = causal;
   a.scale = scale;
-  return pam::attn::dispatch_cuda_core<pam::LaunchFwd>(
+  return pam::attn::dispatch_fwd<pam::LaunchFwd>(
       dtype, D, H / Hkv, a, static_cast<cudaStream_t>(stream));
 }

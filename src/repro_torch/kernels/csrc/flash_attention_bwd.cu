@@ -310,6 +310,6 @@ extern "C" int pam_flash_attention_bwd(const void* q, const void* k,
   a.Sk = Sk;
   a.causal = causal;
   a.scale = scale;
-  return pam::attn::dispatch_cuda_core<pam::LaunchBwd>(
+  return pam::attn::dispatch_bwd<pam::LaunchBwd>(
       dtype, D, H / Hkv, a, static_cast<cudaStream_t>(stream));
 }

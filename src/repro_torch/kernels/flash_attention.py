@@ -19,7 +19,8 @@ Two kernel variants, one per (dtype, head dim), chosen by ``_variant``:
   wgmma on 128-byte-swizzled bf16 tiles staged by TMA, P and dS rounded
   to bf16 as the second product's operand (``_fwd_rounded`` and
   ``_bwd_rounded`` model those rounding points in plain PyTorch);
-- ``"cuda_core"``: fp32, and head dim 16 (the reduced configs),
+- ``"cuda_core"``: fp32, and bf16 below head dim 128 (16: the reduced
+  configs; 64 and 80: internvl2-1b's and hubert-xlarge's forward),
   ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``: fp32
   products on the CUDA cores, exact to the plain versions up to the
   order of sums (fp32 wgmma would be TF32).
@@ -43,11 +44,20 @@ from repro_torch.kernels.flash_decode import (_DTYPE_CODE, _ptr, _stream,
                                               check_launch)
 
 NEG_INF = -1e30
-# (head dim, GQA group) pairs the forward and backward kernels are built
-# for, whatever the dtype: csrc/attention_common.cuh's dispatch and the
-# wgmma launchers (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu)
-# take groups 1 and 2 at head dims 16 and 128
-BUILT = tuple((d, g) for d in (16, 128) for g in (1, 2))
+# (head dim, GQA group) pairs the forward kernels are built for, whatever
+# the dtype: csrc/attention_common.cuh's PAM_ATTN_FWD_BUILT (the wgmma
+# launchers, flash_attention_sm90.cu, take groups 1 and 2 at head dim
+# 128); 64 at group 7 (internvl2-1b) and 80 at group 1 (hubert-xlarge)
+# are built forward only
+BUILT = ((16, 1), (16, 2),
+         (64, 7),
+         (80, 1),
+         (128, 1), (128, 2))
+# the backward's pairs: PAM_ATTN_BWD_BUILT (and flash_attention_bwd_sm90.cu
+# at head dim 128); training internvl2-1b and hubert-xlarge, which needs
+# (64, 7) and (80, 1) here, is ROADMAP Queue 1 item 18
+BUILT_BWD = ((16, 1), (16, 2),
+             (128, 1), (128, 2))
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 SM90_PAD = 128          # row padding of the wgmma backward's fp32 scratch
@@ -56,9 +66,9 @@ SM90_PAD = 128          # row padding of the wgmma backward's fp32 scratch
 def _variant(dtype: torch.dtype, d: int) -> str:
     """The kernel variant of operands of ``dtype`` and head dim ``d``:
     ``"wgmma"`` for bf16 with d = 128, ``"cuda_core"`` otherwise (fp32,
-    or d = 16). Each (dtype, d, group) has exactly one kernel; a (d,
-    group) pair outside ``BUILT`` raises in the wrapper before any
-    launch."""
+    or d < 128). Each (dtype, d, group) has exactly one kernel; a (d,
+    group) pair outside ``BUILT`` (forward) or ``BUILT_BWD`` (backward)
+    raises in the wrapper before any launch."""
     return "wgmma" if dtype == torch.bfloat16 and d == 128 else "cuda_core"
 
 
@@ -251,7 +261,7 @@ def _bwd_cuda(q, k, v, o, lse, do, causal, scale):
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     check_launch("flash_attention_bwd", d, H // Hkv, q, k, v, o, lse, do,
-                 built=BUILT)
+                 built=BUILT_BWD)
     _check_args("flash_attention_bwd", q, k, v)
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError("flash_attention_bwd: o and do must have q's "

@@ -45,10 +45,10 @@ NEG_INF = -1e30
 DEFAULT_BLOCK_S = 512
 # (head dim, GQA group) pairs the kernels are built for, the list of
 # csrc/decode_common.cuh's PAM_DECODE_BUILT: the port's configs' (128 at
-# groups 1, 2, 5, 8, 16; 64 and 112 at group 1) and the reduced
-# variants' (16 at every built group, 64 at group 2)
+# groups 1, 2, 5, 8, 16; 64 at groups 1 and 7; 112 at group 1) and the
+# reduced variants' (16 at every built group but 7, 64 at group 2)
 BUILT = ((16, 1), (16, 2), (16, 5), (16, 8), (16, 16),
-         (64, 1), (64, 2),
+         (64, 1), (64, 2), (64, 7),
          (112, 1),
          (128, 1), (128, 2), (128, 5), (128, 8), (128, 16))
 RUN_LENGTHS = (512, 256, 128, 64, 32, 16)   # tokens a CUDA block walks

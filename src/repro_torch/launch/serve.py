@@ -19,7 +19,12 @@ only, as the reference does: ``--block-size`` / ``--hot-window`` raise
 its ``ValueError``; ``--arch zamba2-7b`` serves the hybrid model (68
 Mamba-2 layers around one shared attention block at 13 sites, 11.47 GB
 in bf16, one card at full depth; ``--layers`` does not apply) on the
-dense layout likewise; ``--reduced --device cpu`` runs
+dense layout likewise; ``--arch internvl2-1b`` serves the vision-language
+model text-only (its patch prefix is not an engine input, as in the
+reference; GQA group 7 at head dim 64, 0.99 GB in bf16) wherever the
+dense family serves; ``--arch hubert-xlarge`` is an encoder with no
+decode step, gets no PAM config and fails at the engine's construction,
+as the reference's CLI does; ``--reduced --device cpu`` runs
 the smoke-size model on the CPU; ``--temperature``/``--top-k`` sample, ``--prefill-chunk``
 admits long prompts in slices. The flags mirror ``repro.launch.serve``'s batch mode; the defaults are sized
 for the GPU (8 requests of 512 prompt tokens, 64 new tokens each,
@@ -185,12 +190,14 @@ def main(argv=None) -> dict:
                      "family's depth is its groups")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = tfm.init_params(cfg, 0, device=args.device)
-    pam_cfg = PAMManagerConfig(
-        max_tokens=args.max_len,
-        hot_capacity=max(args.max_len // 8, 8),
-        warm_capacity=max(args.max_len // 4, 16),
-        compression=4, recency_window=8, schedule_interval=2,
-        use_sparsity=not args.no_sparsity)
+    pam_cfg = None
+    if cfg.has_decode:       # an encoder (audio) gets no PAM config
+        pam_cfg = PAMManagerConfig(
+            max_tokens=args.max_len,
+            hot_capacity=max(args.max_len // 8, 8),
+            warm_capacity=max(args.max_len // 4, 16),
+            compression=4, recency_window=8, schedule_interval=2,
+            use_sparsity=not args.no_sparsity)
     if args.prefill_chunk and not args.block_size:
         ap.error("--prefill-chunk requires --block-size (paged KV)")
     scfg = ServingConfig(max_batch=args.max_batch, max_len=args.max_len,

@@ -85,6 +85,16 @@ class ModelConfig:
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Supports O(1)-state long-context decode (long_500k eligible)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decode(self) -> bool:
+        """Autoregressive — encoder-only archs have no decode step."""
+        return self.family != "audio"
+
     def param_count(self) -> int:
         """Analytic parameter count (used for 6ND model-FLOPs)."""
         d, L, V = self.d_model, self.n_layers, self.vocab

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families: init,
-the training forward and loss, prefill, decode.
+"""Model assembly for the dense, MoE, SSM, hybrid, vlm and audio
+families: init, the training forward and loss, prefill, decode.
 
 Counterpart of ``repro.models.transformer`` (dense GQA family, the GQA
 mixture-of-experts family — attention as dense, the FFN routed by
@@ -9,18 +9,22 @@ mixture-of-experts family — attention as dense, the FFN routed by
 served only: groups of Mamba-2 layers, ``params["mamba_groups"]``
 stacked (n_groups, mamba_per_group, ...), each group followed by one
 shared attention + MLP block, ``params["shared_attn"]`` unstacked, at
-its own KV cache site, then ``params["tail_mamba"]``). Layer parameters
-are stacked on a leading axis exactly as in the JAX pytree —
-``params["layers"]["attn"]["wq"]`` is (L, d, H*dh) in the ``x @ W``
-orientation, ``params["layers"]["moe"]`` the stacked ``MoEParams``
+its own KV cache site, then ``params["tail_mamba"]``, the ``vlm``
+family — a dense decoder whose ``params["frontend"]`` projects image
+patch embeddings into a prefix before the token embeddings — and the
+``audio`` family, a bidirectional encoder whose frames go through
+``params["frontend"]`` in place of the embeddings, with no decode).
+Layer parameters are stacked on a leading axis exactly as in the JAX
+pytree — ``params["layers"]["attn"]["wq"]`` is (L, d, H*dh) in the
+``x @ W`` orientation, ``params["layers"]["moe"]`` the stacked ``MoEParams``
 fields (zero-size shared leaves without shared experts),
 ``params["layers"]["ssm"]`` the stacked ``SSMParams`` fields — so
 ``repro_torch.bridge`` moves weights as plain copies; the layer loop is
 a Python loop over per-layer views of that axis, each leaf unbound once
 (``_layers``; ``remat`` checkpoints each layer with
 ``torch.utils.checkpoint``).
-Other families raise ``NotImplementedError`` naming their ROADMAP item,
-and so do ``forward`` / ``loss_fn`` on an MLA or a hybrid model.
+``forward`` / ``loss_fn`` on an MLA or a hybrid model raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -71,15 +75,17 @@ def _hybrid(cfg: ModelConfig) -> bool:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """The dense family (GQA, no MoE / MLA), the GQA and MLA MoE
-    families, the pure SSM family and the hybrid family are ported; the
-    others raise."""
-    dense = (cfg.family == "dense" and cfg.moe is None and cfg.mla is None)
+    """Every family of the reference is ported: the dense family and its
+    vlm and audio variants (GQA, no MoE / MLA), the GQA and MLA MoE
+    families, the pure SSM family and the hybrid family. Any other
+    family string raises."""
+    dense = (cfg.family in ("dense", "vlm", "audio") and cfg.moe is None
+             and cfg.mla is None)
     if not (dense or _gqa_moe(cfg) or _mla_moe(cfg) or _hybrid(cfg)
             or (cfg.family == "ssm" and cfg.ssm is not None)):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 7: vlm, audio)")
+            f"{cfg.name}: family {cfg.family!r} is no family of the "
+            f"reference")
 
 
 
@@ -177,6 +183,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 "down": lin(cfg.d_ff, d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, d, cfg.vocab, dtype, dev)
+    if cfg.family in ("vlm", "audio"):
+        params["frontend"] = init_linear(gen, cfg.frontend_dim, d, dtype,
+                                         dev)
     return params
 
 
@@ -279,7 +288,11 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             *, use_kernel: bool = False, remat: bool = False,
             activation_spec=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), aux_loss scalar fp32: the MoE layers'
-    summed load-balance losses, 0 for the dense and SSM families).
+    summed load-balance losses, 0 for the other families).
+    The audio family reads ``batch["frames"]`` (B, S, frontend_dim) in
+    place of tokens; the vlm family puts ``batch["patches"]`` (B, P,
+    frontend_dim), projected, before the token embeddings and drops the
+    ``num_patches`` prefix positions from the logits.
     ``remat`` recomputes each layer in the backward
     pass (``torch.utils.checkpoint``, non-reentrant), so the forward
     kernel runs twice per layer and step; the stacked leaves are unbound
@@ -298,7 +311,7 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             "activation_spec (sequence-parallel residual sharding) is not "
             "ported yet (ROADMAP Queue 1 item 9, sharding)")
     block = _ssm_block if cfg.family == "ssm" else _dense_block
-    x = params["embed"][batch["tokens"]]
+    x = _embed_inputs(cfg, params, batch)
     auxes = []
     for lp in _layers(params):      # unbound here, outside the checkpoints
         if remat:
@@ -311,9 +324,24 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             auxes.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = x @ _head(cfg, params)
+    if cfg.family == "vlm":      # strip the image-prefix positions
+        logits = logits[:, cfg.num_patches:]
     if cfg.moe is not None:
         return logits, torch.sum(torch.stack(auxes))
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _embed_inputs(cfg: ModelConfig, params: Params,
+                  batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The residual stream's input: projected frames (audio), or the
+    token embeddings behind the projected patches (vlm), or the token
+    embeddings."""
+    if cfg.family == "audio":
+        return batch["frames"] @ params["frontend"]
+    x = params["embed"][batch["tokens"]]
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"] @ params["frontend"], x], dim=1)
+    return x
 
 
 def loss_fn(cfg: ModelConfig, params: Params,
@@ -385,8 +413,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
     k, v, conv, state, pk, pv = z(0), z(0), z(0), z(0), z(0), z(0)
     ckv, krope = z(0), z(0)
+    if not cfg.has_decode:
+        raise ValueError(f"family {cfg.family} has no decode step")
     if paged_blocks:
-        if not (cfg.family == "dense" or _gqa_moe(cfg)):
+        if not (cfg.family in ("dense", "vlm") or _gqa_moe(cfg)):
             raise ValueError(f"paged KV pools require a GQA k/v cache; "
                              f"family {cfg.family} stores none")
         pk = z(L, paged_blocks + 1, block_size, Hkv, dh)
@@ -419,7 +449,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 # ============================================================ prefill
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            max_len: int, *, true_len: torch.Tensor | None = None
+            max_len: int, *, patches: torch.Tensor | None = None,
+            true_len: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, DecodeCache]:
     """Batched prompt processing: next-token logits and a filled decode
     cache padded to ``max_len``.
@@ -430,9 +461,19 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     position ``true_len - 1`` and the padded K/V past it is dead. The SSM
     and hybrid families take prompts at their exact length: their running
     state would absorb the padding, so ``true_len`` raises there.
+    A vlm model given ``patches`` (B, P, frontend_dim) prefills them,
+    projected, as a prefix of P positions before the tokens: the cache
+    holds P + S positions and its lengths count the prefix. The audio
+    family has no decode cache and raises.
     """
     _require_ported(cfg)
     B, S = tokens.shape
+    x = params["embed"][tokens]
+    n_prefix = 0
+    if cfg.family == "vlm" and patches is not None:
+        x = torch.cat([patches @ params["frontend"], x], dim=1)
+        n_prefix = patches.shape[1]
+    S = S + n_prefix
     assert S <= max_len, (max_len, S)
     if true_len is not None and cfg.family in ("ssm", "hybrid"):
         raise ValueError("bucketed prefill (true_len) requires a "
@@ -442,8 +483,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     else:
         lens = torch.as_tensor(true_len, dtype=torch.int32,
-                               device=tokens.device).expand(B).clone()
-    x = params["embed"][tokens]
+                               device=tokens.device).expand(B) + n_prefix
     if _hybrid(cfg):
         x = _hybrid_prefill(cfg, params, x, cache)
     for i, lp in enumerate(() if _hybrid(cfg) else _layers(params)):
@@ -599,6 +639,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     engine's participation-masked one) in place of ``decode_attn_fn``.
     """
     _require_ported(cfg)
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only")
     d_fn = decode_attn_fn or attn_mod.dense_decode_attn
     use_paged = cache.pk.numel() > 0
     if use_paged and paged_append is None:

@@ -47,6 +47,12 @@ ones included) reach the model in the reference's shapes:
   plain tensor code as the reference's einsums) and PAM's importance,
   tiers and Alg. 2 run on latent tokens. Pools (hence the ring, the
   prefix cache and chunked prefill) and migration refuse it.
+* The vlm family (``internvl2-1b``) serves as a text-only dense model,
+  as the reference's engine does (it takes no patches): every dense
+  path, paged + ring included. ``prefix_cache`` refuses it, and chunked
+  admission fails at its first slice (``tf.prefill_suffix`` refuses
+  vlm), as in the reference. The audio family (an encoder, no decode
+  step) raises at construction.
 * The hybrid family (``zamba2-7b``: groups of Mamba-2 layers, each
   followed by one shared attention block with a KV cache site of its
   own) serves on the dense layout only, as in the reference: it
@@ -281,6 +287,8 @@ class ServingEngine:
                 f"devices) is not ported yet: ROADMAP Queue 1 item 9")
         cfg, scfg = spec.model, spec.serving
         tf._require_ported(cfg)
+        if not cfg.has_decode:    # the reference asserts it
+            raise AssertionError(f"{cfg.name} is encoder-only")
         self.device = resolve_device(device)
         self.spec, self.name, self.shard = spec, spec.name, spec.shard
         self.cfg, self.params, self.scfg = cfg, params, scfg
@@ -340,6 +348,9 @@ class ServingEngine:
                 raise ValueError("prefix_cache requires the paged pool "
                                  "(block_size > 0): shared prefixes live "
                                  "in refcounted blocks")
+            if cfg.family == "vlm":
+                raise ValueError("prefix_cache keys on token ids; the "
+                                 "vlm patch prefix has none")
             self.trie = PrefixTrie(self.block_size, self.allocator)
             self.prefix_hits = 0            # admissions with matched > 0
             self.cached_prefix_tokens = 0   # prefill compute skipped

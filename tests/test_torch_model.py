@@ -10,7 +10,6 @@ different summation orders), caches and scores 1e-5; integer state is
 exact.
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -214,7 +213,14 @@ def test_paged_cache_without_append_raises(model):
 
 
 def test_other_families_name_their_roadmap_item():
+    """A refusal that still stands (one engine sharded over several
+    devices) raises naming its ROADMAP item."""
+    from repro_torch.serving.engine import ServingConfig
+    from repro_torch.serving.spec import EngineSpec
     cfg = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
-    audio = dataclasses.replace(cfg, family="audio")
+    pam = tpm.PAMManagerConfig(max_tokens=64, hot_capacity=8,
+                               warm_capacity=16)
+    scfg = ServingConfig(max_batch=2, max_len=64, pam=pam, block_size=8,
+                         pool_blocks=23, hot_window=16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_params(audio, 0, device="cpu")
+        EngineSpec(model=cfg, serving=scfg, shard=2).build({}, device="cpu")

@@ -249,9 +249,9 @@ def test_config_matches_reference():
         dataclasses.asdict(reduced(get_config(ARCH)))
 
 
-PORT_CONFIGS = ["deepseek-67b", "deepseek-v2-lite-16b", "mamba2-780m",
-                "minicpm-2b", "pam-llama-7b", "qwen3-0.6b", "qwen3-14b",
-                ARCH, "zamba2-7b"]
+PORT_CONFIGS = ["deepseek-67b", "deepseek-v2-lite-16b", "hubert-xlarge",
+                "internvl2-1b", "mamba2-780m", "minicpm-2b", "pam-llama-7b",
+                "qwen3-0.6b", "qwen3-14b", ARCH, "zamba2-7b"]
 
 
 @pytest.mark.parametrize("arch", PORT_CONFIGS)
@@ -456,28 +456,31 @@ def test_params_from_jax_carries_the_moe_subtree(num_shared):
 
 
 def test_mla_moe_names_its_roadmap_item():
-    """A family that stays unported (here the vision-language one) raises
-    naming ROADMAP Queue 1 item 7."""
-    vlm = tcfg.reduced(tcfg.get_config(ARCH))
-    vlm = dataclasses.replace(vlm, family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        ttf.init_params(vlm, 0, device="cpu")
+    """A refusal that still stands (the sequence-parallel
+    ``activation_spec`` of the training forward) raises naming ROADMAP
+    Queue 1 item 9."""
+    cfg = tcfg.reduced(tcfg.get_config(ARCH))
+    toks = torch.zeros(1, 4, dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        ttf.forward(cfg, {}, {"tokens": toks}, activation_spec=object())
 
 
 # ------------------------------------------------------------ kernels
 def test_decode_kernels_built_for_group_16_only_among_wide_groups():
     """The decode kernels are built for the listed (head dim, GQA group)
-    pairs: the launch check accepts group 16 at head dims 128 and 16 (a
-    host tensor then fails the operand check, after the shape check
-    passed) and still refuses groups 4 and 7; head dim 112 is built at
-    group 1 only (zamba2-7b's pair), head dim 80 at none, so both
-    kernels refuse (112, 2) and (80, 1)."""
+    pairs: the launch check accepts group 16 at head dims 128 and 16 and
+    group 7 at head dim 64 only (internvl2-1b's pair; a host tensor then
+    fails the operand check, after the shape check passed) and still
+    refuses group 4 and group 7 at head dim 128; head dim 112 is built at
+    group 1 only (zamba2-7b's pair), head dim 80 at none (the audio
+    family has no decode), so both kernels refuse (112, 2) and (80, 1)."""
     assert {(128, 16), (16, 16)} <= set(tfd.BUILT)
-    assert not {4, 7} & {rep for _, rep in tfd.BUILT}
+    assert 4 not in {rep for _, rep in tfd.BUILT}
+    assert [d for d, rep in tfd.BUILT if rep == 7] == [64]
     assert 80 not in {d for d, _ in tfd.BUILT}
     assert [rep for d, rep in tfd.BUILT if d == 112] == [1]
     t = torch.zeros(4)
-    for d, rep in ((128, 16), (16, 16), (112, 1)):
+    for d, rep in ((128, 16), (16, 16), (112, 1), (64, 7)):
         with pytest.raises(ValueError, match="CUDA tensors"):
             tfd.check_launch("flash_decode", d, rep, t)
     for d, rep in ((128, 4), (128, 7)):
