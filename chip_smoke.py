@@ -12,11 +12,12 @@ final ``ok`` line:
             registers and spills of the main-path kernels from the
             ``-Xptxas -v`` logs, and of every decode instantiation with
             bf16 K/V (the engines' storage; none may spill) and of every
-            CUDA-core attention forward (the bf16 ones at (64, 7) and
-            (80, 1), internvl2-1b's and hubert-xlarge's, may not
-            spill); the four wgmma libraries (attention and
-            SSD scan) must hold HGMMA instructions in their SASS
-            (``cuobjdump -sass``) and their kernels must not spill
+            attention forward instantiation: the wgmma ones at (64, 7),
+            (80, 1), (128, 1) and (128, 2) may not spill, and no bf16
+            CUDA-core one may exist at those head dims; the four wgmma
+            libraries (attention and SSD scan) must hold HGMMA
+            instructions in their SASS (``cuobjdump -sass``) and their
+            kernels must not spill
   kernels   each kernel against its plain PyTorch version on the card at
             main-path shapes (decode: B=8, H=16, Hkv=8, d=128, bf16
             storage, each kernel under the reference's stacked contract
@@ -32,11 +33,16 @@ final ``ok`` line:
             the paged row lies on no model's path); attention:
             the train shape in bf16 through the wgmma
             kernels, also S 1000 non-causal, and the CUDA-core kernels in
-            fp32 at train_parity's B 2, S 500, and the CUDA-core forward
-            alone in bf16 at its two forward-only builds:
+            fp32 at train_parity's B 2, S 500, and the forward alone at
+            its two forward-only builds, in bf16 through the wgmma
+            kernel at the main paths' shapes:
             ``flash_attention_vlm_2048`` (B 4, H 14, Hkv 2, d 64, S 2048
             causal) and ``flash_attention_audio_1500_noncausal`` (B 8, H
-            16 = Hkv, d 80, S 1500); ssd_scan: the wgmma kernels
+            16 = Hkv, d 80, S 1500), and in fp32 through the CUDA-core
+            kernel at vlm_audio_parity's: ``flash_attention_vlm_fp32_100``
+            (B 2, 14 / 2 of 64, S 100 causal) and
+            ``flash_attention_audio_fp32_150_noncausal`` (B 2, 4 / 4 of
+            80, S 150); ssd_scan: the wgmma kernels
             in bf16 at mamba2-780m's train shape B 4, L 2048, H 48, P 64,
             N 128, chunk 128, x / B / C as views of the conv output, and
             the CUDA-core kernels in fp32 at train_parity_ssm's B 2, L
@@ -202,8 +208,8 @@ final ``ok`` line:
             reference's engine serves it (the (64, 7) decode kernels)
   vlm_forward   the same model through its patch prefix:
             ``forward(use_kernel=True)`` with 256 patches of 1024 before
-            1792 tokens at B 4 (the (64, 7) causal attention forward once
-            a layer) against ``use_kernel=False``; ``prefill(patches=)``
+            1792 tokens at B 4 (the (64, 7) causal wgmma attention
+            forward once a layer) against ``use_kernel=False``; ``prefill(patches=)``
             at B 8 (256 patches + 512 tokens, max_len 2048) and 16
             greedy decode steps through ``flash_decode_merged`` against a
             twin decoded by the plain grouped attention; launches, ms,
@@ -211,7 +217,8 @@ final ``ok`` line:
   encoder_hubert_xlarge   the audio family at full width and depth (48
             layers, 16 / 16 heads of 80, bidirectional, 2.52 GB, bf16):
             ``forward(use_kernel=True)`` under no_grad over B 8 x 1500
-            frames, one warm-up and 5 timed (48 attention launches each),
+            frames, one warm-up and 5 timed (48 wgmma attention launches
+            each),
             logits against ``use_kernel=False``; median ms, frames a
             second, the attention kernel's device ms and share, peak
             memory
@@ -563,10 +570,15 @@ def phase_build() -> dict:
     spills = {k: v for k, v in decode.items()
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", v)}
     assert not spills, f"bf16-K/V decode kernels spill: {spills}"
+    from repro_torch.kernels import flash_attention as fa
     attn = _attention_registers()
-    main = [f"flash_attention_fwd_kernel<bf16, {d}, {rep}>"
-            for d, rep in ((64, 7), (80, 1))]
+    main = [f"flash_attention_fwd_sm90_kernel<bf16, {d}, {rep}>"
+            for d, rep in fa.BUILT if d in fa.WGMMA_FWD_DIMS]
     assert set(main) <= set(attn), sorted(attn)
+    # bf16 at the wgmma head dims has no CUDA-core instantiation
+    gone = [k for k in attn if k.startswith("flash_attention_fwd_kernel<bf16")
+            and int(k.split(", ")[1]) in fa.WGMMA_FWD_DIMS]
+    assert not gone, f"bf16 CUDA-core forwards at wgmma head dims: {gone}"
     spills = {k: attn[k] for k in main
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", attn[k])}
     assert not spills, f"bf16 attention forward kernels spill: {spills}"
@@ -612,29 +624,34 @@ def _decode_registers() -> dict:
 
 
 def _attention_registers() -> dict:
-    """Registers, shared memory and spills from the ``-Xptxas -v`` log of
-    every instantiation of the CUDA-core ``flash_attention`` forward,
-    keyed ``kernel<dtype, head dim, group>``. The bf16 ones at (64, 7)
-    and (80, 1) run internvl2-1b's and hubert-xlarge's forward (none may
-    spill); the fp32 ones run only the parity phases."""
+    """Registers, shared memory and spills from the ``-Xptxas -v`` logs of
+    every instantiation of the two ``flash_attention`` forwards, keyed
+    ``kernel<dtype, head dim, group>``: the CUDA-core kernel (fp32 at
+    every pair, run by the parity phases; bf16 at head dim 16) and the
+    wgmma kernel (bf16 at (64, 7), (80, 1), (128, 1) and (128, 2): the
+    main paths' forward, none may spill)."""
     import re
     from repro_torch.kernels import build
     out = {}
-    lines = build.build_log("flash_attention").splitlines()
-    for i, line in enumerate(lines):
-        m = re.search(r"flash_attention_fwd_kernelI(f|13__nv_bfloat16)"
-                      r"Li(\d+)ELi(\d+)E", line)
-        if "Compiling entry" not in line or m is None:
-            continue
-        info = []
-        for x in lines[i + 1:]:
-            if "Compiling entry" in x:
-                break
-            if "Used" in x or "spill" in x:
-                info.append(x.split(":", 1)[-1].strip())
-        dt = "fp32" if m.group(1) == "f" else "bf16"
-        out[f"flash_attention_fwd_kernel<{dt}, {m.group(2)}, "
-            f"{m.group(3)}>"] = "; ".join(info)
+    for lib, pattern in (
+            ("flash_attention", r"(flash_attention_fwd_kernel)"
+                                r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"),
+            ("flash_attention_sm90", r"(flash_attention_fwd_sm90_kernel)"
+                                     r"I()Li(\d+)ELi(\d+)E")):
+        lines = build.build_log(lib).splitlines()
+        for i, line in enumerate(lines):
+            m = re.search(pattern, line)
+            if "Compiling entry" not in line or m is None:
+                continue
+            info = []
+            for x in lines[i + 1:]:
+                if "Compiling entry" in x:
+                    break
+                if "Used" in x or "spill" in x:
+                    info.append(x.split(":", 1)[-1].strip())
+            kern, dt, d, rep = m.groups()
+            dt = "fp32" if dt == "f" else "bf16"
+            out[f"{kern}<{dt}, {d}, {rep}>"] = "; ".join(info)
     return out
 
 
@@ -937,10 +954,12 @@ def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
 
 
 def kernel_flash_attention_fwd(S: int, causal: bool, B: int, heads,
-                               d: int) -> dict:
+                               d: int, dtype: str = "bfloat16") -> dict:
     """The forward alone (no backward is built at this pair) at (H, Hkv)
-    ``heads``, head dim ``d``, bf16: the CUDA-core kernel."""
-    q, k, v, _ = _attn_case(S, causal, seed=S + d, B=B, heads=heads, d=d)
+    ``heads``, head dim ``d``: bf16 through the wgmma kernel, fp32
+    through the CUDA-core one."""
+    q, k, v, _ = _attn_case(S, causal, seed=S + d, B=B, dtype=dtype,
+                            heads=heads, d=d)
     return _attn_fwd_row(q, k, v, causal)[0]
 
 
@@ -3601,9 +3620,12 @@ VLM_FORWARD = dict(B=4, text=1792, seq=2048)  # 256 patches + 1792 tokens
 VLM_PREFILL = dict(B=8, text=512, max_len=2048, steps=16)
 ENCODER = dict(B=8, frames=1500, iters=5)   # 30 s clips at 50 frames / s
 ENCODER_PHASE = "encoder_hubert_xlarge"
-# the kernels-phase rows of the two forward-only flash_attention builds
+# the kernels-phase rows of the two forward-only flash_attention builds:
+# bf16 (the wgmma kernel) and fp32 (the CUDA-core kernel)
 ATTN_ROWS = {VLM_ARCH: "flash_attention_vlm_2048",
              AUDIO_ARCH: "flash_attention_audio_1500_noncausal"}
+ATTN_FP32_ROWS = {VLM_ARCH: "flash_attention_vlm_fp32_100",
+                  AUDIO_ARCH: "flash_attention_audio_fp32_150_noncausal"}
 # bf16 logits through the attention kernels against the plain attention
 # on the card, max |dlogit| / max(1, max |logit|): both round each
 # layer's attention output to bf16 and may differ there by one bf16 step
@@ -3697,8 +3719,11 @@ def phase_vlm_forward(cfg, params) -> dict:
             worst = max(worst, _rel_diff(lg, plain_l))
     torch.cuda.synchronize()
     launches = _launches()
+    wgmma = _wgmma_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     assert launches["flash_attention"] == cfg.n_layers, launches
+    # bf16 at (64, 7): every forward launch is the wgmma kernel's
+    assert wgmma["flash_attention"] == cfg.n_layers, wgmma
     _assert_decode_launches(launches, {
         "flash_decode_merged": cfg.n_layers * VLM_PREFILL["steps"]})
     assert tuple(logits.shape) == (B, T, cfg.vocab), logits.shape
@@ -3739,7 +3764,7 @@ def phase_vlm_forward(cfg, params) -> dict:
                             eager_step_ms=step_ms,
                             max_rel_logit_diff=worst, tol=BF16_MODEL_TOL,
                             lengths_after=P + pt + VLM_PREFILL["steps"]),
-                launches=launches, peak_mem_gb=peak_gb)
+                launches=launches, wgmma_launches=wgmma, peak_mem_gb=peak_gb)
 
 
 def phase_encoder(cfg, params) -> dict:
@@ -3769,9 +3794,12 @@ def phase_encoder(cfg, params) -> dict:
         ms = _event_ms(fwd, ENCODER["iters"])
     torch.cuda.synchronize()
     launches = _launches()
+    wgmma = _wgmma_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     forwards = 1 + ENCODER["iters"]
     assert launches["flash_attention"] == cfg.n_layers * forwards, launches
+    # bf16 at (80, 1): every forward launch is the wgmma kernel's
+    assert wgmma["flash_attention"] == cfg.n_layers * forwards, wgmma
     _assert_decode_launches(launches, {})
     assert tuple(logits.shape) == (B, S, cfg.vocab), logits.shape
     assert bool(torch.isfinite(logits).all())
@@ -3790,7 +3818,7 @@ def phase_encoder(cfg, params) -> dict:
                 plain_attention_forward_ms=plain_ms,
                 attention_device_ms=attn,
                 attention_share=sum(attn.values()) / med,
-                forwards=forwards, launches=launches,
+                forwards=forwards, launches=launches, wgmma_launches=wgmma,
                 weights=_dense_weights(cfg), peak_mem_gb=peak_gb, **line)
 
 
@@ -4187,16 +4215,23 @@ def phase_kernels() -> dict:
     r = kernel_flash_attention(PARITY_S, True, B=PARITY_B, dtype="float32")
     out["flash_attention_fp32_500"] = r["fwd"]
     out["flash_attention_bwd_fp32_500"] = r["bwd"]
-    # the CUDA-core forward at its two forward-only builds, bf16 at the
-    # main paths' shapes: internvl2-1b's (64, 7) causal at vlm_forward's
-    # B 4, S 2048, and hubert-xlarge's (80, 1) bidirectional at the
-    # encoder's B 8 x 1500 frames (a ragged last tile)
+    # the forward at its two forward-only builds: bf16 through the wgmma
+    # kernel at the main paths' shapes, internvl2-1b's (64, 7) causal at
+    # vlm_forward's B 4, S 2048, and hubert-xlarge's (80, 1)
+    # bidirectional at the encoder's B 8 x 1500 frames (a ragged last
+    # tile); fp32 through the CUDA-core kernel at vlm_audio_parity's
+    # shapes (B 2; 4 patches + 96 tokens at 14 / 2 heads of 64, 150
+    # frames at 4 / 4 of 80)
     H, Hkv, d = _wide_heads(VLM_ARCH)
     out[ATTN_ROWS[VLM_ARCH]] = kernel_flash_attention_fwd(
         VLM_FORWARD["seq"], True, VLM_FORWARD["B"], (H, Hkv), d)
+    out[ATTN_FP32_ROWS[VLM_ARCH]] = kernel_flash_attention_fwd(
+        100, True, 2, (H, Hkv), d, "float32")
     H, Hkv, d = _wide_heads(AUDIO_ARCH)
     out[ATTN_ROWS[AUDIO_ARCH]] = kernel_flash_attention_fwd(
         ENCODER["frames"], False, ENCODER["B"], (H, Hkv), d)
+    out[ATTN_FP32_ROWS[AUDIO_ARCH]] = kernel_flash_attention_fwd(
+        150, False, 2, (4, 4), d, "float32")
     out.update(kernel_ssd_scan())
     return out
 
@@ -4537,22 +4572,30 @@ def main() -> int:
                    "(head dim, group) list and held to its plain version")
     # the forward-only flash_attention builds: internvl2-1b's (64, 7)
     # causal from vlm_forward, hubert-xlarge's (80, 1) bidirectional from
-    # the encoder phase, each also from vlm_audio_parity's fp32 variants
+    # the encoder phase (bf16, the wgmma kernel), and the fp32 CUDA-core
+    # kernel at both pairs from vlm_audio_parity's variants
     vap = results["vlm_audio_parity"]
     for arch, phase, tag, case in ((VLM_ARCH, "vlm_forward", "_d64_g7",
                                     "vlm_g7"),
                                    (AUDIO_ARCH, ENCODER_PHASE,
                                     "_d80_noncausal", "audio_d80")):
-        row = add_row(ATTN_ROWS[arch], "flash_attention.cu",
+        row = add_row(ATTN_ROWS[arch], "flash_attention_sm90.cu",
                       "flash_attention.py:31",
                       results[phase]["launches"]["flash_attention"],
                       name="flash_attention" + tag)
         row["launches_in"] = phase
-        row["launches_vlm_audio_parity"] = vap[case]["launches"][
+        row["wgmma_launches"] = results[phase]["wgmma_launches"][
             "flash_attention"]
+        row["max_abs_err_vs_rounded"] = kernels[ATTN_ROWS[arch]][
+            "max_abs_err_vs_rounded"]
         row["note"] = ("forward only: the backward is not built at this "
                        "pair (training this family is ROADMAP Queue 1 "
                        "item 18)")
+        row = add_row(ATTN_FP32_ROWS[arch], "flash_attention.cu",
+                      "flash_attention.py:31",
+                      vap[case]["launches"]["flash_attention"],
+                      name="flash_attention" + tag + "_fp32")
+        row["launches_in"] = "vlm_audio_parity"
     for row in rows:
         if row["name"].endswith("_bwd"):
             row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "

@@ -10,9 +10,9 @@
 // padded row stride (D + 1), so a half-warp reading one column of 16
 // different rows touches 16 different banks. All products run on the CUDA
 // cores in fp32: these kernels serve fp32 operands (whose tensor-core
-// product would be TF32) and bf16 below head dim 128 (16: the reduced
-// configs; 64 and 80: internvl2-1b and hubert-xlarge, forward only); bf16
-// with head dim 128 runs the wgmma kernels of attention_sm90.cuh.
+// product would be TF32) and bf16 at head dim 16 (the reduced configs);
+// bf16 at the head dims of PAM_ATTN_WGMMA_FWD_DIMS / _BWD_DIMS below runs
+// the wgmma kernels of attention_sm90.cuh instead.
 #pragma once
 
 #include "decode_common.cuh"
@@ -130,9 +130,8 @@ __device__ __forceinline__ void mul_tile(const float* __restrict__ P,
 // groups 1 and 2). kernels/flash_attention.py's BUILT and BUILT_BWD hold
 // the same lists (a CPU test compares them) and refuse any other pair
 // before a launch; here another pair returns -1. Each pair is an fp32 and,
-// below head dim 128, a bf16 instantiation (bf16 at head dim 128 runs the
-// wgmma kernels of flash_attention_sm90.cu / flash_attention_bwd_sm90.cu,
-// which take groups 1 and 2), so the lists are kept short.
+// at a head dim whose bf16 kernel is not a wgmma one, a bf16
+// instantiation, so the lists are kept short.
 #define PAM_ATTN_FWD_BUILT(X) \
   X(16, 1) X(16, 2) \
   X(64, 7) \
@@ -142,15 +141,31 @@ __device__ __forceinline__ void mul_tile(const float* __restrict__ P,
   X(16, 1) X(16, 2) \
   X(128, 1) X(128, 2)
 
+// The head dims whose bf16 forward / backward run the wgmma kernels
+// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu) and so have no
+// bf16 instantiation here. kernels/flash_attention.py's WGMMA_FWD_DIMS and
+// WGMMA_BWD_DIMS hold the same lists (a CPU test compares them).
+#define PAM_ATTN_WGMMA_FWD_DIMS(X) X(64) X(80) X(128)
+#define PAM_ATTN_WGMMA_BWD_DIMS(X) X(128)
+
+#define PAM_ATTN_IS_DIM(D) || d == D
+constexpr bool wgmma_fwd_dim(int d) {
+  return false PAM_ATTN_WGMMA_FWD_DIMS(PAM_ATTN_IS_DIM);
+}
+constexpr bool wgmma_bwd_dim(int d) {
+  return false PAM_ATTN_WGMMA_BWD_DIMS(PAM_ATTN_IS_DIM);
+}
+#undef PAM_ATTN_IS_DIM
+
 // One built pair: Launch<T, D, REP>::run(args, stream) for dtype 0 (fp32)
-// or 1 (bf16, below head dim 128); 0 or a CUDA error code, -1 for another
-// dtype.
+// or, unless the wgmma kernels take bf16 at D (kWgmma), 1 (bf16); 0 or a
+// CUDA error code, -1 for another dtype.
 template <template <typename, int, int> class Launch, int D, int REP,
-          typename Args>
+          bool kWgmma, typename Args>
 int launch_pair(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 0) {
     Launch<float, D, REP>::run(a, stream);
-  } else if constexpr (D != 128) {
+  } else if constexpr (!kWgmma) {
     if (dtype != 1) return -1;
     Launch<__nv_bfloat16, D, REP>::run(a, stream);
   } else {
@@ -159,26 +174,30 @@ int launch_pair(int dtype, const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-#define PAM_ATTN_CASE(D, REP) \
-  if (d == D && rep == REP)        \
-    return launch_pair<Launch, D, REP>(dtype, a, stream);
+#define PAM_ATTN_FWD_CASE(D, REP) \
+  if (d == D && rep == REP)            \
+    return launch_pair<Launch, D, REP, wgmma_fwd_dim(D)>(dtype, a, stream);
+#define PAM_ATTN_BWD_CASE(D, REP) \
+  if (d == D && rep == REP)            \
+    return launch_pair<Launch, D, REP, wgmma_bwd_dim(D)>(dtype, a, stream);
 
 // Dispatch of the forward / the backward over their built pairs; -1 for
 // any other (dtype, head dim, group size).
 template <template <typename, int, int> class Launch, typename Args>
 int dispatch_fwd(int dtype, int d, int rep, const Args& a,
                  cudaStream_t stream) {
-  PAM_ATTN_FWD_BUILT(PAM_ATTN_CASE)
+  PAM_ATTN_FWD_BUILT(PAM_ATTN_FWD_CASE)
   return -1;
 }
 
 template <template <typename, int, int> class Launch, typename Args>
 int dispatch_bwd(int dtype, int d, int rep, const Args& a,
                  cudaStream_t stream) {
-  PAM_ATTN_BWD_BUILT(PAM_ATTN_CASE)
+  PAM_ATTN_BWD_BUILT(PAM_ATTN_BWD_CASE)
   return -1;
 }
-#undef PAM_ATTN_CASE
+#undef PAM_ATTN_FWD_CASE
+#undef PAM_ATTN_BWD_CASE
 
 // Key tiles a query tile starting at q0 must visit: all of them, or under
 // the causal mask (kpos <= qpos from position 0) those starting at or

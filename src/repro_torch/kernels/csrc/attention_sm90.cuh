@@ -6,7 +6,10 @@
 //
 // Tile format. A (rows, 128) bf16 tile of a row-major (.., rows, 128)
 // tensor lives in shared memory as two sub-tiles of (rows, 64): columns
-// 0-63, then 64-127. A sub-tile row is one 128-byte swizzle row; TMA
+// 0-63, then 64-127. A tensor of head dim 64 is one sub-tile; one of head
+// dim 80 is two, the second holding columns 64-79 and TMA's zero fill for
+// 80-127 (its map is 80 columns wide). A sub-tile row is one 128-byte
+// swizzle row; TMA
 // writes it with CU_TENSOR_MAP_SWIZZLE_128B (the 16-byte chunk c of row r
 // lands at chunk c ^ (r % 8)), and every sub-tile starts on a 1024-byte
 // boundary, which is what the wgmma descriptors' 128B layout expects.
@@ -38,7 +41,7 @@ namespace sm90 {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;           // head dim of the wgmma kernels
+constexpr int kD = 128;           // head dim of the backward, widest tile
 constexpr int kSub = 64;          // columns of a 128-byte swizzle row
 constexpr int kThreads = 256;     // two consumer warpgroups
 constexpr float kNegInf = -1e30f;  // the reference's masked-score sentinel
@@ -130,12 +133,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A whole (rows, 128) tile: both 64-column sub-tiles.
+// A whole (rows, 64 SUBS) tile: its SUBS 64-column sub-tiles (two: a
+// (rows, 128) tile).
+template <int SUBS = 2>
 __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
                                          uint64_t* bar, int rows, int r0,
                                          int head) {
-  tma_load(dst, map, bar, 0, r0, head);
-  tma_load(dst + rows * kSub, map, bar, kSub, r0, head);
+#pragma unroll
+  for (int i = 0; i < SUBS; ++i)
+    tma_load(dst + i * rows * kSub, map, bar, i * kSub, r0, head);
 }
 
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned).
@@ -288,6 +294,35 @@ __device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64x80) += A(64x16) B(16x80); A in registers (4 x bf16x2), B MN-major
+// in shared memory (transpose bit set): the first 64 columns from the
+// swizzle atom at the descriptor's address, the last 16 from the next
+// atom, LBO bytes on (head dim 80's P V).
+__device__ __forceinline__ void wgmma_rs_n80_mn(float (&d)[40],
+                                               const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // The shapes below serve the SSD scan kernels (ssd_scan_sm90.cu,
 // ssd_scan_bwd_sm90.cu), whose head dim P = 64 is the N of an m64n64k16.
 
@@ -391,20 +426,23 @@ __device__ __forceinline__ int frag_col(int t, int v) {
   return 2 * (t & 3) + (v & 1) + 8 * (v >> 2);
 }
 
-// Rows [r0, r0 + 64) of a warpgroup's (64, 128) fp32 accumulator, times
-// `mult`, to a row-major (n, 128) bf16 matrix; rows at or past n are not
-// written.
-__device__ __forceinline__ void store_rows(const float (&acc)[64], bf16* dst,
-                                           int r0, int n, float mult) {
+// Rows [r0, r0 + 64) of a warpgroup's (64, 2 NACC) fp32 accumulator,
+// times `mult`, to a row-major (n, D) bf16 matrix: its first D columns
+// (D <= 2 NACC, a multiple of 8); rows at or past n are not written.
+template <int D = kD, int NACC>
+__device__ __forceinline__ void store_rows(const float (&acc)[NACC],
+                                           bf16* dst, int r0, int n,
+                                           float mult) {
+  static_assert(D % 8 == 0 && D <= 2 * NACC, "D columns of the accumulator");
   const int t = threadIdx.x & 127;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + frag_row(t, 2 * half);
     if (r >= n) continue;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int v = 4 * j + 2 * half;
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long)r * kD +
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long)r * D +
                                          frag_col(t, v)) =
           __floats2bfloat162_rn(acc[v] * mult, acc[v + 1] * mult);
     }
@@ -438,19 +476,21 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous (heads, rows, 128) bf16 tensor with boxes of
-// (1 head, box_rows rows, 64 columns), 128-byte swizzle; reads past `rows`
-// fill zeros. False if the driver refuses it.
+// A 3-D map over a contiguous (heads, rows, cols) bf16 tensor with boxes
+// of (1 head, box_rows rows, 64 columns), 128-byte swizzle; reads past
+// `rows` or `cols` fill zeros (cols: 128, or 64 and 80 for the forward;
+// the row stride, 2 cols bytes, must be a multiple of 16). False if the
+// driver refuses it.
 inline bool make_map(CUtensorMap* map, const void* base, long heads,
-                     int rows, int box_rows) {
+                     int rows, int box_rows, int cols = sm90::kD) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(sm90::kD),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
   const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(sm90::kD) * 2,
-      static_cast<cuuint64_t>(rows) * sm90::kD * 2};
+      static_cast<cuuint64_t>(cols) * 2,
+      static_cast<cuuint64_t>(rows) * cols * 2};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(sm90::kSub),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t estr[3] = {1, 1, 1};

@@ -1,12 +1,17 @@
-// FlashAttention forward for Hopper's tensor cores: bf16, head dim 128,
-// causal or bidirectional, GQA without repeating K/V.
+// FlashAttention forward for Hopper's tensor cores: bf16, head dim 64, 80
+// or 128, causal or bidirectional, GQA without repeating K/V.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_attn_kernel
 // (:31; wrapper flash_attention, pl.pallas_call at :122) for bf16 operands
-// with head dim 128 (every full-width model: qwen3-0.6b with GQA group 2,
-// pam-llama-7b with group 1). fp32 and head dim 16 keep the CUDA-core
-// kernel of flash_attention.cu; kernels/flash_attention.py::_variant
-// picks one of the two for each (dtype, head dim), with no fallback.
+// at the built (head dim, group) pairs of PAM_ATTN_FWD90_BUILT below:
+// head dim 128 with groups 1 and 2 (every full-width text model:
+// qwen3-0.6b's group 2, pam-llama-7b's group 1), 64 with group 7
+// (internvl2-1b, causal) and 80 with group 1 (hubert-xlarge's
+// bidirectional encoder). fp32 at every pair and bf16 at head dim 16 keep
+// the CUDA-core kernel of flash_attention.cu; the head dims listed in
+// attention_common.cuh's PAM_ATTN_WGMMA_FWD_DIMS leave bf16 out of it, and
+// kernels/flash_attention.py::_variant picks one of the two for each
+// (dtype, head dim), with no fallback.
 //
 // Computes what _attn_kernel computes: an fp32 online softmax over key
 // tiles with the reference's -1e30 sentinel, the mask kpos < Sk and, when
@@ -18,19 +23,24 @@
 //
 // Bound on the H100: operations. At the training shape (B 4, H 16, S 2048,
 // d 128, causal) the two products are 6.9e10 FLOPs (0.070 ms at 989
-// TFLOP/s bf16) against 0.10 GB moved (0.030 ms at 3.35 TB/s).
+// TFLOP/s bf16) against 0.10 GB moved (0.030 ms at 3.35 TB/s); at
+// internvl2-1b's (B 4, 14 / 2 heads of 64, S 2048, causal) 3.0e10 FLOPs
+// (0.030 ms) against 34 MB (0.010 ms); at hubert-xlarge's (B 8, 16 heads
+// of 80, S 1500, bidirectional) 9.2e10 FLOPs (0.093 ms) against 0.10 GB.
 //
 // Design:
 //   - one CTA per (128-row query tile, query head, batch), two consumer
-//     warpgroups of 64 rows each (256 threads, one CTA per SM);
+//     warpgroups of 64 rows each (256 threads); the query head h reads
+//     kv head h / REP;
 //   - S = Q K^T with wgmma m64n128k16 (bf16 in, fp32 out), Q and the
 //     128-key K tile both read from 128-byte-swizzled shared memory
-//     (K-major: K is row-major (key, d), already B^T);
+//     (K-major: K is row-major (key, d), already B^T), one k-step per 16
+//     columns of the head dim: 4, 5 or 8;
 //   - the online softmax on the accumulator fragment: a row's max and sum
 //     come from the 4 lanes that share it (two shuffles);
 //   - O += P V with P rounded to bf16 in registers as the A operand (the
 //     accumulator layout of m64nNk16 is the A-fragment layout) and V the
-//     MN-major B operand (transpose bit);
+//     MN-major B operand (transpose bit), N = the head dim;
 //   - staging by TMA (cp.async.bulk.tensor, CU_TENSOR_MAP_SWIZZLE_128B)
 //     with one mbarrier per buffer: Q once, K and V two stages deep, so
 //     tile j + 1 is in flight while tile j is in the products. The two
@@ -41,13 +51,37 @@
 //   - causal: key tiles past the diagonal are skipped, only tiles that
 //     cross it (or the ragged last tile) are masked, and the grid runs
 //     the heaviest query tiles first (blockIdx.y = 0 is the last tile).
-// Shared memory: Q 32 KiB + K, V 2 stages x 2 x 32 KiB = 160 KiB.
+// Head dim 64: a tile is one 64-column swizzle sub-tile, so shared memory
+// is Q 16 KiB + K, V 2 stages x 2 x 16 KiB = 80 KiB, and at 128 registers
+// a thread two CTAs share an SM; __launch_bounds__(256, 2), which would
+// force that, measured no faster on the H100. Head dim 80: the tensor maps
+// are 80 columns wide with 64-column boxes, so the second sub-tile of every
+// tile holds columns 64-79 and TMA zero-fills 80-127 (the mbarrier still
+// counts the whole box's bytes); QK^T runs 5 k-steps and skips the zeros
+// exactly. P V runs at N = 80 (m64n80k16): the first 64 columns from V's
+// first swizzle atom, the last 16 from the second, LBO bytes on. PTX
+// defines the MN-major 128-byte-swizzle layout in whole 64-column atoms,
+// so this partial atom was checked on the H100 against N = 128 over both
+// whole atoms (exact: V's zero columns give zero accumulators that the
+// store never writes): the same errors against the plain version, 130
+// registers a thread instead of 154, the (80, 1) row 4 % faster
+// (scripts/attention_fwd_variants.py builds and times both, and the
+// two-CTA bound). Head dims 80 and 128: Q 32 KiB + K, V 2 stages x 2 x
+// 32 KiB = 160 KiB, one CTA an SM.
 #include "attention_sm90.cuh"
+
+// The built (head dim, group) pairs of this kernel: attention_common.cuh's
+// PAM_ATTN_FWD_BUILT at the head dims of PAM_ATTN_WGMMA_FWD_DIMS (a CPU
+// test compares them with kernels/flash_attention.py).
+#define PAM_ATTN_FWD90_BUILT(X) \
+  X(64, 7) \
+  X(80, 1) \
+  X(128, 1) X(128, 2)
 
 namespace pam {
 
 struct FwdSm90Args {
-  __nv_bfloat16* o;  // (B, H, Sq, 128)
+  __nv_bfloat16* o;  // (B, H, Sq, D)
   float* lse;    // (B, H, Sq)
   int H, Hkv, Sq, Sk, causal;
   float scale_log2;  // scale * log2(e)
@@ -56,11 +90,21 @@ struct FwdSm90Args {
 namespace fwd90 {
 constexpr int kBM = 128;  // query rows per CTA (2 warpgroups x 64)
 constexpr int kBN = 128;  // keys per tile
-constexpr int kTileBytes = kBN * sm90::kD * 2;
-constexpr int kSmem = (kBM + 4 * kBN) * sm90::kD * 2 + 8 * 8 + 2 * 4;
+
+// The tile shapes of head dim D.
+template <int D>
+struct Shape {
+  static_assert(D == 64 || D == 80 || D == 128, "a wgmma forward head dim");
+  static constexpr int kSubs = (D + sm90::kSub - 1) / sm90::kSub;
+  static constexpr int kCols = kSubs * sm90::kSub;  // tile width
+  static constexpr int kSteps = D / 16;             // k-steps of Q K^T
+  static constexpr int kN = D == 80 ? 80 : kCols;   // P V's N
+  static constexpr int kTileBytes = kBN * kCols * 2;
+  static constexpr int kSmem = (kBM + 4 * kBN) * kCols * 2 + 8 * 8 + 2 * 4;
+};
 }  // namespace fwd90
 
-template <int REP>
+template <int D, int REP>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_attention_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
                                     const __grid_constant__ CUtensorMap tmK,
@@ -68,12 +112,15 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                                     FwdSm90Args a) {
   using namespace sm90;
   using namespace fwd90;
+  using Sh = Shape<D>;
+  constexpr int kC = Sh::kCols;
+  constexpr int kN = Sh::kN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // (kBM, 128)
-  bf16* Ks = Qs + kBM * kD;                  // 2 stages of (kBN, 128)
-  bf16* Vs = Ks + 2 * kBN * kD;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + 2 * kBN * kD);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // (kBM, kC)
+  bf16* Ks = Qs + kBM * kC;                  // 2 stages of (kBN, kC)
+  bf16* Vs = Ks + 2 * kBN * kC;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + 2 * kBN * kC);
   uint64_t* barQ = bars;
   uint64_t* barK = bars + 1;  // [2]
   uint64_t* barV = bars + 3;  // [2]
@@ -97,17 +144,19 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   }
   __syncthreads();
   if (tid == 0) {
-    bar_expect(barQ, kBM * kD * 2);
-    tma_tile(Qs, &tmQ, barQ, kBM, q0, bh);
+    bar_expect(barQ, kBM * kC * 2);
+    tma_tile<Sh::kSubs>(Qs, &tmQ, barQ, kBM, q0, bh);
     for (int s = 0; s < 2 && s < nk; ++s) {
-      bar_expect(barK + s, kTileBytes);
-      tma_tile(Ks + s * kBN * kD, &tmK, barK + s, kBN, s * kBN, kvh);
-      bar_expect(barV + s, kTileBytes);
-      tma_tile(Vs + s * kBN * kD, &tmV, barV + s, kBN, s * kBN, kvh);
+      bar_expect(barK + s, Sh::kTileBytes);
+      tma_tile<Sh::kSubs>(Ks + s * kBN * kC, &tmK, barK + s, kBN, s * kBN,
+                          kvh);
+      bar_expect(barV + s, Sh::kTileBytes);
+      tma_tile<Sh::kSubs>(Vs + s * kBN * kC, &tmV, barV + s, kBN, s * kBN,
+                          kvh);
     }
   }
 
-  float o[64];
+  float o[kN / 2];
   zero(o);
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
@@ -117,8 +166,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   for (int j = 0; j < nk; ++j) {
     const int st = j & 1;
     const int ph = (j >> 1) & 1;
-    const bf16* Kt = Ks + st * kBN * kD;
-    const bf16* Vt = Vs + st * kBN * kD;
+    const bf16* Kt = Ks + st * kBN * kC;
+    const bf16* Vt = Vs + st * kBN * kC;
     const int k0 = j * kBN;
 
     // S = Q K^T (this warpgroup's 64 rows x 128 keys)
@@ -128,7 +177,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < Sh::kSteps; ++kk)
       wgmma_ss_n128(s, desc_k(Qs, kBM, wg * 64, kk), desc_k(Kt, kBN, 0, kk));
     wgmma_commit();
     wgmma_wait<0>();
@@ -174,7 +223,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
-    for (int v = 0; v < 64; ++v) o[v] *= alpha[(v >> 1) & 1];
+    for (int v = 0; v < kN / 2; ++v) o[v] *= alpha[(v >> 1) & 1];
     uint32_t pa[32];
     pack_a(s, pa);
 
@@ -184,8 +233,14 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_rs_n128_mn(o, pa + 4 * kk, desc_mn(Vt, kBN, kk));
+    for (int kk = 0; kk < 8; ++kk) {
+      if constexpr (kN == 64)
+        wgmma_rs_n64_mn(o, pa + 4 * kk, desc_mn(Vt, kBN, kk));
+      else if constexpr (kN == 80)
+        wgmma_rs_n80_mn(o, pa + 4 * kk, desc_mn(Vt, kBN, kk));
+      else
+        wgmma_rs_n128_mn(o, pa + 4 * kk, desc_mn(Vt, kBN, kk));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -193,10 +248,12 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 
     // the later warpgroup to finish with stage st refills it
     if (release_last(done + st, wg) && j + 2 < nk) {
-      bar_expect(barK + st, kTileBytes);
-      tma_tile(Ks + st * kBN * kD, &tmK, barK + st, kBN, (j + 2) * kBN, kvh);
-      bar_expect(barV + st, kTileBytes);
-      tma_tile(Vs + st * kBN * kD, &tmV, barV + st, kBN, (j + 2) * kBN, kvh);
+      bar_expect(barK + st, Sh::kTileBytes);
+      tma_tile<Sh::kSubs>(Ks + st * kBN * kC, &tmK, barK + st, kBN,
+                          (j + 2) * kBN, kvh);
+      bar_expect(barV + st, Sh::kTileBytes);
+      tma_tile<Sh::kSubs>(Vs + st * kBN * kC, &tmV, barV + st, kBN,
+                          (j + 2) * kBN, kvh);
     }
   }
 
@@ -214,21 +271,21 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
           m[i] == kNegInf ? kNegInf : m[i] * kLn2 + logf(l_safe);
   }
 #pragma unroll
-  for (int v = 0; v < 64; ++v) o[v] *= inv[(v >> 1) & 1];
-  store_rows(o, a.o + (long)bh * a.Sq * kD, row_lo, a.Sq, 1.f);
+  for (int v = 0; v < kN / 2; ++v) o[v] *= inv[(v >> 1) & 1];
+  store_rows<D>(o, a.o + (long)bh * a.Sq * D, row_lo, a.Sq, 1.f);
 }
 
-template <int REP>
+template <int D, int REP>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, int B,
                     const FwdSm90Args& a, cudaStream_t stream) {
   using namespace fwd90;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, (long)B * a.H, a.Sq, kBM) ||
-      !make_map(&tk, k, (long)B * a.Hkv, a.Sk, kBN) ||
-      !make_map(&tv, v, (long)B * a.Hkv, a.Sk, kBN))
+  if (!make_map(&tq, q, (long)B * a.H, a.Sq, kBM, D) ||
+      !make_map(&tk, k, (long)B * a.Hkv, a.Sk, kBN, D) ||
+      !make_map(&tv, v, (long)B * a.Hkv, a.Sk, kBN, D))
     return -2;
-  auto kernel = flash_attention_fwd_sm90_kernel<REP>;
-  const int smem = smem_with_align(kSmem);
+  auto kernel = flash_attention_fwd_sm90_kernel<D, REP>;
+  const int smem = smem_with_align(Shape<D>::kSmem);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   const dim3 grid(B * a.H, (a.Sq + kBM - 1) / kBM);
@@ -238,14 +295,14 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, int B,
 
 }  // namespace pam
 
-// bf16 q (B, H, Sq, 128), k, v (B, Hkv, Sk, 128), o like q, lse (B, H, Sq)
+// bf16 q (B, H, Sq, D), k, v (B, Hkv, Sk, D), o like q, lse (B, H, Sq)
 // fp32, all contiguous and 16-byte aligned. Returns 0, a CUDA error code
-// from cudaGetLastError(), -1 for a group size H / Hkv other than 1 or 2,
-// or -2 if the driver refuses a tensor map.
+// from cudaGetLastError(), -1 for a (D, H / Hkv) outside
+// PAM_ATTN_FWD90_BUILT, or -2 if the driver refuses a tensor map.
 extern "C" int pam_flash_attention_fwd_sm90(const void* q, const void* k,
                                             const void* v, void* o,
                                             void* lse, int B, int H,
-                                            int Hkv, int Sq, int Sk,
+                                            int Hkv, int Sq, int Sk, int D,
                                             int causal, float scale,
                                             void* stream) {
   pam::FwdSm90Args a;
@@ -258,9 +315,11 @@ extern "C" int pam_flash_attention_fwd_sm90(const void* q, const void* k,
   a.causal = causal;
   a.scale_log2 = scale * pam::sm90::kLog2e;
   auto s = static_cast<cudaStream_t>(stream);
-  switch (H / Hkv) {
-    case 1: return pam::launch_fwd_sm90<1>(q, k, v, B, a, s);
-    case 2: return pam::launch_fwd_sm90<2>(q, k, v, B, a, s);
-    default: return -1;
-  }
+  const int rep = H / Hkv;
+#define PAM_FWD90_CASE(DIM, REP) \
+  if (D == DIM && rep == REP)     \
+    return pam::launch_fwd_sm90<DIM, REP>(q, k, v, B, a, s);
+  PAM_ATTN_FWD90_BUILT(PAM_FWD90_CASE)
+#undef PAM_FWD90_CASE
+  return -1;
 }

@@ -12,18 +12,22 @@ the reference trains with its jnp attention. ``FlashAttentionFn`` ties
 the two into a ``torch.autograd.Function``; ``flash_attention`` is the
 entry point.
 
-Two kernel variants, one per (dtype, head dim), chosen by ``_variant``:
+Two kernel variants, one per (dtype, head dim, direction), chosen by
+``_variant``:
 
-- ``"wgmma"``: bf16 with head dim 128 (every full-width model),
-  ``csrc/flash_attention_sm90.cu`` and ``csrc/flash_attention_bwd_sm90.cu``:
-  wgmma on 128-byte-swizzled bf16 tiles staged by TMA, P and dS rounded
-  to bf16 as the second product's operand (``_fwd_rounded`` and
-  ``_bwd_rounded`` model those rounding points in plain PyTorch);
-- ``"cuda_core"``: fp32, and bf16 below head dim 128 (16: the reduced
-  configs; 64 and 80: internvl2-1b's and hubert-xlarge's forward),
-  ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``: fp32
-  products on the CUDA cores, exact to the plain versions up to the
-  order of sums (fp32 wgmma would be TF32).
+- ``"wgmma"``: bf16 at the head dims of ``WGMMA_FWD_DIMS`` (forward: 64,
+  internvl2-1b; 80, hubert-xlarge; 128, every full-width text model) and
+  ``WGMMA_BWD_DIMS`` (backward: 128), ``csrc/flash_attention_sm90.cu``
+  and ``csrc/flash_attention_bwd_sm90.cu``: wgmma on 128-byte-swizzled
+  bf16 tiles staged by TMA (head dim 80 zero-filled to two 64-column
+  tiles), P and dS rounded to bf16 as the second product's operand
+  (``_fwd_rounded`` and ``_bwd_rounded`` model those rounding points in
+  plain PyTorch);
+- ``"cuda_core"``: fp32 at every built pair, and bf16 at the other head
+  dims (16: the reduced configs), ``csrc/flash_attention.cu`` and
+  ``csrc/flash_attention_bwd.cu``: fp32 products on the CUDA cores,
+  exact to the plain versions up to the order of sums (fp32 wgmma would
+  be TF32).
 
 Each wrapper takes the plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches its variant's kernel or raises. The
@@ -46,9 +50,9 @@ from repro_torch.kernels.flash_decode import (_DTYPE_CODE, _ptr, _stream,
 NEG_INF = -1e30
 # (head dim, GQA group) pairs the forward kernels are built for, whatever
 # the dtype: csrc/attention_common.cuh's PAM_ATTN_FWD_BUILT (the wgmma
-# launchers, flash_attention_sm90.cu, take groups 1 and 2 at head dim
-# 128); 64 at group 7 (internvl2-1b) and 80 at group 1 (hubert-xlarge)
-# are built forward only
+# forward, flash_attention_sm90.cu, takes those at WGMMA_FWD_DIMS: its
+# PAM_ATTN_FWD90_BUILT); 64 at group 7 (internvl2-1b) and 80 at group 1
+# (hubert-xlarge) are built forward only
 BUILT = ((16, 1), (16, 2),
          (64, 7),
          (80, 1),
@@ -58,18 +62,25 @@ BUILT = ((16, 1), (16, 2),
 # (64, 7) and (80, 1) here, is ROADMAP Queue 1 item 18
 BUILT_BWD = ((16, 1), (16, 2),
              (128, 1), (128, 2))
+# head dims whose bf16 forward / backward run the wgmma kernels:
+# csrc/attention_common.cuh's PAM_ATTN_WGMMA_FWD_DIMS / _BWD_DIMS
+WGMMA_FWD_DIMS = (64, 80, 128)
+WGMMA_BWD_DIMS = (128,)
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 SM90_PAD = 128          # row padding of the wgmma backward's fp32 scratch
 
 
-def _variant(dtype: torch.dtype, d: int) -> str:
-    """The kernel variant of operands of ``dtype`` and head dim ``d``:
-    ``"wgmma"`` for bf16 with d = 128, ``"cuda_core"`` otherwise (fp32,
-    or d < 128). Each (dtype, d, group) has exactly one kernel; a (d,
-    group) pair outside ``BUILT`` (forward) or ``BUILT_BWD`` (backward)
-    raises in the wrapper before any launch."""
-    return "wgmma" if dtype == torch.bfloat16 and d == 128 else "cuda_core"
+def _variant(dtype: torch.dtype, d: int, backward: bool = False) -> str:
+    """The kernel variant of the forward (or, with ``backward``, the
+    backward) on operands of ``dtype`` and head dim ``d``: ``"wgmma"``
+    for bf16 at a head dim of ``WGMMA_FWD_DIMS`` (``WGMMA_BWD_DIMS``),
+    ``"cuda_core"`` otherwise. Each (dtype, d, group) of a direction has
+    exactly one kernel; a (d, group) pair outside ``BUILT`` (forward) or
+    ``BUILT_BWD`` (backward) raises in the wrapper before any launch."""
+    dims = WGMMA_BWD_DIMS if backward else WGMMA_FWD_DIMS
+    return ("wgmma" if dtype == torch.bfloat16 and d in dims
+            else "cuda_core")
 
 
 def _fwd_lib():
@@ -97,7 +108,7 @@ def _fwd_sm90_lib():
     fn = build.load("flash_attention_sm90").pam_flash_attention_fwd_sm90
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
@@ -187,7 +198,7 @@ def _fwd_cuda(q, k, v, causal, scale):
     variant = _variant(q.dtype, d)
     if variant == "wgmma":
         rc = _fwd_sm90_lib()(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse),
-                             B, H, Hkv, Sq, Sk, int(causal), float(scale),
+                             B, H, Hkv, Sq, Sk, d, int(causal), float(scale),
                              _stream(q.device))
     else:
         rc = _fwd_lib()(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), B,
@@ -268,7 +279,7 @@ def _bwd_cuda(q, k, v, o, lse, do, causal, scale):
                          "dtype")
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
-    variant = _variant(q.dtype, d)
+    variant = _variant(q.dtype, d, backward=True)
     if variant == "wgmma":
         pad = -(-Sq // SM90_PAD) * SM90_PAD
         scratch = torch.empty((2, B, H, pad), dtype=torch.float32,

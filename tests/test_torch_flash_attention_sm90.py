@@ -11,10 +11,18 @@ and before dV = P^T dO, and dS before dQ = dS K and dK = dS^T Q.
 roundings. Held to ``_fwd_plain`` / ``_bwd_plain`` on fp32 copies of the
 same bf16 inputs at the card-side tolerance (rtol / atol 2e-2 on the
 outputs; the LSE, which no rounding reaches, at 1e-4 / 1e-3), they
-predict on the CPU that the kernels can meet that tolerance. Inputs come
-from seeded numpy generators; every case is small (one batch row, 16 /
-8 heads of 128, at most 256 positions) and builds nothing.
+predict on the CPU that the kernels can meet that tolerance. The forward
+runs the wgmma kernel at head dims 64, 80 and 128 (internvl2-1b's 14 / 2
+heads of 64, hubert-xlarge's 16 / 16 of 80, qwen3-0.6b's 16 / 8 of
+128), the backward at 128 only; the head-dim lists and the forward's
+(head dim, group) pairs are parsed out of the CUDA sources and held to
+the Python route. Inputs come from seeded numpy generators; every case
+is small (one batch row, at most 16 heads and 256 positions) and builds
+nothing.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,13 +34,20 @@ from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 LSE_TOL = dict(rtol=1e-4, atol=1e-3)
 QWEN_CASES = [(256, True), (200, False)]   # (S, causal), qwen3-0.6b heads
+QWEN_HEADS = (16, 8, 128)                  # (H, Hkv, d)
+# (S, causal, (H, Hkv, d)); the qwen3-0.6b cases keep their ids
+FWD_CASES = [pytest.param(S, causal, QWEN_HEADS, id=f"{S}-{causal}")
+             for S, causal in QWEN_CASES] + [
+    pytest.param(200, True, (14, 2, 64), id="200-True-internvl2-1b"),
+    pytest.param(150, False, (16, 16, 80), id="150-False-hubert-xlarge")]
+CSRC = Path(tfa.__file__).parent / "csrc"
 
 
-def _qwen_inputs(S, seed):
-    """bf16 q, dO (1, 16, S, 128) and k, v (1, 8, S, 128)."""
+def _inputs(S, seed, heads=QWEN_HEADS):
+    """bf16 q, dO (1, H, S, d) and k, v (1, Hkv, S, d)."""
+    H, Hkv, d = heads
     rng = np.random.default_rng(seed)
-    shapes = ((1, 16, S, 128), (1, 8, S, 128), (1, 8, S, 128),
-              (1, 16, S, 128))
+    shapes = ((1, H, S, d), (1, Hkv, S, d), (1, Hkv, S, d), (1, H, S, d))
     return [torch.from_numpy(rng.standard_normal(s, np.float32))
             .to(torch.bfloat16) for s in shapes]
 
@@ -42,15 +57,69 @@ def _qwen_inputs(S, seed):
     (torch.float32, 128, "cuda_core"),
     (torch.bfloat16, 16, "cuda_core"),
     (torch.float32, 16, "cuda_core"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"),
+    (torch.float32, 64, "cuda_core"),
+    (torch.float32, 80, "cuda_core"),
 ])
 def test_variant_routes_each_dtype_and_head_dim(dtype, d, variant):
+    """The forward's route by (dtype, head dim)."""
     assert tfa._variant(dtype, d) == variant
 
 
-@pytest.mark.parametrize("S,causal", QWEN_CASES)
-def test_rounded_forward_within_bf16_tolerance_of_plain(S, causal):
-    q, k, v, _ = _qwen_inputs(S, seed=S)
-    scale = 128 ** -0.5
+@pytest.mark.parametrize("dtype,d,variant", [
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "cuda_core"),
+    (torch.bfloat16, 80, "cuda_core"),
+    (torch.bfloat16, 16, "cuda_core"),
+    (torch.float32, 64, "cuda_core"),
+    (torch.float32, 80, "cuda_core"),
+    (torch.float32, 128, "cuda_core"),
+])
+def test_backward_variant_keeps_wgmma_at_head_dim_128(dtype, d, variant):
+    """The backward's route: wgmma only for bf16 at head dim 128. Head
+    dims 64 and 80 are built forward only, so ``_bwd_cuda`` refuses
+    (64, 7) and (80, 1) before it asks for a route
+    (``tests/test_torch_audio.py``)."""
+    assert tfa._variant(dtype, d, backward=True) == variant
+
+
+def _macro_items(path: Path, macro: str) -> tuple:
+    """The integer arguments of each ``X(..)`` in ``#define macro(X)``."""
+    body = re.search(rf"#define {macro}\(X\)((?:.*\\\n)*.*)",
+                     path.read_text()).group(1)
+    return tuple(tuple(int(n) for n in re.findall(r"\d+", item))
+                 for item in re.findall(r"X\(([^)]*)\)", body))
+
+
+@pytest.mark.parametrize("macro,dims", [
+    ("PAM_ATTN_WGMMA_FWD_DIMS", tfa.WGMMA_FWD_DIMS),
+    ("PAM_ATTN_WGMMA_BWD_DIMS", tfa.WGMMA_BWD_DIMS),
+])
+def test_wgmma_head_dims_match_the_cuda_source(macro, dims):
+    """The head dims whose bf16 kernels are the wgmma ones, as the CUDA
+    side lists them (``csrc/attention_common.cuh``: the CUDA-core
+    dispatch leaves bf16 out at these dims) and as the Python route
+    sends them."""
+    assert tuple(d for (d,) in _macro_items(
+        CSRC / "attention_common.cuh", macro)) == dims
+
+
+def test_wgmma_forward_pairs_match_the_cuda_dispatch():
+    """The wgmma forward instantiates exactly the built (head dim, group)
+    pairs at its head dims (``csrc/flash_attention_sm90.cu``'s
+    ``PAM_ATTN_FWD90_BUILT``): every bf16 pair the route sends there is
+    built, and no other."""
+    want = tuple(p for p in tfa.BUILT if p[0] in tfa.WGMMA_FWD_DIMS)
+    assert want == ((64, 7), (80, 1), (128, 1), (128, 2))
+    assert _macro_items(CSRC / "flash_attention_sm90.cu",
+                        "PAM_ATTN_FWD90_BUILT") == want
+
+
+@pytest.mark.parametrize("S,causal,heads", FWD_CASES)
+def test_rounded_forward_within_bf16_tolerance_of_plain(S, causal, heads):
+    q, k, v, _ = _inputs(S, seed=S, heads=heads)
+    scale = heads[2] ** -0.5
     o, lse = tfa._fwd_rounded(q, k, v, causal, scale)
     ref_o, ref_lse = tfa._fwd_plain(q.float(), k.float(), v.float(), causal,
                                     scale)
@@ -64,7 +133,7 @@ def test_rounded_forward_within_bf16_tolerance_of_plain(S, causal):
 
 @pytest.mark.parametrize("S,causal", QWEN_CASES)
 def test_rounded_backward_within_bf16_tolerance_of_plain(S, causal):
-    q, k, v, do = _qwen_inputs(S, seed=S + 1)
+    q, k, v, do = _inputs(S, seed=S + 1)
     scale = 128 ** -0.5
     o, lse = tfa._fwd_plain(q, k, v, causal, scale)
     got = tfa._bwd_rounded(q, k, v, o, lse, do, causal, scale)
@@ -81,7 +150,7 @@ def test_rounded_backward_within_bf16_tolerance_of_plain(S, causal):
 def test_cpu_bf16_head_dim_128_runs_plain_and_counts_no_launch():
     """The wgmma variant's shapes on CPU tensors go to the plain version:
     no launch of either variant is counted."""
-    q, k, v, do = _qwen_inputs(64, seed=3)
+    q, k, v, do = _inputs(64, seed=3)
     n0 = (tfa.flash_attention.launches, tfa.flash_attention.wgmma_launches,
           tfa.flash_attention_bwd.launches,
           tfa.flash_attention_bwd.wgmma_launches)

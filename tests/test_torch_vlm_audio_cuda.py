@@ -3,8 +3,10 @@ their plain versions: the decode kernels at (head dim 64, group 7)
 (internvl2-1b: 14 query heads over 2 kv heads; the wide path, warps
 holding 1, 2, 2 and 2 heads, four query values a thread staged with a
 tail guard) and the ``flash_attention`` forward at (64, 7) causal and at
-(80, 1) bidirectional (hubert-xlarge's encoder; five output columns a
-thread, the fp32 tiles above 48 KB of shared memory), then both models'
+(80, 1) bidirectional (hubert-xlarge's encoder): bf16 on the wgmma
+kernel (TMA zero-fills head dim 80 to two 64-column swizzle tiles), fp32
+on the CUDA-core kernel (five output columns a thread at head dim 80,
+the fp32 tiles above 48 KB of shared memory), then both models'
 reduced variants card against CPU. Every test here needs an NVIDIA GPU
 and skips without one; the file imports neither JAX nor the reference
 package:
@@ -119,22 +121,29 @@ def test_flash_decode_paged_group7_matches_plain(cuda, dtype):
                                               (4, 4, 80, 64, True)])
 def test_flash_attention_forward_matches_plain(cuda, H, Hkv, d, S, causal,
                                                dtype):
-    """The CUDA-core forward at (64, 7) and (80, 1): o and the fp32
-    log-sum-exp against the plain version, ragged last tiles; one launch
-    a call."""
+    """The forward at (64, 7) and (80, 1), ragged last tiles: fp32 on the
+    CUDA-core kernel, bf16 on the wgmma kernel (one wgmma launch a call,
+    also held to ``_fwd_rounded``, the plain model of its bf16 rounding
+    of P); o and the fp32 log-sum-exp against the plain version, one
+    launch a call."""
     rng = np.random.default_rng(d + S)
     B = 2
     q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(dtype)
                for s in ((B, H, S, d), (B, Hkv, S, d), (B, Hkv, S, d)))
-    assert tfa._variant(dtype, d) == "cuda_core"
+    wgmma = dtype == torch.bfloat16
+    assert tfa._variant(dtype, d) == ("wgmma" if wgmma else "cuda_core")
     ref = tfa.flash_attention_fwd(q, k, v, causal=causal)
-    n0 = tfa.flash_attention.launches
+    n0 = (tfa.flash_attention.launches, tfa.flash_attention.wgmma_launches)
     got = tfa.flash_attention_fwd(*(t.to(cuda) for t in (q, k, v)),
                                   causal=causal)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches - n0 == 1
+    assert (tfa.flash_attention.launches - n0[0],
+            tfa.flash_attention.wgmma_launches - n0[1]) == (1, int(wgmma))
     _close(got[:1], ref[:1], ATTN_TOL[dtype])
     _close(got[1:], ref[1:], ATTN_TOL[torch.float32])
+    if wgmma:
+        rounded, _ = tfa._fwd_rounded(q, k, v, causal, d ** -0.5)
+        _close(got[:1], (rounded,), ATTN_TOL[dtype])
 
 
 def _reduced(arch, **heads):
