@@ -12,9 +12,10 @@ final ``ok`` line:
             registers and spills of the main-path kernels from the
             ``-Xptxas -v`` logs, and of every decode instantiation with
             bf16 K/V (the engines' storage; none may spill) and of every
-            attention forward instantiation: the wgmma ones at (64, 7),
-            (80, 1), (128, 1) and (128, 2) may not spill, and no bf16
-            CUDA-core one may exist at those head dims; the four wgmma
+            attention forward and backward instantiation: the wgmma ones
+            at (64, 1), (64, 7), (80, 1), (128, 1), (128, 2), (128, 5)
+            and (128, 8) may not spill, and no bf16 CUDA-core one may
+            exist at those head dims; the four wgmma
             libraries (attention and SSD scan) must hold HGMMA
             instructions in their SASS (``cuobjdump -sass``) and their
             kernels must not spill
@@ -33,13 +34,16 @@ final ``ok`` line:
             the paged row lies on no model's path); attention:
             the train shape in bf16 through the wgmma
             kernels, also S 1000 non-causal, and the CUDA-core kernels in
-            fp32 at train_parity's B 2, S 500, and the forward alone at
-            its two forward-only builds, in bf16 through the wgmma
-            kernel at the main paths' shapes:
-            ``flash_attention_vlm_2048`` (B 4, H 14, Hkv 2, d 64, S 2048
-            causal) and ``flash_attention_audio_1500_noncausal`` (B 8, H
-            16 = Hkv, d 80, S 1500), and in fp32 through the CUDA-core
-            kernel at vlm_audio_parity's: ``flash_attention_vlm_fp32_100``
+            fp32 at train_parity's B 2, S 500; forward and backward at
+            the train pairs of the vlm, audio and wider dense families
+            (``TRAIN_ROWS``), in bf16 through the wgmma kernels at their
+            train_* phases' shapes (internvl2-1b B 4, 14 / 2 heads of 64,
+            S 2048 causal; hubert-xlarge B 8, 16 / 16 of 80, S 1500
+            bidirectional; minicpm-2b B 2, 36 / 36 of 64; qwen3-14b B 1,
+            40 / 8 of 128; deepseek-67b B 1, 64 / 8 of 128; S 2048
+            causal) and in fp32 through the CUDA-core kernels at their
+            train_parity_* shapes (B 2, S 500); the forward alone in fp32
+            at vlm_audio_parity's shapes: ``flash_attention_vlm_fp32_100``
             (B 2, 14 / 2 of 64, S 100 causal) and
             ``flash_attention_audio_fp32_150_noncausal`` (B 2, 4 / 4 of
             80, S 150); ssd_scan: the wgmma kernels
@@ -271,6 +275,30 @@ final ``ok`` line:
             requests through 4 slots, one of them to max_len exactly, at
             micro_steps 1 and 4 (graphs); flash_decode_merged n_groups x
             the host-run body steps, the paged wrapper never
+  train_internvl2_1b, train_hubert_xlarge, train_minicpm_2b,
+  train_qwen3_14b, train_deepseek_67b   the vlm, audio and wider dense
+            families trained at full width (random weights from seed 0,
+            bf16) for 6 steps at the train CLI's schedule with peak lr
+            1e-3 (``FAMILY_LR``), one model on
+            the card at a time (``TRAIN_FAMILIES``): internvl2-1b (24
+            layers) at B 4 x (256 patches from seed 0 + 1792 SyntheticLM
+            tokens) and hubert-xlarge (48 layers) at B 8 x 1500 frames
+            with frame targets in its 504 classes, both
+            through ``build_train_step`` with the state donated, as the
+            CLI's; minicpm-2b (40 layers) at B 2 x 2048, qwen3-14b cut to
+            8 of 40 layers and deepseek-67b to 4 of 95 at B 1 x 2048,
+            through ``launch.train.run`` (12 bytes a parameter and the
+            largest leaf's update temporaries: the cuts keep the peak
+            under about 70 GiB); both attention kernels
+            n_layers x steps times, all wgmma, no other counted kernel,
+            finite losses, the last three below the first; median step
+            ms, positions a second, peak memory
+  profile_train_hubert_xlarge   profile_train over 2 steps of that
+            phase's configuration (also the matmul share)
+  train_parity_internvl2_1b, ... (one a model)   the same five at full
+            width and 2 layers in fp32 (TF32 off), B 2 x 500 positions:
+            loss and gradients through the CUDA-core kernels vs the plain
+            chunked attention, as train_parity
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
@@ -582,6 +610,20 @@ def phase_build() -> dict:
     spills = {k: attn[k] for k in main
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", attn[k])}
     assert not spills, f"bf16 attention forward kernels spill: {spills}"
+    # the same for the backward: its wgmma dK / dV and dQ kernels at every
+    # built pair of its head dims, none spilling, and no bf16 CUDA-core
+    # backward at those head dims
+    attn_bwd = _attention_registers(backward=True)
+    main = [f"flash_attention_{k}_sm90_kernel<bf16, {d}, {rep}>"
+            for d, rep in fa.BUILT_BWD if d in fa.WGMMA_BWD_DIMS
+            for k in ("dkdv", "dq")]
+    assert set(main) <= set(attn_bwd), sorted(attn_bwd)
+    gone = [k for k in attn_bwd if "sm90" not in k and "<bf16" in k
+            and int(k.split(", ")[1]) in fa.WGMMA_BWD_DIMS]
+    assert not gone, f"bf16 CUDA-core backwards at wgmma head dims: {gone}"
+    spills = {k: attn_bwd[k] for k in main if re.search(
+        r"[1-9]\d* bytes spill (stores|loads)", attn_bwd[k])}
+    assert not spills, f"bf16 attention backward kernels spill: {spills}"
     hgmma = {name: _sass_count(name) for name in SM90_LIBS}
     assert all(n > 0 for n in hgmma.values()), f"no HGMMA in {hgmma}"
     spills = {k: v for k, v in regs.items() if ("sm90" in k or "ssd90" in k)
@@ -593,6 +635,7 @@ def phase_build() -> dict:
                 libraries=sorted(build.SOURCES), registers=regs,
                 decode_registers_bf16_kv=decode,
                 attention_forward_registers=attn,
+                attention_backward_registers=attn_bwd,
                 hgmma_in_sass=hgmma)
 
 
@@ -623,21 +666,27 @@ def _decode_registers() -> dict:
     return out
 
 
-def _attention_registers() -> dict:
+def _attention_registers(backward: bool = False) -> dict:
     """Registers, shared memory and spills from the ``-Xptxas -v`` logs of
-    every instantiation of the two ``flash_attention`` forwards, keyed
-    ``kernel<dtype, head dim, group>``: the CUDA-core kernel (fp32 at
+    every instantiation of the two ``flash_attention`` forwards (with
+    ``backward``: of the two backwards' dK / dV and dQ kernels), keyed
+    ``kernel<dtype, head dim, group>``: the CUDA-core kernels (fp32 at
     every pair, run by the parity phases; bf16 at head dim 16) and the
-    wgmma kernel (bf16 at (64, 7), (80, 1), (128, 1) and (128, 2): the
-    main paths' forward, none may spill)."""
+    wgmma kernels (bf16 at the built pairs of head dims 64, 80 and 128:
+    the main paths', none may spill)."""
     import re
     from repro_torch.kernels import build
+    names = (r"(flash_attention_(?:dkdv|dq)_kernel)",
+             r"(flash_attention_(?:dkdv|dq)_sm90_kernel)") if backward else (
+             r"(flash_attention_fwd_kernel)",
+             r"(flash_attention_fwd_sm90_kernel)")
+    suffix = "_bwd" if backward else ""
     out = {}
     for lib, pattern in (
-            ("flash_attention", r"(flash_attention_fwd_kernel)"
-                                r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"),
-            ("flash_attention_sm90", r"(flash_attention_fwd_sm90_kernel)"
-                                     r"I()Li(\d+)ELi(\d+)E")):
+            (f"flash_attention{suffix}",
+             names[0] + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"),
+            (f"flash_attention{suffix}_sm90",
+             names[1] + r"I()Li(\d+)ELi(\d+)E")):
         lines = build.build_log(lib).splitlines()
         for i, line in enumerate(lines):
             m = re.search(pattern, line)
@@ -891,17 +940,22 @@ def _attn_fwd_row(q, k, v, causal: bool) -> tuple[dict, object, object]:
 
 
 def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
-                           dtype: str = "bfloat16") -> dict:
+                           dtype: str = "bfloat16", heads=(16, 8),
+                           d: int = 128) -> dict:
     """Forward and backward kernels against their plain versions on the
     same inputs (the backward fed the kernel forward's o and lse), with
     their times, bounds and the SDPA yardstick, whose own error against
     the same plain versions is reported beside the kernels'. bf16 runs
     the wgmma kernels (also held to ``_fwd_rounded`` / ``_bwd_rounded``,
-    the plain model of their bf16 roundings), fp32 the CUDA-core ones."""
+    the plain model of their bf16 roundings), fp32 the CUDA-core ones.
+    (H, Hkv) ``heads`` and head dim ``d``: qwen3-0.6b's by default."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, do = _attn_case(S, causal, seed=S, B=B, dtype=dtype)
+    # qwen3-0.6b's rows keep the inputs of earlier runs
+    seed = S if (heads, d) == ((16, 8), 128) else S + d + heads[0]
+    q, k, v, do = _attn_case(S, causal, seed=seed, B=B, dtype=dtype,
+                             heads=heads, d=d)
     scale = 1.0 / q.shape[-1] ** 0.5
     fwd, o, lse = _attn_fwd_row(q, k, v, causal)
     bf16 = q.dtype == torch.bfloat16
@@ -955,9 +1009,9 @@ def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
 
 def kernel_flash_attention_fwd(S: int, causal: bool, B: int, heads,
                                d: int, dtype: str = "bfloat16") -> dict:
-    """The forward alone (no backward is built at this pair) at (H, Hkv)
-    ``heads``, head dim ``d``: bf16 through the wgmma kernel, fp32
-    through the CUDA-core one."""
+    """The forward alone at (H, Hkv) ``heads``, head dim ``d`` (the
+    shapes of ``vlm_audio_parity``, which runs no backward): bf16 through
+    the wgmma kernel, fp32 through the CUDA-core one."""
     q, k, v, _ = _attn_case(S, causal, seed=S + d, B=B, dtype=dtype,
                             heads=heads, d=d)
     return _attn_fwd_row(q, k, v, causal)[0]
@@ -3131,8 +3185,10 @@ def _wgmma_launches() -> dict:
     return {name: fn.wgmma_launches for name, fn in _wgmma_counted().items()}
 
 
-# the kernels each train path must launch n_layers times a step
-TRAIN_KERNELS = {"qwen3-0.6b": ("flash_attention", "flash_attention_bwd"),
+# the kernels each train path must launch n_layers times a step (every
+# attention family: the flash_attention pair)
+ATTN_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+TRAIN_KERNELS = {"qwen3-0.6b": ATTN_TRAIN_KERNELS,
                  SSM_ARCH: ("ssd_scan", "ssd_scan_bwd")}
 
 
@@ -3191,21 +3247,25 @@ def phase_profile_train(arch: str = "qwen3-0.6b") -> dict:
     ``attention_*`` keys sum the flash_attention kernels, the ``ssd_*``
     keys the ssd_scan kernels and the ``elementwise_*`` keys PyTorch's
     elementwise kernels; ``*_device_ms`` and ``elementwise_launches`` are
-    totals over the two steps."""
+    totals over the two steps. An arch of ``TRAIN_FAMILIES`` runs its
+    train_* phase's configuration and batches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.data import SyntheticLM
     from repro_torch.launch import train as train_cli
     from repro_torch.training.train_step import (build_train_step,
                                                  init_train_state)
-    cfg, tcfg = _train_model(arch)
+    if arch in TRAIN_FAMILIES:
+        n_layers, B, S = TRAIN_FAMILIES[arch]
+        cfg = _family_cfg(arch, n_layers)
+        tcfg = train_cli.train_config(steps=FAMILY_STEPS, lr=FAMILY_LR)
+    else:
+        (cfg, tcfg), B, S = _train_model(arch), TRAIN_B, TRAIN_S
     state = init_train_state(cfg, tcfg, 0, device="cuda")
-    step_fn = build_train_step(cfg, tcfg)
-    ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B)
-    dev = torch.device("cuda")
-    state, m = step_fn(state, train_cli.device_batch(ds, 0, 1, dev))
+    step_fn = build_train_step(cfg, tcfg, donate=True)    # as the CLI
+    data = _FamilyData(cfg, B, S)
+    state, m = step_fn(state, data.batch(0))
     float(m["loss"])
-    batches = [train_cli.device_batch(ds, s, 1, dev) for s in (1, 2)]
+    batches = [data.batch(s) for s in (1, 2)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3234,7 +3294,8 @@ def phase_profile_train(arch: str = "qwen3-0.6b") -> dict:
     # arithmetic): where gradient accumulation into the stacked leaves
     # would show
     elem = [r for r in rows if "elementwise_kernel" in r[1]]
-    return dict(steps=2, wall_s=wall, step_ms=wall / 2 * 1e3,
+    mm = [r for r in rows if any(t in r[1] for t in KERNEL_CLASSES["matmul"])]
+    return dict(arch=arch, steps=2, wall_s=wall, step_ms=wall / 2 * 1e3,
                 device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
                 kernel_launches=sum(r[2] for r in rows),
                 attention_device_ms=sum(r[0] for r in attn) / 1e3,
@@ -3244,24 +3305,24 @@ def phase_profile_train(arch: str = "qwen3-0.6b") -> dict:
                 elementwise_device_ms=sum(r[0] for r in elem) / 1e3,
                 elementwise_share=sum(r[0] for r in elem) / 1e6 / busy_s,
                 elementwise_launches=sum(r[2] for r in elem),
+                matmul_device_ms=sum(r[0] for r in mm) / 1e3,
+                matmul_share=sum(r[0] for r in mm) / 1e6 / busy_s,
                 top=fmt(rows[:12]),
                 ported=fmt([r for r in rows if "pam::" in r[1]]))
 
 
-def phase_train_parity(arch: str = "qwen3-0.6b") -> dict:
+def phase_train_parity(arch: str = "qwen3-0.6b",
+                       n_layers: int | None = None) -> dict:
     """Full-width fp32 loss and gradients through the train path's kernels
     (flash_attention, or ssd_scan) against the plain chunked attention or
-    chunked scan (TF32 off)."""
-    import torch
-    from repro_torch.data import SyntheticLM
+    chunked scan (TF32 off), at ``n_layers`` (None: full depth), B 2 x
+    500 positions (``_FamilyData``, seed 1)."""
     from repro_torch import tree
-    from repro_torch.launch import train as train_cli
     from repro_torch.training.train_step import TrainConfig, build_grad_fn
-    cfg, params = _model("float32", arch)
-    b = train_cli.device_batch(
-        SyntheticLM(vocab=cfg.vocab, seq_len=PARITY_S, batch=PARITY_B,
-                    seed=1), 0, 1,
-        torch.device("cuda"))
+    cfg, params = _model("float32", arch, n_layers)
+    b = _FamilyData(cfg, PARITY_B, PARITY_S - cfg.num_patches,
+                    seed=1).batch(0)
+    kernels = TRAIN_KERNELS.get(arch, ATTN_TRAIN_KERNELS)
     _reset_launches()
     lk, gk = build_grad_fn(cfg, TrainConfig(use_kernel=True))(params, b)
     launches = _launches()
@@ -3271,17 +3332,19 @@ def phase_train_parity(arch: str = "qwen3-0.6b") -> dict:
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     worst, worst_leaf = 0.0, ""
     for (name, a), r in zip(tree.leaves_with_paths(gk), tree.leaves(gp)):
+        if r.numel() == 0:           # a family's unused (empty) leaf
+            continue
         scale = float(r.abs().max())
         rel = float((a - r).abs().max()) / scale if scale > 0 else 0.0
         if rel > worst:
             worst, worst_leaf = rel, name
     for name, n in launches.items():
-        expect = cfg.n_layers if name in TRAIN_KERNELS[arch] else 0
+        expect = cfg.n_layers if name in kernels else 0
         assert n == expect, f"{name}: {launches}, want {expect}"
     assert loss_rel <= TRAIN_LOSS_TOL, f"loss differs: {loss_rel}"
     assert worst <= TRAIN_GRAD_TOL, f"grads differ: {worst} at {worst_leaf}"
-    return dict(arch=arch, B=PARITY_B, S=PARITY_S, dtype="float32",
-                tf32=False,
+    return dict(arch=arch, n_layers=cfg.n_layers, B=PARITY_B, S=PARITY_S,
+                dtype="float32", tf32=False,
                 loss_kernel=float(lk), loss_plain=float(lp),
                 loss_rel_diff=loss_rel, loss_tol=TRAIN_LOSS_TOL,
                 max_grad_rel_diff=worst, worst_leaf=worst_leaf,
@@ -3620,12 +3683,39 @@ VLM_FORWARD = dict(B=4, text=1792, seq=2048)  # 256 patches + 1792 tokens
 VLM_PREFILL = dict(B=8, text=512, max_len=2048, steps=16)
 ENCODER = dict(B=8, frames=1500, iters=5)   # 30 s clips at 50 frames / s
 ENCODER_PHASE = "encoder_hubert_xlarge"
-# the kernels-phase rows of the two forward-only flash_attention builds:
-# bf16 (the wgmma kernel) and fp32 (the CUDA-core kernel)
-ATTN_ROWS = {VLM_ARCH: "flash_attention_vlm_2048",
-             AUDIO_ARCH: "flash_attention_audio_1500_noncausal"}
+# the kernels-phase rows of the fp32 flash_attention forward (the CUDA-core
+# kernel) at vlm_audio_parity's shapes
 ATTN_FP32_ROWS = {VLM_ARCH: "flash_attention_vlm_fp32_100",
                   AUDIO_ARCH: "flash_attention_audio_fp32_150_noncausal"}
+# the train_* phases of the vlm, audio and wider dense families, by arch:
+# (depth on the card, None for the published depth; batch; text tokens
+# (vlm, after its 256 patches), frames (audio) or tokens a row). The
+# train step takes its state donated, as the train CLI's, so it holds
+# bf16 parameters and gradients and fp32 moments, 12 bytes a parameter,
+# plus the fp32 temporaries of the leaf it updates, 16 bytes an entry of
+# the largest (an embedding or the untied head). The deep models are cut
+# to fit one card: qwen3-14b to 8 of 40 layers (1.556 B parameters of
+# embedding and head + 0.330 B a layer = 4.20 B: 50 GB + 12 GB for the
+# head's update), deepseek-67b to 4 of 95 (1.678 B + 0.692 B a layer =
+# 4.45 B: 53 GB + 13 GB)
+TRAIN_FAMILIES = {VLM_ARCH: (None, 4, 1792), AUDIO_ARCH: (None, 8, 1500),
+                  "minicpm-2b": (None, 2, 2048), "qwen3-14b": (8, 1, 2048),
+                  "deepseek-67b": (4, 1, 2048)}
+# their peak lr: the train CLI's 1e-2 (right for the reduced models)
+# made the losses of hubert-xlarge, qwen3-14b and deepseek-67b rise over
+# 6 steps, with the plain attention as with the kernels; the mamba2-780m
+# phase's 1e-3 trains all five
+FAMILY_LR = 1e-3
+FAMILY_STEPS = 6
+FAMILY_PARITY_LAYERS = 2   # train_parity_*: full width, 2 layers, B 2 x 500
+# the tag of each family's attention rows in the kernels phase, and
+# whether its attention is causal (hubert-xlarge is a bidirectional
+# encoder)
+PROFILE_FAMILIES = (AUDIO_ARCH,)   # with a profile_train_* phase
+TRAIN_ROWS = {VLM_ARCH: ("_d64_g7", True),
+              AUDIO_ARCH: ("_d80_noncausal", False),
+              "minicpm-2b": ("_d64", True), "qwen3-14b": ("_g5", True),
+              "deepseek-67b": ("_g8", True)}
 # bf16 logits through the attention kernels against the plain attention
 # on the card, max |dlogit| / max(1, max |logit|): both round each
 # layer's attention output to bf16 and may differ there by one bf16 step
@@ -3907,6 +3997,139 @@ def _wide_heads(arch: str) -> tuple[int, int, int]:
     from repro_torch.models.config import get_config
     cfg = get_config(arch)
     return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+
+def _attn_keys(arch: str, fp32: bool = False) -> tuple[str, str]:
+    """The kernels-phase keys of ``arch``'s attention forward and backward
+    rows: bf16 at its train_* phase's shape, or fp32 at its
+    train_parity_* shape."""
+    tag = TRAIN_ROWS[arch][0]
+    shape = "fp32_500" if fp32 else "train"
+    return (f"flash_attention_{shape}{tag}",
+            f"flash_attention_bwd_{shape}{tag}")
+
+
+def _train_phase(arch: str, parity: bool = False) -> str:
+    return ("train_parity_" if parity else "train_") + arch.replace(
+        "-", "_").replace(".", "_")
+
+
+class _FamilyData:
+    """Train batches of ``cfg``'s family on the card, ``S`` text tokens or
+    frames a row, from ``seed``: SyntheticLM tokens and next-token labels;
+    the vlm adds ``cfg.num_patches`` patches, drawn once and reused; the
+    audio family draws ``S`` frames a row each step, with HuBERT-style
+    frame targets in its 504 classes: each frame's class under a fixed
+    random projection (drawn first), which the model can learn."""
+
+    def __init__(self, cfg, B: int, S: int, seed: int = 0):
+        import torch
+        from repro_torch.data import SyntheticLM
+        from repro_torch.models import transformer as tf
+        self.cfg, self.B, self.S = cfg, B, S
+        self.dev, self.dt = torch.device("cuda"), tf.torch_dtype(cfg)
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.lm = SyntheticLM(vocab=cfg.vocab, seq_len=S, batch=B,
+                              seed=seed)
+        if cfg.family == "audio":
+            self.proj = torch.randn((cfg.frontend_dim, cfg.vocab),
+                                    generator=self.gen, device=self.dev)
+        if cfg.family == "vlm":
+            self.patches = torch.randn(
+                (B, cfg.num_patches, cfg.frontend_dim), generator=self.gen,
+                device=self.dev).to(self.dt)
+
+    def batch(self, step: int) -> dict:
+        import torch
+        from repro_torch.launch import train as train_cli
+        if self.cfg.family == "audio":
+            frames = torch.randn((self.B, self.S, self.cfg.frontend_dim),
+                                 generator=self.gen, device=self.dev)
+            return {"frames": frames.to(self.dt),
+                    "labels": (frames @ self.proj).argmax(-1).to(
+                        torch.int32)}
+        out = train_cli.device_batch(self.lm, step, 1, self.dev)
+        if self.cfg.family == "vlm":
+            out["patches"] = self.patches
+        return out
+
+
+def _family_cfg(arch: str, n_layers: int | None, dtype: str = "bfloat16"):
+    from repro_torch.models.config import get_config
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def phase_train_family(arch: str) -> dict:
+    """A training main path of the vlm, audio or wider dense family at
+    full width (``TRAIN_FAMILIES``: depth, batch, length), bf16, random
+    weights from seed 0, ``FAMILY_STEPS`` steps at the train CLI's
+    schedule: the dense models through ``repro_torch.launch.train.run``
+    (SyntheticLM tokens), the vlm and audio models through the same
+    ``build_train_step`` on ``_FamilyData``'s patch and frame batches
+    (the CLI feeds tokens only, as the reference's). Both attention
+    kernels must launch n_layers x steps times, every launch a wgmma one,
+    no other counted kernel; the losses must be finite and the last
+    three below the first. Median step ms (steps 2 on), tokens or frames
+    a second, peak memory."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training.train_step import (build_train_step,
+                                                 init_train_state)
+    n_layers, B, S = TRAIN_FAMILIES[arch]
+    cfg = _family_cfg(arch, n_layers)
+    tcfg = train_cli.train_config(steps=FAMILY_STEPS, lr=FAMILY_LR)
+    assert tcfg.use_kernel and not tcfg.remat
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    if cfg.family in ("vlm", "audio"):
+        state = init_train_state(cfg, tcfg, 0, device="cuda")
+        step_fn = build_train_step(cfg, tcfg, donate=True)   # as the CLI
+        data = _FamilyData(cfg, B, S)
+        out = dict(losses=[], grad_norms=[], step_s=[])
+        for s in range(FAMILY_STEPS):
+            b = data.batch(s)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            out["losses"].append(float(m["loss"]))
+            out["grad_norms"].append(float(m["grad_norm"]))
+            out["step_s"].append(time.perf_counter() - t0)
+        del state, step_fn, data, b
+    else:
+        out = train_cli.run(cfg, tcfg, steps=FAMILY_STEPS, batch=B, seq=S,
+                            device="cuda", log=lambda _: None)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = _launches()
+    wgmma = _wgmma_launches()
+    losses = out["losses"]
+    want = cfg.n_layers * FAMILY_STEPS
+    assert all(math.isfinite(x) for x in losses), losses
+    assert sum(losses[-3:]) / 3 < losses[0], losses
+    for name, n in launches.items():
+        expect = want if name in ATTN_TRAIN_KERNELS else 0
+        assert n == expect, f"{name}: {launches}, want {expect}"
+    for name, n in wgmma.items():      # bf16 at full width: all wgmma
+        expect = want if name in ATTN_TRAIN_KERNELS else 0
+        assert n == expect, f"{name}: wgmma {wgmma}, want {expect}"
+    step_ms = statistics.median(out["step_s"][1:]) * 1e3
+    rows = B * (S + cfg.num_patches)
+    return dict(card=_card(), arch=arch, family=cfg.family,
+                n_layers=cfg.n_layers, published_layers=_family_cfg(
+                    arch, None).n_layers, peak_lr=FAMILY_LR,
+                heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+                causal=cfg.causal, steps=FAMILY_STEPS, batch=B,
+                seq=S + cfg.num_patches, text=S if cfg.family != "audio"
+                else 0, dtype=cfg.dtype, params=cfg.param_count(),
+                losses=losses, grad_norms=out["grad_norms"],
+                first_step_ms=out["step_s"][0] * 1e3, step_ms=step_ms,
+                positions_per_s=rows / (step_ms / 1e3),
+                launches=launches, wgmma_launches=wgmma,
+                launches_expected=want, peak_mem_gb=peak_gb)
 
 
 def _dense_weights(cfg) -> dict:
@@ -4215,21 +4438,31 @@ def phase_kernels() -> dict:
     r = kernel_flash_attention(PARITY_S, True, B=PARITY_B, dtype="float32")
     out["flash_attention_fp32_500"] = r["fwd"]
     out["flash_attention_bwd_fp32_500"] = r["bwd"]
-    # the forward at its two forward-only builds: bf16 through the wgmma
-    # kernel at the main paths' shapes, internvl2-1b's (64, 7) causal at
-    # vlm_forward's B 4, S 2048, and hubert-xlarge's (80, 1)
-    # bidirectional at the encoder's B 8 x 1500 frames (a ragged last
-    # tile); fp32 through the CUDA-core kernel at vlm_audio_parity's
-    # shapes (B 2; 4 patches + 96 tokens at 14 / 2 heads of 64, 150
-    # frames at 4 / 4 of 80)
+    # the train pairs of the vlm, audio and wider dense families: bf16
+    # forward and backward through the wgmma kernels at each train_*
+    # phase's attention shape (internvl2-1b's (64, 7) causal at B 4 x
+    # (256 patches + 1792 tokens), hubert-xlarge's (80, 1) bidirectional
+    # at B 8 x 1500 frames: a ragged last tile; the wider dense models at
+    # their phases' batch x 2048), and fp32 through the CUDA-core kernels
+    # at their train_parity_* shape (B 2, S 500)
+    for arch, (tag, causal) in TRAIN_ROWS.items():
+        H, Hkv, d = _wide_heads(arch)
+        _, B, S = TRAIN_FAMILIES[arch]
+        S += _family_cfg(arch, None).num_patches      # the vlm's patches
+        r = kernel_flash_attention(S, causal, B, "bfloat16", (H, Hkv), d)
+        fwd_key, bwd_key = _attn_keys(arch)
+        out[fwd_key], out[bwd_key] = r["fwd"], r["bwd"]
+        r = kernel_flash_attention(PARITY_S, causal, PARITY_B, "float32",
+                                   (H, Hkv), d)
+        fwd_key, bwd_key = _attn_keys(arch, fp32=True)
+        out[fwd_key], out[bwd_key] = r["fwd"], r["bwd"]
+    # the forward alone in fp32 through the CUDA-core kernel at
+    # vlm_audio_parity's shapes (B 2; 4 patches + 96 tokens at 14 / 2
+    # heads of 64, 150 frames at 4 / 4 of 80)
     H, Hkv, d = _wide_heads(VLM_ARCH)
-    out[ATTN_ROWS[VLM_ARCH]] = kernel_flash_attention_fwd(
-        VLM_FORWARD["seq"], True, VLM_FORWARD["B"], (H, Hkv), d)
     out[ATTN_FP32_ROWS[VLM_ARCH]] = kernel_flash_attention_fwd(
         100, True, 2, (H, Hkv), d, "float32")
     H, Hkv, d = _wide_heads(AUDIO_ARCH)
-    out[ATTN_ROWS[AUDIO_ARCH]] = kernel_flash_attention_fwd(
-        ENCODER["frames"], False, ENCODER["B"], (H, Hkv), d)
     out[ATTN_FP32_ROWS[AUDIO_ARCH]] = kernel_flash_attention_fwd(
         150, False, 2, (4, 4), d, "float32")
     out.update(kernel_ssd_scan())
@@ -4395,6 +4628,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     run("hybrid_parity", phase_hybrid_parity)
     torch.cuda.empty_cache()
+    for arch in TRAIN_FAMILIES:        # one model on the card at a time
+        run(_train_phase(arch), phase_train_family, arch)
+        torch.cuda.empty_cache()
+        if arch in PROFILE_FAMILIES:
+            run("profile_" + _train_phase(arch), phase_profile_train, arch)
+            torch.cuda.empty_cache()
+        run(_train_phase(arch, parity=True), phase_train_parity, arch,
+            FAMILY_PARITY_LAYERS)
+        torch.cuda.empty_cache()
     run("train", phase_train)
     torch.cuda.empty_cache()
     run("profile_train", phase_profile_train)
@@ -4570,37 +4812,50 @@ def main() -> int:
     row["note"] = ("on no model's path: the hybrid family refuses paged "
                    "pools, as the reference does; built from the shared "
                    "(head dim, group) list and held to its plain version")
-    # the forward-only flash_attention builds: internvl2-1b's (64, 7)
-    # causal from vlm_forward, hubert-xlarge's (80, 1) bidirectional from
-    # the encoder phase (bf16, the wgmma kernel), and the fp32 CUDA-core
-    # kernel at both pairs from vlm_audio_parity's variants
+    # the train pairs of the vlm, audio and wider dense families: bf16
+    # forward and backward (the wgmma kernels) with launches from each
+    # train_* phase, fp32 (the CUDA-core kernels) from its train_parity_*
+    # phase; internvl2-1b's and hubert-xlarge's forwards also run in
+    # vlm_forward and the encoder phase, and in fp32 at vlm_audio_parity's
+    # shapes
     vap = results["vlm_audio_parity"]
-    for arch, phase, tag, case in ((VLM_ARCH, "vlm_forward", "_d64_g7",
-                                    "vlm_g7"),
-                                   (AUDIO_ARCH, ENCODER_PHASE,
-                                    "_d80_noncausal", "audio_d80")):
-        row = add_row(ATTN_ROWS[arch], "flash_attention_sm90.cu",
-                      "flash_attention.py:31",
-                      results[phase]["launches"]["flash_attention"],
-                      name="flash_attention" + tag)
-        row["launches_in"] = phase
-        row["wgmma_launches"] = results[phase]["wgmma_launches"][
+    for arch, (tag, _) in TRAIN_ROWS.items():
+        train = results[_train_phase(arch)]
+        parity = results[_train_phase(arch, parity=True)]
+        for key, src, name in zip(_attn_keys(arch), (
+                "flash_attention_sm90.cu", "flash_attention_bwd_sm90.cu"),
+                ATTN_TRAIN_KERNELS):
+            row = add_row(key, src, "flash_attention.py:31",
+                          train["launches"][name], name=name + tag)
+            row["launches_in"] = _train_phase(arch)
+            row["wgmma_launches"] = train["wgmma_launches"][name]
+            row["max_abs_err_vs_rounded"] = kernels[key][
+                "max_abs_err_vs_rounded"]
+        for key, src, name in zip(_attn_keys(arch, fp32=True), (
+                "flash_attention.cu", "flash_attention_bwd.cu"),
+                ATTN_TRAIN_KERNELS):
+            row = add_row(key, src, "flash_attention.py:31",
+                          parity["launches"][name],
+                          name=name + tag + "_fp32_train")
+            row["launches_in"] = _train_phase(arch, parity=True)
+    for arch, phase, case in ((VLM_ARCH, "vlm_forward", "vlm_g7"),
+                              (AUDIO_ARCH, ENCODER_PHASE, "audio_d80")):
+        tag = TRAIN_ROWS[arch][0]
+        row = next(r for r in rows if r["name"] == "flash_attention" + tag)
+        row[f"launches_{phase}"] = results[phase]["launches"][
             "flash_attention"]
-        row["max_abs_err_vs_rounded"] = kernels[ATTN_ROWS[arch]][
-            "max_abs_err_vs_rounded"]
-        row["note"] = ("forward only: the backward is not built at this "
-                       "pair (training this family is ROADMAP Queue 1 "
-                       "item 18)")
+        row[f"wgmma_launches_{phase}"] = results[phase]["wgmma_launches"][
+            "flash_attention"]
         row = add_row(ATTN_FP32_ROWS[arch], "flash_attention.cu",
                       "flash_attention.py:31",
                       vap[case]["launches"]["flash_attention"],
                       name="flash_attention" + tag + "_fp32")
         row["launches_in"] = "vlm_audio_parity"
     for row in rows:
-        if row["name"].endswith("_bwd"):
-            row["note"] = (f"gradient of {row['name'][:-4]}; the TPU "
-                           f"package has no backward kernel (JAX cannot "
-                           f"differentiate the Pallas call)")
+        if "_bwd" in row["name"]:
+            row["note"] = (f"gradient of {row['name'].split('_bwd')[0]}; "
+                           f"the TPU package has no backward kernel (JAX "
+                           f"cannot differentiate the Pallas call)")
     print(env["nvidia_smi"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

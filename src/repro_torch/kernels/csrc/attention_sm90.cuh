@@ -41,7 +41,7 @@ namespace sm90 {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;           // head dim of the backward, widest tile
+constexpr int kD = 128;           // the widest head dim (two sub-tiles)
 constexpr int kSub = 64;          // columns of a 128-byte swizzle row
 constexpr int kThreads = 256;     // two consumer warpgroups
 constexpr float kNegInf = -1e30f;  // the reference's masked-score sentinel
@@ -394,6 +394,22 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64xN) += A(64x16) B(16xN) at N = 64, 80 or 128 (a head dim): A in
+// registers, B MN-major in shared memory; the accumulator has N / 2
+// entries a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
+                                            const uint32_t* a,
+                                            uint64_t db) {
+  static_assert(N == 64 || N == 80 || N == 128, "an N of a head dim");
+  if constexpr (N == 64)
+    wgmma_rs_n64_mn(d, a, db);
+  else if constexpr (N == 80)
+    wgmma_rs_n80_mn(d, a, db);
+  else
+    wgmma_rs_n128_mn(d, a, db);
 }
 
 // ------------------------------------------------------------ fragments

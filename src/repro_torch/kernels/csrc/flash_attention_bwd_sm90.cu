@@ -1,6 +1,9 @@
 // FlashAttention backward for Hopper's tensor cores: dQ, dK, dV of
-// flash_attention_sm90.cu's forward (bf16, head dim 128, GQA groups of 1
-// or 2, causal or bidirectional).
+// flash_attention_sm90.cu's forward (bf16, causal or bidirectional), at
+// the (head dim, GQA group) pairs of PAM_ATTN_BWD90_BUILT below: head dim
+// 128 at groups 1, 2, 5 and 8 (pam-llama-7b, qwen3-0.6b, qwen3-14b,
+// deepseek-67b), 64 at groups 1 and 7 (minicpm-2b, internvl2-1b) and 80
+// at group 1 (hubert-xlarge's bidirectional encoder).
 //
 // The TPU package has no counterpart: JAX cannot differentiate through
 // the Pallas kernel (repro/kernels/flash_attention.py::_attn_kernel, :31,
@@ -21,12 +24,14 @@
 //      query heads of its group and their 64-row query tiles (from the
 //      diagonal on when causal), Q, dO, L and Delta staged two deep by
 //      TMA. Per query tile: S^T = K Q^T and dP^T = V dO^T (wgmma
-//      m64n64k16, both operands K-major in shared memory), P^T = exp2(S^T
-//      scale log2(e) - L log2(e)) masked, dS^T = P^T (dP^T - Delta), then
-//      dV += P^T dO and dK += dS^T Q (m64n128k16 with P^T and dS^T as bf16
-//      register A operands, dO and Q MN-major). dK and dV sum in fp32
-//      registers over the whole group and are scaled and rounded once,
-//      which is how the GQA sum stays free of races;
+//      m64n64k16, both operands K-major in shared memory, D / 16
+//      k-steps), P^T = exp2(S^T scale log2(e) - L log2(e)) masked, dS^T =
+//      P^T (dP^T - Delta), then dV += P^T dO and dK += dS^T Q (m64nDk16
+//      with P^T and dS^T as bf16 register A operands, dO and Q MN-major).
+//      dK and dV sum in fp32 registers over the whole group and are
+//      scaled and rounded once, which is how the GQA sum stays free of
+//      races. The walk over the group is serial: at group 7 a CTA walks
+//      7 x ceil(Sq / 64) tiles;
 //   3. dq: one CTA per (128-row query tile, query head, batch), heaviest
 //      causal tiles first; per 64-key tile S = Q K^T, dP = dO V^T, P, dS,
 //      then dQ += dS K (K MN-major), dQ in fp32 registers.
@@ -37,18 +42,40 @@
 // deterministic (dQ would otherwise be summed across CTAs with atomics)
 // and costs 1.4x the FLOPs of the bound.
 //
+// Head dims, as in the forward: a tile row is one 64-column swizzle
+// sub-tile at head dim 64 and two at 80 and 128; at 80 the tensor maps
+// are 80 columns wide and TMA zero-fills columns 80-127 of the second
+// sub-tile (the mbarriers count whole boxes), the products over the head
+// dim take 5 k-steps and skip the zeros exactly, and the three products
+// with N = the head dim run at m64n80k16, reading the second swizzle atom
+// in part (held to N 128 on the H100 for the forward's P V by
+// scripts/attention_fwd_variants.py). The accumulators dK, dV and dQ hold
+// D / 2 entries a thread.
+//
 // Bound on the H100: operations. At the training shape (B 4, H 16, S 2048,
 // d 128, causal) the five products are 1.7e11 FLOPs (0.174 ms at 989
-// TFLOP/s bf16) against 0.20 GB moved (0.060 ms at 3.35 TB/s).
-// Shared memory: dkdv K, V 64 KiB + Q, dO 2 stages x 32 KiB + L, Delta;
-// dq Q, dO 64 KiB + K, V 2 stages x 32 KiB.
+// TFLOP/s bf16) against 0.20 GB moved (0.060 ms at 3.35 TB/s); at
+// internvl2-1b's (B 4, 14 / 2 heads of 64, S 2048, causal) 7.5e10 FLOPs
+// (0.076 ms); at hubert-xlarge's (B 8, 16 heads of 80, S 1500,
+// bidirectional) 2.3e11 (0.233 ms).
+// Shared memory: dkdv K, V 2 x 128 rows + Q, dO 2 stages x 2 x 64 rows +
+// L, Delta; dq Q, dO 2 x 128 rows + K, V 2 stages x 2 x 64 rows, at 256
+// bytes a row (128 at head dim 64): 129 KiB (65 KiB).
 #include "attention_sm90.cuh"
+
+// The built (head dim, group) pairs of this backward: attention_common.cuh's
+// PAM_ATTN_BWD_BUILT at the head dims of PAM_ATTN_WGMMA_BWD_DIMS (a CPU
+// test compares them with kernels/flash_attention.py).
+#define PAM_ATTN_BWD90_BUILT(X) \
+  X(64, 1) X(64, 7) \
+  X(80, 1) \
+  X(128, 1) X(128, 2) X(128, 5) X(128, 8)
 
 namespace pam {
 
 struct BwdSm90Args {
-  const __nv_bfloat16* o;     // (B, H, Sq, 128)
-  const __nv_bfloat16* dout;  // (B, H, Sq, 128)
+  const __nv_bfloat16* o;     // (B, H, Sq, D)
+  const __nv_bfloat16* dout;  // (B, H, Sq, D)
   const float* lse;           // (B, H, Sq), natural log
   float* delta;               // (B, H, Sq_pad) scratch
   float* lse2;                // (B, H, Sq_pad) scratch: lse * log2(e)
@@ -65,13 +92,24 @@ constexpr int kKN = 128;    // dkdv: keys per CTA (2 warpgroups x 64)
 constexpr int kKQ = 64;     // dkdv: query rows per tile
 constexpr int kQM = 128;    // dq: query rows per CTA
 constexpr int kQN = 64;     // dq: keys per tile
-constexpr int kRowBytes = sm90::kD * 2;
-constexpr int kDkdvSmem =
-    (2 * kKN + 4 * kKQ) * kRowBytes + 4 * kKQ * 4 + 8 * 8;
-constexpr int kDqSmem = (2 * kQM + 4 * kQN) * kRowBytes + 8 * 8;
+
+// The tile shapes of head dim D.
+template <int D>
+struct Shape {
+  static_assert(D == 64 || D == 80 || D == 128, "a wgmma backward head dim");
+  static constexpr int kSubs = (D + sm90::kSub - 1) / sm90::kSub;
+  static constexpr int kCols = kSubs * sm90::kSub;  // tile width
+  static constexpr int kSteps = D / 16;  // k-steps of the products over D
+  static constexpr int kRowBytes = kCols * 2;  // a tile row, whole boxes
+  static constexpr int kDkdvSmem =
+      (2 * kKN + 4 * kKQ) * kRowBytes + 4 * kKQ * 4 + 8 * 8;
+  static constexpr int kDqSmem = (2 * kQM + 4 * kQN) * kRowBytes + 8 * 8;
+};
 }  // namespace bwd90
 
-// Delta = rowsum(dO * O) and lse * log2(e), one warp per padded row.
+// Delta = rowsum(dO * O) and lse * log2(e), one warp per padded row; lane
+// l reads the 4-column chunks l, l + 32, ... of the row's D / 4.
+template <int D>
 __global__ void __launch_bounds__(256)
     flash_attention_prep_sm90_kernel(BwdSm90Args a) {
   const long row = (long)blockIdx.x * 8 + (threadIdx.x >> 5);
@@ -81,18 +119,21 @@ __global__ void __launch_bounds__(256)
   const int i = static_cast<int>(row - bh * a.Sq_pad);
   float s = 0.f;
   if (i < a.Sq) {
-    const long off = (bh * a.Sq + i) * sm90::kD + lane * 4;
-    const uint2 ro = *reinterpret_cast<const uint2*>(a.o + off);
-    const uint2 rg = *reinterpret_cast<const uint2*>(a.dout + off);
-    const float2 o0 =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ro.x));
-    const float2 o1 =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ro.y));
-    const float2 g0 =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rg.x));
-    const float2 g1 =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rg.y));
-    s = o0.x * g0.x + o0.y * g0.y + o1.x * g1.x + o1.y * g1.y;
+#pragma unroll
+    for (int c = lane; c < D / 4; c += 32) {
+      const long off = (bh * a.Sq + i) * D + c * 4;
+      const uint2 ro = *reinterpret_cast<const uint2*>(a.o + off);
+      const uint2 rg = *reinterpret_cast<const uint2*>(a.dout + off);
+      const float2 o0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&ro.x));
+      const float2 o1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&ro.y));
+      const float2 g0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&rg.x));
+      const float2 g1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&rg.y));
+      s += o0.x * g0.x + o0.y * g0.y + o1.x * g1.x + o1.y * g1.y;
+    }
   }
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
@@ -103,7 +144,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int REP>
+template <int D, int REP>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_attention_dkdv_sm90_kernel(
         const __grid_constant__ CUtensorMap tmQ,   // box 64 rows
@@ -113,13 +154,15 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         BwdSm90Args a) {
   using namespace sm90;
   using namespace bwd90;
+  using Sh = Shape<D>;
+  constexpr int kC = Sh::kCols;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // (kKN, 128)
-  bf16* Vs = Ks + kKN * kD;
-  bf16* Qs = Vs + kKN * kD;                  // 2 stages of (kKQ, 128)
-  bf16* dOs = Qs + 2 * kKQ * kD;
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * kKQ * kD);  // [2][kKQ]
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // (kKN, kC)
+  bf16* Vs = Ks + kKN * kC;
+  bf16* Qs = Vs + kKN * kC;                  // 2 stages of (kKQ, kC)
+  bf16* dOs = Qs + 2 * kKQ * kC;
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kKQ * kC);  // [2][kKQ]
   float* Ds = Ls + 2 * kKQ;                                  // [2][kKQ]
   uint64_t* bars = reinterpret_cast<uint64_t*>(Ds + 2 * kKQ);
   uint64_t* barKV = bars;
@@ -147,9 +190,9 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     int qh, q0;
     step(i, qh, q0);
     const int s = i & 1;
-    bar_expect(barQ + s, 2 * kKQ * kRowBytes + 2 * kKQ * 4);
-    tma_tile(Qs + s * kKQ * kD, &tmQ, barQ + s, kKQ, q0, qh);
-    tma_tile(dOs + s * kKQ * kD, &tmdO, barQ + s, kKQ, q0, qh);
+    bar_expect(barQ + s, 2 * kKQ * Sh::kRowBytes + 2 * kKQ * 4);
+    tma_tile<Sh::kSubs>(Qs + s * kKQ * kC, &tmQ, barQ + s, kKQ, q0, qh);
+    tma_tile<Sh::kSubs>(dOs + s * kKQ * kC, &tmdO, barQ + s, kKQ, q0, qh);
     bulk_load(Ls + s * kKQ, a.lse2 + (long)qh * a.Sq_pad + q0, kKQ * 4,
               barQ + s);
     bulk_load(Ds + s * kKQ, a.delta + (long)qh * a.Sq_pad + q0, kKQ * 4,
@@ -162,13 +205,13 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   }
   __syncthreads();
   if (tid == 0) {
-    bar_expect(barKV, 2 * kKN * kRowBytes);
-    tma_tile(Ks, &tmK, barKV, kKN, k0, kvh);
-    tma_tile(Vs, &tmV, barKV, kKN, k0, kvh);
+    bar_expect(barKV, 2 * kKN * Sh::kRowBytes);
+    tma_tile<Sh::kSubs>(Ks, &tmK, barKV, kKN, k0, kvh);
+    tma_tile<Sh::kSubs>(Vs, &tmV, barKV, kKN, k0, kvh);
     for (int i = 0; i < 2 && i < total; ++i) load_q(i);
   }
 
-  float dk[64], dv[64];
+  float dk[D / 2], dv[D / 2];
   zero(dk);
   zero(dv);
   const int key_lo = k0 + wg * 64;  // first key of this warpgroup
@@ -178,8 +221,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     const int st = i & 1;
     int qh, q0;
     step(i, qh, q0);
-    const bf16* Qt = Qs + st * kKQ * kD;
-    const bf16* dOt = dOs + st * kKQ * kD;
+    const bf16* Qt = Qs + st * kKQ * kC;
+    const bf16* dOt = dOs + st * kKQ * kC;
     const float* Lt = Ls + st * kKQ;
     const float* Dt = Ds + st * kKQ;
     bar_wait(barQ + st, (i >> 1) & 1);
@@ -192,11 +235,11 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     fence_regs(dpT);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < Sh::kSteps; ++kk)
       wgmma_ss_n64(sT, desc_k(Ks, kKN, wg * 64, kk), desc_k(Qt, kKQ, 0, kk));
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < Sh::kSteps; ++kk)
       wgmma_ss_n64(dpT, desc_k(Vs, kKN, wg * 64, kk),
                    desc_k(dOt, kKQ, 0, kk));
     wgmma_commit();
@@ -222,7 +265,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n128_mn(dv, pa + 4 * kk, desc_mn(dOt, kKQ, kk));
+      wgmma_rs_mn<D>(dv, pa + 4 * kk, desc_mn(dOt, kKQ, kk));
     wgmma_commit();
 
     // dS^T = P^T (dP^T - Delta)
@@ -239,7 +282,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n128_mn(dk, dsa + 4 * kk, desc_mn(Qt, kKQ, kk));
+      wgmma_rs_mn<D>(dk, dsa + 4 * kk, desc_mn(Qt, kKQ, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv);
@@ -251,11 +294,11 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     if (tid == 0 && i + 2 < total) load_q(i + 2);
   }
 
-  store_rows(dk, a.dk + (long)kvh * a.Sk * kD, key_lo, a.Sk, a.scale);
-  store_rows(dv, a.dv + (long)kvh * a.Sk * kD, key_lo, a.Sk, 1.f);
+  store_rows<D>(dk, a.dk + (long)kvh * a.Sk * D, key_lo, a.Sk, a.scale);
+  store_rows<D>(dv, a.dv + (long)kvh * a.Sk * D, key_lo, a.Sk, 1.f);
 }
 
-template <int REP>
+template <int D, int REP>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_attention_dq_sm90_kernel(
         const __grid_constant__ CUtensorMap tmQ,   // box 128 rows
@@ -265,13 +308,15 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         BwdSm90Args a) {
   using namespace sm90;
   using namespace bwd90;
+  using Sh = Shape<D>;
+  constexpr int kC = Sh::kCols;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // (kQM, 128)
-  bf16* dOs = Qs + kQM * kD;
-  bf16* Ks = dOs + kQM * kD;                 // 2 stages of (kQN, 128)
-  bf16* Vs = Ks + 2 * kQN * kD;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + 2 * kQN * kD);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // (kQM, kC)
+  bf16* dOs = Qs + kQM * kC;
+  bf16* Ks = dOs + kQM * kC;                 // 2 stages of (kQN, kC)
+  bf16* Vs = Ks + 2 * kQN * kC;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + 2 * kQN * kC);
   uint64_t* barQ = bars;
   uint64_t* barKV = bars + 1;  // [2]
 
@@ -288,9 +333,11 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 
   auto load_kv = [&](int j) {
     const int s = j & 1;
-    bar_expect(barKV + s, 2 * kQN * kRowBytes);
-    tma_tile(Ks + s * kQN * kD, &tmK, barKV + s, kQN, j * kQN, kvh);
-    tma_tile(Vs + s * kQN * kD, &tmV, barKV + s, kQN, j * kQN, kvh);
+    bar_expect(barKV + s, 2 * kQN * Sh::kRowBytes);
+    tma_tile<Sh::kSubs>(Ks + s * kQN * kC, &tmK, barKV + s, kQN, j * kQN,
+                        kvh);
+    tma_tile<Sh::kSubs>(Vs + s * kQN * kC, &tmV, barKV + s, kQN, j * kQN,
+                        kvh);
   };
 
   if (tid == 0) {
@@ -299,9 +346,9 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   }
   __syncthreads();
   if (tid == 0) {
-    bar_expect(barQ, 2 * kQM * kRowBytes);
-    tma_tile(Qs, &tmQ, barQ, kQM, q0, qh);
-    tma_tile(dOs, &tmdO, barQ, kQM, q0, qh);
+    bar_expect(barQ, 2 * kQM * Sh::kRowBytes);
+    tma_tile<Sh::kSubs>(Qs, &tmQ, barQ, kQM, q0, qh);
+    tma_tile<Sh::kSubs>(dOs, &tmdO, barQ, kQM, q0, qh);
     for (int j = 0; j < 2 && j < nk; ++j) load_kv(j);
   }
 
@@ -313,14 +360,14 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     L2[i] = a.lse2[r];
     Dl[i] = a.delta[r];
   }
-  float dq[64];
+  float dq[D / 2];
   zero(dq);
   bar_wait(barQ, 0);
 
   for (int j = 0; j < nk; ++j) {
     const int st = j & 1;
-    const bf16* Kt = Ks + st * kQN * kD;
-    const bf16* Vt = Vs + st * kQN * kD;
+    const bf16* Kt = Ks + st * kQN * kC;
+    const bf16* Vt = Vs + st * kQN * kC;
     const int k0 = j * kQN;
     bar_wait(barKV + st, (j >> 1) & 1);
 
@@ -332,11 +379,11 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < Sh::kSteps; ++kk)
       wgmma_ss_n64(s, desc_k(Qs, kQM, wg * 64, kk), desc_k(Kt, kQN, 0, kk));
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < Sh::kSteps; ++kk)
       wgmma_ss_n64(dp, desc_k(dOs, kQM, wg * 64, kk), desc_k(Vt, kQN, 0, kk));
     wgmma_commit();
     wgmma_wait<1>();
@@ -368,7 +415,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n128_mn(dq, dsa + 4 * kk, desc_mn(Kt, kQN, kk));
+      wgmma_rs_mn<D>(dq, dsa + 4 * kk, desc_mn(Kt, kQN, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -378,37 +425,37 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     if (tid == 0 && j + 2 < nk) load_kv(j + 2);
   }
 
-  store_rows(dq, a.dq + (long)qh * a.Sq * kD, row_lo, a.Sq, a.scale);
+  store_rows<D>(dq, a.dq + (long)qh * a.Sq * D, row_lo, a.Sq, a.scale);
 }
 
-template <int REP>
+template <int D, int REP>
 int launch_bwd_sm90(const void* q, const void* k, const void* v, int B,
                     const BwdSm90Args& a, cudaStream_t stream) {
   using namespace bwd90;
+  using Sh = Shape<D>;
   const long bh = (long)B * a.H;
   const long bhk = (long)B * a.Hkv;
   CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
-  if (!make_map(&q64, q, bh, a.Sq, kKQ) ||
-      !make_map(&do64, a.dout, bh, a.Sq, kKQ) ||
-      !make_map(&k128, k, bhk, a.Sk, kKN) ||
-      !make_map(&v128, v, bhk, a.Sk, kKN) ||
-      !make_map(&q128, q, bh, a.Sq, kQM) ||
-      !make_map(&do128, a.dout, bh, a.Sq, kQM) ||
-      !make_map(&k64, k, bhk, a.Sk, kQN) ||
-      !make_map(&v64, v, bhk, a.Sk, kQN))
+  if (!make_map(&q64, q, bh, a.Sq, kKQ, D) ||
+      !make_map(&do64, a.dout, bh, a.Sq, kKQ, D) ||
+      !make_map(&k128, k, bhk, a.Sk, kKN, D) ||
+      !make_map(&v128, v, bhk, a.Sk, kKN, D) ||
+      !make_map(&q128, q, bh, a.Sq, kQM, D) ||
+      !make_map(&do128, a.dout, bh, a.Sq, kQM, D) ||
+      !make_map(&k64, k, bhk, a.Sk, kQN, D) ||
+      !make_map(&v64, v, bhk, a.Sk, kQN, D))
     return -2;
   const long prep_rows = bh * a.Sq_pad;
-  flash_attention_prep_sm90_kernel<<<static_cast<unsigned>((prep_rows + 7) /
-                                                           8),
-                                     256, 0, stream>>>(a);
-  auto dkdv = flash_attention_dkdv_sm90_kernel<REP>;
-  const int smem_kv = smem_with_align(kDkdvSmem);
+  flash_attention_prep_sm90_kernel<D>
+      <<<static_cast<unsigned>((prep_rows + 7) / 8), 256, 0, stream>>>(a);
+  auto dkdv = flash_attention_dkdv_sm90_kernel<D, REP>;
+  const int smem_kv = smem_with_align(Sh::kDkdvSmem);
   cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem_kv);
   const dim3 gk(static_cast<unsigned>(bhk), (a.Sk + kKN - 1) / kKN);
   dkdv<<<gk, sm90::kThreads, smem_kv, stream>>>(q64, do64, k128, v128, a);
-  auto dq = flash_attention_dq_sm90_kernel<REP>;
-  const int smem_q = smem_with_align(kDqSmem);
+  auto dq = flash_attention_dq_sm90_kernel<D, REP>;
+  const int smem_q = smem_with_align(Sh::kDqSmem);
   cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem_q);
   const dim3 gq(static_cast<unsigned>(bh), (a.Sq + kQM - 1) / kQM);
@@ -418,17 +465,17 @@ int launch_bwd_sm90(const void* q, const void* k, const void* v, int B,
 
 }  // namespace pam
 
-// bf16 q, o, dout, dq (B, H, Sq, 128); k, v, dk, dv (B, Hkv, Sk, 128); lse
+// bf16 q, o, dout, dq (B, H, Sq, D); k, v, dk, dv (B, Hkv, Sk, D); lse
 // (B, H, Sq) fp32; delta and lse2 fp32 scratch of (B, H, Sq_pad) with
 // Sq_pad = Sq rounded up to a multiple of 128. All contiguous and 16-byte
 // aligned. Returns 0, a CUDA error code from cudaGetLastError(), -1 for a
-// group size H / Hkv other than 1 or 2 or a wrong Sq_pad, or -2 if the
-// driver refuses a tensor map.
+// (D, H / Hkv) outside PAM_ATTN_BWD90_BUILT or a wrong Sq_pad, or -2 if
+// the CUDA driver refuses a tensor map.
 extern "C" int pam_flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* lse2, void* dq,
     void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int Sq_pad,
-    int causal, float scale, void* stream) {
+    int D, int causal, float scale, void* stream) {
   if (Sq_pad % pam::bwd90::kPad != 0 || Sq_pad < Sq) return -1;
   pam::BwdSm90Args a;
   a.o = static_cast<const __nv_bfloat16*>(o);
@@ -449,9 +496,11 @@ extern "C" int pam_flash_attention_bwd_sm90(
   a.scale = scale;
   a.scale_log2 = scale * pam::sm90::kLog2e;
   auto s = static_cast<cudaStream_t>(stream);
-  switch (H / Hkv) {
-    case 1: return pam::launch_bwd_sm90<1>(q, k, v, B, a, s);
-    case 2: return pam::launch_bwd_sm90<2>(q, k, v, B, a, s);
-    default: return -1;
-  }
+  const int rep = H / Hkv;
+#define PAM_BWD90_CASE(DIM, REP) \
+  if (D == DIM && rep == REP)     \
+    return pam::launch_bwd_sm90<DIM, REP>(q, k, v, B, a, s);
+  PAM_ATTN_BWD90_BUILT(PAM_BWD90_CASE)
+#undef PAM_BWD90_CASE
+  return -1;
 }

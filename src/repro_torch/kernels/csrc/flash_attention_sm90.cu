@@ -4,9 +4,9 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_attn_kernel
 // (:31; wrapper flash_attention, pl.pallas_call at :122) for bf16 operands
 // at the built (head dim, group) pairs of PAM_ATTN_FWD90_BUILT below:
-// head dim 128 with groups 1 and 2 (every full-width text model:
-// qwen3-0.6b's group 2, pam-llama-7b's group 1), 64 with group 7
-// (internvl2-1b, causal) and 80 with group 1 (hubert-xlarge's
+// head dim 128 with groups 1, 2, 5 and 8 (pam-llama-7b, qwen3-0.6b,
+// qwen3-14b, deepseek-67b), 64 with groups 1 and 7 (minicpm-2b;
+// internvl2-1b, causal) and 80 with group 1 (hubert-xlarge's
 // bidirectional encoder). fp32 at every pair and bf16 at head dim 16 keep
 // the CUDA-core kernel of flash_attention.cu; the head dims listed in
 // attention_common.cuh's PAM_ATTN_WGMMA_FWD_DIMS leave bf16 out of it, and
@@ -74,9 +74,9 @@
 // PAM_ATTN_FWD_BUILT at the head dims of PAM_ATTN_WGMMA_FWD_DIMS (a CPU
 // test compares them with kernels/flash_attention.py).
 #define PAM_ATTN_FWD90_BUILT(X) \
-  X(64, 7) \
+  X(64, 1) X(64, 7) \
   X(80, 1) \
-  X(128, 1) X(128, 2)
+  X(128, 1) X(128, 2) X(128, 5) X(128, 8)
 
 namespace pam {
 
@@ -233,14 +233,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      if constexpr (kN == 64)
-        wgmma_rs_n64_mn(o, pa + 4 * kk, desc_mn(Vt, kBN, kk));
-      else if constexpr (kN == 80)
-        wgmma_rs_n80_mn(o, pa + 4 * kk, desc_mn(Vt, kBN, kk));
-      else
-        wgmma_rs_n128_mn(o, pa + 4 * kk, desc_mn(Vt, kBN, kk));
-    }
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs_mn<kN>(o, pa + 4 * kk, desc_mn(Vt, kBN, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);

@@ -15,14 +15,14 @@ entry point.
 Two kernel variants, one per (dtype, head dim, direction), chosen by
 ``_variant``:
 
-- ``"wgmma"``: bf16 at the head dims of ``WGMMA_FWD_DIMS`` (forward: 64,
-  internvl2-1b; 80, hubert-xlarge; 128, every full-width text model) and
-  ``WGMMA_BWD_DIMS`` (backward: 128), ``csrc/flash_attention_sm90.cu``
-  and ``csrc/flash_attention_bwd_sm90.cu``: wgmma on 128-byte-swizzled
-  bf16 tiles staged by TMA (head dim 80 zero-filled to two 64-column
-  tiles), P and dS rounded to bf16 as the second product's operand
-  (``_fwd_rounded`` and ``_bwd_rounded`` model those rounding points in
-  plain PyTorch);
+- ``"wgmma"``: bf16 at the head dims of ``WGMMA_FWD_DIMS`` and
+  ``WGMMA_BWD_DIMS`` (both 64: minicpm-2b, internvl2-1b; 80,
+  hubert-xlarge; 128, the other full-width text models),
+  ``csrc/flash_attention_sm90.cu`` and ``csrc/flash_attention_bwd_sm90.cu``:
+  wgmma on 128-byte-swizzled bf16 tiles staged by TMA (head dim 80
+  zero-filled to two 64-column tiles), P and dS rounded to bf16 as the
+  second product's operand (``_fwd_rounded`` and ``_bwd_rounded`` model
+  those rounding points in plain PyTorch);
 - ``"cuda_core"``: fp32 at every built pair, and bf16 at the other head
   dims (16: the reduced configs), ``csrc/flash_attention.cu`` and
   ``csrc/flash_attention_bwd.cu``: fp32 products on the CUDA cores,
@@ -51,21 +51,21 @@ NEG_INF = -1e30
 # (head dim, GQA group) pairs the forward kernels are built for, whatever
 # the dtype: csrc/attention_common.cuh's PAM_ATTN_FWD_BUILT (the wgmma
 # forward, flash_attention_sm90.cu, takes those at WGMMA_FWD_DIMS: its
-# PAM_ATTN_FWD90_BUILT); 64 at group 7 (internvl2-1b) and 80 at group 1
-# (hubert-xlarge) are built forward only
+# PAM_ATTN_FWD90_BUILT): the reduced configs' head dim 16, and minicpm-2b
+# (64, 1), internvl2-1b (64, 7), hubert-xlarge (80, 1), pam-llama-7b (128,
+# 1), qwen3-0.6b (128, 2), qwen3-14b (128, 5) and deepseek-67b (128, 8)
 BUILT = ((16, 1), (16, 2),
-         (64, 7),
+         (64, 1), (64, 7),
          (80, 1),
-         (128, 1), (128, 2))
-# the backward's pairs: PAM_ATTN_BWD_BUILT (and flash_attention_bwd_sm90.cu
-# at head dim 128); training internvl2-1b and hubert-xlarge, which needs
-# (64, 7) and (80, 1) here, is ROADMAP Queue 1 item 18
-BUILT_BWD = ((16, 1), (16, 2),
-             (128, 1), (128, 2))
+         (128, 1), (128, 2), (128, 5), (128, 8))
+# the backward's pairs: PAM_ATTN_BWD_BUILT (flash_attention_bwd_sm90.cu's
+# PAM_ATTN_BWD90_BUILT at WGMMA_BWD_DIMS), the same list: every built
+# forward trains
+BUILT_BWD = BUILT
 # head dims whose bf16 forward / backward run the wgmma kernels:
 # csrc/attention_common.cuh's PAM_ATTN_WGMMA_FWD_DIMS / _BWD_DIMS
 WGMMA_FWD_DIMS = (64, 80, 128)
-WGMMA_BWD_DIMS = (128,)
+WGMMA_BWD_DIMS = (64, 80, 128)
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 SM90_PAD = 128          # row padding of the wgmma backward's fp32 scratch
@@ -118,7 +118,7 @@ def _bwd_sm90_lib():
     fn = build.load("flash_attention_bwd_sm90").pam_flash_attention_bwd_sm90
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
@@ -287,7 +287,7 @@ def _bwd_cuda(q, k, v, o, lse, do, causal, scale):
         rc = _bwd_sm90_lib()(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do),
                              _ptr(lse), _ptr(scratch[0]), _ptr(scratch[1]),
                              _ptr(dq), _ptr(dk), _ptr(dv), B, H, Hkv, Sq,
-                             Sk, pad, int(causal), float(scale),
+                             Sk, pad, d, int(causal), float(scale),
                              _stream(q.device))
     else:
         delta = torch.empty((B, H, Sq), dtype=torch.float32,

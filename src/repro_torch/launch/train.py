@@ -67,7 +67,9 @@ def run(cfg: ModelConfig, tcfg: TrainConfig, *, steps: int, batch: int,
     dev = resolve_device(device)
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch)
     state = init_train_state(cfg, tcfg, seed, device=dev)
-    step_fn = build_train_step(cfg, tcfg)
+    # the state is donated to the step, as the reference's CLI jits it
+    # with donate_argnums=(0,): one copy of it on the device
+    step_fn = build_train_step(cfg, tcfg, donate=True)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     if mgr is not None:

@@ -5,8 +5,10 @@ AdamW keeps fp32 moments beside parameters of any dtype, clips by the
 global gradient norm and computes each update in fp32 before casting to
 the parameter's dtype. The step counter is a 0-d int32 tensor on the
 parameters' device, so schedules and bias corrections run there without
-a host sync. Updates are functional: new tensors, the inputs untouched,
-as in the reference.
+a host sync. Updates are functional (new tensors, the inputs untouched,
+as in the reference) unless the caller donates the state, as the
+reference's train CLI does (``donate_argnums``): then the moments and
+parameters are written in place, op for op the same values.
 """
 
 from __future__ import annotations
@@ -53,9 +55,13 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
-                 params: Tree) -> tuple[Tree, AdamWState, torch.Tensor]:
+                 params: Tree, *, donate: bool = False
+                 ) -> tuple[Tree, AdamWState, torch.Tensor]:
     """Returns (new_params, new_state, grad_norm); the norm is taken
-    before clipping."""
+    before clipping. With ``donate`` the moments of ``state`` and the
+    leaves of ``params`` are updated in place and returned (the caller
+    gives them up), so no second copy of them is made: the counterpart
+    of the reference CLI's ``jit(..., donate_argnums=(0,))``."""
     step = state.step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -67,11 +73,17 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
 
     def upd(g, m, v, p):
         g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        if donate:
+            m = m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v = v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        else:
+            m = cfg.b1 * m + (1 - cfg.b1) * g
+            v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        del g
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        new = (p.float() - lr * delta).to(p.dtype)
+        return (p.copy_(new) if donate else new), m, v
 
     out = [upd(*x) for x in zip(leaves(grads), leaves(state.mu),
                                  leaves(state.nu), leaves(params))]

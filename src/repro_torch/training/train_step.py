@@ -105,11 +105,15 @@ def build_grad_fn(cfg: ModelConfig, tcfg: TrainConfig):
     return grad_fn
 
 
-def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
+                     donate: bool = False):
     """Returns train_step(state, batch) -> (state, metrics), metrics being
     0-d tensors ``loss``, ``grad_norm`` and ``step``. ``batch`` tensors
     carry a leading microbatch axis when ``tcfg.microbatches > 1``:
-    (M, B/M, ...)."""
+    (M, B/M, ...). With ``donate`` the step consumes ``state``: AdamW
+    updates its parameters and moments in place and returns them (the
+    reference's train CLI jits the step with ``donate_argnums=(0,)``), so
+    the device holds one copy of the train state, not two."""
     grad_fn = build_grad_fn(cfg, tcfg)
 
     def train_step(state: TrainState, batch: dict[str, torch.Tensor]):
@@ -119,7 +123,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             if tcfg.compress_grads:
                 grads, ef = compress_with_feedback(grads, ef)
             new_params, new_opt, gnorm = optim.adamw_update(
-                tcfg.adamw, grads, state.opt, state.params)
+                tcfg.adamw, grads, state.opt, state.params, donate=donate)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
         return TrainState(new_params, new_opt, ef), metrics
 

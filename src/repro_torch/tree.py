@@ -38,22 +38,25 @@ def leaves(tree: Tree) -> list:
     return [leaf for _, leaf in leaves_with_paths(tree)]
 
 
+def _build(template: Tree, it) -> Tree:
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        return {k: _build(template[k], it) for k in sorted(template)}
+    if _is_namedtuple(template):
+        return type(template)(*(_build(x, it) for x in template))
+    if isinstance(template, (tuple, list)):
+        return type(template)(_build(x, it) for x in template)
+    return next(it)
+
+
 def unflatten(template: Tree, new_leaves: Iterable) -> Tree:
     """A tree shaped like ``template`` holding ``new_leaves`` in leaf
-    order."""
-    it = iter(new_leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if _is_namedtuple(t):
-            return type(t)(*(build(x) for x in t))
-        if isinstance(t, (tuple, list)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-    return build(template)
+    order. The recursion is a module-level function: a nested closure
+    that calls itself is a reference cycle, which would hold
+    ``new_leaves`` (a step's gradients) until a pass of the garbage
+    collector."""
+    return _build(template, iter(new_leaves))
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:

@@ -18,8 +18,8 @@ no decode step) against the JAX reference, on the CPU.
   its ``AssertionError``;
 - the attention kernels' built lists: ``flash_attention.BUILT`` and
   ``BUILT_BWD`` equal ``PAM_ATTN_FWD_BUILT`` / ``PAM_ATTN_BWD_BUILT`` in
-  ``csrc/attention_common.cuh``, and the backward refuses the two
-  forward-only pairs before any launch.
+  ``csrc/attention_common.cuh`` and each other, and the backward's pair
+  check passes the vlm and audio pairs, as the forward's does.
 
 Inputs are fixed-seed numpy draws, fp32. Tolerances: logits rtol / atol
 1e-4, loss and gradients 1e-5.
@@ -256,25 +256,24 @@ def _pairs(macro: str) -> tuple:
 
 def test_attention_built_lists_match_the_cuda_dispatch():
     """``BUILT`` / ``BUILT_BWD`` are the (head dim, group) pairs the CUDA
-    dispatch instantiates for the forward and the backward; the forward
-    holds internvl2-1b's (64, 7) and hubert-xlarge's (80, 1), the
-    backward neither (their training is not ported)."""
+    dispatch instantiates for the forward and the backward: one list,
+    no forward-only pair (internvl2-1b's (64, 7) and hubert-xlarge's
+    (80, 1) train on the card)."""
     assert _pairs("PAM_ATTN_FWD_BUILT") == tfa.BUILT
     assert _pairs("PAM_ATTN_BWD_BUILT") == tfa.BUILT_BWD
-    assert set(tfa.BUILT) - set(tfa.BUILT_BWD) == {(64, 7), (80, 1)}
-    assert set(tfa.BUILT_BWD) < set(tfa.BUILT)
+    assert set(tfa.BUILT) - set(tfa.BUILT_BWD) == set()
+    assert tfa.BUILT == tfa.BUILT_BWD
 
 
 @pytest.mark.parametrize("d,rep", [(64, 7), (80, 1)])
-def test_backward_refuses_the_forward_only_pairs(d, rep):
-    """The backward raises "not built" at (64, 7) and (80, 1) before any
-    operand check (here CPU tensors); the forward's check passes them
-    and stops at the operands."""
+def test_backward_pair_check_passes_the_vlm_and_audio_pairs(d, rep):
+    """The backward's pair check passes (64, 7) and (80, 1) and stops at
+    the operands (here CPU tensors), as the forward's does."""
     B, Hkv, S = 1, 1, 8
     q = torch.zeros((B, rep * Hkv, S, d))
     k = v = torch.zeros((B, Hkv, S, d))
     lse = torch.zeros((B, rep * Hkv, S))
-    with pytest.raises(ValueError, match="not built"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tfa._bwd_cuda(q, k, v, q, lse, q, False, 0.5)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa._fwd_cuda(q, k, v, False, 0.5)

@@ -11,14 +11,15 @@ and before dV = P^T dO, and dS before dQ = dS K and dK = dS^T Q.
 roundings. Held to ``_fwd_plain`` / ``_bwd_plain`` on fp32 copies of the
 same bf16 inputs at the card-side tolerance (rtol / atol 2e-2 on the
 outputs; the LSE, which no rounding reaches, at 1e-4 / 1e-3), they
-predict on the CPU that the kernels can meet that tolerance. The forward
-runs the wgmma kernel at head dims 64, 80 and 128 (internvl2-1b's 14 / 2
-heads of 64, hubert-xlarge's 16 / 16 of 80, qwen3-0.6b's 16 / 8 of
-128), the backward at 128 only; the head-dim lists and the forward's
-(head dim, group) pairs are parsed out of the CUDA sources and held to
-the Python route. Inputs come from seeded numpy generators; every case
-is small (one batch row, at most 16 heads and 256 positions) and builds
-nothing.
+predict on the CPU that the kernels can meet that tolerance. Both
+directions run the wgmma kernels at head dims 64, 80 and 128, at the
+train pairs: internvl2-1b's 14 / 2 heads of 64, minicpm-2b's 36 / 36 of
+64 (here 4 / 4), hubert-xlarge's 16 / 16 of 80, qwen3-0.6b's 16 / 8,
+qwen3-14b's group 5 (here 10 / 2) and deepseek-67b's group 8 (here 16 /
+2) of 128; the head-dim lists and both directions' (head dim, group)
+pairs are parsed out of the CUDA sources and held to the Python route.
+Inputs come from seeded numpy generators; every case is small (one batch
+row, at most 16 heads and 256 positions) and builds nothing.
 """
 
 import re
@@ -35,11 +36,17 @@ ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 LSE_TOL = dict(rtol=1e-4, atol=1e-3)
 QWEN_CASES = [(256, True), (200, False)]   # (S, causal), qwen3-0.6b heads
 QWEN_HEADS = (16, 8, 128)                  # (H, Hkv, d)
-# (S, causal, (H, Hkv, d)); the qwen3-0.6b cases keep their ids
-FWD_CASES = [pytest.param(S, causal, QWEN_HEADS, id=f"{S}-{causal}")
-             for S, causal in QWEN_CASES] + [
+# (S, causal, (H, Hkv, d)) of the train pairs past qwen3-0.6b's, with
+# ragged last tiles
+PAIR_CASES = [
     pytest.param(200, True, (14, 2, 64), id="200-True-internvl2-1b"),
-    pytest.param(150, False, (16, 16, 80), id="150-False-hubert-xlarge")]
+    pytest.param(150, False, (16, 16, 80), id="150-False-hubert-xlarge"),
+    pytest.param(130, True, (4, 4, 64), id="130-True-minicpm-2b"),
+    pytest.param(100, True, (10, 2, 128), id="100-True-qwen3-14b"),
+    pytest.param(70, True, (16, 2, 128), id="70-True-deepseek-67b")]
+# the qwen3-0.6b cases keep their ids
+FWD_CASES = [pytest.param(S, causal, QWEN_HEADS, id=f"{S}-{causal}")
+             for S, causal in QWEN_CASES] + PAIR_CASES
 CSRC = Path(tfa.__file__).parent / "csrc"
 
 
@@ -69,18 +76,17 @@ def test_variant_routes_each_dtype_and_head_dim(dtype, d, variant):
 
 @pytest.mark.parametrize("dtype,d,variant", [
     (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 64, "cuda_core"),
-    (torch.bfloat16, 80, "cuda_core"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"),
     (torch.bfloat16, 16, "cuda_core"),
     (torch.float32, 64, "cuda_core"),
     (torch.float32, 80, "cuda_core"),
     (torch.float32, 128, "cuda_core"),
 ])
 def test_backward_variant_keeps_wgmma_at_head_dim_128(dtype, d, variant):
-    """The backward's route: wgmma only for bf16 at head dim 128. Head
-    dims 64 and 80 are built forward only, so ``_bwd_cuda`` refuses
-    (64, 7) and (80, 1) before it asks for a route
-    (``tests/test_torch_audio.py``)."""
+    """The backward's route: wgmma for bf16 at head dims 64, 80 and 128
+    (the forward's wgmma dims), the CUDA cores for fp32 and for bf16 at
+    head dim 16."""
     assert tfa._variant(dtype, d, backward=True) == variant
 
 
@@ -111,9 +117,21 @@ def test_wgmma_forward_pairs_match_the_cuda_dispatch():
     ``PAM_ATTN_FWD90_BUILT``): every bf16 pair the route sends there is
     built, and no other."""
     want = tuple(p for p in tfa.BUILT if p[0] in tfa.WGMMA_FWD_DIMS)
-    assert want == ((64, 7), (80, 1), (128, 1), (128, 2))
+    assert want == ((64, 1), (64, 7), (80, 1), (128, 1), (128, 2), (128, 5),
+                    (128, 8))
     assert _macro_items(CSRC / "flash_attention_sm90.cu",
                         "PAM_ATTN_FWD90_BUILT") == want
+
+
+def test_wgmma_backward_pairs_match_the_cuda_dispatch():
+    """The wgmma backward instantiates exactly the built backward pairs at
+    its head dims (``csrc/flash_attention_bwd_sm90.cu``'s
+    ``PAM_ATTN_BWD90_BUILT``): every train pair of the full-width
+    configs, the forward's list."""
+    want = tuple(p for p in tfa.BUILT_BWD if p[0] in tfa.WGMMA_BWD_DIMS)
+    assert _macro_items(CSRC / "flash_attention_bwd_sm90.cu",
+                        "PAM_ATTN_BWD90_BUILT") == want
+    assert want == tuple(p for p in tfa.BUILT if p[0] in tfa.WGMMA_FWD_DIMS)
 
 
 @pytest.mark.parametrize("S,causal,heads", FWD_CASES)
@@ -131,10 +149,10 @@ def test_rounded_forward_within_bf16_tolerance_of_plain(S, causal, heads):
     assert not torch.equal(o, ref_o.to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("S,causal", QWEN_CASES)
-def test_rounded_backward_within_bf16_tolerance_of_plain(S, causal):
-    q, k, v, do = _inputs(S, seed=S + 1)
-    scale = 128 ** -0.5
+@pytest.mark.parametrize("S,causal,heads", FWD_CASES)
+def test_rounded_backward_within_bf16_tolerance_of_plain(S, causal, heads):
+    q, k, v, do = _inputs(S, seed=S + 1, heads=heads)
+    scale = heads[2] ** -0.5
     o, lse = tfa._fwd_plain(q, k, v, causal, scale)
     got = tfa._bwd_rounded(q, k, v, o, lse, do, causal, scale)
     ref = tfa._bwd_plain(*(t.float() for t in (q, k, v, o)), lse, do.float(),

@@ -195,11 +195,12 @@ def test_decode_built_list_matches_the_cuda_dispatch():
         assert (cfg.head_dim, cfg.n_heads // cfg.n_kv_heads) in tfd.BUILT
 
 
-@pytest.mark.parametrize("d,rep", [(128, 16), (64, 1), (128, 5)])
+@pytest.mark.parametrize("d,rep", [(128, 16), (112, 1), (64, 2)])
 def test_flash_attention_refuses_unbuilt_pairs_first(d, rep):
-    """The forward and the backward have their own built set (groups 1
-    and 2 at head dims 16 and 128): other pairs raise "not built" before
-    any operand check, here on CPU tensors, so no launch can fail with a
+    """The forward and the backward have their own built set (the train
+    paths' pairs, ``BUILT`` / ``BUILT_BWD``): other pairs, here ones
+    the decode kernels are built for, raise "not built" before any
+    operand check, here on CPU tensors, so no launch can fail with a
     library's -1."""
     B, Hkv, S = 1, 1, 8
     q = torch.zeros((B, rep * Hkv, S, d))

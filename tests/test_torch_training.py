@@ -444,6 +444,66 @@ def test_train_cli_on_cpu_checkpoints_and_resumes(tmp_path, capsys):
     assert "[resume] from step 10" in out and '"device": "cpu"' in out
 
 
+def test_train_cli_donates_its_state_to_the_step(monkeypatch):
+    """The CLI's step takes its state donated, as the reference's
+    ``jax.jit(build_train_step(...), donate_argnums=(0,))``
+    (``src/repro/launch/train.py:60``): AdamW writes the moments and
+    parameters in place, so the device never holds two copies of the
+    train state, with the values of the functional step, op for op; the
+    default step leaves its input untouched, as the reference's
+    ``build_train_step``."""
+    tcf = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
+    tc = train_cli.train_config(steps=10)
+    b = _tb(_batch(tcf.vocab, seed=4))
+    kept = tts.init_train_state(tcf, tc, 0, device="cpu")
+    fresh = tts.init_train_state(tcf, tc, 0, device="cpu")
+    pure, pm = tts.build_train_step(tcf, tc)(kept, b)
+    for a, c in zip(leaves(kept), leaves(fresh)):    # the input untouched
+        assert torch.equal(a, c)
+    ptrs = [t.data_ptr() for t in leaves((fresh.params, fresh.opt.mu,
+                                          fresh.opt.nu))]
+    don, dm = tts.build_train_step(tcf, tc, donate=True)(fresh, b)
+    assert [t.data_ptr() for t in leaves((don.params, don.opt.mu,
+                                          don.opt.nu))] == ptrs
+    for a, c in zip(leaves(pure), leaves(don)):
+        assert torch.equal(a, c)
+    assert float(pm["loss"]) == float(dm["loss"])
+    seen = []
+    real = train_cli.build_train_step
+    monkeypatch.setattr(train_cli, "build_train_step", lambda *a, **k: (
+        seen.append(k.get("donate")), real(*a, **k))[1])
+    train_cli.run(tcf, tc, steps=1, batch=2, seq=8, device="cpu",
+                  log=lambda _: None)
+    assert seen == [True]
+
+
+def test_train_step_frees_its_gradients_without_a_gc_pass():
+    """A step's gradients (and any tree rebuilt by ``tree.unflatten``) are
+    freed when the last reference goes, not at the next pass of the
+    cyclic garbage collector: on the card a held set of gradients is two
+    bytes a parameter, the margin by which a cut model fits."""
+    import gc
+    import weakref
+    from repro_torch import tree
+    tcf = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
+    params = ttf.init_params(tcf, 0, device="cpu")
+    grad_fn = tts.build_grad_fn(tcf, tts.TrainConfig(use_kernel=True))
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        loss, grads = grad_fn(params, _tb(_batch(tcf.vocab, seed=5)))
+        refs = [weakref.ref(g) for g in leaves(grads)]
+        del loss, grads
+        assert not any(r() is not None for r in refs)
+        rebuilt = tree.unflatten(params, [t.clone() for t in leaves(params)])
+        refs = [weakref.ref(t) for t in leaves(rebuilt)]
+        del rebuilt
+        assert not any(r() is not None for r in refs)
+    finally:
+        if was:
+            gc.enable()
+
+
 def test_train_cli_uses_the_kernel_path():
     """The CLI trains through the attention kernels (their plain versions
     on the CPU), unlike ``TrainConfig``'s reference default."""
