@@ -13,12 +13,13 @@ final ``ok`` line:
             ``-Xptxas -v`` logs, and of every decode instantiation with
             bf16 K/V (the engines' storage; none may spill) and of every
             attention forward and backward instantiation: the wgmma ones
-            at (64, 1), (64, 7), (80, 1), (128, 1), (128, 2), (128, 5)
-            and (128, 8) may not spill, and no bf16 CUDA-core one may
-            exist at those head dims; the four wgmma
+            at (64, 1), (64, 7), (80, 1), (112, 1), (128, 1), (128, 2),
+            (128, 5) and (128, 8) may not spill, and no bf16 CUDA-core
+            one may exist at those head dims; the four wgmma
             libraries (attention and SSD scan) must hold HGMMA
             instructions in their SASS (``cuobjdump -sass``) and their
-            kernels must not spill
+            kernels must not spill (the SSD ones at d_state 128 and 64,
+            keyed ``<template arguments>``)
   kernels   each kernel against its plain PyTorch version on the card at
             main-path shapes (decode: B=8, H=16, Hkv=8, d=128, bf16
             storage, each kernel under the reference's stacked contract
@@ -40,9 +41,10 @@ final ``ok`` line:
             train_* phases' shapes (internvl2-1b B 4, 14 / 2 heads of 64,
             S 2048 causal; hubert-xlarge B 8, 16 / 16 of 80, S 1500
             bidirectional; minicpm-2b B 2, 36 / 36 of 64; qwen3-14b B 1,
-            40 / 8 of 128; deepseek-67b B 1, 64 / 8 of 128; S 2048
-            causal) and in fp32 through the CUDA-core kernels at their
-            train_parity_* shapes (B 2, S 500); the forward alone in fp32
+            40 / 8 of 128; deepseek-67b B 1, 64 / 8 of 128; zamba2-7b's
+            shared block B 2, 32 / 32 of 112, keys ending ``_d112``; S
+            2048 causal) and in fp32 through the CUDA-core kernels at
+            their train_parity_* shapes (B 2, S 500); the forward alone in fp32
             at vlm_audio_parity's shapes: ``flash_attention_vlm_fp32_100``
             (B 2, 14 / 2 of 64, S 100 causal) and
             ``flash_attention_audio_fp32_150_noncausal`` (B 2, 4 / 4 of
@@ -50,15 +52,18 @@ final ``ok`` line:
             in bf16 at mamba2-780m's train shape B 4, L 2048, H 48, P 64,
             N 128, chunk 128, x / B / C as views of the conv output, and
             the CUDA-core kernels in fp32 at train_parity_ssm's B 2, L
-            500), with its time, the plain version's time, the bound and,
-            where one PyTorch call computes the same function, that call's
-            time (for attention also SDPA's own error against the same
-            plain versions; for both the kernel's TFLOP/s and its share of
-            the bound; for the SSD scan the device time of each of its
-            kernels, the FLOPs the wgmma kernels execute beside those the
-            bound counts, each gradient's error, and the errors against
-            ``_fwd_rounded`` / ``_bwd_rounded``, the plain model of the
-            wgmma kernels' bf16 roundings)
+            500; the same two at zamba2-7b's H 112, N 64, bf16 at B 2, L
+            2048 and fp32 at B 2, L 500, keys ending ``_n64``:
+            ``SSD_ROWS``), with its time, the plain version's time, the
+            bound and, where one PyTorch call computes the same
+            function, that call's time (for attention also SDPA's own
+            error against the same plain versions; for both the
+            kernel's TFLOP/s and its share of the bound; for the SSD scan
+            the device time of each of its kernels, the FLOPs the wgmma
+            kernels execute beside those the bound counts, each
+            gradient's error, and the errors against ``_fwd_rounded`` /
+            ``_bwd_rounded``, the plain model of the wgmma kernels' bf16
+            roundings)
   pam_core  the paper's core library at qwen3-0.6b decode shapes (B 8,
             H 16, Hkv 8, d 128, seed 0): ``pam_decode_attention`` over
             three tiers, HBM 256 and DDR 1,792 tokens dense and SSD 6,144
@@ -293,12 +298,23 @@ final ``ok`` line:
             n_layers x steps times, all wgmma, no other counted kernel,
             finite losses, the last three below the first; median step
             ms, positions a second, peak memory
+  train_zamba2_7b   the hybrid family at full width (d_model 3584, 32
+            heads of 112, Mamba-2 at 112 heads of 64, d_state 64), its
+            depth cut from 13 to 5 groups (33 of 81 blocks: 28 Mamba-2
+            layers, the shared block at 5 sites, ``_cut``), bf16, B 2 x
+            2048 SyntheticLM tokens through ``launch.train.run``, 6 steps
+            at ``FAMILY_LR``: ssd_scan and its backward 28 x 6 times,
+            flash_attention and its backward 5 x 6 times, all wgmma, no
+            other counted kernel; the loss falls; step ms, tokens / s,
+            peak memory
   profile_train_hubert_xlarge   profile_train over 2 steps of that
             phase's configuration (also the matmul share)
-  train_parity_internvl2_1b, ... (one a model)   the same five at full
-            width and 2 layers in fp32 (TF32 off), B 2 x 500 positions:
-            loss and gradients through the CUDA-core kernels vs the plain
-            chunked attention, as train_parity
+  train_parity_internvl2_1b, ... (one a model)   the same six at full
+            width and 2 layers (zamba2-7b: 2 groups of 1 Mamba-2 layer and
+            a tail of 1) in fp32 (TF32 off), B 2 x 500 positions: loss
+            and gradients through the CUDA-core kernels (ssd_scan at (64,
+            64), flash_attention at (112, 1) for the hybrid) vs the plain
+            chunked attention and scan, as train_parity
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
@@ -547,9 +563,13 @@ def phase_env() -> dict:
 
 SM90_LIBS = ("flash_attention_sm90", "flash_attention_bwd_sm90",
              "ssd_scan_sm90", "ssd_scan_bwd_sm90")
-SSD_WGMMA_KERNELS = {"ssd90_chunk_state_kernel<true>", "ssd90_out_kernel",
-                     "ssd90_chunk_state_kernel<false>", "ssd90_bwd_t_kernel",
-                     "ssd90_bwd_u_kernel"}
+# the wgmma kernels of the SSD scan at both built d_states, keyed as
+# phase_build reads them from the -Xptxas -v logs (template arguments in
+# angle brackets)
+SSD_WGMMA_KERNELS = {key for n in (128, 64) for key in (
+    f"ssd90_chunk_state_kernel<true, {n}>",
+    f"ssd90_chunk_state_kernel<false, {n}>", f"ssd90_out_kernel<{n}>",
+    f"ssd90_bwd_t_kernel<{n}>", f"ssd90_bwd_u_kernel<{n}>")}
 
 
 def _sass_count(name: str, op: str = "HGMMA") -> int:
@@ -585,8 +605,11 @@ def phase_build() -> dict:
                 kern = re.search(
                     r"\d+((?:flash_|ssd90_)[a-z0-9_]*?_kernel)", line)
                 key = kern.group(1) if kern else name
-                if "ssd90" in key and ("Lb1E" in line or "Lb0E" in line):
-                    key += "<true>" if "Lb1E" in line else "<false>"
+                targs = re.findall(r"L([bi])(\d+)E", line)
+                if "ssd90" in key and targs:     # <bool, d_state>, <d_state>
+                    key += "<" + ", ".join(
+                        ("true" if v == "1" else "false") if t == "b" else v
+                        for t, v in targs) + ">"
                 info = []
                 for x in lines[i + 1:]:
                     if "Compiling entry" in x:
@@ -1017,16 +1040,18 @@ def kernel_flash_attention_fwd(S: int, causal: bool, B: int, heads,
     return _attn_fwd_row(q, k, v, causal)[0]
 
 
-def _ssd_case(dtype, seed: int = 0, B: int = TRAIN_B, L: int = TRAIN_S):
-    """ssd_scan operands at mamba2-780m's head shape (H 48, G 1, N 128, P
-    64), batch ``B`` and length ``L``: x, B and C as column views of one
-    conv-output-like (B, L, 3328) tensor, as ssm_forward passes them; dt =
-    softplus(N(0, 1)), the model's initial decay rates a = -linspace(1,
-    16) and D = 1; and an output gradient."""
+def _ssd_case(dtype, seed: int = 0, B: int = TRAIN_B, L: int = TRAIN_S,
+              H: int = 48, N: int = 128):
+    """ssd_scan operands at a model's head shape (mamba2-780m's H 48, N
+    128 by default; zamba2-7b's H 112, N 64), G 1, P 64, batch ``B`` and
+    length ``L``: x, B and C as column views of one conv-output-like (B,
+    L, H P + 2 N) tensor, as ssm_forward passes them; dt = softplus(N(0,
+    1)), the model's initial decay rates a = -linspace(1, 16) and D = 1;
+    and an output gradient."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
-    H, G, N, P = 48, 1, 128, 64
+    G, P = 1, 64
     xbc = (torch.randn((B, L, H * P + 2 * G * N), generator=g,
                        device="cuda") * 0.5).to(dtype)
     x = xbc[..., :H * P].reshape(B, L, H, P)
@@ -1086,7 +1111,8 @@ def _grad_compare(got, ref, tol) -> tuple[float, bool]:
 SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd")
 
 
-def _ssd_variant(dtype, B: int, L: int, chunk: int) -> dict:
+def _ssd_variant(dtype, B: int, L: int, chunk: int, H: int = 48,
+                 N: int = 128) -> dict:
     """One variant of the ssd_scan kernels against the plain versions (and,
     for bf16, the plain model of the wgmma kernels' roundings) on the same
     inputs, the backward fed the kernel forward's chunk-start states; the
@@ -1096,7 +1122,7 @@ def _ssd_variant(dtype, B: int, L: int, chunk: int) -> dict:
     from repro_torch.kernels import ssd_scan as ss
     bf16 = dtype == torch.bfloat16
     tol = ATTN_BF16_TOL if bf16 else SSD_FP32_TOL
-    ins, dy = _ssd_case(dtype, B=B, L=L)
+    ins, dy = _ssd_case(dtype, B=B, L=L, H=H, N=N)
     x, dt, a, b, c, d = ins
     variant = ss._variant(x.dtype, b.shape[3], x.shape[3])
     n0 = (ss.ssd_scan.wgmma_launches, ss.ssd_scan_bwd.wgmma_launches)
@@ -1177,20 +1203,28 @@ def _ssd_variant(dtype, B: int, L: int, chunk: int) -> dict:
     return out
 
 
+# the ssd_scan rows of the kernels phase: key suffix -> (dtype, B, L, H,
+# N): mamba2-780m's train_ssm and train_parity_ssm shapes, and zamba2-7b's
+# (112 heads, d_state 64) train_zamba2_7b and train_parity_zamba2_7b
+# shapes (keys ending _n64)
+SSD_ROWS = {"": ("bfloat16", TRAIN_B, TRAIN_S, 48, 128),
+            "_fp32_500": ("float32", PARITY_B, PARITY_S, 48, 128),
+            "_n64": ("bfloat16", 2, 2048, 112, 64),
+            "_fp32_500_n64": ("float32", PARITY_B, PARITY_S, 112, 64)}
+
+
 def kernel_ssd_scan() -> dict:
-    """Both variants of the ssd_scan kernels at their main paths' shapes:
-    wgmma in bf16 at the train shape (train_ssm), CUDA cores in fp32 at
-    train_parity_ssm's B 2, L 500; one row for each kernel."""
+    """Both variants of the ssd_scan kernels at their main paths' shapes
+    (``SSD_ROWS``): wgmma in bf16 at the train shapes, CUDA cores in fp32
+    at the train_parity_* ones; one row for each kernel."""
     import torch
     chunk = 128
     rows = {}
-    for key, dtype, B, L in (("", torch.bfloat16, TRAIN_B, TRAIN_S),
-                             ("_fp32_500", torch.float32, PARITY_B,
-                              PARITY_S)):
-        r = _ssd_variant(dtype, B, L, chunk)
-        case = dict(B=B, L=L, H=48, P=64, G=1, N=128, chunk=chunk,
+    for key, (dtype, B, L, H, N) in SSD_ROWS.items():
+        r = _ssd_variant(getattr(torch, dtype), B, L, chunk, H, N)
+        case = dict(B=B, L=L, H=H, P=64, G=1, N=N, chunk=chunk,
                     dtype=r["dtype"], variant=r["variant"],
-                    x_bc="views of a (B, L, 3328) tensor")
+                    x_bc=f"views of a (B, L, {H * 64 + 2 * N}) tensor")
         common = {k: r[k] for k in r if k.startswith("max_abs_err_per")}
         rows["ssd_scan" + key] = dict(
             case, name="ssd_scan", ok=r["ok_fwd"],
@@ -1529,13 +1563,27 @@ def phase_pam_core() -> dict:
                 tiers=list(PAM_TIERS), block_size=PAM_BLOCK)
 
 
-def _model(dtype: str, arch: str = "qwen3-0.6b",
-           n_layers: int | None = None):
+def _cut(cfg, depth):
+    """``cfg`` at ``depth``: None keeps the published depth; an int is the
+    layer count, or a hybrid's group count (its groups' Mamba-2 layers and
+    its tail kept); a ``HybridConfig`` is a hybrid's whole layout. A
+    hybrid's ``n_layers`` counts its blocks: each group's Mamba-2 layers
+    and shared-block site, and the tail."""
+    if depth is None:
+        return cfg
+    if cfg.hybrid is None:
+        return dataclasses.replace(cfg, n_layers=depth)
+    hb = depth if not isinstance(depth, int) else dataclasses.replace(
+        cfg.hybrid, n_groups=depth)
+    return dataclasses.replace(
+        cfg, hybrid=hb,
+        n_layers=hb.n_groups * (hb.mamba_per_group + 1) + hb.tail_mamba)
+
+
+def _model(dtype: str, arch: str = "qwen3-0.6b", n_layers=None):
     from repro_torch.models import transformer as tf
     from repro_torch.models.config import get_config
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = _cut(dataclasses.replace(get_config(arch), dtype=dtype), n_layers)
     return cfg, tf.init_params(cfg, 0, device="cuda")
 
 
@@ -3185,11 +3233,9 @@ def _wgmma_launches() -> dict:
     return {name: fn.wgmma_launches for name, fn in _wgmma_counted().items()}
 
 
-# the kernels each train path must launch n_layers times a step (every
-# attention family: the flash_attention pair)
+# the attention kernels of a train path (``_train_launches`` counts
+# every kernel each family launches)
 ATTN_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
-TRAIN_KERNELS = {"qwen3-0.6b": ATTN_TRAIN_KERNELS,
-                 SSM_ARCH: ("ssd_scan", "ssd_scan_bwd")}
 
 
 def _train_model(arch: str = "qwen3-0.6b"):
@@ -3218,15 +3264,12 @@ def phase_train(arch: str = "qwen3-0.6b") -> dict:
     launches = _launches()
     wgmma = _wgmma_launches()
     losses = out["losses"]
-    want = cfg.n_layers * TRAIN_STEPS
+    want = _train_launches(cfg, TRAIN_STEPS)
     assert all(math.isfinite(x) for x in losses), losses
     assert sum(losses[-3:]) / 3 < losses[0], losses
-    for name, n in launches.items():
-        expect = want if name in TRAIN_KERNELS[arch] else 0
-        assert n == expect, f"{name}: {launches}, want {expect}"
-    for name, n in wgmma.items():      # bf16 at full width: all wgmma
-        expect = want if name in TRAIN_KERNELS[arch] else 0
-        assert n == expect, f"{name}: wgmma {wgmma}, want {expect}"
+    assert launches == want, f"launches {launches}, want {want}"
+    # bf16 at full width: every launch a wgmma one
+    assert wgmma == {k: want[k] for k in wgmma}, f"wgmma {wgmma}, {want}"
     steady = out["step_s"][1:]
     step_ms = statistics.median(steady) * 1e3
     return dict(arch=arch, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
@@ -3322,7 +3365,6 @@ def phase_train_parity(arch: str = "qwen3-0.6b",
     cfg, params = _model("float32", arch, n_layers)
     b = _FamilyData(cfg, PARITY_B, PARITY_S - cfg.num_patches,
                     seed=1).batch(0)
-    kernels = TRAIN_KERNELS.get(arch, ATTN_TRAIN_KERNELS)
     _reset_launches()
     lk, gk = build_grad_fn(cfg, TrainConfig(use_kernel=True))(params, b)
     launches = _launches()
@@ -3338,9 +3380,8 @@ def phase_train_parity(arch: str = "qwen3-0.6b",
         rel = float((a - r).abs().max()) / scale if scale > 0 else 0.0
         if rel > worst:
             worst, worst_leaf = rel, name
-    for name, n in launches.items():
-        expect = cfg.n_layers if name in kernels else 0
-        assert n == expect, f"{name}: {launches}, want {expect}"
+    want = _train_launches(cfg, 1)
+    assert launches == want, f"launches {launches}, want {want}"
     assert loss_rel <= TRAIN_LOSS_TOL, f"loss differs: {loss_rel}"
     assert worst <= TRAIN_GRAD_TOL, f"grads differ: {worst} at {worst_leaf}"
     return dict(arch=arch, n_layers=cfg.n_layers, B=PARITY_B, S=PARITY_S,
@@ -3550,6 +3591,7 @@ def phase_moe_parity() -> dict:
 
 MLA_ARCH = "deepseek-v2-lite-16b"
 HYBRID_ARCH = "zamba2-7b"
+D112 = "_d112"                  # tag of zamba2-7b's kernels-phase rows
 
 
 class _LatentCalls:
@@ -3697,10 +3739,17 @@ ATTN_FP32_ROWS = {VLM_ARCH: "flash_attention_vlm_fp32_100",
 # to fit one card: qwen3-14b to 8 of 40 layers (1.556 B parameters of
 # embedding and head + 0.330 B a layer = 4.20 B: 50 GB + 12 GB for the
 # head's update), deepseek-67b to 4 of 95 (1.678 B + 0.692 B a layer =
-# 4.45 B: 53 GB + 13 GB)
+# 4.45 B: 53 GB + 13 GB). zamba2-7b's depth is its group count: 5 of 13
+# groups of 5 Mamba-2 layers and the shared block, and its 3 tail layers
+# (33 of 81 blocks: 28 Mamba-2 layers, the shared block at 5 sites;
+# 2.62 B parameters: 29.3 GiB, + 19.5 GiB for the update of the stacked
+# in_proj, 5 x 5 x 3584 x 14576 entries). scripts/train_step_memory.py
+# measured a donated step at B 2 x 2048 peaking at 45.58 GiB at 4 groups
+# and 54.37 at 5 (H100 80GB HBM3), so 5 groups keep more than 10 %
+# headroom and 6 (about 63 GiB) were not tried
 TRAIN_FAMILIES = {VLM_ARCH: (None, 4, 1792), AUDIO_ARCH: (None, 8, 1500),
                   "minicpm-2b": (None, 2, 2048), "qwen3-14b": (8, 1, 2048),
-                  "deepseek-67b": (4, 1, 2048)}
+                  "deepseek-67b": (4, 1, 2048), HYBRID_ARCH: (5, 2, 2048)}
 # their peak lr: the train CLI's 1e-2 (right for the reduced models)
 # made the losses of hubert-xlarge, qwen3-14b and deepseek-67b rise over
 # 6 steps, with the plain attention as with the kernels; the mamba2-780m
@@ -3708,6 +3757,16 @@ TRAIN_FAMILIES = {VLM_ARCH: (None, 4, 1792), AUDIO_ARCH: (None, 8, 1500),
 FAMILY_LR = 1e-3
 FAMILY_STEPS = 6
 FAMILY_PARITY_LAYERS = 2   # train_parity_*: full width, 2 layers, B 2 x 500
+
+
+def _parity_depth(arch: str):
+    """A train_parity_* phase's depth: ``FAMILY_PARITY_LAYERS`` layers, or
+    for the hybrid 2 groups of 1 Mamba-2 layer and a tail of 1 (3 SSD
+    scans, the shared block at 2 sites)."""
+    from repro_torch.models.config import HybridConfig
+    if arch == HYBRID_ARCH:
+        return HybridConfig(n_groups=2, mamba_per_group=1, tail_mamba=1)
+    return FAMILY_PARITY_LAYERS
 # the tag of each family's attention rows in the kernels phase, and
 # whether its attention is causal (hubert-xlarge is a bidirectional
 # encoder)
@@ -3715,7 +3774,7 @@ PROFILE_FAMILIES = (AUDIO_ARCH,)   # with a profile_train_* phase
 TRAIN_ROWS = {VLM_ARCH: ("_d64_g7", True),
               AUDIO_ARCH: ("_d80_noncausal", False),
               "minicpm-2b": ("_d64", True), "qwen3-14b": ("_g5", True),
-              "deepseek-67b": ("_g8", True)}
+              "deepseek-67b": ("_g8", True), HYBRID_ARCH: (D112, True)}
 # bf16 logits through the attention kernels against the plain attention
 # on the card, max |dlogit| / max(1, max |logit|): both round each
 # layer's attention output to bf16 and may differ there by one bf16 step
@@ -4054,11 +4113,30 @@ class _FamilyData:
         return out
 
 
-def _family_cfg(arch: str, n_layers: int | None, dtype: str = "bfloat16"):
+def _family_cfg(arch: str, n_layers, dtype: str = "bfloat16"):
     from repro_torch.models.config import get_config
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
-    return cfg if n_layers is None else dataclasses.replace(
-        cfg, n_layers=n_layers)
+    return _cut(dataclasses.replace(get_config(arch), dtype=dtype), n_layers)
+
+
+def _train_launches(cfg, steps: int) -> dict:
+    """The launches a train path of ``cfg`` makes in ``steps`` steps
+    without remat, by counted wrapper: each attention site's forward and
+    backward, each Mamba-2 layer's SSD scan and its backward; 0 for every
+    other counted kernel."""
+    want = dict.fromkeys(_counted(), 0)
+    if cfg.family == "hybrid":
+        hb = cfg.hybrid
+        n_mamba = hb.n_groups * hb.mamba_per_group + hb.tail_mamba
+        want.update(ssd_scan=n_mamba * steps, ssd_scan_bwd=n_mamba * steps,
+                    flash_attention=hb.n_groups * steps,
+                    flash_attention_bwd=hb.n_groups * steps)
+    elif cfg.family == "ssm":
+        want.update(ssd_scan=cfg.n_layers * steps,
+                    ssd_scan_bwd=cfg.n_layers * steps)
+    else:
+        want.update(flash_attention=cfg.n_layers * steps,
+                    flash_attention_bwd=cfg.n_layers * steps)
+    return want
 
 
 def phase_train_family(arch: str) -> dict:
@@ -4107,20 +4185,22 @@ def phase_train_family(arch: str) -> dict:
     launches = _launches()
     wgmma = _wgmma_launches()
     losses = out["losses"]
-    want = cfg.n_layers * FAMILY_STEPS
+    want = _train_launches(cfg, FAMILY_STEPS)
     assert all(math.isfinite(x) for x in losses), losses
     assert sum(losses[-3:]) / 3 < losses[0], losses
-    for name, n in launches.items():
-        expect = want if name in ATTN_TRAIN_KERNELS else 0
-        assert n == expect, f"{name}: {launches}, want {expect}"
-    for name, n in wgmma.items():      # bf16 at full width: all wgmma
-        expect = want if name in ATTN_TRAIN_KERNELS else 0
-        assert n == expect, f"{name}: wgmma {wgmma}, want {expect}"
+    assert launches == want, f"launches {launches}, want {want}"
+    # bf16 at full width: every launch a wgmma one
+    assert wgmma == {k: want[k] for k in wgmma}, f"wgmma {wgmma}, {want}"
     step_ms = statistics.median(out["step_s"][1:]) * 1e3
     rows = B * (S + cfg.num_patches)
+    hybrid = {} if cfg.hybrid is None else dict(
+        hybrid=dataclasses.asdict(cfg.hybrid),
+        published_hybrid=dataclasses.asdict(_family_cfg(arch, None).hybrid),
+        ssm=dict(d_state=cfg.ssm.d_state, head_dim=cfg.ssm.head_dim,
+                 heads=cfg.ssm.n_heads(cfg.d_model), chunk=cfg.ssm.chunk))
     return dict(card=_card(), arch=arch, family=cfg.family,
                 n_layers=cfg.n_layers, published_layers=_family_cfg(
-                    arch, None).n_layers, peak_lr=FAMILY_LR,
+                    arch, None).n_layers, **hybrid, peak_lr=FAMILY_LR,
                 heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
                 causal=cfg.causal, steps=FAMILY_STEPS, batch=B,
                 seq=S + cfg.num_patches, text=S if cfg.family != "audio"
@@ -4407,7 +4487,6 @@ def _decode_rows(tag: str = "", heads=(16, 8), d: int = 128) -> dict:
 # group 16), the decode kernels' wide path; its kernels-phase rows end in
 # ``_g16``
 G16_HEADS = (64, 4)
-D112 = "_d112"                  # tag of zamba2-7b's kernels-phase rows
 
 
 def _engine_phase(arch: str) -> str:
@@ -4635,7 +4714,7 @@ def main() -> int:
             run("profile_" + _train_phase(arch), phase_profile_train, arch)
             torch.cuda.empty_cache()
         run(_train_phase(arch, parity=True), phase_train_parity, arch,
-            FAMILY_PARITY_LAYERS)
+            _parity_depth(arch))
         torch.cuda.empty_cache()
     run("train", phase_train)
     torch.cuda.empty_cache()
@@ -4838,6 +4917,20 @@ def main() -> int:
                           parity["launches"][name],
                           name=name + tag + "_fp32_train")
             row["launches_in"] = _train_phase(arch, parity=True)
+    # zamba2-7b's Mamba-2 layers: the SSD scan at d_state 64, bf16 (wgmma)
+    # with launches from train_zamba2_7b, fp32 (CUDA cores) from
+    # train_parity_zamba2_7b
+    for key, src in (("ssd_scan_n64", "ssd_scan_sm90.cu"),
+                     ("ssd_scan_bwd_n64", "ssd_scan_bwd_sm90.cu"),
+                     ("ssd_scan_fp32_500_n64", "ssd_scan.cu"),
+                     ("ssd_scan_bwd_fp32_500_n64", "ssd_scan_bwd.cu")):
+        phase = _train_phase(HYBRID_ARCH, parity="fp32" in key)
+        name = "ssd_scan_bwd" if "_bwd" in key else "ssd_scan"
+        row = add_row(key, src, "ssd_scan.py:36",
+                      results[phase]["launches"][name], name=key)
+        row["launches_in"] = phase
+        if "fp32" not in key:
+            row["wgmma_launches"] = results[phase]["wgmma_launches"][name]
     for arch, phase, case in ((VLM_ARCH, "vlm_forward", "vlm_g7"),
                               (AUDIO_ARCH, ENCODER_PHASE, "audio_d80")):
         tag = TRAIN_ROWS[arch][0]

@@ -1,5 +1,5 @@
-"""Variants of the wgmma ``flash_attention`` forward at head dims 64 and
-80, built and timed against each other on one GPU.
+"""Variants of the wgmma ``flash_attention`` forward at head dims 64, 80
+and 112, built and timed against each other on one GPU.
 
     python3 scripts/attention_fwd_variants.py
 
@@ -7,20 +7,20 @@ Builds copies of ``csrc/flash_attention_sm90.cu`` into
 ``build/attention_fwd_variants/`` (git-ignored), each with two lines set
 by text: the kernel's ``__launch_bounds__`` (one CTA an SM asked for, or
 two at head dim 64, which caps a thread at 128 registers) and
-``Shape::kN``, the N of the P V product at head dim 80 (80: the second
-swizzle atom of V read in part; or 128: two whole atoms, 48 columns of
-TMA's zero fill). Prints each build's registers and spills for the
-(64, 7) and (80, 1) kernels and says which variant is the source as it
-stands. Then runs every variant at ``chip_smoke.py``'s two rows of these
-builds, internvl2-1b's (B 4, 14 / 2 heads of 64, S 2048, causal) and
-hubert-xlarge's (B 8, 16 / 16 heads of 80, S 1500, bidirectional), bf16
-from seed 0: o against the plain version ``_fwd_plain`` at rtol / atol
-2e-2 and the LSE at rtol 1e-4 / atol 1e-3 (``chip_smoke.py``'s
-tolerances), o also against ``_fwd_rounded``; then times them in turns
-(each variant, then the same in reverse order), 20 calls a turn by CUDA
-events with the L2 flushed before each. Prints one JSON line with the
-card's name and power limit; exits 1 if a variant is outside tolerance.
-Imports nothing of JAX.
+``Shape::kN``, the N of the P V product at head dims 80 and 112 (the head
+dim: the second swizzle atom of V read in part; or 128: two whole atoms,
+48 or 16 columns of TMA's zero fill). Prints each build's registers and spills
+for the (64, 7), (80, 1) and (112, 1) kernels and says which variant is the
+source as it stands. Then runs every variant at ``chip_smoke.py``'s three rows
+of these builds, internvl2-1b's (B 4, 14 / 2 heads of 64, S 2048, causal),
+hubert-xlarge's (B 8, 16 / 16 heads of 80, S 1500, bidirectional) and
+zamba2-7b's shared block (B 2, 32 / 32 heads of 112, S 2048, causal), bf16 from
+seed 0: o against the plain version ``_fwd_plain`` at rtol / atol 2e-2 and the
+LSE at rtol 1e-4 / atol 1e-3 (``chip_smoke.py``'s tolerances), o also against
+``_fwd_rounded``; then times them in turns (each variant, then the same in
+reverse order), 20 calls a turn by CUDA events with the L2 flushed before each.
+Prints one JSON line with the card's name and power limit; exits 1 if a variant
+is outside tolerance. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,12 +38,13 @@ BOUNDS = re.compile(r"__launch_bounds__\(sm90::kThreads, [^)]*\)")
 PV_N = re.compile(r"static constexpr int kN = [^;]*;")
 # name: (min CTAs an SM in __launch_bounds__, Shape::kN); each differs
 # from the first in one line
-VARIANTS = {"one_cta_d80_n80": ("1", "D == 80 ? 80 : kCols"),
-            "d64_two_ctas": ("D == 64 ? 2 : 1", "D == 80 ? 80 : kCols"),
-            "d80_n128": ("1", "kCols")}
+VARIANTS = {"one_cta_pv_at_d": ("1", "D"),
+            "d64_two_ctas": ("D == 64 ? 2 : 1", "D"),
+            "pv_n128": ("1", "kCols")}
 # row: (B, H, Hkv, S, d, causal)
 ROWS = {"flash_attention_vlm_2048": (4, 14, 2, 2048, 64, True),
-        "flash_attention_audio_1500_noncausal": (8, 16, 16, 1500, 80, False)}
+        "flash_attention_audio_1500_noncausal": (8, 16, 16, 1500, 80, False),
+        "flash_attention_train_d112": (2, 32, 32, 2048, 112, True)}
 
 
 def _variant_source(src: str, ctas: str, n: str) -> str:
@@ -53,13 +54,14 @@ def _variant_source(src: str, ctas: str, n: str) -> str:
 
 
 def _ptxas(log: str) -> dict:
-    """Registers and spills of the (64, 7) and (80, 1) kernels."""
+    """Registers and spills of the (64, 7), (80, 1) and (112, 1)
+    kernels."""
     lines, out = log.splitlines(), {}
     for i, line in enumerate(lines):
         m = re.search(r"flash_attention_fwd_sm90_kernelILi(\d+)ELi(\d+)E",
                       line)
         if "Compiling entry" not in line or m is None \
-                or m.group(1) not in ("64", "80"):
+                or m.group(1) not in ("64", "80", "112"):
             continue
         info = []
         for x in lines[i + 1:]:

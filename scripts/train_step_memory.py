@@ -2,6 +2,9 @@
 the family train phases moves with the peak lr.
 
     python3 scripts/train_step_memory.py
+    python3 scripts/train_step_memory.py zamba2-7b 4 5
+
+With no arguments:
 
 1. qwen3-14b at 8 layers and deepseek-67b at 4 (``chip_smoke.py``'s
    ``TRAIN_FAMILIES``: full width, bf16, random weights from seed 0, B 1
@@ -17,6 +20,10 @@ the family train phases moves with the peak lr.
    ``flash_attention`` kernels and with the plain attention
    (``use_kernel=False``), and qwen3-14b and deepseek-67b as in 1: the
    losses.
+
+With an arch and depths: part 1 alone for that arch at each depth (a
+hybrid's depth is its group count, ``chip_smoke._cut``), the state
+donated, at its ``TRAIN_FAMILIES`` batch and length.
 
 One JSON line each, with the card's name and power limit. Imports
 nothing of JAX.
@@ -55,11 +62,12 @@ def _marks(torch, log: list):
     return around
 
 
-def step_memory(cs, arch: str, donate: bool) -> dict:
+def step_memory(cs, arch: str, donate: bool, depth=None) -> dict:
     import torch
     from repro_torch.launch import train as train_cli
     from repro_torch.training import optim, train_step as tts
     n_layers, B, S = cs.TRAIN_FAMILIES[arch]
+    n_layers = n_layers if depth is None else depth
     cfg = cs._family_cfg(arch, n_layers)
     tcfg = train_cli.train_config(steps=STEPS, lr=cs.FAMILY_LR)
     log: list = []
@@ -67,7 +75,8 @@ def step_memory(cs, arch: str, donate: bool) -> dict:
     real_update, real_grad = optim.adamw_update, tts.build_grad_fn
     optim.adamw_update = around(real_update, "update")
     tts.build_grad_fn = lambda *a: around(real_grad(*a), "grad")
-    out = dict(card=cs._card(), arch=arch, n_layers=n_layers, batch=B,
+    out = dict(card=cs._card(), arch=arch, depth=n_layers,
+               n_layers=cfg.n_layers, batch=B,
                seq=S, donate=donate, params=cfg.param_count())
     try:
         state = tts.init_train_state(cfg, tcfg, 0, device="cuda")
@@ -117,13 +126,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
-    runs = [(step_memory, (arch, donate)) for arch in ("qwen3-14b",
-                                                       "deepseek-67b")
-            for donate in (True, False)]
-    runs += [(lr_losses, (cs.AUDIO_ARCH, kernel, 2)) for kernel in (True,
-                                                                   False)]
-    runs += [(lr_losses, (arch, True, None)) for arch in ("qwen3-14b",
-                                                          "deepseek-67b")]
+    if len(sys.argv) > 1:
+        runs = [(step_memory, (sys.argv[1], True, int(d)))
+                for d in sys.argv[2:]]
+    else:
+        runs = [(step_memory, (arch, donate)) for arch in ("qwen3-14b",
+                                                           "deepseek-67b")
+                for donate in (True, False)]
+        runs += [(lr_losses, (cs.AUDIO_ARCH, kernel, 2))
+                 for kernel in (True, False)]
+        runs += [(lr_losses, (arch, True, None)) for arch in ("qwen3-14b",
+                                                              "deepseek-67b")]
     for fn, args in runs:
         print(json.dumps(fn(cs, *args)), flush=True)
         gc.collect()

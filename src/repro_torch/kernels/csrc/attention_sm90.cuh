@@ -7,12 +7,12 @@
 // Tile format. A (rows, 128) bf16 tile of a row-major (.., rows, 128)
 // tensor lives in shared memory as two sub-tiles of (rows, 64): columns
 // 0-63, then 64-127. A tensor of head dim 64 is one sub-tile; one of head
-// dim 80 is two, the second holding columns 64-79 and TMA's zero fill for
-// 80-127 (its map is 80 columns wide). A sub-tile row is one 128-byte
-// swizzle row; TMA
-// writes it with CU_TENSOR_MAP_SWIZZLE_128B (the 16-byte chunk c of row r
-// lands at chunk c ^ (r % 8)), and every sub-tile starts on a 1024-byte
-// boundary, which is what the wgmma descriptors' 128B layout expects.
+// dim 80 or 112 is two, the second holding columns 64-79 (64-111) and
+// TMA's zero fill for 80-127 (112-127): its map is 80 (112) columns wide.
+// A sub-tile row is one 128-byte swizzle row; TMA writes it with
+// CU_TENSOR_MAP_SWIZZLE_128B (the 16-byte chunk c of row r lands at chunk
+// c ^ (r % 8)), and every sub-tile starts on a 1024-byte boundary, which
+// is what the wgmma descriptors' 128B layout expects.
 // Read with the head dim as the reduction dim (Q K^T: both operands), a
 // tile is K-major: a descriptor per 16-column step starts 32 bytes
 // further inside the 128-byte row, and the second sub-tile holds steps
@@ -323,6 +323,42 @@ __device__ __forceinline__ void wgmma_rs_n80_mn(float (&d)[40],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64x112) += A(64x16) B(16x112); A in registers (4 x bf16x2), B
+// MN-major in shared memory (transpose bit set): the first 64 columns
+// from the swizzle atom at the descriptor's address, the last 48 from the
+// next atom, LBO bytes on, read in part as at N = 80 (head dim 112's P V,
+// dV, dK and dQ; zamba2-7b's shared attention block).
+__device__ __forceinline__ void wgmma_rs_n112_mn(float (&d)[56],
+                                                const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // The shapes below serve the SSD scan kernels (ssd_scan_sm90.cu,
 // ssd_scan_bwd_sm90.cu), whose head dim P = 64 is the N of an m64n64k16.
 
@@ -396,20 +432,35 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D(64xN) += A(64x16) B(16xN) at N = 64, 80 or 128 (a head dim): A in
-// registers, B MN-major in shared memory; the accumulator has N / 2
-// entries a thread.
+// D(64xN) += A(64x16) B(16xN) at N = 64, 80, 112 or 128 (a head dim, or
+// the SSD kernels' d_state): A in registers, B MN-major in shared memory;
+// the accumulator has N / 2 entries a thread.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
                                             const uint32_t* a,
                                             uint64_t db) {
-  static_assert(N == 64 || N == 80 || N == 128, "an N of a head dim");
+  static_assert(N == 64 || N == 80 || N == 112 || N == 128,
+                "an N of a head dim or a d_state");
   if constexpr (N == 64)
     wgmma_rs_n64_mn(d, a, db);
   else if constexpr (N == 80)
     wgmma_rs_n80_mn(d, a, db);
+  else if constexpr (N == 112)
+    wgmma_rs_n112_mn(d, a, db);
   else
     wgmma_rs_n128_mn(d, a, db);
+}
+
+// D(64xN) += A(64x16) B(16xN) at N = 64 or 128 (the SSD kernels' d_state):
+// A and B K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 128, "a built d_state");
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db);
+  else
+    wgmma_ss_n128(d, da, db);
 }
 
 // ------------------------------------------------------------ fragments
@@ -494,8 +545,8 @@ inline EncodeTiledFn encode_tiled() {
 
 // A 3-D map over a contiguous (heads, rows, cols) bf16 tensor with boxes
 // of (1 head, box_rows rows, 64 columns), 128-byte swizzle; reads past
-// `rows` or `cols` fill zeros (cols: 128, or 64 and 80 for the forward;
-// the row stride, 2 cols bytes, must be a multiple of 16). False if the
+// `rows` or `cols` fill zeros (cols: a head dim, 64, 80, 112 or 128; the
+// row stride, 2 cols bytes, must be a multiple of 16). False if the
 // driver refuses it.
 inline bool make_map(CUtensorMap* map, const void* base, long heads,
                      int rows, int box_rows, int cols = sm90::kD) {

@@ -19,10 +19,11 @@
 // the 67 TFLOP/s fp32 peak. It serves fp32 operands at every built pair
 // (the fp32 parity paths: a tensor-core product would be TF32; at head dim
 // 80 the fp32 tiles, three of 64 x 81 and the 64 x 65 score tile, 77 KB,
-// take the dynamic shared memory opt-in above 48 KB, as at 128) and bf16
-// at head dim 16 (the reduced configs). bf16 at head dims 64, 80 and 128
-// (PAM_ATTN_WGMMA_FWD_DIMS: internvl2-1b, hubert-xlarge and the full-width
-// text models) runs flash_attention_sm90.cu (wgmma on TMA-staged bf16
+// take the dynamic shared memory opt-in above 48 KB, as at 112 (101 KB)
+// and 128) and bf16 at head dim 16 (the reduced configs). bf16 at head
+// dims 64, 80, 112 and 128 (PAM_ATTN_WGMMA_FWD_DIMS: internvl2-1b,
+// hubert-xlarge, zamba2-7b's shared block and the full-width text models)
+// runs flash_attention_sm90.cu (wgmma on TMA-staged bf16
 // tiles) instead; kernels/flash_attention.py::_variant chooses.
 #include "attention_common.cuh"
 

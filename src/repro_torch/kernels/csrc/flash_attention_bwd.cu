@@ -22,8 +22,9 @@
 // Bound on the H100: operations, as for the forward: five 64-wide products
 // per tile pair (2.5x the forward's FLOPs). Products run on the CUDA cores
 // in fp32. This backward serves fp32 operands (the parity paths) and
-// bf16 at head dim 16, like flash_attention.cu; bf16 at head dims 64, 80
-// and 128 runs flash_attention_bwd_sm90.cu (wgmma), chosen by
+// bf16 at head dim 16, like flash_attention.cu (at head dim 112 the fp32
+// tiles take 130 KB of shared memory); bf16 at head dims 64, 80, 112 and
+// 128 runs flash_attention_bwd_sm90.cu (wgmma), chosen by
 // kernels/flash_attention.py::_variant.
 #include "attention_common.cuh"
 

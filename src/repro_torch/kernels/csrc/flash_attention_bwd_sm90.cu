@@ -2,8 +2,9 @@
 // flash_attention_sm90.cu's forward (bf16, causal or bidirectional), at
 // the (head dim, GQA group) pairs of PAM_ATTN_BWD90_BUILT below: head dim
 // 128 at groups 1, 2, 5 and 8 (pam-llama-7b, qwen3-0.6b, qwen3-14b,
-// deepseek-67b), 64 at groups 1 and 7 (minicpm-2b, internvl2-1b) and 80
-// at group 1 (hubert-xlarge's bidirectional encoder).
+// deepseek-67b), 64 at groups 1 and 7 (minicpm-2b, internvl2-1b), 80 at
+// group 1 (hubert-xlarge's bidirectional encoder) and 112 at group 1
+// (zamba2-7b's shared attention block).
 //
 // The TPU package has no counterpart: JAX cannot differentiate through
 // the Pallas kernel (repro/kernels/flash_attention.py::_attn_kernel, :31,
@@ -43,21 +44,23 @@
 // and costs 1.4x the FLOPs of the bound.
 //
 // Head dims, as in the forward: a tile row is one 64-column swizzle
-// sub-tile at head dim 64 and two at 80 and 128; at 80 the tensor maps
-// are 80 columns wide and TMA zero-fills columns 80-127 of the second
-// sub-tile (the mbarriers count whole boxes), the products over the head
-// dim take 5 k-steps and skip the zeros exactly, and the three products
-// with N = the head dim run at m64n80k16, reading the second swizzle atom
-// in part (held to N 128 on the H100 for the forward's P V by
-// scripts/attention_fwd_variants.py). The accumulators dK, dV and dQ hold
-// D / 2 entries a thread.
+// sub-tile at head dim 64 and two at 80, 112 and 128; at 80 (112) the
+// tensor maps are 80 (112) columns wide and TMA zero-fills columns 80-127
+// (112-127) of the second sub-tile (the mbarriers count whole boxes), the
+// products over the head dim take 5 (7) k-steps and skip the zeros
+// exactly, and the three products with N = the head dim run at m64n80k16
+// (m64n112k16), reading the second swizzle atom in part (held to N 128 on
+// the H100 for the forward's P V by scripts/attention_fwd_variants.py).
+// The accumulators dK, dV and dQ hold D / 2 entries a thread; prep reads
+// D / 4 chunks of 4 a row (28 at 112, on lanes 0-27).
 //
 // Bound on the H100: operations. At the training shape (B 4, H 16, S 2048,
 // d 128, causal) the five products are 1.7e11 FLOPs (0.174 ms at 989
 // TFLOP/s bf16) against 0.20 GB moved (0.060 ms at 3.35 TB/s); at
 // internvl2-1b's (B 4, 14 / 2 heads of 64, S 2048, causal) 7.5e10 FLOPs
 // (0.076 ms); at hubert-xlarge's (B 8, 16 heads of 80, S 1500,
-// bidirectional) 2.3e11 (0.233 ms).
+// bidirectional) 2.3e11 (0.233 ms); at zamba2-7b's (B 2, 32 heads of 112,
+// S 2048, causal) 1.5e11 (0.152 ms).
 // Shared memory: dkdv K, V 2 x 128 rows + Q, dO 2 stages x 2 x 64 rows +
 // L, Delta; dq Q, dO 2 x 128 rows + K, V 2 stages x 2 x 64 rows, at 256
 // bytes a row (128 at head dim 64): 129 KiB (65 KiB).
@@ -69,6 +72,7 @@
 #define PAM_ATTN_BWD90_BUILT(X) \
   X(64, 1) X(64, 7) \
   X(80, 1) \
+  X(112, 1) \
   X(128, 1) X(128, 2) X(128, 5) X(128, 8)
 
 namespace pam {
@@ -96,7 +100,8 @@ constexpr int kQN = 64;     // dq: keys per tile
 // The tile shapes of head dim D.
 template <int D>
 struct Shape {
-  static_assert(D == 64 || D == 80 || D == 128, "a wgmma backward head dim");
+  static_assert(D == 64 || D == 80 || D == 112 || D == 128,
+                "a wgmma backward head dim");
   static constexpr int kSubs = (D + sm90::kSub - 1) / sm90::kSub;
   static constexpr int kCols = kSubs * sm90::kSub;  // tile width
   static constexpr int kSteps = D / 16;  // k-steps of the products over D

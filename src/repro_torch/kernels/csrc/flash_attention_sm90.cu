@@ -1,13 +1,14 @@
-// FlashAttention forward for Hopper's tensor cores: bf16, head dim 64, 80
-// or 128, causal or bidirectional, GQA without repeating K/V.
+// FlashAttention forward for Hopper's tensor cores: bf16, head dim 64, 80,
+// 112 or 128, causal or bidirectional, GQA without repeating K/V.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_attn_kernel
 // (:31; wrapper flash_attention, pl.pallas_call at :122) for bf16 operands
 // at the built (head dim, group) pairs of PAM_ATTN_FWD90_BUILT below:
 // head dim 128 with groups 1, 2, 5 and 8 (pam-llama-7b, qwen3-0.6b,
 // qwen3-14b, deepseek-67b), 64 with groups 1 and 7 (minicpm-2b;
-// internvl2-1b, causal) and 80 with group 1 (hubert-xlarge's
-// bidirectional encoder). fp32 at every pair and bf16 at head dim 16 keep
+// internvl2-1b, causal), 80 with group 1 (hubert-xlarge's bidirectional
+// encoder) and 112 with group 1 (zamba2-7b's shared attention block,
+// causal). fp32 at every pair and bf16 at head dim 16 keep
 // the CUDA-core kernel of flash_attention.cu; the head dims listed in
 // attention_common.cuh's PAM_ATTN_WGMMA_FWD_DIMS leave bf16 out of it, and
 // kernels/flash_attention.py::_variant picks one of the two for each
@@ -26,7 +27,9 @@
 // TFLOP/s bf16) against 0.10 GB moved (0.030 ms at 3.35 TB/s); at
 // internvl2-1b's (B 4, 14 / 2 heads of 64, S 2048, causal) 3.0e10 FLOPs
 // (0.030 ms) against 34 MB (0.010 ms); at hubert-xlarge's (B 8, 16 heads
-// of 80, S 1500, bidirectional) 9.2e10 FLOPs (0.093 ms) against 0.10 GB.
+// of 80, S 1500, bidirectional) 9.2e10 FLOPs (0.093 ms) against 0.10 GB;
+// at zamba2-7b's (B 2, 32 heads of 112, S 2048, causal) 6.0e10 FLOPs
+// (0.061 ms) against 59 MB.
 //
 // Design:
 //   - one CTA per (128-row query tile, query head, batch), two consumer
@@ -35,7 +38,7 @@
 //   - S = Q K^T with wgmma m64n128k16 (bf16 in, fp32 out), Q and the
 //     128-key K tile both read from 128-byte-swizzled shared memory
 //     (K-major: K is row-major (key, d), already B^T), one k-step per 16
-//     columns of the head dim: 4, 5 or 8;
+//     columns of the head dim: 4, 5, 7 or 8;
 //   - the online softmax on the accumulator fragment: a row's max and sum
 //     come from the 4 lanes that share it (two shuffles);
 //   - O += P V with P rounded to bf16 in registers as the A operand (the
@@ -66,8 +69,13 @@
 // store never writes): the same errors against the plain version, 130
 // registers a thread instead of 154, the (80, 1) row 4 % faster
 // (scripts/attention_fwd_variants.py builds and times both, and the
-// two-CTA bound). Head dims 80 and 128: Q 32 KiB + K, V 2 stages x 2 x
-// 32 KiB = 160 KiB, one CTA an SM.
+// two-CTA bound). Head dim 112 is built the same way: 112-column maps
+// (row stride 224 bytes, a multiple of 16) whose second box holds columns
+// 64-111 and TMA's zero fill for 112-127, QK^T in 7 k-steps, P V at N =
+// 112 (m64n112k16, the second atom read in part; the same check against N
+// = 128 over both atoms is in scripts/attention_fwd_variants.py). Head
+// dims 80, 112 and 128: Q 32 KiB + K, V 2 stages x 2 x 32 KiB = 160 KiB,
+// one CTA an SM.
 #include "attention_sm90.cuh"
 
 // The built (head dim, group) pairs of this kernel: attention_common.cuh's
@@ -76,6 +84,7 @@
 #define PAM_ATTN_FWD90_BUILT(X) \
   X(64, 1) X(64, 7) \
   X(80, 1) \
+  X(112, 1) \
   X(128, 1) X(128, 2) X(128, 5) X(128, 8)
 
 namespace pam {
@@ -94,11 +103,12 @@ constexpr int kBN = 128;  // keys per tile
 // The tile shapes of head dim D.
 template <int D>
 struct Shape {
-  static_assert(D == 64 || D == 80 || D == 128, "a wgmma forward head dim");
+  static_assert(D == 64 || D == 80 || D == 112 || D == 128,
+                "a wgmma forward head dim");
   static constexpr int kSubs = (D + sm90::kSub - 1) / sm90::kSub;
   static constexpr int kCols = kSubs * sm90::kSub;  // tile width
   static constexpr int kSteps = D / 16;             // k-steps of Q K^T
-  static constexpr int kN = D == 80 ? 80 : kCols;   // P V's N
+  static constexpr int kN = D;                      // P V's N
   static constexpr int kTileBytes = kBN * kCols * 2;
   static constexpr int kSmem = (kBM + 4 * kBN) * kCols * 2 + 8 * 8 + 2 * 4;
 };

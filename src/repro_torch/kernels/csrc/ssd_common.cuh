@@ -1,15 +1,16 @@
 // Shared device code of the SSD scan kernels (ssd_scan.cu: forward;
 // ssd_scan_bwd.cu: backward).
 //
-// A CUDA block of 256 threads works on one chunk of up to kQ = 128 tokens
-// of one (batch, head). Products are block-wide: thread (ty, tx) = (tid /
-// 16, tid % 16) owns output rows ty + 16 i and columns tx + 16 j, so a
-// row's 16 owners are one half of a warp and row sums are 4-step
-// shuffles. Operands live in shared memory as fp32 with odd row strides
-// (kQ + 1, kP + 1, kNS + 1), so a half-warp reading one column of 16 rows
-// touches 16 banks. All products run on the CUDA cores in fp32 (no
-// tensor cores yet). The chunk length Q is a runtime value <= kQ; rows at
-// or past Q, and tokens at or past the sequence length, are zero with
+// A CUDA block of 256 threads works on one chunk of up to kQ = 128 tokens of
+// one (batch, head). Products are block-wide: thread (ty, tx) = (tid / 16, tid
+// % 16) owns output rows ty + 16 i and columns tx + 16 j, so a row's 16 owners
+// are one half of a warp and row sums are 4-step shuffles. Operands live in
+// shared memory as fp32 with odd row strides (kQ + 1, kP + 1, kNS + 1, N + 1),
+// so a half-warp reading one column of 16 rows touches 16 banks. The kernels
+// are templated on d_state N, built at N = 128 (mamba2-780m) and 64
+// (zamba2-7b); the head dim is P = 64. All products run on the CUDA cores in
+// fp32 (no tensor cores yet). The chunk length Q is a runtime value <= kQ; rows
+// at or past Q, and tokens at or past the sequence length, are zero with
 // dt = 0 (the identity), as the TPU kernel masks them.
 #pragma once
 
@@ -20,11 +21,9 @@ namespace ssd {
 
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kQ = 128;        // rows of a chunk tile (the largest chunk)
-constexpr int kN = 128;        // d_state
 constexpr int kP = 64;         // head dim
 constexpr int kNS = 32;        // columns of a d_state slice
 constexpr int kLdQ = kQ + 1;
-constexpr int kLdN = kN + 1;
 constexpr int kLdP = kP + 1;
 constexpr int kLdS = kNS + 1;
 
@@ -147,13 +146,22 @@ __device__ __forceinline__ float decay(const float* sv, int t, int u, int Q) {
   return (u <= t && t < Q) ? expf(sv[t] - sv[u]) : 0.f;
 }
 
-// fp32 operands only: bf16 at (N, P) = (128, 64) runs on the wgmma
-// kernels (ssd_scan_sm90.cu, ssd_scan_bwd_sm90.cu).
-template <template <typename> class Launch, typename Args>
+// The built d_states (kernels/ssd_scan.py's SUPPORTED_NP, at P = 64).
+#define PAM_SSD_BUILT_N(X) X(128) X(64)
+
+// fp32 operands only, at the built (N, P): bf16 runs on the wgmma kernels
+// (ssd_scan_sm90.cu, ssd_scan_bwd_sm90.cu). -1 for another (N, P).
+template <template <typename, int> class Launch, typename Args>
 int dispatch(int N, int P, const Args& a, cudaStream_t stream) {
-  if (N != kN || P != kP) return -1;
-  Launch<float>::run(a, stream);
-  return static_cast<int>(cudaGetLastError());
+  if (P != kP) return -1;
+#define PAM_SSD_CASE(NS)              \
+  if (N == NS) {                      \
+    Launch<float, NS>::run(a, stream); \
+    return static_cast<int>(cudaGetLastError()); \
+  }
+  PAM_SSD_BUILT_N(PAM_SSD_CASE)
+#undef PAM_SSD_CASE
+  return -1;
 }
 
 }  // namespace ssd

@@ -23,7 +23,8 @@
 // wgmma kernel (ssd_scan_sm90.cu). It runs the products on the CUDA cores
 // in fp32: the C B^T and C h_in products stream d_state in slices of 32 so
 // that x, the state, the masked Q x Q scores and two slices fit in 165 KiB
-// of shared memory.
+// of shared memory at N = 128 (148 KiB at N = 64); the template on N
+// changes only the state's rows and the number of slices.
 #include "ssd_common.cuh"
 
 namespace pam {
@@ -42,15 +43,17 @@ struct FwdArgs {
   long long x_sb, x_sl, b_sb, b_sl, c_sb, c_sl;
 };
 
-constexpr int kFwdSmemFloats =
-    kN * kLdP + kQ * kLdP + kQ * kLdQ + 2 * kQ * kLdS + 4 * kQ + 8;
+template <int N>
+constexpr int fwd_smem_floats() {
+  return N * kLdP + kQ * kLdP + kQ * kLdQ + 2 * kQ * kLdS + 4 * kQ + 8;
+}
 
-template <typename T>
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_scan_fwd_kernel(FwdArgs a) {
   extern __shared__ float smem[];
-  float* hs = smem;              // kN x kLdP   running state
-  float* xs = hs + kN * kLdP;    // kQ x kLdP   x of the chunk
+  float* hs = smem;              // N x kLdP    running state
+  float* xs = hs + N * kLdP;     // kQ x kLdP   x of the chunk
   float* Ss = xs + kQ * kLdP;    // kQ x kLdQ   masked scores
   float* Cs = Ss + kQ * kLdQ;    // kQ x kLdS   C, one d_state slice
   float* Bs = Cs + kQ * kLdS;    // kQ x kLdS   B, the same slice
@@ -69,21 +72,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float A = a.a[h];
   const float D = a.d[h];
   const T* x = static_cast<const T*>(a.x) + b * a.x_sb + h * kP;
-  const T* bm = static_cast<const T*>(a.b) + b * a.b_sb + g * kN;
-  const T* cm = static_cast<const T*>(a.c) + b * a.c_sb + g * kN;
+  const T* bm = static_cast<const T*>(a.b) + b * a.b_sb + g * N;
+  const T* cm = static_cast<const T*>(a.c) + b * a.c_sb + g * N;
   const float* dt = a.dt + (long long)b * a.L * a.H + h;
   T* y = static_cast<T*>(a.y) + (long long)b * a.L * a.H * kP + h * kP;
   const long long y_sl = (long long)a.H * kP;
-  float* states = a.states + ((long long)b * a.H + h) * a.nc * kN * kP;
+  float* states = a.states + ((long long)b * a.H + h) * a.nc * N * kP;
 
-  for (int i = threadIdx.x; i < kN * kLdP; i += kThreads) hs[i] = 0.f;
+  for (int i = threadIdx.x; i < N * kLdP; i += kThreads) hs[i] = 0.f;
 
   for (int ic = 0; ic < a.nc; ++ic) {
     const int p0 = ic * Q;
     const int valid = min(Q, a.L - p0);
     __syncthreads();  // the previous chunk is done with every buffer
-    float* st = states + (long long)ic * kN * kP;
-    for (int i = threadIdx.x; i < kN * kP; i += kThreads)
+    float* st = states + (long long)ic * N * kP;
+    for (int i = threadIdx.x; i < N * kP; i += kThreads)
       st[i] = hs[(i / kP) * kLdP + (i % kP)];
     chunk_decay(dt + (long long)p0 * a.H, a.H, valid, Q, A, sv, ev, wv, dv,
                 tmp);
@@ -93,7 +96,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     float S[8][8], Y[8][4];
     zero(S);
     zero(Y);
-    for (int n0 = 0; n0 < kN; n0 += kNS) {
+    for (int n0 = 0; n0 < N; n0 += kNS) {
       load_rows<kNS>(cm + p0 * a.c_sl + n0, a.c_sl, valid, Cs, kLdS);
       load_rows<kNS>(bm + p0 * a.b_sl + n0, a.b_sl, valid, Bs, kLdS);
       __syncthreads();
@@ -146,11 +149,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T>
+template <typename T, int N>
 struct LaunchFwd {
   static void run(const FwdArgs& a, cudaStream_t stream) {
-    const int smem = kFwdSmemFloats * static_cast<int>(sizeof(float));
-    auto kernel = ssd_scan_fwd_kernel<T>;
+    const int smem = fwd_smem_floats<N>() * static_cast<int>(sizeof(float));
+    auto kernel = ssd_scan_fwd_kernel<T, N>;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);
     kernel<<<dim3(a.H, a.B), kThreads, smem, stream>>>(a);
@@ -161,7 +164,7 @@ struct LaunchFwd {
 }  // namespace pam
 
 // fp32 x, b, c and y. Returns 0, a CUDA error code from
-// cudaGetLastError(), or -1 for an unsupported (N, P).
+// cudaGetLastError(), or -1 for an (N, P) outside (PAM_SSD_BUILT_N, 64).
 extern "C" int pam_ssd_scan_fwd(const void* x, const void* dt, const void* a,
                                 const void* b, const void* c, const void* d,
                                 void* y, void* states, int B, int L, int H,

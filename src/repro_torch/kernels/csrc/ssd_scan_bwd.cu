@@ -29,6 +29,9 @@
 // runs everything on the CUDA cores in fp32; the chunk kernel
 // keeps two Q x Q fp32 tiles, g and x in 203 KiB of shared memory and
 // streams d_state in slices of 32 through the space of the first tile.
+// Every kernel is templated on d_state N (128 or 64, PAM_SSD_BUILT_N):
+// the dstate kernel's register tile of dh is N / 16 x 4 a thread, the
+// other kernels loop over N / 32 slices.
 #include "ssd_common.cuh"
 
 namespace pam {
@@ -59,11 +62,15 @@ struct BwdArgs {
 };
 
 // ------------------------------------------------------------ 1. dstates
-constexpr int kDstateSmemFloats = kQ * kLdN + kQ * kLdP + 4 * kQ + 8;
+template <int N>
+constexpr int dstate_smem_floats() {
+  return kQ * (N + 1) + kQ * kLdP + 4 * kQ + 8;
+}
 
-template <typename T>
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_dstate_kernel(BwdArgs a) {
+  constexpr int kLdN = N + 1;
   extern __shared__ float smem[];
   float* Cs = smem;             // kQ x kLdN   C of the chunk
   float* gs = Cs + kQ * kLdN;   // kQ x kLdP   dy of the chunk
@@ -79,19 +86,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.y;
   const int g = h / (a.H / a.G);
   const int Q = a.Q;
-  const T* cm = static_cast<const T*>(a.c) + b * a.c_sb + g * kN;
+  const T* cm = static_cast<const T*>(a.c) + b * a.c_sb + g * N;
   const T* dy = static_cast<const T*>(a.dy) + (long long)b * a.L * a.H * kP +
                 h * kP;
   const long long dy_sl = (long long)a.H * kP;
   const float* dt = a.dt + (long long)b * a.L * a.H + h;
-  float* dstates = a.dstates + ((long long)b * a.H + h) * a.nc * kN * kP;
+  float* dstates = a.dstates + ((long long)b * a.H + h) * a.nc * N * kP;
 
-  float dh[8][4];  // rows n = ty + 16 i, columns p = tx + 16 j
+  float dh[N / 16][4];  // rows n = ty + 16 i, columns p = tx + 16 j
   zero(dh);
   for (int ic = a.nc - 1; ic >= 0; --ic) {
-    float* out = dstates + (long long)ic * kN * kP;
+    float* out = dstates + (long long)ic * N * kP;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < N / 16; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         out[(ty + 16 * i) * kP + tx + 16 * j] = dh[i][j];
@@ -101,12 +108,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();  // the previous chunk is done with Cs / gs
     chunk_decay(dt + (long long)p0 * a.H, a.H, valid, Q, a.a[h], sv, ev, wv,
                 dv, tmp);
-    load_rows<kN>(cm + p0 * a.c_sl, a.c_sl, valid, Cs, kLdN);
+    load_rows<N>(cm + p0 * a.c_sl, a.c_sl, valid, Cs, kLdN);
     load_rows<kP>(dy + p0 * dy_sl, dy_sl, valid, gs, kLdP);
     __syncthreads();
     const float e_last = expf(sv[Q - 1]);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < N / 16; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) dh[i][j] *= e_last;
     mm(Q, [&](int r, int k) { return Cs[k * kLdN + r] * ev[k]; },
@@ -118,7 +125,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 constexpr int kChunkSmemFloats =
     2 * kQ * kLdQ + 2 * kQ * kLdP + 9 * kQ + 8 * kQ + 16;
 
-template <typename T>
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_chunk_bwd_kernel(BwdArgs a) {
   extern __shared__ float smem[];
@@ -152,13 +159,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float D = a.d[h];
   const long long bh = (long long)b * a.H + h;
   const T* x = static_cast<const T*>(a.x) + b * a.x_sb + p0 * a.x_sl + h * kP;
-  const T* bm = static_cast<const T*>(a.b) + b * a.b_sb + p0 * a.b_sl + g * kN;
-  const T* cm = static_cast<const T*>(a.c) + b * a.c_sb + p0 * a.c_sl + g * kN;
+  const T* bm = static_cast<const T*>(a.b) + b * a.b_sb + p0 * a.b_sl + g * N;
+  const T* cm = static_cast<const T*>(a.c) + b * a.c_sb + p0 * a.c_sl + g * N;
   const long long row_hp = (long long)a.H * kP;
   const long long tok0 = (long long)b * a.L + p0;  // first token's row
   const T* dy = static_cast<const T*>(a.dy) + tok0 * row_hp + h * kP;
-  const float* hin = a.states + (bh * a.nc + ic) * kN * kP;
-  const float* dhs = a.dstates + (bh * a.nc + ic) * kN * kP;
+  const float* hin = a.states + (bh * a.nc + ic) * N * kP;
+  const float* dhs = a.dstates + (bh * a.nc + ic) * N * kP;
 
   chunk_decay(a.dt + tok0 * a.H + h, a.H, valid, Q, A, sv, ev, wv, dv, tmp);
   const float s_last = sv[Q - 1];
@@ -170,7 +177,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   {
     float* Cs = gs;
     float* Bs = gs + kQ * kLdS;
-    for (int n0 = 0; n0 < kN; n0 += kNS) {
+    for (int n0 = 0; n0 < N; n0 += kNS) {
       load_rows<kNS>(cm + n0, a.c_sl, valid, Cs, kLdS);
       load_rows<kNS>(bm + n0, a.b_sl, valid, Bs, kLdS);
       __syncthreads();
@@ -253,9 +260,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   zero(bdh);
   zero(chin);
   float frob = 0.f;
-  float* dbp = a.db_part + (bh * a.nc * Q + p0) * kN;
-  float* dcp = a.dc_part + (bh * a.nc * Q + p0) * kN;
-  for (int n0 = 0; n0 < kN; n0 += kNS) {
+  float* dbp = a.db_part + (bh * a.nc * Q + p0) * N;
+  float* dcp = a.dc_part + (bh * a.nc * Q + p0) * N;
+  for (int n0 = 0; n0 < N; n0 += kNS) {
     load_rows<kNS>(bm + n0, a.b_sl, valid, Bsl, kLdS);
     load_rows<kNS>(cm + n0, a.c_sl, valid, Csl, kLdS);
     for (int idx = tid; idx < kNS * kP; idx += kThreads) {
@@ -289,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (t >= Q) continue;
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        dcp[(long long)t * kN + n0 + tx + 16 * j] = o[i][j];
+        dcp[(long long)t * N + n0 + tx + 16 * j] = o[i][j];
     }
     // dB[u, n] = sum_t Pb[t, u] C[t, n] + w_u x_u . dh[n]
     zero(o);
@@ -303,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (u >= Q) continue;
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        dbp[(long long)u * kN + n0 + tx + 16 * j] = o[i][j];
+        dbp[(long long)u * N + n0 + tx + 16 * j] = o[i][j];
     }
     __syncthreads();  // the slices are reloaded next
   }
@@ -377,24 +384,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ------------------------------------------------------------ 3. reductions
-template <typename T>
+template <typename T, int N>
 __global__ void ssd_reduce_bc_kernel(const float* __restrict__ part,
                                      T* __restrict__ out, int B, int L,
                                      int Lp, int H, int G) {
-  const long long total = (long long)B * L * G * kN;
+  const long long total = (long long)B * L * G * N;
   const int rep = H / G;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int n = idx % kN;
-    const long long rest = idx / kN;
+    const int n = idx % N;
+    const long long rest = idx / N;
     const int g = rest % G;
     const long long bl = rest / G;
     const int l = bl % L;
     const int b = bl / L;
     const float* p =
-        part + (((long long)b * H + g * rep) * Lp + l) * kN + n;
+        part + (((long long)b * H + g * rep) * Lp + l) * N + n;
     float s = 0.f;
-    for (int r = 0; r < rep; ++r) s += p[(long long)r * Lp * kN];
+    for (int r = 0; r < rep; ++r) s += p[(long long)r * Lp * N];
     out[idx] = from_float<T>(s);
   }
 }
@@ -415,27 +422,28 @@ __global__ void ssd_reduce_heads_kernel(const float* __restrict__ da_part,
   dd[h] = sd;
 }
 
-template <typename T>
+template <typename T, int N>
 struct LaunchBwd {
   static void run(const BwdArgs& a, cudaStream_t stream) {
-    const int smem1 = kDstateSmemFloats * static_cast<int>(sizeof(float));
-    auto k1 = ssd_dstate_kernel<T>;
+    const int smem1 = dstate_smem_floats<N>() *
+                      static_cast<int>(sizeof(float));
+    auto k1 = ssd_dstate_kernel<T, N>;
     cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem1);
     k1<<<dim3(a.H, a.B), kThreads, smem1, stream>>>(a);
     const int smem2 = kChunkSmemFloats * static_cast<int>(sizeof(float));
-    auto k2 = ssd_chunk_bwd_kernel<T>;
+    auto k2 = ssd_chunk_bwd_kernel<T, N>;
     cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem2);
     k2<<<dim3(a.nc, a.H, a.B), kThreads, smem2, stream>>>(a);
-    const long long n_bc = (long long)a.B * a.L * a.G * kN;
+    const long long n_bc = (long long)a.B * a.L * a.G * N;
     const int blocks = static_cast<int>(
         (n_bc + kThreads - 1) / kThreads < 4096
             ? (n_bc + kThreads - 1) / kThreads : 4096);
     const int Lp = a.nc * a.Q;
-    ssd_reduce_bc_kernel<T><<<blocks, kThreads, 0, stream>>>(
+    ssd_reduce_bc_kernel<T, N><<<blocks, kThreads, 0, stream>>>(
         a.db_part, static_cast<T*>(a.db), a.B, a.L, Lp, a.H, a.G);
-    ssd_reduce_bc_kernel<T><<<blocks, kThreads, 0, stream>>>(
+    ssd_reduce_bc_kernel<T, N><<<blocks, kThreads, 0, stream>>>(
         a.dc_part, static_cast<T*>(a.dc), a.B, a.L, Lp, a.H, a.G);
     ssd_reduce_heads_kernel<<<(a.H + 63) / 64, 64, 0, stream>>>(
         a.da_part, a.dd_part, a.da, a.dd, a.B, a.H, a.nc);
@@ -446,7 +454,7 @@ struct LaunchBwd {
 }  // namespace pam
 
 // fp32 x, b, c, dy, dx, db and dc. Returns 0, a CUDA error code from
-// cudaGetLastError(), or -1 for an unsupported (N, P).
+// cudaGetLastError(), or -1 for an (N, P) outside (PAM_SSD_BUILT_N, 64).
 extern "C" int pam_ssd_scan_bwd(
     const void* x, const void* dt, const void* a, const void* b,
     const void* c, const void* d, const void* states, const void* dy,

@@ -1,11 +1,15 @@
 // Mamba-2 SSD chunked scan, backward, for Hopper's tensor cores: the
 // gradients of ssd_scan_sm90.cu's y with respect to x, dt, a, B, C and D
-// (bf16 x, B, C, dy; N = 128, P = 64; chunks of up to 128 tokens).
+// (bf16 x, B, C, dy; N = 128 or 64, P = 64; chunks of up to 128 tokens).
+// Every kernel that depends on d_state is templated on it: the B and C
+// tiles are N / 64 sub-tiles, the state tile N rows, the products over
+// d_state N / 16 k-steps, and dC and dB run at wgmma N = d_state
+// (m64n128k16 or m64n64k16).
 //
 // The TPU package has no backward for repro/kernels/ssd_scan.py::
 // _ssd_kernel (JAX cannot differentiate the Pallas call). This keeps the
 // port's derivation (kernels/ssd_scan.py::_bwd_plain), its five outputs
-// and its stages; fp32 and other (N, P) keep ssd_scan_bwd.cu, and
+// and its stages; fp32 keeps ssd_scan_bwd.cu, and
 // kernels/ssd_scan.py::_variant picks one of the two. Per chunk, with g =
 // dy, S' = C B^T, E the masked exp(s_t - s_u), G = g x^T, A' = S' o E o G,
 // Pb = G o E dt_u and dh the gradient of the chunk's final state:
@@ -48,9 +52,11 @@
 // of the backward's products is 8.4e10 FLOPs (0.085 ms at 989 TFLOP/s
 // bf16). The side kernels recompute S' per head and half rather than keep
 // it (registers are what limits them, not the tensor cores). Shared memory
-// of each: C, B 64 KiB + the state 16 KiB (bf16) + 32 KiB (fp32, staged)
-// + x, dy 2 stages x 32 KiB, one CTA per SM; the next head's x, dy, state
-// and decay row arrive by TMA and bulk copy meanwhile.
+// of each at N = 128 (64): C, B 64 (32) KiB + the state 16 (8) KiB (bf16)
+// + 32 (16) KiB (fp32, staged) + x, dy 2 stages x 32 KiB, one CTA per SM;
+// the next head's x, dy, state and decay row arrive by TMA and bulk copy
+// meanwhile. At zamba2-7b's shape (B 2, L 2048, H 112, N 64) the
+// backward's products are 5.2e10 FLOPs (0.053 ms).
 #include <algorithm>
 
 #include "ssd_sm90.cuh"
@@ -59,11 +65,13 @@ namespace pam {
 namespace ssd90 {
 
 namespace side {
-constexpr int kStateBytes = kN * kP * 4;
-constexpr int kSmem = 2 * 2 * kSubBytes /* C, B */ + kSubBytes /* state */ +
-                      4 * kSubBytes /* x, dy */ + kStateBytes /* staged */ +
-                      4 * kQ * 4 /* decay rows */ + 16 * 4 + 64;
+template <int N>
+constexpr int smem() {
+  return 2 * Dims<N>::kSubs * kSubBytes /* C, B */ + N * 128 /* state */ +
+         4 * kSubBytes /* x, dy */ + Dims<N>::kStateBytes /* staged */ +
+         4 * kQ * 4 /* decay rows */ + 16 * 4 + 64;
 }
+}  // namespace side
 
 // Shared memory of the two side kernels.
 struct Side {
@@ -72,15 +80,16 @@ struct Side {
   uint64_t* bars;  // CB, XG[2], F
 };
 
+template <int N>
 __device__ __forceinline__ Side side_smem(uint8_t* smem) {
   Side s;
   s.Ct = reinterpret_cast<bf16*>(smem);
-  s.Bt = s.Ct + 2 * kQ * 64;
-  s.Ht = s.Bt + 2 * kQ * 64;    // the head's state (h_in or dh), bf16
-  s.Xt = s.Ht + kQ * 64;        // 2 stages
+  s.Bt = s.Ct + Dims<N>::kSubs * kQ * 64;
+  s.Ht = s.Bt + Dims<N>::kSubs * kQ * 64;  // the head's state, bf16 (N, P)
+  s.Xt = s.Ht + N * 64;         // 2 stages
   s.Gt = s.Xt + 2 * kQ * 64;    // 2 stages
   s.Fs = reinterpret_cast<float*>(s.Gt + 2 * kQ * 64);  // state, fp32
-  s.raw = s.Fs + kN * kP;       // s_t, dt as stored
+  s.raw = s.Fs + N * kP;        // s_t, dt as stored
   s.s2 = s.raw + 2 * kQ;
   s.dtv = s.s2 + kQ;
   s.tmp = s.dtv + kQ;           // 16
@@ -90,20 +99,23 @@ __device__ __forceinline__ Side side_smem(uint8_t* smem) {
 
 // Thread 0: the fp32 state of head h0 + j of `states` and its decay row
 // into the staging buffers, by bulk copy.
+template <int N>
 __device__ __forceinline__ void side_stage(const Side& m, const Args& a,
                                            const float* states, int b,
                                            int h, int ic) {
   using namespace sm90;
+  constexpr int kStateBytes = Dims<N>::kStateBytes;
   const long long bhc = ((long long)b * a.H + h) * a.nc + ic;
   const long long nrow = (long long)a.B * a.H * a.nc * kQ;
-  bar_expect(m.bars + 3, side::kStateBytes + 2 * kQ * 4);
-  bulk_load(m.Fs, states + bhc * kN * kP, side::kStateBytes, m.bars + 3);
+  bar_expect(m.bars + 3, kStateBytes + 2 * kQ * 4);
+  bulk_load(m.Fs, states + bhc * N * kP, kStateBytes, m.bars + 3);
   bulk_load(m.raw, a.dec + bhc * kQ, kQ * 4, m.bars + 3);
   bulk_load(m.raw + kQ, a.dec + nrow + bhc * kQ, kQ * 4, m.bars + 3);
 }
 
 // Barriers, zeroed tiles (Q < 128), then C, B, the first two heads' x and
 // dy by TMA and the first head's state (thread 0).
+template <int N>
 __device__ __forceinline__ void side_start(const Side& m, const Args& a,
                                            const CUtensorMap* tmX,
                                            const CUtensorMap* tmG,
@@ -112,9 +124,11 @@ __device__ __forceinline__ void side_start(const Side& m, const Args& a,
                                            const float* states, int grp,
                                            int h0, int p0, int ic, int b) {
   using namespace sm90;
+  constexpr int kSubs = Dims<N>::kSubs;
   const uint32_t sbytes = a.Q * 128;
-  if (a.Q < kQ)
-    zero_smem(reinterpret_cast<uint8_t*>(m.Ct), 9 * kSubBytes);
+  if (a.Q < kQ)   // C, B, the state and the x, dy stages
+    zero_smem(reinterpret_cast<uint8_t*>(m.Ct),
+              (2 * kSubs + 4) * kSubBytes + N * 128);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 4; ++i) bar_init(m.bars + i, 1);
     bar_fence_init();
@@ -122,12 +136,12 @@ __device__ __forceinline__ void side_start(const Side& m, const Args& a,
   fence_async_smem();
   __syncthreads();
   if (threadIdx.x == 0) {
-    side_stage(m, a, states, b, h0, ic);
-    bar_expect(m.bars, 4 * sbytes);
-    tma_load4(m.Ct, tmC, m.bars, 0, grp, p0, b);
-    tma_load4(m.Ct + kQ * 64, tmC, m.bars, 64, grp, p0, b);
-    tma_load4(m.Bt, tmB, m.bars, 0, grp, p0, b);
-    tma_load4(m.Bt + kQ * 64, tmB, m.bars, 64, grp, p0, b);
+    side_stage<N>(m, a, states, b, h0, ic);
+    bar_expect(m.bars, 2 * kSubs * sbytes);
+    for (int i = 0; i < kSubs; ++i) {
+      tma_load4(m.Ct + i * kQ * 64, tmC, m.bars, 64 * i, grp, p0, b);
+      tma_load4(m.Bt + i * kQ * 64, tmB, m.bars, 64 * i, grp, p0, b);
+    }
     for (int j = 0; j < 2 && j < a.hb; ++j) {
       bar_expect(m.bars + 1 + j, 2 * sbytes);
       tma_load4(m.Xt + j * kQ * 64, tmX, m.bars + 1 + j, 0, h0 + j, p0, b);
@@ -141,6 +155,7 @@ __device__ __forceinline__ void side_start(const Side& m, const Args& a,
 // take head j's decay row and its state (as bf16, into Ht) from the
 // staging buffers, then stage head j + 1's. Ends with x and dy of head j
 // landed.
+template <int N>
 __device__ __forceinline__ void side_head(const Side& m, const Args& a,
                                           const CUtensorMap* tmX,
                                           const CUtensorMap* tmG,
@@ -161,11 +176,11 @@ __device__ __forceinline__ void side_head(const Side& m, const Args& a,
     m.s2[threadIdx.x] = m.raw[threadIdx.x] * kLog2e;
     m.dtv[threadIdx.x] = m.raw[kQ + threadIdx.x];
   }
-  state_to_tile(m.Fs, m.Ht, nullptr);
+  state_to_tile<N>(m.Fs, m.Ht, nullptr);
   fence_async_smem();
   __syncthreads();
   if (threadIdx.x == 0 && j + 1 < a.hb)
-    side_stage(m, a, states, b, h0 + j + 1, ic);
+    side_stage<N>(m, a, states, b, h0 + j + 1, ic);
   bar_wait(m.bars + 1 + (j & 1), (j >> 1) & 1);
 }
 
@@ -176,33 +191,36 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x;
 }
 
-// A (128, 128) fp32 accumulator pair of rows (64 wg + frag rows) as
-// row-major fp32 rows [p0 + row) of `dst` (row stride kN), rows < Q.
-__device__ __forceinline__ void store_part(const float (&acc)[64], float* dst,
-                                           int Q, int wg, int t) {
+// A (128, N) fp32 accumulator pair of rows (64 wg + frag rows) as
+// row-major fp32 rows [p0 + row) of `dst` (row stride N), rows < Q.
+template <int N>
+__device__ __forceinline__ void store_part(const float (&acc)[N / 2],
+                                           float* dst, int Q, int wg, int t) {
   using namespace sm90;
 #pragma unroll
-  for (int v = 0; v < 64; v += 2) {
+  for (int v = 0; v < N / 2; v += 2) {
     const int row = 64 * wg + frag_row(t, v);
     if (row < Q)
-      *reinterpret_cast<float2*>(dst + (long long)row * kN + frag_col(t, v)) =
+      *reinterpret_cast<float2*>(dst + (long long)row * N + frag_col(t, v)) =
           make_float2(acc[v], acc[v + 1]);
   }
 }
 
 // One half (64 columns, from col0) of the product of two K-major (128,
-// 128) tiles, A rows 64 wg .. 64 wg + 63: S' = C B^T (t-side) or S'^T =
-// B C^T (u-side), recomputed per head and half instead of kept.
+// N) tiles, A rows 64 wg .. 64 wg + 63: S' = C B^T (t-side) or S'^T = B
+// C^T (u-side), recomputed per head and half instead of kept.
+template <int N>
 __device__ __forceinline__ void issue_square_half(float (&acc)[32],
                                                   const bf16* A, const bf16* B,
                                                   int wg, int col0) {
   using namespace sm90;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < N / 16; ++kk)
     wgmma_ss_n64(acc, desc_k(A, kQ, wg * 64, kk), desc_k(B, kQ, col0, kk));
 }
 
 // ------------------------------------------------------------ 2. t-side
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd90_bwd_t_kernel(const __grid_constant__ CUtensorMap tmX,
                        const __grid_constant__ CUtensorMap tmG,
@@ -210,22 +228,22 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const __grid_constant__ CUtensorMap tmC, Args a) {
   using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
-  const Side m = side_smem(align1024(smem_raw));
+  const Side m = side_smem<N>(align1024(smem_raw));
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int ic = blockIdx.x, b = blockIdx.y;
   const int h0 = blockIdx.z * a.hb;
   const int grp = h0 / (a.H / a.G);
   const int p0 = ic * a.Q;
   const long long nrow = (long long)a.B * a.H * a.nc * kQ;
-  side_start(m, a, &tmX, &tmG, &tmB, &tmC, a.states, grp, h0, p0, ic, b);
+  side_start<N>(m, a, &tmX, &tmG, &tmB, &tmC, a.states, grp, h0, p0, ic, b);
 
   const int r0 = 64 * wg + frag_row(t, 0);
-  float dc[64];
+  float dc[N / 2];
   zero(dc);
   for (int j = 0; j < a.hb; ++j) {
     const int h = h0 + j, st = j & 1;
     const long long bhc = ((long long)b * a.H + h) * a.nc + ic;
-    side_head(m, a, &tmX, &tmG, a.states, j, h0, p0, ic, b);
+    side_head<N>(m, a, &tmX, &tmG, a.states, j, h0, p0, ic, b);
     const bf16* xs = m.Xt + st * kQ * 64;
     const bf16* gs = m.Gt + st * kQ * 64;
     const float st0 = m.s2[r0], st1 = m.s2[r0 + 8];
@@ -236,9 +254,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(chin);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < N / 16; ++kk)
       wgmma_ss_n64_mn(chin, desc_k(m.Ct, kQ, wg * 64, kk),
-                      desc_mn(m.Ht, kN, kk));
+                      desc_mn(m.Ht, N, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(chin);
@@ -255,11 +273,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       a.rows[nrow + bhc * kQ + r0 + 8] = rs[1];
     }
 
-    // dC += exp(s_t) g h_in^T, in two halves of n (columns 32 hn .. of
-    // dC's fragment are the half's)
+    // dC += exp(s_t) g h_in^T, in N / 64 blocks of 64 n (entries 32 hn ..
+    // of dC's fragment are block hn's)
     const float e0 = exp2f(st0), e1 = exp2f(st1);
 #pragma unroll
-    for (int hn = 0; hn < 2; ++hn) {
+    for (int hn = 0; hn < N / 64; ++hn) {
       float tmp[32];
       zero(tmp);
       fence_regs(tmp);
@@ -267,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss_n64(tmp, desc_k(gs, kQ, wg * 64, kk),
-                     desc_k(m.Ht, kN, 64 * hn, kk));
+                     desc_k(m.Ht, N, 64 * hn, kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(tmp);
@@ -288,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(sp);
       fence_regs(g);
       wgmma_fence();
-      issue_square_half(sp, m.Ct, m.Bt, wg, 64 * hu);
+      issue_square_half<N>(sp, m.Ct, m.Bt, wg, 64 * hu);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss_n64(g, desc_k(gs, kQ, wg * 64, kk),
@@ -316,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_n128_mn(dc, pb + 4 * kk, desc_mn(m.Bt, kQ, 4 * hu + kk));
+        wgmma_rs_mn<N>(dc, pb + 4 * kk, desc_mn(m.Bt, kQ, 4 * hu + kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dc);
@@ -330,13 +348,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   const int Lp = a.nc * a.Q;
-  store_part(dc,
-             a.dc_part + (((long long)b * (a.H / a.hb) + blockIdx.z) * Lp +
-                          p0) * kN,
-             a.Q, wg, t);
+  store_part<N>(dc,
+                a.dc_part + (((long long)b * (a.H / a.hb) + blockIdx.z) * Lp +
+                             p0) * N,
+                a.Q, wg, t);
 }
 
 // ------------------------------------------------------------ 3. u-side
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd90_bwd_u_kernel(const __grid_constant__ CUtensorMap tmX,
                        const __grid_constant__ CUtensorMap tmG,
@@ -344,7 +363,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const __grid_constant__ CUtensorMap tmC, Args a) {
   using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
-  const Side m = side_smem(align1024(smem_raw));
+  const Side m = side_smem<N>(align1024(smem_raw));
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int ic = blockIdx.x, b = blockIdx.y;
   const int h0 = blockIdx.z * a.hb;
@@ -353,15 +372,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int Q = a.Q;
   const int valid = min(Q, a.L - p0);
   const long long nrow = (long long)a.B * a.H * a.nc * kQ;
-  side_start(m, a, &tmX, &tmG, &tmB, &tmC, a.dstates, grp, h0, p0, ic, b);
+  side_start<N>(m, a, &tmX, &tmG, &tmB, &tmC, a.dstates, grp, h0, p0, ic,
+                b);
 
   const int r0 = 64 * wg + frag_row(t, 0);
-  float db[64];
+  float db[N / 2];
   zero(db);
   for (int j = 0; j < a.hb; ++j) {
     const int h = h0 + j, st = j & 1;
     const long long bhc = ((long long)b * a.H + h) * a.nc + ic;
-    side_head(m, a, &tmX, &tmG, a.dstates, j, h0, p0, ic, b);
+    side_head<N>(m, a, &tmX, &tmG, a.dstates, j, h0, p0, ic, b);
     bf16* xs = m.Xt + st * kQ * 64;
     const bf16* gs = m.Gt + st * kQ * 64;
     const float sq = m.s2[Q - 1];
@@ -377,9 +397,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(dx);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < N / 16; ++kk)
       wgmma_ss_n64_mn(dx, desc_k(m.Bt, kQ, wg * 64, kk),
-                      desc_mn(m.Ht, kN, kk));
+                      desc_mn(m.Ht, N, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dx);
@@ -418,7 +438,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(sp);
       fence_regs(g);
       wgmma_fence();
-      issue_square_half(sp, m.Bt, m.Ct, wg, 64 * ht);
+      issue_square_half<N>(sp, m.Bt, m.Ct, wg, 64 * ht);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss_n64(g, desc_k(xs, kQ, wg * 64, kk),
@@ -449,7 +469,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_n128_mn(db, pb + 4 * kk, desc_mn(m.Ct, kQ, 4 * ht + kk));
+        wgmma_rs_mn<N>(db, pb + 4 * kk, desc_mn(m.Ct, kQ, 4 * ht + kk));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs_n64_mn(dx, sa + 4 * kk, desc_mn(gs, kQ, 4 * ht + kk));
@@ -494,23 +514,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n128(db, desc_k(xs, kQ, wg * 64, kk), desc_k(m.Ht, kN, 0, kk));
+      wgmma_ss<N>(db, desc_k(xs, kQ, wg * 64, kk), desc_k(m.Ht, N, 0, kk));
     wgmma_commit();
     if (tid == 0) a.dd_part[bhc] = gx_sum;
     wgmma_wait<0>();
     fence_regs(db);
   }
   const int Lp = a.nc * a.Q;
-  store_part(db,
-             a.db_part + (((long long)b * (a.H / a.hb) + blockIdx.z) * Lp +
-                          p0) * kN,
-             a.Q, wg, t);
+  store_part<N>(db,
+                a.db_part + (((long long)b * (a.H / a.hb) + blockIdx.z) * Lp +
+                             p0) * N,
+                a.Q, wg, t);
 }
 
 // ------------------------------------------------------------ 4. ds
 // One block of kQ threads per (chunk, batch x head), thread t the chunk's
 // token t: ds_t from the four row terms of the two side kernels, its
-// reverse cumsum dla over the chunk, ddt, and the chunk's da part.
+// reverse cumsum dla over the chunk, ddt, and the chunk's da part; the
+// template on N sets how many parts of <dh, h_in> the pass wrote.
 __device__ __forceinline__ float sum128(float v, float* tmp) {
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
@@ -520,7 +541,9 @@ __device__ __forceinline__ float sum128(float v, float* tmp) {
   return tmp[0] + tmp[1] + tmp[2] + tmp[3];
 }
 
+template <int N>
 __global__ void __launch_bounds__(kQ) ssd90_ds_kernel(Args a) {
+  constexpr int kFrobParts = Dims<N>::kFrobParts;
   __shared__ float dsv[kQ];
   __shared__ float tmp[8];
   const int tid = threadIdx.x, lane = tid & 31;
@@ -574,22 +597,23 @@ __global__ void __launch_bounds__(kQ) ssd90_ds_kernel(Args a) {
 
 // ------------------------------------------------------------ 5. reductions
 // out[b, l, g, n] = sum of the group's rep / hb head-block parts.
+template <int N>
 __global__ void ssd90_reduce_bc_kernel(const float* __restrict__ part,
                                        bf16* __restrict__ out, int B, int L,
                                        int Lp, int Hb, int G) {
-  const long long total = (long long)B * L * G * kN;
+  const long long total = (long long)B * L * G * N;
   const int per = Hb / G;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int n = idx % kN;
-    const long long rest = idx / kN;
+    const int n = idx % N;
+    const long long rest = idx / N;
     const int g = rest % G;
     const long long bl = rest / G;
     const int l = bl % L;
     const int b = bl / L;
-    const float* p = part + (((long long)b * Hb + g * per) * Lp + l) * kN + n;
+    const float* p = part + (((long long)b * Hb + g * per) * Lp + l) * N + n;
     float s = 0.f;
-    for (int r = 0; r < per; ++r) s += p[(long long)r * Lp * kN];
+    for (int r = 0; r < per; ++r) s += p[(long long)r * Lp * N];
     out[idx] = __float2bfloat16(s);
   }
 }
@@ -607,27 +631,62 @@ __global__ void ssd90_reduce_heads_kernel(Args a) {
   a.dd[h] = sd;
 }
 
+template <int N>
+int launch_bwd(const Args& args, const void* x, const void* dy,
+               const void* b, const void* c, const SeqStrides& sd,
+               cudaStream_t s) {
+  const int B = args.B, L = args.L, H = args.H, G = args.G, Q = args.Q;
+  const int nc = args.nc, hb = args.hb;
+  CUtensorMap tx, tg, tb, tc;
+  const long long row_hp = (long long)H * kP;
+  if (!make_seq_map(&tx, x, kP, H, L, B, sd.x_sl, sd.x_sb, Q) ||
+      !make_seq_map(&tg, dy, kP, H, L, B, row_hp, row_hp * L, Q) ||
+      !make_seq_map(&tb, b, N, G, L, B, sd.b_sl, sd.b_sb, Q) ||
+      !make_seq_map(&tc, c, N, G, L, B, sd.c_sl, sd.c_sb, Q))
+    return -2;
+  launch_states<false, N>(args, tc, tg, s);
+  const int smem = smem_with_align(side::smem<N>());
+  const dim3 grid(nc, B, H / hb);
+  cudaFuncSetAttribute(ssd90_bwd_t_kernel<N>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ssd90_bwd_t_kernel<N><<<grid, kThreads, smem, s>>>(tx, tg, tb, tc, args);
+  cudaFuncSetAttribute(ssd90_bwd_u_kernel<N>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ssd90_bwd_u_kernel<N><<<grid, kThreads, smem, s>>>(tx, tg, tb, tc, args);
+  ssd90_ds_kernel<N><<<dim3(nc, B * H), kQ, 0, s>>>(args);
+  const long long n_bc = (long long)B * L * G * N;
+  const int blocks =
+      static_cast<int>(std::min<long long>((n_bc + kThreads - 1) / kThreads,
+                                           4096));
+  ssd90_reduce_bc_kernel<N><<<blocks, kThreads, 0, s>>>(
+      args.db_part, args.db, B, L, nc * Q, H / hb, G);
+  ssd90_reduce_bc_kernel<N><<<blocks, kThreads, 0, s>>>(
+      args.dc_part, args.dc, B, L, nc * Q, H / hb, G);
+  ssd90_reduce_heads_kernel<<<(H + 63) / 64, 64, 0, s>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ssd90
 }  // namespace pam
 
-// bf16 x (B, L, H, 64), b and c (B, L, G, 128) with any batch and sequence
+// bf16 x (B, L, H, 64), b and c (B, L, G, N) with any batch and sequence
 // strides (elements; last two axes contiguous, base and strides 16-byte
-// aligned); fp32 dt (B, L, H), a and d (H,); states (B, H, nc, 128, 64) fp32
+// aligned); fp32 dt (B, L, H), a and d (H,); states (B, H, nc, N, 64) fp32
 // from the forward; dy (B, L, H, 64) bf16 contiguous. Outputs dx like dy,
-// ddt (B, L, H) fp32, da and dd (H,) fp32, db and dc (B, L, G, 128) bf16
+// ddt (B, L, H) fp32, da and dd (H,) fp32, db and dc (B, L, G, N) bf16
 // contiguous. Scratch (fp32): dec (2, B, H, nc, 128), dstates like states,
-// frob (B, H, nc, 64), rows (4, B, H, nc, 128), db_part and dc_part (B, H /
-// hb, nc Q, 128), da_part and dd_part (B, H, nc). Returns 0, a CUDA error
-// code from cudaGetLastError(), -1 for a bad shape, or -2 if the driver
-// refuses a tensor map.
+// frob (B, H, nc, N / 2), rows (4, B, H, nc, 128), db_part and dc_part (B,
+// H / hb, nc Q, N), da_part and dd_part (B, H, nc). Returns 0, a CUDA
+// error code from cudaGetLastError(), -1 for a bad shape or an N outside
+// PAM_SSD90_BUILT_N, or -2 if the driver refuses a tensor map.
 extern "C" int pam_ssd_scan_bwd_sm90(
     const void* x, const void* dt, const void* a, const void* b,
     const void* c, const void* d, const void* states, const void* dy,
     void* dx, void* ddt, void* da, void* db, void* dc, void* dd, void* dec,
     void* dstates, void* frob, void* rows, void* db_part, void* dc_part,
     void* da_part, void* dd_part, int B, int L, int H, int G, int Q, int nc,
-    int hb, long long x_sb, long long x_sl, long long b_sb, long long b_sl,
-    long long c_sb, long long c_sl, void* stream) {
+    int hb, int N, long long x_sb, long long x_sl, long long b_sb,
+    long long b_sl, long long c_sb, long long c_sl, void* stream) {
   using namespace pam::ssd90;
   if (Q < 1 || Q > kQ || hb < 1 || H % G || (H / G) % hb) return -1;
   Args args = {};
@@ -656,32 +715,11 @@ extern "C" int pam_ssd_scan_bwd_sm90(
   args.Q = Q;
   args.nc = nc;
   args.hb = hb;
-  CUtensorMap tx, tg, tb, tc;
-  const long long row_hp = (long long)H * kP;
-  if (!pam::make_seq_map(&tx, x, kP, H, L, B, x_sl, x_sb, Q) ||
-      !pam::make_seq_map(&tg, dy, kP, H, L, B, row_hp, row_hp * L, Q) ||
-      !pam::make_seq_map(&tb, b, kN, G, L, B, b_sl, b_sb, Q) ||
-      !pam::make_seq_map(&tc, c, kN, G, L, B, c_sl, c_sb, Q))
-    return -2;
+  const pam::SeqStrides sd = {x_sb, x_sl, b_sb, b_sl, c_sb, c_sl};
   auto s = static_cast<cudaStream_t>(stream);
-  pam::launch_states<false>(args, tc, tg, s);
-  const int smem = pam::smem_with_align(side::kSmem);
-  const dim3 grid(nc, B, H / hb);
-  cudaFuncSetAttribute(ssd90_bwd_t_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ssd90_bwd_t_kernel<<<grid, kThreads, smem, s>>>(tx, tg, tb, tc, args);
-  cudaFuncSetAttribute(ssd90_bwd_u_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ssd90_bwd_u_kernel<<<grid, kThreads, smem, s>>>(tx, tg, tb, tc, args);
-  ssd90_ds_kernel<<<dim3(nc, B * H), kQ, 0, s>>>(args);
-  const long long n_bc = (long long)B * L * G * kN;
-  const int blocks =
-      static_cast<int>(std::min<long long>((n_bc + kThreads - 1) / kThreads,
-                                           4096));
-  ssd90_reduce_bc_kernel<<<blocks, kThreads, 0, s>>>(
-      args.db_part, args.db, B, L, nc * Q, H / hb, G);
-  ssd90_reduce_bc_kernel<<<blocks, kThreads, 0, s>>>(
-      args.dc_part, args.dc, B, L, nc * Q, H / hb, G);
-  ssd90_reduce_heads_kernel<<<(H + 63) / 64, 64, 0, s>>>(args);
-  return static_cast<int>(cudaGetLastError());
+#define PAM_SSD90_BWD_CASE(NS) \
+  if (N == NS) return launch_bwd<NS>(args, x, dy, b, c, sd, s);
+  PAM_SSD90_BUILT_N(PAM_SSD90_BWD_CASE)
+#undef PAM_SSD90_BWD_CASE
+  return -1;
 }

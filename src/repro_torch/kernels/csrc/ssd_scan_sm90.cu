@@ -1,18 +1,20 @@
 // Mamba-2 SSD chunked scan, forward, for Hopper's tensor cores: bf16 x, B
-// and C, d_state N = 128, head dim P = 64 (mamba2-780m), chunks of up to
-// 128 tokens.
+// and C, d_state N = 128 (mamba2-780m) or 64 (zamba2-7b), head dim P = 64,
+// chunks of up to 128 tokens.
 //
-// Replaces the TPU kernel repro/kernels/ssd_scan.py::_ssd_kernel (:36;
-// wrapper ssd_scan, pl.pallas_call at :121) for bf16 operands with (N, P) =
-// (128, 64). fp32 and other (N, P) keep the CUDA-core kernel of
-// ssd_scan.cu; kernels/ssd_scan.py::_variant picks one of the two, with no
-// fallback. Computes what _ssd_kernel computes (formulas in ssd_sm90.cuh
-// and ssd_scan.cu), and also writes the fp32 chunk-start states h_in, (B,
-// H, nc, N, P), that the backward (ssd_scan_bwd_sm90.cu) reads.
+// Replaces the TPU kernel repro/kernels/ssd_scan.py::_ssd_kernel (:36; wrapper
+// ssd_scan, pl.pallas_call at :121) for bf16 operands with (N, P) = (128, 64)
+// or (64, 64). fp32 keeps the CUDA-core kernel of ssd_scan.cu;
+// kernels/ssd_scan.py::_variant picks one of the two, and another (N, P) raises
+// there, with no fallback. Computes what _ssd_kernel computes (formulas in
+// ssd_sm90.cuh and ssd_scan.cu), and also writes the fp32 chunk-start states
+// h_in, (B, H, nc, N, P), that the backward (ssd_scan_bwd_sm90.cu) reads.
 //
 // Bound on the H100: operations. At the training shape (B 4, L 2048, H 48,
 // G 1, chunk 128) the TPU kernel's products are 3.2e10 FLOPs (0.033 ms at
-// 989 TFLOP/s bf16) against about 0.1 GB of operands and output.
+// 989 TFLOP/s bf16) against about 0.1 GB of operands and output; at
+// zamba2-7b's (B 2, L 2048, H 112, N 64) 2.25e10 FLOPs (0.023 ms) against
+// about 0.12 GB (0.035 ms: there the bytes bound it).
 //
 // Design: the chunked SSD decomposition, four kernels on one stream, every
 // chunk in parallel except an elementwise state pass.
@@ -26,7 +28,8 @@
 //   4. ssd90_out_kernel (below): one CTA per (chunk, batch, block of hb
 //      heads of one group), two warpgroups of 64 tokens. S = C B^T once
 //      with wgmma m64n128k16 (both tiles K-major, as Q K^T in
-//      flash_attention_sm90.cu), kept in fp32 registers for all its heads;
+//      flash_attention_sm90.cu; N / 16 k-steps over d_state), kept in fp32
+//      registers for all its heads;
 //      then per head Y = exp(s_t) (C h_in) + (S o E dt_u) x + D x: h_in
 //      staged as a hi / lo pair of bf16 tiles (C h_in two m64n64k16
 //      products, B operand MN-major), M = S o E dt_u (masked before the
@@ -38,34 +41,39 @@
 // where y is a small difference of large terms (slow decay), and the
 // states within 1e-3 of their largest entry: one bf16 rounding of w o x,
 // h_in or M does not (kernels/ssd_scan.py::_fwd_rounded models this).
-// Shared memory of the output kernel: C, B 64 KiB + x 2 x 16 KiB + h_in hi
-// and lo 2 x 16 KiB + h_in fp32 32 KiB.
+// Shared memory of the output kernel at N = 128 (64): C, B 64 (32) KiB + x
+// 2 x 16 KiB + h_in hi and lo 2 x 16 (8) KiB + h_in fp32 32 (16) KiB.
 #include "ssd_sm90.cuh"
 
 namespace pam {
 namespace ssd90 {
 
 namespace out {
-constexpr int kStateBytes = kN * kP * 4;
-constexpr int kSmem = 2 * 2 * kSubBytes /* C, B */ + 2 * kSubBytes /* x */ +
-                      2 * kSubBytes /* h_in hi, lo */ +
-                      kStateBytes /* h_in fp32, staged */ + 4 * kQ * 4 + 64;
+template <int N>
+constexpr int smem() {
+  return 2 * Dims<N>::kSubs * kSubBytes /* C, B */ + 2 * kSubBytes /* x */ +
+         2 * N * 128 /* h_in hi, lo */ +
+         Dims<N>::kStateBytes /* h_in fp32, staged */ + 4 * kQ * 4 + 64;
 }
+}  // namespace out
 
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd90_out_kernel(const __grid_constant__ CUtensorMap tmX,
                      const __grid_constant__ CUtensorMap tmB,
                      const __grid_constant__ CUtensorMap tmC, Args a) {
   using namespace sm90;
+  constexpr int kSubs = Dims<N>::kSubs;
+  constexpr int kStateBytes = Dims<N>::kStateBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  bf16* Ct = reinterpret_cast<bf16*>(smem);   // (128, 128): 2 sub-tiles
-  bf16* Bt = Ct + 2 * kQ * 64;
-  bf16* Xt = Bt + 2 * kQ * 64;                // 2 stages of (128, 64)
+  bf16* Ct = reinterpret_cast<bf16*>(smem);   // (128, N): N / 64 sub-tiles
+  bf16* Bt = Ct + kSubs * kQ * 64;
+  bf16* Xt = Bt + kSubs * kQ * 64;            // 2 stages of (128, 64)
   bf16* Hh = Xt + 2 * kQ * 64;                // h_in hi, (N, P)
-  bf16* Hl = Hh + kQ * 64;                    // h_in lo
-  float* Fs = reinterpret_cast<float*>(Hl + kQ * 64);  // h_in fp32, staged
-  float* raw = Fs + kN * kP;                  // s_t, dt staged
+  bf16* Hl = Hh + N * 64;                     // h_in lo
+  float* Fs = reinterpret_cast<float*>(Hl + N * 64);  // h_in fp32, staged
+  float* raw = Fs + N * kP;                   // s_t, dt staged
   float* s2 = raw + 2 * kQ;
   float* dtv = s2 + kQ;
   uint64_t* bars = reinterpret_cast<uint64_t*>(dtv + kQ);  // CB, X[2], F
@@ -78,14 +86,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int valid = min(a.Q, a.L - p0);
   const uint32_t sbytes = a.Q * 128;
 
-  if (a.Q < kQ) zero_smem(smem, 6 * kSubBytes);
+  if (a.Q < kQ) zero_smem(smem, (2 * kSubs + 2) * kSubBytes);
   const long long nrow = (long long)a.B * a.H * a.nc * kQ;
   // the next head's fp32 state and decay row, by bulk copy beside the
   // products of this one
   auto stage = [&](int j) {
     const long long bhc = ((long long)b * a.H + h0 + j) * a.nc + ic;
-    bar_expect(bars + 3, out::kStateBytes + 2 * kQ * 4);
-    bulk_load(Fs, a.states + bhc * kN * kP, out::kStateBytes, bars + 3);
+    bar_expect(bars + 3, kStateBytes + 2 * kQ * 4);
+    bulk_load(Fs, a.states + bhc * N * kP, kStateBytes, bars + 3);
     bulk_load(raw, a.dec + bhc * kQ, kQ * 4, bars + 3);
     bulk_load(raw + kQ, a.dec + nrow + bhc * kQ, kQ * 4, bars + 3);
   };
@@ -97,11 +105,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   if (tid == 0) {
     stage(0);
-    bar_expect(bars, 4 * sbytes);
-    tma_load4(Ct, &tmC, bars, 0, grp, p0, b);
-    tma_load4(Ct + kQ * 64, &tmC, bars, 64, grp, p0, b);
-    tma_load4(Bt, &tmB, bars, 0, grp, p0, b);
-    tma_load4(Bt + kQ * 64, &tmB, bars, 64, grp, p0, b);
+    bar_expect(bars, 2 * kSubs * sbytes);
+    for (int i = 0; i < kSubs; ++i) {
+      tma_load4(Ct + i * kQ * 64, &tmC, bars, 64 * i, grp, p0, b);
+      tma_load4(Bt + i * kQ * 64, &tmB, bars, 64 * i, grp, p0, b);
+    }
     for (int j = 0; j < 2 && j < a.hb; ++j) {
       bar_expect(bars + 1 + j, sbytes);
       tma_load4(Xt + j * kQ * 64, &tmX, bars + 1 + j, 0, h0 + j, p0, b);
@@ -115,7 +123,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < N / 16; ++kk)
     wgmma_ss_n128(s, desc_k(Ct, kQ, wg * 64, kk), desc_k(Bt, kQ, 0, kk));
   wgmma_commit();
   wgmma_wait<0>();
@@ -135,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       s2[tid] = raw[tid] * kLog2e;
       dtv[tid] = raw[kQ + tid];
     }
-    state_to_tile(Fs, Hh, Hl);
+    state_to_tile<N>(Fs, Hh, Hl);
     fence_async_smem();
     __syncthreads();
     if (tid == 0 && j + 1 < a.hb) stage(j + 1);  // Fs and raw are read
@@ -146,11 +154,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(y);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_ss_n64_mn(y, desc_k(Ct, kQ, wg * 64, kk), desc_mn(Hh, kN, kk));
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss_n64_mn(y, desc_k(Ct, kQ, wg * 64, kk), desc_mn(Hh, N, kk));
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_ss_n64_mn(y, desc_k(Ct, kQ, wg * 64, kk), desc_mn(Hl, kN, kk));
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss_n64_mn(y, desc_k(Ct, kQ, wg * 64, kk), desc_mn(Hl, N, kk));
     wgmma_commit();
 
     // M = S o E dt_u beside the products, as hi / lo bf16 A fragments
@@ -215,19 +223,45 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace ssd90
 }  // namespace pam
 
-// bf16 x (B, L, H, 64), b and c (B, L, G, 128) with any batch and sequence
+namespace pam {
+namespace ssd90 {
+
+template <int N>
+int launch_fwd(const Args& args, const void* x, const void* b,
+               const void* c, const SeqStrides& sd, cudaStream_t s) {
+  CUtensorMap tx, tb, tc;
+  if (!make_seq_map(&tx, x, kP, args.H, args.L, args.B, sd.x_sl, sd.x_sb,
+                    args.Q) ||
+      !make_seq_map(&tb, b, N, args.G, args.L, args.B, sd.b_sl, sd.b_sb,
+                    args.Q) ||
+      !make_seq_map(&tc, c, N, args.G, args.L, args.B, sd.c_sl, sd.c_sb,
+                    args.Q))
+    return -2;
+  launch_states<true, N>(args, tb, tx, s);
+  const int smem = smem_with_align(out::smem<N>());
+  cudaFuncSetAttribute(ssd90_out_kernel<N>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ssd90_out_kernel<N><<<dim3(args.nc, args.B, args.H / args.hb), kThreads,
+                         smem, s>>>(tx, tb, tc, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ssd90
+}  // namespace pam
+
+// bf16 x (B, L, H, 64), b and c (B, L, G, N) with any batch and sequence
 // strides (elements; the last two axes contiguous, base and strides 16-byte
 // aligned); fp32 dt (B, L, H), a and d (H,); y (B, L, H, 64) bf16 and states
-// (B, H, nc, 128, 64) fp32, contiguous; dec fp32 scratch of (2, B, H, nc,
+// (B, H, nc, N, 64) fp32, contiguous; dec fp32 scratch of (2, B, H, nc,
 // 128). hb heads of one group per CTA (hb divides H / G). Returns 0, a CUDA
-// error code from cudaGetLastError(), -1 for a bad shape, or -2 if the
-// driver refuses a tensor map.
+// error code from cudaGetLastError(), -1 for a bad shape or an N outside
+// PAM_SSD90_BUILT_N, or -2 if the driver refuses a tensor map.
 extern "C" int pam_ssd_scan_fwd_sm90(const void* x, const void* dt,
                                      const void* a, const void* b,
                                      const void* c, const void* d, void* y,
                                      void* states, void* dec, int B, int L,
                                      int H, int G, int Q, int nc, int hb,
-                                     long long x_sb, long long x_sl,
+                                     int N, long long x_sb, long long x_sl,
                                      long long b_sb, long long b_sl,
                                      long long c_sb, long long c_sl,
                                      void* stream) {
@@ -247,17 +281,11 @@ extern "C" int pam_ssd_scan_fwd_sm90(const void* x, const void* dt,
   args.Q = Q;
   args.nc = nc;
   args.hb = hb;
-  CUtensorMap tx, tb, tc;
-  if (!pam::make_seq_map(&tx, x, kP, H, L, B, x_sl, x_sb, Q) ||
-      !pam::make_seq_map(&tb, b, kN, G, L, B, b_sl, b_sb, Q) ||
-      !pam::make_seq_map(&tc, c, kN, G, L, B, c_sl, c_sb, Q))
-    return -2;
+  const pam::SeqStrides sd = {x_sb, x_sl, b_sb, b_sl, c_sb, c_sl};
   auto s = static_cast<cudaStream_t>(stream);
-  pam::launch_states<true>(args, tb, tx, s);
-  const int smem = pam::smem_with_align(out::kSmem);
-  cudaFuncSetAttribute(ssd90_out_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ssd90_out_kernel<<<dim3(nc, B, H / hb), kThreads, smem, s>>>(tx, tb, tc,
-                                                               args);
-  return static_cast<int>(cudaGetLastError());
+#define PAM_SSD90_FWD_CASE(NS) \
+  if (N == NS) return launch_fwd<NS>(args, x, b, c, sd, s);
+  PAM_SSD90_BUILT_N(PAM_SSD90_FWD_CASE)
+#undef PAM_SSD90_FWD_CASE
+  return -1;
 }

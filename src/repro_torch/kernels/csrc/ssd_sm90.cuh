@@ -1,6 +1,8 @@
 // Shared code of the bf16 SSD scan kernels for Hopper's tensor cores
 // (ssd_scan_sm90.cu: forward; ssd_scan_bwd_sm90.cu: backward), for d_state
-// N = 128 and head dim P = 64 (mamba2-780m), chunks of up to 128 tokens.
+// N = 128 (mamba2-780m) or 64 (zamba2-7b) and head dim P = 64, chunks of
+// up to 128 tokens. Every kernel that depends on N is templated on it
+// (PAM_SSD90_BUILT_N).
 //
 // The decomposition is Mamba-2's own chunked SSD: every chunk's work runs
 // on its own on the tensor cores, and only an elementwise pass over the
@@ -28,12 +30,13 @@
 // Tiles. x, dy, B and C reach the kernels through 4-D TMA tensor maps
 // (columns, heads or groups, sequence, batch) with their own strides, so
 // the column views of the conv output that ssm_forward passes need no copy;
-// a box is (64 columns, 1 head, Q rows), one 128-byte swizzle row per
-// token, and rows past the sequence length arrive as zeros. Tiles keep
-// attention_sm90.cuh's format: (128, 64) bf16 sub-tiles, 1024-byte aligned,
-// a (128, 128) tile as two of them. Rows Q .. 127 of a tile are zeroed once
-// when Q < 128 (TMA never writes them), so every product runs over 128
-// rows. The row-scaled operands (w o x, exp(s) o dy) and the states (h_in,
+// a box is (64 columns, 1 head, Q rows), one 128-byte swizzle row per token,
+// and rows past the sequence length arrive as zeros. Tiles keep
+// attention_sm90.cuh's format: (128, 64) bf16 sub-tiles, 1024-byte aligned, a
+// (128, 128) tile as two of them; a B or C tile is N / 64 sub-tiles and an (N,
+// P) state tile one sub-tile of N rows. Rows Q .. 127 of a tile are zeroed once
+// when Q < 128 (TMA never writes them), so every product runs over 128 rows.
+// The row-scaled operands (w o x, exp(s) o dy) and the states (h_in,
 // dh) are written by the threads in the same swizzled format, then made
 // visible to the tensor cores with fence.proxy.async.
 #pragma once
@@ -45,15 +48,25 @@ namespace ssd90 {
 
 using sm90::bf16;
 
+// The built d_states (kernels/ssd_scan.py's SUPPORTED_NP, at P = 64).
+#define PAM_SSD90_BUILT_N(X) X(128) X(64)
+
 constexpr int kQ = 128;               // rows of a chunk tile
-constexpr int kN = 128;               // d_state
 constexpr int kP = 64;                // head dim
 constexpr int kThreads = 256;         // two warpgroups
 constexpr int kSubBytes = kQ * 128;   // a (128, 64) bf16 sub-tile
 constexpr int kPassThreads = 256;     // state pass: float4 per thread
-constexpr int kPassBlocks = kN * kP / 4 / kPassThreads;  // blocks a (b, h)
-constexpr int kFrobParts = kPassBlocks * kPassThreads / 32;  // warps a (b, h)
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The sizes that follow from d_state N.
+template <int N>
+struct Dims {
+  static_assert(N == 64 || N == 128, "a built d_state");
+  static constexpr int kSubs = N / 64;           // sub-tiles of B or C
+  static constexpr int kStateBytes = N * kP * 4;  // an fp32 (N, P) state
+  static constexpr int kPassBlocks = N * kP / 4 / kPassThreads;  // a (b, h)
+  static constexpr int kFrobParts = kPassBlocks * kPassThreads / 32;  // warps
+};
 
 struct Args {
   const float* dt;     // (B, L, H) post-softplus
@@ -70,7 +83,7 @@ struct Args {
   bf16* db;            // (B, L, G, N)
   bf16* dc;
   float* dstates;      // (B, H, nc, N, P): V_c, then dh_c in place
-  float* frob;         // (B, H, nc, kFrobParts) parts of <dh_c, h_in_c>
+  float* frob;         // (B, H, nc, N P / 128) parts of <dh_c, h_in_c>
   float* rows;         // (4, B, H, nc, kQ): rowsum A' dt, g . (C h_in),
                        // colsum A', beta
   float* db_part;      // (B, H / hb, nc * Q, N) dB over a head block
@@ -138,12 +151,13 @@ __device__ __forceinline__ void pack8(const float (&f)[8], uint4* hi,
   if (lo != nullptr) *lo = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
-// An (N, P) fp32 state in device memory (row-major) into a swizzled (128,
+// An (N, P) fp32 state in device memory (row-major) into a swizzled (N,
 // 64) bf16 sub-tile `hi`, and the remainder into `lo` when given. All
 // threads of the block; the caller fences and syncs.
+template <int N>
 __device__ __forceinline__ void state_to_tile(const float* __restrict__ src,
                                               bf16* hi, bf16* lo) {
-  for (int i = threadIdx.x; i < kN * 8; i += kThreads) {
+  for (int i = threadIdx.x; i < N * 8; i += kThreads) {
     const int row = i >> 3, ch = i & 7;
     const float4 a = *reinterpret_cast<const float4*>(src + row * kP + 8 * ch);
     const float4 b =
@@ -230,25 +244,40 @@ __global__ void __launch_bounds__(32 * kDecayWarps)
 
 // ------------------------------------------------------------ 2. states
 // out[b, h, c] = M^T (r o S) over the chunk's 128 rows, for the hb heads
-// h0 .. h0 + hb - 1 of one group: M the (Q, 128) tile of the group (B or
-// C), S the head's (Q, 64) tile (x or dy), r_t = w_t (FWD) or exp(s_t)
-// (backward). r o S is rounded to bf16 as the B operand; with PAIR also its
-// remainder, a second product. wgmma m64n64k16 with both operands MN-major:
-// warpgroup wg computes rows n = 64 wg .. 64 wg + 63.
+// h0 .. h0 + hb - 1 of one group: M the (Q, N) tile of the group (B or C),
+// S the head's (Q, 64) tile (x or dy), r_t = w_t (FWD) or exp(s_t)
+// (backward). r o S is rounded to bf16 as the B operand; in the forward
+// also its remainder, a second product. wgmma m64n64k16 with both operands
+// MN-major. At N = 128 warpgroup wg computes state rows n = 64 wg .. 64 wg
+// + 63 over all 128 tokens. At N = 64 there is one such row block, so the
+// two warpgroups split the reduction instead: warpgroup wg takes tokens 64
+// wg .. 64 wg + 63 (k-steps 4 wg .. 4 wg + 3) of the same 64 rows, the
+// second one's fp32 partial goes through shared memory (16 KiB, in the
+// place the second M sub-tile has at N = 128) and the first adds it and
+// writes the state, in a fixed order. Each warpgroup then issues half the
+// products of N = 128's (per head: 4 k-steps, 8 with the forward's lo
+// pair), and the states come out summed in another order than at N = 128
+// only in fp32.
 namespace state {
-constexpr int kSmem = 2 * kSubBytes /* M */ + 2 * kSubBytes /* S stages */ +
-                      2 * kSubBytes /* r o S, hi and lo */ + 8 * kQ + 64;
+template <int N>
+constexpr int smem() {
+  return 2 * kSubBytes /* M, or M and the N = 64 partial */ +
+         2 * kSubBytes /* S stages */ + 2 * kSubBytes /* r o S, hi, lo */ +
+         8 * kQ + 64;
 }
+}  // namespace state
 
-template <bool FWD>
+template <bool FWD, int N>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd90_chunk_state_kernel(const __grid_constant__ CUtensorMap tmM,
                              const __grid_constant__ CUtensorMap tmS,
                              Args a) {
   using namespace sm90;
+  constexpr bool kSplitK = N == 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  bf16* Mt = reinterpret_cast<bf16*>(smem);           // 2 sub-tiles
+  bf16* Mt = reinterpret_cast<bf16*>(smem);           // N / 64 sub-tiles
+  float* part = reinterpret_cast<float*>(Mt + kQ * 64);  // N = 64: partial
   bf16* St = Mt + 2 * kQ * 64;                        // 2 stages
   bf16* Rh = St + 2 * kQ * 64;                        // r o S, hi
   bf16* Rl = Rh + kQ * 64;                            // r o S, lo
@@ -272,9 +301,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   fence_async_smem();
   __syncthreads();
   if (tid == 0) {
-    bar_expect(bars, 2 * sbytes);
-    tma_load4(Mt, &tmM, bars, 0, grp, p0, b);
-    tma_load4(Mt + kQ * 64, &tmM, bars, 64, grp, p0, b);
+    bar_expect(bars, Dims<N>::kSubs * sbytes);
+    for (int i = 0; i < Dims<N>::kSubs; ++i)
+      tma_load4(Mt + i * kQ * 64, &tmM, bars, 64 * i, grp, p0, b);
     for (int j = 0; j < 2 && j < a.hb; ++j) {
       bar_expect(bars + 1 + j, sbytes);
       tma_load4(St + j * kQ * 64, &tmS, bars + 1 + j, 0, h0 + j, p0, b);
@@ -312,27 +341,43 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_async_smem();
     __syncthreads();
 
+    // N = 128: rows 64 wg .., all k-steps; N = 64: rows 0 .., k-steps
+    // 4 wg .. 4 wg + 3
+    constexpr int kSteps = kSplitK ? 4 : 8;
+    const bf16* Ma = kSplitK ? Mt : Mt + wg * kQ * 64;
+    const int k0 = kSplitK ? 4 * wg : 0;
     float acc[32];
     zero(acc);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_ss_n64_tt(acc, desc_mn(Mt + wg * kQ * 64, kQ, kk),
-                      desc_mn(Rh, kQ, kk));
+    for (int kk = 0; kk < kSteps; ++kk)
+      wgmma_ss_n64_tt(acc, desc_mn(Ma, kQ, k0 + kk),
+                      desc_mn(Rh, kQ, k0 + kk));
     if (FWD) {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_ss_n64_tt(acc, desc_mn(Mt + wg * kQ * 64, kQ, kk),
-                        desc_mn(Rl, kQ, kk));
+      for (int kk = 0; kk < kSteps; ++kk)
+        wgmma_ss_n64_tt(acc, desc_mn(Ma, kQ, k0 + kk),
+                        desc_mn(Rl, kQ, k0 + kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-    float* o = out + bhc * kN * kP;
+    float* o = out + bhc * N * kP;
+    if constexpr (kSplitK) {   // the second warpgroup's partial, then sum
+      if (wg == 1) {
+#pragma unroll
+        for (int v = 0; v < 32; ++v) part[v * 128 + t] = acc[v];
+      }
+      __syncthreads();
+      if (wg == 1) continue;
+#pragma unroll
+      for (int v = 0; v < 32; ++v) acc[v] += part[v * 128 + t];
+    }
+    const int row0 = kSplitK ? 0 : 64 * wg;
 #pragma unroll
     for (int v = 0; v < 32; v += 2)
-      *reinterpret_cast<float2*>(o + (64 * wg + frag_row(t, v)) * kP +
+      *reinterpret_cast<float2*>(o + (row0 + frag_row(t, v)) * kP +
                                  frag_col(t, v)) =
           make_float2(acc[v], acc[v + 1]);
   }
@@ -349,17 +394,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 // so the loads are in flight together.
 constexpr int kBatch = 8;
 
-template <bool REVERSE>
+template <bool REVERSE, int N>
 __global__ void __launch_bounds__(kPassThreads)
     ssd90_pass_kernel(Args a, float* __restrict__ slots,
                       const float* __restrict__ hin) {
+  constexpr int kFrobParts = Dims<N>::kFrobParts;
   const long long bh = blockIdx.y;
   const int e = blockIdx.x * kPassThreads + threadIdx.x;  // float4 index
-  const int step = kN * kP / 4;
-  float4* base = reinterpret_cast<float4*>(slots + bh * a.nc * kN * kP) + e;
+  const int step = N * kP / 4;
+  float4* base = reinterpret_cast<float4*>(slots + bh * a.nc * N * kP) + e;
   const float4* hb =
       hin == nullptr ? nullptr
-                     : reinterpret_cast<const float4*>(hin + bh * a.nc * kN *
+                     : reinterpret_cast<const float4*>(hin + bh * a.nc * N *
                                                               kP) + e;
   const float* s = a.dec + bh * a.nc * kQ + (a.Q - 1);  // s_Q of chunk 0
   const int lane = threadIdx.x & 31;
@@ -433,19 +479,19 @@ struct SeqStrides {
 
 // Decay terms, then one chunk-state kernel and the pass: the forward's
 // states (FWD) or the backward's dstates.
-template <bool FWD>
+template <bool FWD, int N>
 inline void launch_states(const ssd90::Args& a, const CUtensorMap& tmM,
                           const CUtensorMap& tmS, cudaStream_t stream) {
   using namespace ssd90;
   ssd90_decay_kernel<<<dim3(a.nc, a.B, (a.H + kDecayWarps - 1) / kDecayWarps),
                        32 * kDecayWarps, 0, stream>>>(a);
-  auto k = ssd90_chunk_state_kernel<FWD>;
-  const int smem = smem_with_align(state::kSmem);
+  auto k = ssd90_chunk_state_kernel<FWD, N>;
+  const int smem = smem_with_align(state::smem<N>());
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   k<<<dim3(a.nc, a.B, a.H / a.hb), kThreads, smem, stream>>>(tmM, tmS, a);
-  ssd90_pass_kernel<!FWD><<<dim3(kPassBlocks, a.B * a.H), kPassThreads, 0,
-                            stream>>>(a, FWD ? a.states : a.dstates,
-                                      FWD ? nullptr : a.states);
+  ssd90_pass_kernel<!FWD, N><<<dim3(Dims<N>::kPassBlocks, a.B * a.H),
+                               kPassThreads, 0, stream>>>(
+      a, FWD ? a.states : a.dstates, FWD ? nullptr : a.states);
 }
 
 }  // namespace pam

@@ -17,10 +17,11 @@ Two kernel variants, one per (dtype, head dim, direction), chosen by
 
 - ``"wgmma"``: bf16 at the head dims of ``WGMMA_FWD_DIMS`` and
   ``WGMMA_BWD_DIMS`` (both 64: minicpm-2b, internvl2-1b; 80,
-  hubert-xlarge; 128, the other full-width text models),
-  ``csrc/flash_attention_sm90.cu`` and ``csrc/flash_attention_bwd_sm90.cu``:
-  wgmma on 128-byte-swizzled bf16 tiles staged by TMA (head dim 80
-  zero-filled to two 64-column tiles), P and dS rounded to bf16 as the
+  hubert-xlarge; 112, zamba2-7b's shared attention block; 128, the other
+  full-width text models), ``csrc/flash_attention_sm90.cu`` and
+  ``csrc/flash_attention_bwd_sm90.cu``: wgmma on 128-byte-swizzled bf16
+  tiles staged by TMA (head dims 80 and 112 zero-filled to two 64-column
+  tiles), P and dS rounded to bf16 as the
   second product's operand (``_fwd_rounded`` and ``_bwd_rounded`` model
   those rounding points in plain PyTorch);
 - ``"cuda_core"``: fp32 at every built pair, and bf16 at the other head
@@ -52,11 +53,13 @@ NEG_INF = -1e30
 # the dtype: csrc/attention_common.cuh's PAM_ATTN_FWD_BUILT (the wgmma
 # forward, flash_attention_sm90.cu, takes those at WGMMA_FWD_DIMS: its
 # PAM_ATTN_FWD90_BUILT): the reduced configs' head dim 16, and minicpm-2b
-# (64, 1), internvl2-1b (64, 7), hubert-xlarge (80, 1), pam-llama-7b (128,
-# 1), qwen3-0.6b (128, 2), qwen3-14b (128, 5) and deepseek-67b (128, 8)
+# (64, 1), internvl2-1b (64, 7), hubert-xlarge (80, 1), zamba2-7b's shared
+# block (112, 1), pam-llama-7b (128, 1), qwen3-0.6b (128, 2), qwen3-14b
+# (128, 5) and deepseek-67b (128, 8)
 BUILT = ((16, 1), (16, 2),
          (64, 1), (64, 7),
          (80, 1),
+         (112, 1),
          (128, 1), (128, 2), (128, 5), (128, 8))
 # the backward's pairs: PAM_ATTN_BWD_BUILT (flash_attention_bwd_sm90.cu's
 # PAM_ATTN_BWD90_BUILT at WGMMA_BWD_DIMS), the same list: every built
@@ -64,8 +67,8 @@ BUILT = ((16, 1), (16, 2),
 BUILT_BWD = BUILT
 # head dims whose bf16 forward / backward run the wgmma kernels:
 # csrc/attention_common.cuh's PAM_ATTN_WGMMA_FWD_DIMS / _BWD_DIMS
-WGMMA_FWD_DIMS = (64, 80, 128)
-WGMMA_BWD_DIMS = (64, 80, 128)
+WGMMA_FWD_DIMS = (64, 80, 112, 128)
+WGMMA_BWD_DIMS = (64, 80, 112, 128)
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 SM90_PAD = 128          # row padding of the wgmma backward's fp32 scratch

@@ -21,14 +21,15 @@ the two into a ``torch.autograd.Function`` and ``ssd_scan`` is the entry
 point.
 
 Two kernel variants, both for (d_state N, head dim P) = (128, 64)
-(mamba2-780m), chosen by dtype in ``_variant``:
+(mamba2-780m) and (64, 64) (zamba2-7b), chosen by dtype in ``_variant``:
 
 - ``"wgmma"``: bf16,
   ``csrc/ssd_scan_sm90.cu`` and ``csrc/ssd_scan_bwd_sm90.cu``: the chunked
   SSD decomposition on wgmma (chunk states, an elementwise state pass,
   chunk outputs with C B^T shared by a block of heads), bf16 operands
   into fp32 products (``_fwd_rounded`` and ``_bwd_rounded`` model its
-  rounding points in plain PyTorch);
+  rounding points in plain PyTorch, at either N: d_state changes the
+  kernels' tile counts and k-steps, not where they round);
 - ``"cuda_core"``: fp32 (the parity runs), ``csrc/ssd_scan.cu`` and
   ``csrc/ssd_scan_bwd.cu``: fp32 products on the CUDA cores, exact to the
   plain versions up to the order of sums (the chip's fp32 parity
@@ -55,7 +56,7 @@ from repro_torch.kernels.flash_decode import _ptr, _stream
 
 DEFAULT_CHUNK = 128
 MAX_CHUNK = 128                  # rows of the kernels' chunk tiles
-SUPPORTED_NP = ((128, 64),)      # (d_state N, head dim P) built
+SUPPORTED_NP = ((128, 64), (64, 64))   # (d_state N, head dim P) built
 HEAD_BLOCKS = (6, 4, 3, 2, 1)    # heads of one group per wgmma CTA
 DEC_ROWS = 128                   # row stride of the wgmma kernels' scratch
 VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
@@ -63,9 +64,9 @@ VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
 
 def _variant(dtype: torch.dtype, N: int, P: int) -> str:
     """The kernel variant of operands of ``dtype`` with d_state ``N`` and
-    head dim ``P``: at (N, P) = (128, 64), ``"wgmma"`` for bf16 and
-    ``"cuda_core"`` for fp32. Each (dtype, N, P) has exactly one kernel;
-    any other case was not built and raises."""
+    head dim ``P``: at an (N, P) of ``SUPPORTED_NP``, ``"wgmma"`` for bf16
+    and ``"cuda_core"`` for fp32. Each (dtype, N, P) has exactly one
+    kernel; any other case was not built and raises."""
     if (N, P) not in SUPPORTED_NP or dtype not in VARIANTS:
         raise ValueError(f"ssd_scan: {dtype} with (d_state, head dim) "
                          f"({N}, {P}) not built (built: float32 and "
@@ -77,7 +78,8 @@ def _head_block(rep: int) -> int:
     """Heads per CTA of the wgmma kernels: the largest of ``HEAD_BLOCKS``
     that divides the group size ``rep`` (mamba2-780m: 48 heads in one
     group, so 6 and 512 CTAs at B 4, L 2048: C B^T shared by six heads
-    in the forward, and about four waves of CTAs over 132 SMs)."""
+    in the forward, and about four waves of CTAs over 132 SMs; zamba2-7b:
+    112 heads in one group, so 4 and 896 CTAs at B 2, L 2048)."""
     return next(hb for hb in HEAD_BLOCKS if rep % hb == 0)
 
 
@@ -108,7 +110,7 @@ def _fwd_sm90_lib():
     fn = build.load("ssd_scan_sm90").pam_ssd_scan_fwd_sm90
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     return fn
 
@@ -118,7 +120,7 @@ def _bwd_sm90_lib():
     fn = build.load("ssd_scan_bwd_sm90").pam_ssd_scan_bwd_sm90
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     return fn
 
@@ -341,7 +343,7 @@ def _fwd_cuda(x, dt, a, b, c, d_skip, chunk):
                           device=x.device)           # s_t, masked dt
         rc = _fwd_sm90_lib()(_ptr(x), _ptr(dt), _ptr(a), _ptr(b), _ptr(c),
                              _ptr(d_skip), _ptr(y), _ptr(states), _ptr(dec),
-                             B, L, H, G, Q, nc, _head_block(H // G),
+                             B, L, H, G, Q, nc, _head_block(H // G), N,
                              *_strides(x, b, c), _stream(x.device))
     else:
         rc = _fwd_lib()(_ptr(x), _ptr(dt), _ptr(a), _ptr(b), _ptr(c),
@@ -563,7 +565,7 @@ def _bwd_cuda(x, dt, a, b, c, d_skip, states, dy, chunk):
             _ptr(states), _ptr(dy), _ptr(dx), _ptr(ddt), _ptr(da), _ptr(db),
             _ptr(dc), _ptr(dd), _ptr(dec), _ptr(dstates), _ptr(frob),
             _ptr(rows), _ptr(db_part), _ptr(dc_part), _ptr(da_part),
-            _ptr(dd_part), B, L, H, G, Q, nc, hb, *_strides(x, b, c),
+            _ptr(dd_part), B, L, H, G, Q, nc, hb, N, *_strides(x, b, c),
             _stream(dev))
     else:
         db_part = torch.empty((B, H, Lp, N), dtype=f32, device=dev)

@@ -7,7 +7,13 @@ with AdamW, periodic checkpoints and auto-resume, on one device.
 trains the smoke-size model on the CPU (the kernels' plain versions);
 without ``--device cpu`` it runs on the GPU, where attention runs the
 ``flash_attention`` forward and backward kernels, or, with ``--arch
-mamba2-780m``, the SSD scan the ``ssd_scan`` kernels. Counterpart of
+mamba2-780m``, the SSD scan the ``ssd_scan`` kernels; ``--arch
+zamba2-7b`` (the hybrid) runs both: ``ssd_scan`` at (d_state, head dim)
+(64, 64) in its Mamba-2 layers and ``flash_attention`` at (head dim,
+group) (112, 1) in its shared block, bf16 on the wgmma kernels. At full
+depth (5.7 B parameters) a donated step needs about 115 GiB of state:
+one H100 trains it only cut, as ``chip_smoke.py``'s ``train_zamba2_7b``
+does (there is no depth flag, as in the reference). Counterpart of
 ``repro.launch.train`` with the same flags; multi-device sharding and the
 loop's straggler monitoring are not ported (ROADMAP Queue 1 item 10;
 ``distributed.elastic.StragglerMonitor`` itself is). Prints one

@@ -5,11 +5,11 @@ Counterpart of ``repro.models.transformer`` (dense GQA family, the GQA
 mixture-of-experts family — attention as dense, the FFN routed by
 ``models/moe.py`` — the MLA mixture-of-experts family, served only —
 ``params["layers"]["mla"]`` in place of ``attn``, a latent decode cache
-— the Mamba-2 ``ssm`` family, and the Zamba2-style ``hybrid`` family,
-served only: groups of Mamba-2 layers, ``params["mamba_groups"]``
-stacked (n_groups, mamba_per_group, ...), each group followed by one
-shared attention + MLP block, ``params["shared_attn"]`` unstacked, at
-its own KV cache site, then ``params["tail_mamba"]``, the ``vlm``
+— the Mamba-2 ``ssm`` family, and the Zamba2-style ``hybrid`` family:
+groups of Mamba-2 layers, ``params["mamba_groups"]`` stacked (n_groups,
+mamba_per_group, ...), each group followed by one shared attention + MLP
+block, ``params["shared_attn"]`` unstacked, at its own KV cache site,
+then ``params["tail_mamba"]``, the ``vlm``
 family — a dense decoder whose ``params["frontend"]`` projects image
 patch embeddings into a prefix before the token embeddings — and the
 ``audio`` family, a bidirectional encoder whose frames go through
@@ -21,10 +21,10 @@ fields (zero-size shared leaves without shared experts),
 ``params["layers"]["ssm"]`` the stacked ``SSMParams`` fields — so
 ``repro_torch.bridge`` moves weights as plain copies; the layer loop is
 a Python loop over per-layer views of that axis, each leaf unbound once
-(``_layers``; ``remat`` checkpoints each layer with
-``torch.utils.checkpoint``).
-``forward`` / ``loss_fn`` on an MLA or a hybrid model raise
-``NotImplementedError`` naming their ROADMAP item.
+(``_layers``, ``_hybrid_layers``; ``remat`` checkpoints each layer, and
+each whole hybrid group, with ``torch.utils.checkpoint``).
+``forward`` / ``loss_fn`` on an MLA model raise ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -284,6 +284,16 @@ def _ssm_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                                    use_kernel=use_kernel)
 
 
+def _hybrid_group(cfg: ModelConfig, shared: Params, layers: list[Params],
+                  x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+    """One group of the hybrid family's training forward (the
+    reference's ``group_body``): its Mamba-2 layers (``layers``: their
+    views), then the shared attention + MLP block."""
+    for lp in layers:
+        x = _ssm_block(cfg, lp, x, use_kernel)
+    return _dense_block(cfg, shared, x, use_kernel)
+
+
 def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             *, use_kernel: bool = False, remat: bool = False,
             activation_spec=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -293,42 +303,61 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
     place of tokens; the vlm family puts ``batch["patches"]`` (B, P,
     frontend_dim), projected, before the token embeddings and drops the
     ``num_patches`` prefix positions from the logits.
+    The hybrid family runs each group's Mamba-2 layers and then the
+    shared block (``_hybrid_group``), then the tail's Mamba-2 layers; the
+    shared block's gradient sums over its sites.
     ``remat`` recomputes each layer in the backward
     pass (``torch.utils.checkpoint``, non-reentrant), so the forward
-    kernel runs twice per layer and step; the stacked leaves are unbound
-    once, outside the checkpoints (``_layers``)."""
+    kernel runs twice per layer and step; a hybrid group is checkpointed
+    whole, as the reference's ``group_body``, and each tail layer on its
+    own. The stacked leaves are unbound once, outside the checkpoints
+    (``_layers``, ``_hybrid_layers``)."""
     _require_ported(cfg)
     if _mla_moe(cfg):        # served only
         raise NotImplementedError(
             f"{cfg.name}: the MLA forward / loss / train step is not "
             f"ported yet (ROADMAP Queue 1 item 14); the port serves it")
-    if _hybrid(cfg):         # served only
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid forward / loss / train step is not "
-            f"ported yet (ROADMAP Queue 1 item 17); the port serves it")
     if activation_spec is not None:
         raise NotImplementedError(
             "activation_spec (sequence-parallel residual sharding) is not "
             "ported yet (ROADMAP Queue 1 item 9, sharding)")
-    block = _ssm_block if cfg.family == "ssm" else _dense_block
+
+    def run(fn, *args):
+        if remat:
+            return checkpoint(fn, cfg, *args, use_kernel,
+                              use_reentrant=False)
+        return fn(cfg, *args, use_kernel)
     x = _embed_inputs(cfg, params, batch)
+    if _hybrid(cfg):
+        groups, tail = _hybrid_layers(cfg, params)
+        for layers in groups:
+            x = run(_hybrid_group, params["shared_attn"], layers, x)
+        for lp in tail:
+            x = run(_ssm_block, lp, x)
+        return _logits(cfg, params, x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+    block = _ssm_block if cfg.family == "ssm" else _dense_block
     auxes = []
     for lp in _layers(params):      # unbound here, outside the checkpoints
-        if remat:
-            x = checkpoint(block, cfg, lp, x, use_kernel,
-                           use_reentrant=False)
-        else:
-            x = block(cfg, lp, x, use_kernel)
+        x = run(block, lp, x)
         if cfg.moe is not None:
             x, aux = x
             auxes.append(aux)
+    logits = _logits(cfg, params, x)
+    if cfg.moe is not None:
+        return logits, torch.sum(torch.stack(auxes))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _logits(cfg: ModelConfig, params: Params,
+            x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head over the residual stream; the vlm
+    family drops its image-prefix positions."""
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = x @ _head(cfg, params)
     if cfg.family == "vlm":      # strip the image-prefix positions
         logits = logits[:, cfg.num_patches:]
-    if cfg.moe is not None:
-        return logits, torch.sum(torch.stack(auxes))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params,

@@ -31,7 +31,8 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 GRID = [(1, 2, 2, 64, 32),       # MHA, one block
         (2, 4, 2, 96, 16),       # GQA, ragged seq vs block
         (1, 8, 1, 200, 64),      # MQA, multi-block with padding
-        (2, 2, 2, 130, 8)]       # tiny d, cross-block causal boundary
+        (2, 2, 2, 130, 8),       # tiny d, cross-block causal boundary
+        (1, 4, 4, 144, 112)]     # zamba2-7b's (112, 1), ragged last block
 
 
 def _inputs(B, H, Hkv, Sq, d, Sk=None, seed=0):

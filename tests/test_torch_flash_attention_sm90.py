@@ -12,12 +12,13 @@ roundings. Held to ``_fwd_plain`` / ``_bwd_plain`` on fp32 copies of the
 same bf16 inputs at the card-side tolerance (rtol / atol 2e-2 on the
 outputs; the LSE, which no rounding reaches, at 1e-4 / 1e-3), they
 predict on the CPU that the kernels can meet that tolerance. Both
-directions run the wgmma kernels at head dims 64, 80 and 128, at the
-train pairs: internvl2-1b's 14 / 2 heads of 64, minicpm-2b's 36 / 36 of
-64 (here 4 / 4), hubert-xlarge's 16 / 16 of 80, qwen3-0.6b's 16 / 8,
-qwen3-14b's group 5 (here 10 / 2) and deepseek-67b's group 8 (here 16 /
-2) of 128; the head-dim lists and both directions' (head dim, group)
-pairs are parsed out of the CUDA sources and held to the Python route.
+directions run the wgmma kernels at head dims 64, 80, 112 and 128, at
+the train pairs: internvl2-1b's 14 / 2 heads of 64, minicpm-2b's 36 / 36
+of 64 (here 4 / 4), hubert-xlarge's 16 / 16 of 80, zamba2-7b's shared
+block's 32 / 32 of 112 (here 4 / 4), qwen3-0.6b's 16 / 8, qwen3-14b's
+group 5 (here 10 / 2) and deepseek-67b's group 8 (here 16 / 2) of 128;
+the head-dim lists and both directions' (head dim, group) pairs are
+parsed out of the CUDA sources and held to the Python route.
 Inputs come from seeded numpy generators; every case is small (one batch
 row, at most 16 heads and 256 positions) and builds nothing.
 """
@@ -43,7 +44,8 @@ PAIR_CASES = [
     pytest.param(150, False, (16, 16, 80), id="150-False-hubert-xlarge"),
     pytest.param(130, True, (4, 4, 64), id="130-True-minicpm-2b"),
     pytest.param(100, True, (10, 2, 128), id="100-True-qwen3-14b"),
-    pytest.param(70, True, (16, 2, 128), id="70-True-deepseek-67b")]
+    pytest.param(70, True, (16, 2, 128), id="70-True-deepseek-67b"),
+    pytest.param(160, True, (4, 4, 112), id="160-True-zamba2-7b")]
 # the qwen3-0.6b cases keep their ids
 FWD_CASES = [pytest.param(S, causal, QWEN_HEADS, id=f"{S}-{causal}")
              for S, causal in QWEN_CASES] + PAIR_CASES
@@ -68,6 +70,8 @@ def _inputs(S, seed, heads=QWEN_HEADS):
     (torch.bfloat16, 80, "wgmma"),
     (torch.float32, 64, "cuda_core"),
     (torch.float32, 80, "cuda_core"),
+    (torch.bfloat16, 112, "wgmma"),
+    (torch.float32, 112, "cuda_core"),
 ])
 def test_variant_routes_each_dtype_and_head_dim(dtype, d, variant):
     """The forward's route by (dtype, head dim)."""
@@ -82,11 +86,12 @@ def test_variant_routes_each_dtype_and_head_dim(dtype, d, variant):
     (torch.float32, 64, "cuda_core"),
     (torch.float32, 80, "cuda_core"),
     (torch.float32, 128, "cuda_core"),
+    (torch.bfloat16, 112, "wgmma"),
 ])
 def test_backward_variant_keeps_wgmma_at_head_dim_128(dtype, d, variant):
-    """The backward's route: wgmma for bf16 at head dims 64, 80 and 128
-    (the forward's wgmma dims), the CUDA cores for fp32 and for bf16 at
-    head dim 16."""
+    """The backward's route: wgmma for bf16 at head dims 64, 80, 112 and
+    128 (the forward's wgmma dims), the CUDA cores for fp32 and for bf16
+    at head dim 16."""
     assert tfa._variant(dtype, d, backward=True) == variant
 
 
@@ -117,8 +122,8 @@ def test_wgmma_forward_pairs_match_the_cuda_dispatch():
     ``PAM_ATTN_FWD90_BUILT``): every bf16 pair the route sends there is
     built, and no other."""
     want = tuple(p for p in tfa.BUILT if p[0] in tfa.WGMMA_FWD_DIMS)
-    assert want == ((64, 1), (64, 7), (80, 1), (128, 1), (128, 2), (128, 5),
-                    (128, 8))
+    assert want == ((64, 1), (64, 7), (80, 1), (112, 1), (128, 1), (128, 2),
+                    (128, 5), (128, 8))
     assert _macro_items(CSRC / "flash_attention_sm90.cu",
                         "PAM_ATTN_FWD90_BUILT") == want
 

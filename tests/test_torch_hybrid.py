@@ -19,8 +19,9 @@ own, then a Mamba-2 tail) against the JAX reference.
   against the JAX engine's, on dense PAM and with no PAM, at
   ``micro_steps`` 1 and 4 (one request filling ``max_len`` exactly), and
   one sampled run;
-- the refusals (pools, ``true_len``, the training forward naming ROADMAP
-  Queue 1 item 17, migration) and the serve CLI.
+- the refusals (pools, ``true_len``, the training forward's
+  ``activation_spec`` naming ROADMAP Queue 1 item 9, migration) and the
+  serve CLI (training: ``tests/test_torch_hybrid_train.py``).
 
 Inputs are fixed-seed numpy draws, fp32 throughout. Tolerances: logits
 1e-4 as in ``tests/test_torch_mla.py``; K/V and scores 1e-5; recurrent
@@ -399,16 +400,17 @@ def test_engine_prefills_at_exact_length():
 
 # ------------------------------------------------------------ refusals
 def test_model_refusals():
-    """``forward`` / ``loss_fn`` raise naming ROADMAP Queue 1 item 17;
-    ``true_len`` and paged pools raise the reference's ``ValueError``,
-    as the suffix prefill does."""
+    """``forward`` / ``loss_fn`` with ``activation_spec`` raise naming
+    ROADMAP Queue 1 item 9 (the hybrid trains since item 17 was ported;
+    sequence-parallel sharding is not); ``true_len`` and paged pools
+    raise the reference's ``ValueError``, as the suffix prefill does."""
     _, _, tcf, tparams = _models()
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
              "labels": torch.zeros((1, 4), dtype=torch.int64)}
     for fn in (ttf.forward, ttf.loss_fn):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 17"):
-            fn(tcf, tparams, batch)
+                           match="ROADMAP Queue 1 item 9"):
+            fn(tcf, tparams, batch, activation_spec=("data",))
     toks = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="absorbs padding"):
         ttf.prefill(tcf, tparams, toks, 16, true_len=torch.tensor([5]))

@@ -25,19 +25,20 @@ those roundings (``round_bf16``).
   rtol 2e-2 and atol 2e-2 x max(1, the leaf's largest entry). That
   predicts on the CPU that the kernels can meet it.
 
-Largest errors of the rounded model against the plain versions (absolute;
-leaf max in brackets), mamba2-780m's (N, P) = (128, 64) with chip_smoke's
-input scales: ragged (B 1, L 300, H 4): y 0.0575 (20.2), states 4.4e-6
-relative, dx 0.171 (49.0), ddt 0.0360 (84.7), da 0.0175 (89.5), db 0.129
-(51.6), dc 0.127 (48.7), dD 0; groups (B 2, L 256, H 6, G 2): y 0.0564,
-dx 0.198, ddt 0.0522, da 0.00828, db 0.164, dc 0.132, dD 0; strong decay
-(dt 2, a -4 / -0.01, L 384): y 0.125 (62.4; one bf16 step of y), dx 0.360
-(121.5), ddt 0.284 (196.1), da 293 (155243), db 0.322, dc 0.347, dD 0.
-With one bf16 rounding in place of each forward pair, the strong-decay y
-misses 2e-2 on 394 entries and the states are 2.6e-3 off: hence the
-pairs (``python tests/test_torch_ssd_scan_sm90.py`` prints these
-errors). Inputs come from seeded numpy generators; every case is small
-and builds nothing.
+Largest errors of the rounded model against the plain versions (absolute; leaf
+max in brackets), mamba2-780m's (N, P) = (128, 64) with chip_smoke's input
+scales: ragged (B 1, L 300, H 4): y 0.0575 (20.2), states 4.4e-6 relative, dx
+0.171 (49.0), ddt 0.0360 (84.7), da 0.0175 (89.5), db 0.129 (51.6), dc 0.127
+(48.7), dD 0; groups (B 2, L 256, H 6, G 2): y 0.0564, dx 0.198, ddt 0.0522, da
+0.00828, db 0.164, dc 0.132, dD 0; strong decay (dt 2, a -4 / -0.01, L 384): y
+0.125 (62.4; one bf16 step of y), dx 0.360 (121.5), ddt 0.284 (196.1), da 293
+(155243), db 0.322, dc 0.347, dD 0; zamba2-7b's (N, P) = (64, 64), (B 1, L 300,
+H 4): y 0.0310 (13.2), states 4.5e-6 relative, dx 0.112 (28.4), ddt 0.0152
+(59.5), da 0.0121 (78.9), db 0.112 (42.6), dc 0.152 (58.8), dD 0. With one bf16
+rounding in place of each forward pair, the strong-decay y misses 2e-2 on 394
+entries and the states are 2.6e-3 off: hence the pairs (``python
+tests/test_torch_ssd_scan_sm90.py`` prints these errors). Inputs come from
+seeded numpy generators; every case is small and builds nothing.
 """
 
 import numpy as np
@@ -89,6 +90,7 @@ DECOMP_CASES = {
     "padding_groups": (_fp32_inputs(2, 100, 4, 2, 8, 16, 1), 64),
     "mamba2_np_ragged": (_fp32_inputs(1, 150, 2, 1, 128, 64, 2), 64),
     "strong_decay": (_strong_decay(), 64),
+    "zamba2_np_ragged": (_fp32_inputs(1, 150, 4, 1, 64, 64, 3), 64),
 }
 
 
@@ -103,6 +105,8 @@ def _j(arrs):
 @pytest.mark.parametrize("dtype,N,P,variant", [
     (torch.bfloat16, 128, 64, "wgmma"),
     (torch.float32, 128, 64, "cuda_core"),
+    (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.float32, 64, 64, "cuda_core"),
     (torch.bfloat16, 16, 8, None),          # None: not built, raises
     (torch.float32, 8, 16, None),
     (torch.float16, 128, 64, None),
@@ -116,7 +120,7 @@ def test_variant_routes_each_dtype_and_shape(dtype, N, P, variant):
 
 
 @pytest.mark.parametrize("rep,hb", [(48, 6), (6, 6), (8, 4), (2, 2), (3, 3),
-                                    (1, 1), (5, 1)])
+                                    (1, 1), (5, 1), (112, 4)])
 def test_head_block_divides_the_group(rep, hb):
     assert tss._head_block(rep) == hb
 
@@ -150,11 +154,11 @@ def test_unrounded_backward_model_matches_jax_grad(case):
         assert err <= GRAD_REL * float(np.abs(w).max()), (name, err)
 
 
-def _bf16_case(B, L, H, G, seed, strong=False):
+def _bf16_case(B, L, H, G, seed, strong=False, N=128, P=64):
     """bf16 x, b, c (column views of one conv-output-like tensor, scaled
-    0.5 as chip_smoke's) and dy; fp32 dt, a, d: mamba2-780m's (N, P) =
-    (128, 64) and decay rates -linspace(1, 16), or strong decay."""
-    N, P = 128, 64
+    0.5 as chip_smoke's) and dy; fp32 dt, a, d: (N, P) mamba2-780m's (128,
+    64) or zamba2-7b's (64, 64), and decay rates -linspace(1, 16), or
+    strong decay."""
     rng = np.random.default_rng(seed)
     xbc = torch.from_numpy(rng.standard_normal(
         (B, L, H * P + 2 * G * N), np.float32) * 0.5).bfloat16()
@@ -177,6 +181,7 @@ ROUNDED_CASES = {
     "ragged_heads": (1, 300, 4, 1, 0, False),
     "groups": (2, 256, 6, 2, 1, False),
     "strong_decay": (1, 384, 2, 1, 2, True),
+    "zamba2_np_heads": (1, 300, 4, 1, 3, False, 64, 64),
 }
 
 
