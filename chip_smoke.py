@@ -14,8 +14,8 @@ final ``ok`` line:
             bf16 K/V (the engines' storage; none may spill) and of every
             attention forward and backward instantiation: the wgmma ones
             at (64, 1), (64, 7), (80, 1), (112, 1), (128, 1), (128, 2),
-            (128, 5) and (128, 8) may not spill, and no bf16 CUDA-core
-            one may exist at those head dims; the four wgmma
+            (128, 5), (128, 8) and (128, 16) may not spill, and no bf16
+            CUDA-core one may exist at those head dims; the four wgmma
             libraries (attention and SSD scan) must hold HGMMA
             instructions in their SASS (``cuobjdump -sass``) and their
             kernels must not spill (the SSD ones at d_state 128 and 64,
@@ -42,8 +42,9 @@ final ``ok`` line:
             S 2048 causal; hubert-xlarge B 8, 16 / 16 of 80, S 1500
             bidirectional; minicpm-2b B 2, 36 / 36 of 64; qwen3-14b B 1,
             40 / 8 of 128; deepseek-67b B 1, 64 / 8 of 128; zamba2-7b's
-            shared block B 2, 32 / 32 of 112, keys ending ``_d112``; S
-            2048 causal) and in fp32 through the CUDA-core kernels at
+            shared block B 2, 32 / 32 of 112, keys ending ``_d112``;
+            qwen3-moe-235b-a22b B 2, 64 / 4 of 128, keys ending ``_g16``;
+            S 2048 causal) and in fp32 through the CUDA-core kernels at
             their train_parity_* shapes (B 2, S 500); the forward alone in fp32
             at vlm_audio_parity's shapes: ``flash_attention_vlm_fp32_100``
             (B 2, 14 / 2 of 64, S 100 causal) and
@@ -307,14 +308,34 @@ final ``ok`` line:
             flash_attention and its backward 5 x 6 times, all wgmma, no
             other counted kernel; the loss falls; step ms, tokens / s,
             peak memory
+  train_qwen3_moe_235b_a22b   the GQA mixture-of-experts family at
+            full width (d_model 4096, 64 / 4 heads of 128, 128 experts
+            top-8 of d_expert 1536, capacity 1.25), its depth cut from
+            94 to 1 layer (3.73 B parameters with the untied embedding
+            and head: a donated step holds about 54 GiB; two layers
+            would be about 100 GB), bf16, B 2 x 2048 SyntheticLM tokens
+            through ``launch.train.run``, 6 steps at ``FAMILY_LR``:
+            flash_attention and its backward at (128, 16) 1 x 6 times,
+            all wgmma, no other counted kernel; the loss falls; step ms,
+            tokens / s, peak memory, each step's summed Switch aux loss
+            and the assignments dropped at capacity
+  train_deepseek_v2_lite_16b   the MLA mixture-of-experts family at
+            full width (MLA at latent rank 512, 16 heads; 64 experts
+            top-6 + 2 shared), its depth cut from 27 to 6 layers, bf16,
+            B 1 x 2048, the same way; its attention is the plain chunked
+            one of mla_train (the reference has no MLA kernel), so no
+            counted kernel may launch
   profile_train_hubert_xlarge   profile_train over 2 steps of that
             phase's configuration (also the matmul share)
-  train_parity_internvl2_1b, ... (one a model)   the same six at full
-            width and 2 layers (zamba2-7b: 2 groups of 1 Mamba-2 layer and
-            a tail of 1) in fp32 (TF32 off), B 2 x 500 positions: loss
-            and gradients through the CUDA-core kernels (ssd_scan at (64,
-            64), flash_attention at (112, 1) for the hybrid) vs the plain
-            chunked attention and scan, as train_parity
+  train_parity_internvl2_1b, ... (one a model with a kernel on its
+            path)   the same at full width and 2 layers (zamba2-7b: 2
+            groups of 1 Mamba-2 layer and a tail of 1;
+            qwen3-moe-235b-a22b: 1 layer) in fp32 (TF32 off), B 2 x 500
+            positions: loss and gradients through the CUDA-core kernels
+            (ssd_scan at (64, 64), flash_attention at (112, 1) for the
+            hybrid, at (128, 16) for the MoE) vs the plain chunked
+            attention and scan, as train_parity; the MoE also reports the
+            expert ids the two paths route apart
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
             trained 10 steps on SyntheticLM batches of 4 x 2048 through
             the train CLI's step builder (attention through the
@@ -3359,18 +3380,35 @@ def phase_train_parity(arch: str = "qwen3-0.6b",
     """Full-width fp32 loss and gradients through the train path's kernels
     (flash_attention, or ssd_scan) against the plain chunked attention or
     chunked scan (TF32 off), at ``n_layers`` (None: full depth), B 2 x
-    500 positions (``_FamilyData``, seed 1)."""
+    500 positions (``_FamilyData``, seed 1). An MoE model's two paths
+    must route every (token, slot) to the same expert first."""
     from repro_torch import tree
     from repro_torch.training.train_step import TrainConfig, build_grad_fn
     cfg, params = _model("float32", arch, n_layers)
     b = _FamilyData(cfg, PARITY_B, PARITY_S - cfg.num_patches,
                     seed=1).batch(0)
+
+    def grads(use_kernel):
+        drops = _Drops() if cfg.moe is not None else None
+        try:
+            out = build_grad_fn(cfg, TrainConfig(use_kernel=use_kernel))(
+                params, b)
+        finally:
+            if drops is not None:
+                drops.close()
+        return out, [] if drops is None else drops.ids
     _reset_launches()
-    lk, gk = build_grad_fn(cfg, TrainConfig(use_kernel=True))(params, b)
+    (lk, gk), ids_k = grads(True)
     launches = _launches()
     wgmma = _wgmma_launches()          # fp32: the CUDA-core kernels
     assert not any(wgmma.values()), f"fp32 ran wgmma kernels: {wgmma}"
-    lp, gp = build_grad_fn(cfg, TrainConfig(use_kernel=False))(params, b)
+    (lp, gp), ids_p = grads(False)
+    moe = {} if cfg.moe is None else dict(expert_ids_routed_apart=sum(
+        int((a != c).sum()) for a, c in zip(ids_k, ids_p)),
+        expert_ids=sum(a.numel() for a in ids_k))
+    # a flipped expert makes the gradients' comparison meaningless
+    assert len(ids_k) == len(ids_p) and not moe.get(
+        "expert_ids_routed_apart"), f"routing differs: {moe}"
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     worst, worst_leaf = 0.0, ""
     for (name, a), r in zip(tree.leaves_with_paths(gk), tree.leaves(gp)):
@@ -3390,7 +3428,7 @@ def phase_train_parity(arch: str = "qwen3-0.6b",
                 loss_rel_diff=loss_rel, loss_tol=TRAIN_LOSS_TOL,
                 max_grad_rel_diff=worst, worst_leaf=worst_leaf,
                 grad_tol=TRAIN_GRAD_TOL, launches=launches,
-                wgmma_launches=wgmma)
+                wgmma_launches=wgmma, **moe)
 
 
 MOE_ARCH = "qwen3-moe-235b-a22b"
@@ -3399,28 +3437,45 @@ MOE_LAYERS = 4      # of 94: about 22 GB of bf16 weights on the 80 GB card
 
 class _Drops:
     """Counts the MoE's (token, expert) assignments and those dropped at
-    capacity, at prefill and at decode (a decode call routes the
-    engine's ``batch`` slots, idle ones included), in device tensors
-    written in place, so that a replayed decode graph adds to them too
-    (``moe.route`` wrapped while the object is open)."""
+    capacity, in device tensors written in place, so that a replayed
+    decode graph adds to them too (``moe.route`` wrapped while the
+    object is open). Serving (``batch``, the engine's slots): at prefill
+    and at decode (a decode call routes all ``batch`` slots, idle ones
+    included). Training (``batch`` None): one bucket, ``train``, and
+    each MoE call's aux loss and expert ids (``moe.moe_forward``
+    wrapped too), in ``aux`` and ``ids``."""
 
-    def __init__(self, batch: int):
+    def __init__(self, batch: int | None = None):
         import torch
         from repro_torch.models import moe as moe_mod
-        self.mod, self.route = moe_mod, moe_mod.route
+        self.mod, self.route, self.fwd = (moe_mod, moe_mod.route,
+                                          moe_mod.moe_forward)
+        keys = ("train",) if batch is None else ("prefill", "decode")
         self.acc = {k: torch.zeros(2, dtype=torch.int64, device="cuda")
-                    for k in ("prefill", "decode")}
+                    for k in keys}
+        self.aux, self.ids = [], []
 
         def counted(p, xf, cfg):
             r = self.route(p, xf, cfg)
-            acc = self.acc["decode" if xf.shape[0] == batch else "prefill"]
+            if batch is None:
+                acc = self.acc["train"]
+                self.ids.append(r.expert_ids)
+            else:
+                acc = self.acc["decode" if xf.shape[0] == batch
+                               else "prefill"]
             acc[0].add_(r.keep.numel())
             acc[1].add_(torch.sum(~r.keep))
             return r
         moe_mod.route = counted
+        if batch is None:
+            def forward(p, x, cfg):
+                y, aux = self.fwd(p, x, cfg)
+                self.aux.append(aux.detach())
+                return y, aux
+            moe_mod.moe_forward = forward
 
     def close(self) -> dict:
-        self.mod.route = self.route
+        self.mod.route, self.mod.moe_forward = self.route, self.fwd
         out = {}
         for k, a in self.acc.items():
             n, dropped = (int(x) for x in a.cpu())
@@ -3746,10 +3801,17 @@ ATTN_FP32_ROWS = {VLM_ARCH: "flash_attention_vlm_fp32_100",
 # in_proj, 5 x 5 x 3584 x 14576 entries). scripts/train_step_memory.py
 # measured a donated step at B 2 x 2048 peaking at 45.58 GiB at 4 groups
 # and 54.37 at 5 (H100 80GB HBM3), so 5 groups keep more than 10 %
-# headroom and 6 (about 63 GiB) were not tried
+# headroom and 6 (about 63 GiB) were not tried. The mixture-of-experts
+# families: qwen3-moe-235b-a22b cut to 1 of 94 layers (2.49 B parameters
+# a layer, 2.42 B of them experts, + 1.24 B of untied embedding and head
+# = 3.73 B: 45 GB + 13 GB for the update of the (1, 128, 4096, 1536)
+# expert leaf; two layers would be about 100 GB), deepseek-v2-lite-16b
+# (MLA) to 6 of 27 (0.585 B a layer + 0.42 B = 3.93 B: 47 GB + 18 GB for
+# the (6, 64, 2048, 1408) expert leaf's update)
 TRAIN_FAMILIES = {VLM_ARCH: (None, 4, 1792), AUDIO_ARCH: (None, 8, 1500),
                   "minicpm-2b": (None, 2, 2048), "qwen3-14b": (8, 1, 2048),
-                  "deepseek-67b": (4, 1, 2048), HYBRID_ARCH: (5, 2, 2048)}
+                  "deepseek-67b": (4, 1, 2048), HYBRID_ARCH: (5, 2, 2048),
+                  MOE_ARCH: (1, 2, 2048), MLA_ARCH: (6, 1, 2048)}
 # their peak lr: the train CLI's 1e-2 (right for the reduced models)
 # made the losses of hubert-xlarge, qwen3-14b and deepseek-67b rise over
 # 6 steps, with the plain attention as with the kernels; the mamba2-780m
@@ -3762,19 +3824,26 @@ FAMILY_PARITY_LAYERS = 2   # train_parity_*: full width, 2 layers, B 2 x 500
 def _parity_depth(arch: str):
     """A train_parity_* phase's depth: ``FAMILY_PARITY_LAYERS`` layers, or
     for the hybrid 2 groups of 1 Mamba-2 layer and a tail of 1 (3 SSD
-    scans, the shared block at 2 sites)."""
+    scans, the shared block at 2 sites), or 1 layer of
+    qwen3-moe-235b-a22b (fp32 parameters and gradients of a layer are
+    about 20 GB, and the phase holds both paths' gradients)."""
     from repro_torch.models.config import HybridConfig
     if arch == HYBRID_ARCH:
         return HybridConfig(n_groups=2, mamba_per_group=1, tail_mamba=1)
+    if arch == MOE_ARCH:
+        return 1
     return FAMILY_PARITY_LAYERS
 # the tag of each family's attention rows in the kernels phase, and
 # whether its attention is causal (hubert-xlarge is a bidirectional
-# encoder)
+# encoder); deepseek-v2-lite-16b (MLA) has none: its attention is the
+# plain chunked one of mla_train, as in the reference, and it has no
+# train_parity_* phase (its two paths are one)
 PROFILE_FAMILIES = (AUDIO_ARCH,)   # with a profile_train_* phase
 TRAIN_ROWS = {VLM_ARCH: ("_d64_g7", True),
               AUDIO_ARCH: ("_d80_noncausal", False),
               "minicpm-2b": ("_d64", True), "qwen3-14b": ("_g5", True),
-              "deepseek-67b": ("_g8", True), HYBRID_ARCH: (D112, True)}
+              "deepseek-67b": ("_g8", True), HYBRID_ARCH: (D112, True),
+              MOE_ARCH: ("_g16", True)}
 # bf16 logits through the attention kernels against the plain attention
 # on the card, max |dlogit| / max(1, max |logit|): both round each
 # layer's attention output to bf16 and may differ there by one bf16 step
@@ -4122,8 +4191,11 @@ def _train_launches(cfg, steps: int) -> dict:
     """The launches a train path of ``cfg`` makes in ``steps`` steps
     without remat, by counted wrapper: each attention site's forward and
     backward, each Mamba-2 layer's SSD scan and its backward; 0 for every
-    other counted kernel."""
+    other counted kernel, and for every kernel on the MLA family's path
+    (its plain chunked attention)."""
     want = dict.fromkeys(_counted(), 0)
+    if cfg.mla is not None:
+        return want
     if cfg.family == "hybrid":
         hb = cfg.hybrid
         n_mamba = hb.n_groups * hb.mamba_per_group + hb.tail_mamba
@@ -4140,23 +4212,20 @@ def _train_launches(cfg, steps: int) -> dict:
 
 
 def phase_train_family(arch: str) -> dict:
-    """A training main path of the vlm, audio or wider dense family at
-    full width (``TRAIN_FAMILIES``: depth, batch, length), bf16, random
-    weights from seed 0, ``FAMILY_STEPS`` steps at the train CLI's
-    schedule: the dense models through ``repro_torch.launch.train.run``
-    (SyntheticLM tokens), the vlm and audio models through the same
-    ``build_train_step`` on ``_FamilyData``'s patch and frame batches
-    (the CLI feeds tokens only, as the reference's). Both attention
+    """A training main path of the vlm, audio, wider dense, hybrid or
+    mixture-of-experts family at full width (``TRAIN_FAMILIES``: depth,
+    batch, length), bf16, random weights from seed 0, ``FAMILY_STEPS``
+    steps at the train CLI's schedule (``_family_steps``). Both attention
     kernels must launch n_layers x steps times, every launch a wgmma one,
-    no other counted kernel; the losses must be finite and the last
-    three below the first. Median step ms (steps 2 on), tokens or frames
-    a second, peak memory."""
+    no other counted kernel (none at all on the MLA family's path); the
+    losses must be finite and the last three below the first. Median
+    step ms (steps 2 on), tokens or frames a second, peak memory; for
+    the MoE families also each step's summed aux loss and the
+    assignments dropped at capacity (``_Drops``)."""
     import math
     import statistics
     import torch
     from repro_torch.launch import train as train_cli
-    from repro_torch.training.train_step import (build_train_step,
-                                                 init_train_state)
     n_layers, B, S = TRAIN_FAMILIES[arch]
     cfg = _family_cfg(arch, n_layers)
     tcfg = train_cli.train_config(steps=FAMILY_STEPS, lr=FAMILY_LR)
@@ -4164,22 +4233,11 @@ def phase_train_family(arch: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    if cfg.family in ("vlm", "audio"):
-        state = init_train_state(cfg, tcfg, 0, device="cuda")
-        step_fn = build_train_step(cfg, tcfg, donate=True)   # as the CLI
-        data = _FamilyData(cfg, B, S)
-        out = dict(losses=[], grad_norms=[], step_s=[])
-        for s in range(FAMILY_STEPS):
-            b = data.batch(s)
-            t0 = time.perf_counter()
-            state, m = step_fn(state, b)
-            out["losses"].append(float(m["loss"]))
-            out["grad_norms"].append(float(m["grad_norm"]))
-            out["step_s"].append(time.perf_counter() - t0)
-        del state, step_fn, data, b
-    else:
-        out = train_cli.run(cfg, tcfg, steps=FAMILY_STEPS, batch=B, seq=S,
-                            device="cuda", log=lambda _: None)
+    drops = _Drops() if cfg.moe is not None else None
+    try:
+        out = _family_steps(cfg, tcfg, B, S)
+    finally:
+        routed = None if drops is None else drops.close()["train"]
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     launches = _launches()
@@ -4193,6 +4251,20 @@ def phase_train_family(arch: str) -> dict:
     assert wgmma == {k: want[k] for k in wgmma}, f"wgmma {wgmma}, {want}"
     step_ms = statistics.median(out["step_s"][1:]) * 1e3
     rows = B * (S + cfg.num_patches)
+    moe = {}
+    if routed is not None:      # one aux loss a layer and step
+        aux, L = [float(a) for a in drops.aux], cfg.n_layers
+        assert len(aux) == L * FAMILY_STEPS, (len(aux), L)
+        moe = dict(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                   shared=cfg.moe.num_shared, d_expert=cfg.moe.d_expert,
+                   capacity=math.ceil(B * S * cfg.moe.top_k
+                                      / cfg.moe.num_experts
+                                      * cfg.moe.capacity_factor),
+                   aux_losses=[sum(aux[i:i + L])
+                               for i in range(0, len(aux), L)],
+                   **routed)
+        if cfg.mla is not None:
+            moe["mla"] = dataclasses.asdict(cfg.mla)
     hybrid = {} if cfg.hybrid is None else dict(
         hybrid=dataclasses.asdict(cfg.hybrid),
         published_hybrid=dataclasses.asdict(_family_cfg(arch, None).hybrid),
@@ -4202,7 +4274,7 @@ def phase_train_family(arch: str) -> dict:
                 n_layers=cfg.n_layers, published_layers=_family_cfg(
                     arch, None).n_layers, **hybrid, peak_lr=FAMILY_LR,
                 heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
-                causal=cfg.causal, steps=FAMILY_STEPS, batch=B,
+                causal=cfg.causal, **moe, steps=FAMILY_STEPS, batch=B,
                 seq=S + cfg.num_patches, text=S if cfg.family != "audio"
                 else 0, dtype=cfg.dtype, params=cfg.param_count(),
                 losses=losses, grad_norms=out["grad_norms"],
@@ -4210,6 +4282,33 @@ def phase_train_family(arch: str) -> dict:
                 positions_per_s=rows / (step_ms / 1e3),
                 launches=launches, wgmma_launches=wgmma,
                 launches_expected=want, peak_mem_gb=peak_gb)
+
+
+def _family_steps(cfg, tcfg, B: int, S: int) -> dict:
+    """``FAMILY_STEPS`` steps of ``cfg`` from seed 0 with the state
+    donated: the dense and MoE models through ``launch.train.run``
+    (SyntheticLM tokens), the vlm and audio models through the same
+    ``build_train_step`` on ``_FamilyData``'s patch and frame batches
+    (the CLI feeds tokens only, as the reference's). Losses, grad norms,
+    step seconds."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training.train_step import (build_train_step,
+                                                 init_train_state)
+    if cfg.family not in ("vlm", "audio"):
+        return train_cli.run(cfg, tcfg, steps=FAMILY_STEPS, batch=B, seq=S,
+                             device="cuda", log=lambda _: None)
+    state = init_train_state(cfg, tcfg, 0, device="cuda")
+    step_fn = build_train_step(cfg, tcfg, donate=True)   # as the CLI
+    data = _FamilyData(cfg, B, S)
+    out = dict(losses=[], grad_norms=[], step_s=[])
+    for s in range(FAMILY_STEPS):
+        b = data.batch(s)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["step_s"].append(time.perf_counter() - t0)
+    return out
 
 
 def _dense_weights(cfg) -> dict:
@@ -4713,9 +4812,10 @@ def main() -> int:
         if arch in PROFILE_FAMILIES:
             run("profile_" + _train_phase(arch), phase_profile_train, arch)
             torch.cuda.empty_cache()
-        run(_train_phase(arch, parity=True), phase_train_parity, arch,
-            _parity_depth(arch))
-        torch.cuda.empty_cache()
+        if arch in TRAIN_ROWS:         # a kernel on its train path
+            run(_train_phase(arch, parity=True), phase_train_parity, arch,
+                _parity_depth(arch))
+            torch.cuda.empty_cache()
     run("train", phase_train)
     torch.cuda.empty_cache()
     run("profile_train", phase_profile_train)

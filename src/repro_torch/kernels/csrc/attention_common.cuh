@@ -126,8 +126,8 @@ __device__ __forceinline__ void mul_tile(const float* __restrict__ P,
 // The built (head dim, GQA group) pairs, listed once each for the
 // forward and the backward: the configs' (qwen3-0.6b 128/2, pam-llama-7b
 // 128/1, minicpm-2b 64/1, internvl2-1b 64/7, hubert-xlarge 80/1,
-// zamba2-7b's shared block 112/1, qwen3-14b 128/5, deepseek-67b 128/8:
-// every one trains on the card) and the reduced variants' (head dim 16 at
+// zamba2-7b's shared block 112/1, qwen3-14b 128/5, deepseek-67b 128/8,
+// qwen3-moe-235b-a22b 128/16: every one trains on the card) and the reduced variants' (head dim 16 at
 // groups 1 and 2). The two lists
 // are equal. kernels/flash_attention.py's BUILT and BUILT_BWD hold the
 // same lists (a CPU test compares them) and refuse any other pair before
@@ -139,13 +139,13 @@ __device__ __forceinline__ void mul_tile(const float* __restrict__ P,
   X(64, 1) X(64, 7) \
   X(80, 1) \
   X(112, 1) \
-  X(128, 1) X(128, 2) X(128, 5) X(128, 8)
+  X(128, 1) X(128, 2) X(128, 5) X(128, 8) X(128, 16)
 #define PAM_ATTN_BWD_BUILT(X) \
   X(16, 1) X(16, 2) \
   X(64, 1) X(64, 7) \
   X(80, 1) \
   X(112, 1) \
-  X(128, 1) X(128, 2) X(128, 5) X(128, 8)
+  X(128, 1) X(128, 2) X(128, 5) X(128, 8) X(128, 16)
 
 // The head dims whose bf16 forward / backward run the wgmma kernels
 // (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu) and so have no

@@ -1,8 +1,8 @@
 // FlashAttention backward for Hopper's tensor cores: dQ, dK, dV of
 // flash_attention_sm90.cu's forward (bf16, causal or bidirectional), at
 // the (head dim, GQA group) pairs of PAM_ATTN_BWD90_BUILT below: head dim
-// 128 at groups 1, 2, 5 and 8 (pam-llama-7b, qwen3-0.6b, qwen3-14b,
-// deepseek-67b), 64 at groups 1 and 7 (minicpm-2b, internvl2-1b), 80 at
+// 128 at groups 1, 2, 5, 8 and 16 (pam-llama-7b, qwen3-0.6b, qwen3-14b,
+// deepseek-67b, qwen3-moe-235b-a22b), 64 at groups 1 and 7 (minicpm-2b, internvl2-1b), 80 at
 // group 1 (hubert-xlarge's bidirectional encoder) and 112 at group 1
 // (zamba2-7b's shared attention block).
 //
@@ -31,8 +31,9 @@
 //      with P^T and dS^T as bf16 register A operands, dO and Q MN-major).
 //      dK and dV sum in fp32 registers over the whole group and are
 //      scaled and rounded once, which is how the GQA sum stays free of
-//      races. The walk over the group is serial: at group 7 a CTA walks
-//      7 x ceil(Sq / 64) tiles;
+//      races. The walk over the group is serial: at group 16 a CTA walks
+//      16 x ceil(Sq / 64) tiles (qwen3-moe-235b-a22b: 4 KV heads, so 64
+//      CTAs a batch row at S 2048, under half of the 132 SMs);
 //   3. dq: one CTA per (128-row query tile, query head, batch), heaviest
 //      causal tiles first; per 64-key tile S = Q K^T, dP = dO V^T, P, dS,
 //      then dQ += dS K (K MN-major), dQ in fp32 registers.
@@ -73,7 +74,7 @@
   X(64, 1) X(64, 7) \
   X(80, 1) \
   X(112, 1) \
-  X(128, 1) X(128, 2) X(128, 5) X(128, 8)
+  X(128, 1) X(128, 2) X(128, 5) X(128, 8) X(128, 16)
 
 namespace pam {
 

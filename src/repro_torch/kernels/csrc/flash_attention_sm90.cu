@@ -4,8 +4,8 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_attn_kernel
 // (:31; wrapper flash_attention, pl.pallas_call at :122) for bf16 operands
 // at the built (head dim, group) pairs of PAM_ATTN_FWD90_BUILT below:
-// head dim 128 with groups 1, 2, 5 and 8 (pam-llama-7b, qwen3-0.6b,
-// qwen3-14b, deepseek-67b), 64 with groups 1 and 7 (minicpm-2b;
+// head dim 128 with groups 1, 2, 5, 8 and 16 (pam-llama-7b, qwen3-0.6b,
+// qwen3-14b, deepseek-67b, qwen3-moe-235b-a22b), 64 with groups 1 and 7 (minicpm-2b;
 // internvl2-1b, causal), 80 with group 1 (hubert-xlarge's bidirectional
 // encoder) and 112 with group 1 (zamba2-7b's shared attention block,
 // causal). fp32 at every pair and bf16 at head dim 16 keep
@@ -85,7 +85,7 @@
   X(64, 1) X(64, 7) \
   X(80, 1) \
   X(112, 1) \
-  X(128, 1) X(128, 2) X(128, 5) X(128, 8)
+  X(128, 1) X(128, 2) X(128, 5) X(128, 8) X(128, 16)
 
 namespace pam {
 

@@ -55,12 +55,12 @@ NEG_INF = -1e30
 # PAM_ATTN_FWD90_BUILT): the reduced configs' head dim 16, and minicpm-2b
 # (64, 1), internvl2-1b (64, 7), hubert-xlarge (80, 1), zamba2-7b's shared
 # block (112, 1), pam-llama-7b (128, 1), qwen3-0.6b (128, 2), qwen3-14b
-# (128, 5) and deepseek-67b (128, 8)
+# (128, 5), deepseek-67b (128, 8) and qwen3-moe-235b-a22b (128, 16)
 BUILT = ((16, 1), (16, 2),
          (64, 1), (64, 7),
          (80, 1),
          (112, 1),
-         (128, 1), (128, 2), (128, 5), (128, 8))
+         (128, 1), (128, 2), (128, 5), (128, 8), (128, 16))
 # the backward's pairs: PAM_ATTN_BWD_BUILT (flash_attention_bwd_sm90.cu's
 # PAM_ATTN_BWD90_BUILT at WGMMA_BWD_DIMS), the same list: every built
 # forward trains

@@ -13,7 +13,18 @@ zamba2-7b`` (the hybrid) runs both: ``ssd_scan`` at (d_state, head dim)
 group) (112, 1) in its shared block, bf16 on the wgmma kernels. At full
 depth (5.7 B parameters) a donated step needs about 115 GiB of state:
 one H100 trains it only cut, as ``chip_smoke.py``'s ``train_zamba2_7b``
-does (there is no depth flag, as in the reference). Counterpart of
+does (there is no depth flag, as in the reference). The mixture-of-experts
+families route their FFN through ``models/moe.py`` (``torch.bmm`` expert
+products, as the reference leaves its ``einsum``s to XLA) and add the
+layers' Switch aux loss to the loss: ``--arch qwen3-moe-235b-a22b`` runs
+``flash_attention`` at (128, 16), 64 query heads over 4 KV heads, and
+``--arch deepseek-v2-lite-16b`` runs MLA through the plain chunked
+attention of ``mla.mla_train`` (the reference has no MLA kernel), so no
+counted kernel. Neither fits one H100 at full depth: a donated step holds
+12 bytes a parameter, 2.8 TB for qwen3-moe-235b-a22b's 235 B and 195 GB
+for deepseek-v2-lite-16b's 16.2 B, so the card trains them cut, as
+``chip_smoke.py``'s ``train_qwen3_moe_235b_a22b`` and
+``train_deepseek_v2_lite_16b`` do. Counterpart of
 ``repro.launch.train`` with the same flags; multi-device sharding and the
 loop's straggler monitoring are not ported (ROADMAP Queue 1 item 10;
 ``distributed.elastic.StragglerMonitor`` itself is). Prints one

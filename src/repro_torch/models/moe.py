@@ -13,7 +13,7 @@ Capacity couples the rows of a call: a token's output depends on every
 other token routed with it, so callers hand in exactly the reference's
 shapes (padded prefill buckets, every decode slot). The reference's
 ``moe_pin`` (expert-parallel sharding constraints, a numerical no-op) is
-not ported: ROADMAP Queue 1 item 14.
+not ported: it waits with the perf flags, ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations

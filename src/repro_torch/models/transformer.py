@@ -3,14 +3,15 @@ families: init, the training forward and loss, prefill, decode.
 
 Counterpart of ``repro.models.transformer`` (dense GQA family, the GQA
 mixture-of-experts family — attention as dense, the FFN routed by
-``models/moe.py`` — the MLA mixture-of-experts family, served only —
-``params["layers"]["mla"]`` in place of ``attn``, a latent decode cache
-— the Mamba-2 ``ssm`` family, and the Zamba2-style ``hybrid`` family:
-groups of Mamba-2 layers, ``params["mamba_groups"]`` stacked (n_groups,
-mamba_per_group, ...), each group followed by one shared attention + MLP
-block, ``params["shared_attn"]`` unstacked, at its own KV cache site,
-then ``params["tail_mamba"]``, the ``vlm``
-family — a dense decoder whose ``params["frontend"]`` projects image
+``models/moe.py`` — the MLA mixture-of-experts family —
+``params["layers"]["mla"]`` in place of ``attn``, a latent decode cache;
+it trains through the plain chunked attention of ``mla.mla_train``, as
+the reference does — the Mamba-2 ``ssm`` family, and the Zamba2-style
+``hybrid`` family: groups of Mamba-2 layers, ``params["mamba_groups"]``
+stacked (n_groups, mamba_per_group, ...), each group followed by one
+shared attention + MLP block, ``params["shared_attn"]`` unstacked, at its
+own KV cache site, then ``params["tail_mamba"]``, the ``vlm`` family — a
+dense decoder whose ``params["frontend"]`` projects image
 patch embeddings into a prefix before the token embeddings — and the
 ``audio`` family, a bidirectional encoder whose frames go through
 ``params["frontend"]`` in place of the embeddings, with no decode).
@@ -23,8 +24,6 @@ fields (zero-size shared leaves without shared experts),
 a Python loop over per-layer views of that axis, each leaf unbound once
 (``_layers``, ``_hybrid_layers``; ``remat`` checkpoints each layer, and
 each whole hybrid group, with ``torch.utils.checkpoint``).
-``forward`` / ``loss_fn`` on an MLA model raise ``NotImplementedError``
-naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -56,7 +55,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _gqa_moe(cfg: ModelConfig) -> bool:
-    """The MoE family on GQA attention (MLA is not ported)."""
+    """The MoE family on GQA attention."""
     return (cfg.family == "moe" and cfg.moe is not None
             and cfg.mla is None)
 
@@ -261,13 +260,22 @@ def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
 # ============================================================ train forward
 def _dense_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                  use_kernel: bool) -> torch.Tensor:
-    """Pre-norm attention + SwiGLU of one layer (``lp``: its views)."""
+    """Pre-norm attention + SwiGLU (or the routed FFN) of one layer
+    (``lp``: its views). MLA runs the plain chunked attention of
+    ``mla_train`` whatever ``use_kernel`` says, as the reference does
+    (it has no MLA kernel)."""
     h = rms_norm(x, lp["ln1"], cfg.rms_eps)
-    x = x + attn_mod.attention_train(
-        _attn_params(lp), h, n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=cfg.causal,
-        rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
-        use_kernel=use_kernel)
+    if cfg.mla is not None:
+        x = x + mla_mod.mla_train(
+            _mla_params(lp), h, cfg.mla, n_heads=cfg.n_heads,
+            rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
+            causal=cfg.causal)
+    else:
+        x = x + attn_mod.attention_train(
+            _attn_params(lp), h, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=cfg.causal,
+            rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
+            use_kernel=use_kernel)
     if cfg.moe is not None:     # (x, the layer's aux loss)
         y, aux = moe_mod.moe_forward(
             _moe_params(lp), rms_norm(x, lp["ln2"], cfg.rms_eps), cfg.moe)
@@ -313,10 +321,6 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
     own. The stacked leaves are unbound once, outside the checkpoints
     (``_layers``, ``_hybrid_layers``)."""
     _require_ported(cfg)
-    if _mla_moe(cfg):        # served only
-        raise NotImplementedError(
-            f"{cfg.name}: the MLA forward / loss / train step is not "
-            f"ported yet (ROADMAP Queue 1 item 14); the port serves it")
     if activation_spec is not None:
         raise NotImplementedError(
             "activation_spec (sequence-parallel residual sharding) is not "

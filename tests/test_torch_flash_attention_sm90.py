@@ -123,7 +123,7 @@ def test_wgmma_forward_pairs_match_the_cuda_dispatch():
     built, and no other."""
     want = tuple(p for p in tfa.BUILT if p[0] in tfa.WGMMA_FWD_DIMS)
     assert want == ((64, 1), (64, 7), (80, 1), (112, 1), (128, 1), (128, 2),
-                    (128, 5), (128, 8))
+                    (128, 5), (128, 8), (128, 16))
     assert _macro_items(CSRC / "flash_attention_sm90.cu",
                         "PAM_ATTN_FWD90_BUILT") == want
 
@@ -134,6 +134,8 @@ def test_wgmma_backward_pairs_match_the_cuda_dispatch():
     ``PAM_ATTN_BWD90_BUILT``): every train pair of the full-width
     configs, the forward's list."""
     want = tuple(p for p in tfa.BUILT_BWD if p[0] in tfa.WGMMA_BWD_DIMS)
+    assert want == ((64, 1), (64, 7), (80, 1), (112, 1), (128, 1), (128, 2),
+                    (128, 5), (128, 8), (128, 16))
     assert _macro_items(CSRC / "flash_attention_bwd_sm90.cu",
                         "PAM_ATTN_BWD90_BUILT") == want
     assert want == tuple(p for p in tfa.BUILT if p[0] in tfa.WGMMA_FWD_DIMS)
