@@ -64,7 +64,11 @@ final ``ok`` line:
             kernels execute beside those the bound counts, each
             gradient's error, and the errors against ``_fwd_rounded`` /
             ``_bwd_rounded``, the plain model of the wgmma kernels' bf16
-            roundings)
+            roundings); and the sharded engine's site slices
+            (``SITE_ROWS``): the merged dense kernel on a view of slots
+            [128, 256) and [192, 256) of a 256-slot ring (kv heads 256
+            rows apart) and the merged paged kernel on blocks [512, 1024)
+            and [256, 512) of the pool with ``block_offset``
   pam_core  the paper's core library at qwen3-0.6b decode shapes (B 8,
             H 16, Hkv 8, d 128, seed 0): ``pam_decode_attention`` over
             three tiers, HBM 256 and DDR 1,792 tokens dense and SSD 6,144
@@ -140,6 +144,18 @@ final ``ok`` line:
             decode wrappers n_layers x body steps, a paged walk over blocks two
             or more rows map, every token inside its top-50; prints TTFT,
             the counters, the sampler's launches and device ms a step
+  engine_sharded   the same model on the serving template with a pool of
+            1,023 blocks, sharded over 1, 2 and 4 sites in turn (every
+            site on this card: tensor-parallel weight views, the ring's
+            slots and the pool's blocks split, the exact Alg. 1 merge
+            across sites); each run with the launch counts reset just
+            before it: the merged decode wrappers shard x n_layers x the
+            host-run body steps, each merged decode kernel shard x
+            n_layers times in a profiled replayed step, 64 tokens a
+            request, one dispatch a device step; prints decode tok/s,
+            step ms, kernel nodes, the cross-site merge's device ms, a
+            site's parameter bytes, the modeled merge bytes, peak memory
+            and the share of tokens equal to shard 1's
   decode_graph   twin engines in this call, one replaying the decode
             dispatch's CUDA graphs and one running the eager in-place
             body, full-width qwen3-0.6b paged + ring, 8 requests of
@@ -353,6 +369,10 @@ final ``ok`` line:
   parity    full-width qwen3-0.6b in fp32: teacher-forced decode steps
             through the engine's kernel-backed attention vs attention
             built from plain tensor code, logits compared
+  shard_parity   fp32, TF32 off: reduced qwen3-0.6b engines at shard 2 and
+            4 give shard 1's greedy and sampled streams; one sharded
+            decode attention call equals the unsharded one (out, mass)
+            at the reduced shapes and at qwen3-0.6b's heads
   prefix_chunk_parity   fp32, TF32 off: (a) the sampler's keys, bits and
             tokens on the card equal its CPU run's ((8, 151936) logits, 16
             (seed, rid, pos) triples); (b) greedy streams of the shared-
@@ -414,6 +434,9 @@ Tolerances (each kernel against its plain version on the same inputs):
       gradient leaf max |kernel - plain| / max |plain| <= 1e-3
   parity: max |dlogit| / max(1, max |logit|) <= 1e-3 (vlm_audio_parity
       too)
+  shard_parity: the sharded attention's out and mass against the
+      unsharded call at atol 1e-5, rtol 1e-5 (fp32: the same kernels over
+      other partitions, sums in another order); streams exactly equal
   vlm_forward, encoder_hubert_xlarge (bf16, attention kernel against
       the plain attention through the whole model): max |dlogit| /
       max(1, max |logit|) <= 5e-2 (``BF16_MODEL_TOL``: each layer's
@@ -898,6 +921,80 @@ def kernel_flash_decode_paged(merged: bool = False, heads=(16, 8),
         lambda: fd._flash_decode_paged_plain(q, kp, vp, table, live_blk,
                                              mask, None, scale)[:3],
         nbytes, n_live * H * d * 4, grid_blocks=nb * Hkv * B, **case)
+
+
+# a sharded engine's site slices (``engine_sharded``: qwen3-0.6b's ring of
+# 256 slots and pool of 1,024 blocks over 2 and 4 sites)
+SITE_RING = 256
+SITE_ROWS = {"flash_decode_merged_site_w128": ("ring", 128, 128),
+             "flash_decode_merged_site_w64": ("ring", 64, 192),
+             "flash_decode_paged_merged_site_nb512": ("pool", 512, 512),
+             "flash_decode_paged_merged_site_nb256": ("pool", 256, 256)}
+
+
+def kernel_flash_decode_site(w_loc: int, start: int) -> dict:
+    """The merged dense kernel on one site's slice of a hot ring, as the
+    sharded engine calls it: slots ``[start, start + w_loc)`` of a B 8,
+    16 / 8 heads of 128, 256-slot bf16 ring, a view whose kv heads lie
+    256 rows apart, the site's mask (half the slots), ``kv_len`` w_loc,
+    with scores; against its plain version on the same view."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v, mask, _ = _dense_case(SITE_RING, seed=start + w_loc,
+                                   dead_split=False)
+    B, H, d = q.shape
+    Hkv = k.shape[1]
+    ks, vs = k[:, :, start:start + w_loc], v[:, :, start:start + w_loc]
+    m = mask[:, start:start + w_loc].contiguous()
+    live = fd._dense_live(m, w_loc, None, B, w_loc, q.device)
+    n_live = int(live.sum())
+    nbytes = (n_live * Hkv * d * 2 * 2 + q.numel() * 4 + m.numel()
+              + B * H * (d + 2) * 4 + B * H * w_loc * 4)
+    split = fd.split_len(B, Hkv, w_loc, fd._sm_count(q.device))
+    block_s = min(fd.DEFAULT_BLOCK_S, max(w_loc, 8))
+    row = _decode_row(
+        "flash_decode_merged",
+        lambda: fd.flash_decode_merged(q, ks, vs, m, kv_len=w_loc,
+                                       scores=True),
+        lambda: fd._merged_plain(*fd._flash_decode_plain(
+            q, ks, vs, live, 1.0 / d ** 0.5, block_s)),
+        nbytes, n_live * H * d * 4, S=w_loc, start=start,
+        view_rows_per_head=SITE_RING, split=split,
+        nsplit=-(-w_loc // split))
+    lens = torch.full((B,), w_loc, device="cuda")
+    return dict(row, live_tokens=n_live, H=H, Hkv=Hkv, d=d,
+                library_ms=_sdpa_ms(q, ks, vs, m, lens))
+
+
+def kernel_flash_decode_paged_site(nb_loc: int, offset: int) -> dict:
+    """The merged paged kernel on one site's slice of ``_paged_case``'s
+    pool, as the sharded engine calls it: the view of physical blocks
+    ``[offset, offset + nb_loc)``, the global block table with
+    ``block_offset``, entries outside the slice dead; against its plain
+    version. The bound counts the tokens of the site's own blocks."""
+    from repro_torch.kernels import flash_decode as fd
+    q, kp, vp, table, mask, live_blk = _paged_case()
+    B, H, d = q.shape
+    bs, Hkv = kp.shape[1], kp.shape[2]
+    nb = table.shape[1]
+    kl, vl = kp[offset:offset + nb_loc], vp[offset:offset + nb_loc]
+    inside = (table >= offset) & (table < offset + nb_loc)
+    n_live = int((mask & inside.repeat_interleave(bs, 1)).sum())
+    nbytes = (n_live * Hkv * d * 2 * 2 + q.numel() * 4 + mask.numel()
+              + table.numel() * 4 + live_blk.numel()
+              + B * H * (d + 2) * 4 + B * H * nb * bs * 4)
+    split = fd.split_len(B, Hkv, nb * bs, fd._sm_count(q.device), block=bs)
+    return _decode_row(
+        "flash_decode_paged_merged",
+        lambda: fd.flash_decode_paged_merged(
+            q, kl, vl, table, mask, block_live=live_blk,
+            block_offset=offset, scores=True),
+        lambda: fd._merged_plain(*fd._flash_decode_paged_plain(
+            q, kl, vl, table, live_blk, mask, offset, 1.0 / d ** 0.5)),
+        nbytes, n_live * H * d * 4, block_offset=offset, nb_local=nb_loc,
+        split=split, live_tokens=n_live,
+        live_blocks=int((live_blk & inside).sum()), library_ms=None, H=H,
+        Hkv=Hkv, d=d)
 
 
 def _attn_case(S: int, causal: bool, seed: int, B: int = TRAIN_B,
@@ -1615,14 +1712,16 @@ def _pam(max_len: int, **kw):
                             recency_window=32, schedule_interval=4, **kw)
 
 
-def _engine(cfg, params, n_req: int, new: int, pam_kw=None, **scfg_kw):
-    """An engine with ``n_req`` requests of 512-1024 prompt tokens (seeded
-    numpy draws) submitted."""
+def _engine(cfg, params, n_req: int, new: int, pam_kw=None, shard=1,
+            **scfg_kw):
+    """An engine (sharded over ``shard`` sites) with ``n_req`` requests of
+    512-1024 prompt tokens (seeded numpy draws) submitted."""
     import numpy as np
-    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    from repro_torch.serving import EngineSpec, Request, ServingConfig
     scfg = ServingConfig(pam=_pam(scfg_kw["max_len"], **(pam_kw or {})),
                          **scfg_kw)
-    eng = ServingEngine(cfg, params, scfg, device="cuda")
+    eng = EngineSpec(model=cfg, serving=scfg, shard=shard).build(
+        params, device="cuda")
     rng = np.random.default_rng(0)
     for i in range(n_req):
         plen = int(rng.integers(512, 1025))
@@ -4564,6 +4663,212 @@ def phase_engine_served(cfg, params, weights=None, layout=PAGED_RING,
     return out
 
 
+SHARDS = (1, 2, 4)
+SHARD_POOL = 1023     # pool blocks: NB + 1 = 1,024 splits over 2 and 4
+
+
+def _merge_ms(cfg, g: int) -> dict:
+    """Device ms of one cross-site merge (Alg. 1 over ``g`` sites'
+    partials, ``pam_shard._merge_across_sites``) at the model's decode
+    shape (B 8, fp32 (O, m, l)), replayed as a CUDA graph: a layer's
+    call, and a step's (n_layers calls)."""
+    import torch
+    from repro_torch.core import online_softmax as osm
+    from repro_torch.distributed import pam_shard as psh
+    gen = torch.Generator(device="cuda").manual_seed(g)
+    B, H, d = 8, cfg.n_heads, cfg.head_dim
+    parts = [osm.AttnPartial(
+        torch.randn((B, H, d), generator=gen, device="cuda"),
+        torch.randn((B, H), generator=gen, device="cuda"),
+        torch.rand((B, H), generator=gen, device="cuda") + 1.0)
+        for _ in range(g)]
+    r = _graph_device_ms(lambda: psh._merge_across_sites(parts))
+    return dict(r, per_step_ms=r["device_ms"] * cfg.n_layers)
+
+
+def phase_engine_sharded(cfg, params) -> dict:
+    """The sharded engine on the card: full-width qwen3-0.6b (bf16,
+    random weights from seed 0) on the serving template (8 requests of
+    512-1024 prompt tokens, 64 new, batch 8, max_len 2048, block 16, ring
+    256) with a pool of 1,023 blocks, at shard 1, 2 and 4 in turn, every
+    site on this card. Each run is driven with the launch counts set to 0
+    just before it and read just after: each merged decode wrapper must be
+    called shard x n_layers x the host-run body steps, the stacked ones
+    never, and in one profiled replayed step each merged decode kernel
+    must run shard x n_layers times on the card. Asserts 64 tokens a
+    request and one dispatch a device step. Prints decode tok/s, the
+    steady step ms, the kernel nodes of a step, the cross-site merge's
+    device ms (``_merge_ms``), a site's parameter bytes, the modeled
+    merge bytes (``merge_collective_bytes``), peak memory, and the share
+    of tokens equal to shard 1's stream with each request's first token
+    apart (bf16: the row-parallel sums round apart, and a flipped token
+    changes the rest of its stream)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import pam_shard as psh
+    group = cfg.n_heads // cfg.n_kv_heads
+    out, base = {"card": _card()}, None
+    for g in SHARDS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        eng = _engine(cfg, params, 8, 64, max_batch=8, max_len=2048,
+                      pool_blocks=SHARD_POOL, shard=g, **PAGED_RING)
+        _warm_graphs(eng)
+        walls, span_s = _steady_steps(eng)
+        step = _step_events(eng.step)
+        summ = eng.run()
+        launches = _launches()
+        streams = [eng.requests[i].outputs for i in range(8)]
+        assert [len(t) for t in streams] == [64] * 8, "lost tokens"
+        assert summ["decode_dispatches"] == summ["decode_device_steps"]
+        want = g * cfg.n_layers * eng.decode_body_steps
+        _assert_decode_launches(launches, dict.fromkeys(DECODE_KERNELS[:2],
+                                                        want))
+        mine = _merged_instantiations(step, cfg.head_dim, group)
+        _assert_device_decode_counts(mine, DECODE_CUDA_KERNELS,
+                                     g * cfg.n_layers)
+        base = base or streams
+        same = sum(int(a == b) for s, t in zip(streams, base)
+                   for a, b in zip(s, t))
+        # each request's first token apart from shard 1's (64: none)
+        apart = [next((i for i, (a, b) in enumerate(zip(s, t)) if a != b),
+                      64) for s, t in zip(streams, base)]
+        merge, mass = psh.merge_collective_bytes(
+            cfg.n_layers, cfg.n_heads, cfg.head_dim, 8, smax=2048)
+        out[f"shard_{g}"] = dict(
+            decode_tok_s=summ["decode_tok_s"],
+            steady_step_ms_median=float(np.median(walls)) * 1e3,
+            steady_step_ms=[w * 1e3 for w in walls],
+            replay_device_ms_per_step=span_s / len(walls) * 1e3,
+            device_idle_share=1.0 - span_s / sum(walls),
+            kernel_nodes=step["kernel_nodes"],
+            graph_launches=step["graph_launches"],
+            decode_kernels_per_replayed_step=mine,
+            merge=_merge_ms(cfg, g) if g > 1 else None,
+            params_bytes_per_device=eng.params_bytes_per_device(),
+            merge_collective_bytes=merge if g > 1 else 0,
+            mass_collective_bytes=mass if g > 1 else 0,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            tokens_equal_to_shard_1=same / (8 * 64),
+            first_token_apart_from_shard_1=apart,
+            launches=launches, launches_expected=want,
+            decode_body_steps=eng.decode_body_steps,
+            decode_device_steps=summ["decode_device_steps"],
+            sites=summ.get("sites", [str(eng.device)]),
+            capture_ms_per_graph=eng.capture_seconds * 1e3
+            / max(len(eng._graphs), 1))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+SHARD_PARITY_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _site_attention_inputs(seed: int, B=3, H=4, Hkv=2, d=16, W=16,
+                           smax=64, bs=8, nb1=24) -> dict:
+    """One layer's ring and pool with the engine's tier split, fp32 on the
+    card: ragged lengths (row 1 wraps the ring, row 2 has no live token),
+    the hot mask inside the window, dead table entries on the
+    sentinel."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    nb = smax // bs
+    lens = (np.array([45, 60, 0]) if B == 3
+            else rng.integers(W // 2, smax + 1, B))
+    lens[2] = 0
+    lens = lens.astype(np.int32)
+    pos = np.arange(smax)[None]
+    live = (rng.random((B, smax)) < 0.6) & (pos < lens[:, None])
+    hot = live & (pos >= lens[:, None] - W) & (rng.random((B, smax)) < 0.7)
+    pgd = live & ~hot
+    block_live = pgd.reshape(B, nb, bs).any(-1)
+    table = np.stack([rng.permutation(nb1 - 1)[:nb] for _ in range(B)])
+    table = np.where(block_live, table, nb1 - 1).astype(np.int32)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    x = dict(q=f(B, H, d), kc=f(B, Hkv, W, d), vc=f(B, Hkv, W, d),
+             pk=f(nb1, bs, Hkv, d), pv=f(nb1, bs, Hkv, d), lens=lens,
+             hot=hot, pgd=pgd, block_live=block_live, table=table)
+    return {k: torch.from_numpy(v).cuda() for k, v in x.items()}
+
+
+def phase_shard_parity() -> dict:
+    """fp32 (TF32 off) on the card: reduced qwen3-0.6b engines at shard 2
+    and 4 against shard 1 on the reference's sharded-engine config (pool
+    23 blocks, ring 16, 3 requests of 20 prompt tokens and 10 new):
+    greedy and sampled (temperature 1.0) streams equal; the merged decode
+    wrappers shard x n_layers x the host-run body steps. Then one sharded
+    attention call (``make_sharded_paged_decode_attn``) against the
+    unsharded one (``make_paged_decode_attn``) on the same seeded layer,
+    at the reduced shapes and at qwen3-0.6b's heads (B 8, 16 / 8 of 128,
+    ring 256, pool 1,024 blocks): ``out`` and ``mass`` within atol 1e-5,
+    rtol 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import pam_shard as psh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import get_config, reduced
+    from repro_torch.serving import (EngineSpec, PAMManagerConfig, Request,
+                                     ServingConfig)
+    from repro_torch.serving import pam_manager as pm
+    cfg = reduced(get_config("qwen3-0.6b"))
+    params = tf.init_params(cfg, 0, device="cuda")
+    pam = PAMManagerConfig(max_tokens=64, hot_capacity=8, warm_capacity=16,
+                           compression=4, recency_window=4,
+                           schedule_interval=2)
+    out = {"card": _card()}
+    for name, kw in (("greedy", {}),
+                     ("sampled", dict(temperature=1.0, sample_seed=11))):
+        scfg = ServingConfig(pam=pam, max_batch=2, max_len=64,
+                             block_size=8, pool_blocks=23, hot_window=16,
+                             **kw)
+        streams = {}
+        for g in SHARDS:
+            _reset_launches()
+            eng = EngineSpec(model=cfg, serving=scfg, shard=g).build(
+                params, device="cuda")
+            rng = np.random.default_rng(7)
+            for i in range(3):
+                eng.submit(Request(i + 1, rng.integers(1, cfg.vocab, 20),
+                                   10))
+            eng.run()
+            want = g * cfg.n_layers * eng.decode_body_steps
+            _assert_decode_launches(_launches(), dict.fromkeys(
+                DECODE_KERNELS[:2], want))
+            streams[g] = {r: s.outputs for r, s in eng.requests.items()}
+            assert eng.decode_dispatches == eng.decode_device_steps
+        for g in SHARDS[1:]:
+            assert streams[g] == streams[1], f"{name} shard {g} diverged"
+        out[name] = dict(tokens=sum(len(t) for t in streams[1].values()),
+                         equal_at=list(SHARDS[1:]))
+    big = dict(B=8, H=16, Hkv=8, d=128, W=256, smax=2048, bs=16, nb1=1024)
+    for tag, shape in (("reduced", {}), ("qwen3_0_6b_heads", big)):
+        x = _site_attention_inputs(3, **shape)
+        args = (x["q"], x["kc"], x["vc"], x["pk"], x["pv"], x["lens"])
+        ref = pm.make_paged_decode_attn(x["hot"], x["pgd"], x["table"],
+                                        x["block_live"])(*args)
+        for g in SHARDS[1:]:
+            _reset_launches()
+            got = psh.make_sharded_paged_decode_attn(
+                psh.decode_sites(g, "cuda"), x["hot"], x["pgd"], x["table"],
+                x["block_live"])(*args)
+            torch.cuda.synchronize()
+            n = _launches()
+            assert (n["flash_decode_merged"] == g
+                    and n["flash_decode_paged_merged"] == g), n
+            errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+            for a, b, key in zip(got, ref, ("out", "mass")):
+                torch.testing.assert_close(a, b, **SHARD_PARITY_TOL,
+                                           msg=f"{tag} shard {g} {key}")
+            out[f"attention_{tag}_shard_{g}"] = dict(
+                max_abs_err_out=errs[0], max_abs_err_mass=errs[1])
+    out.update(tol=SHARD_PARITY_TOL, dtype="float32", tf32=False)
+    return out
+
+
 def _decode_rows(tag: str = "", heads=(16, 8), d: int = 128) -> dict:
     """Both decode kernels, stacked and merged, at ring S 256, S 2048 and
     the paged pool, for (H, Hkv) ``heads`` and head dim ``d``; keys end
@@ -4644,6 +4949,11 @@ def phase_kernels() -> dict:
     out[ATTN_FP32_ROWS[AUDIO_ARCH]] = kernel_flash_attention_fwd(
         150, False, 2, (4, 4), d, "float32")
     out.update(kernel_ssd_scan())
+    # the sharded engine's site slices: the ring kernel on a view of 128
+    # and 64 of 256 slots, the paged kernel on 512 and 256 of 1,024 blocks
+    for key, (kind, n, start) in SITE_ROWS.items():
+        out[key] = (kernel_flash_decode_site(n, start) if kind == "ring"
+                    else kernel_flash_decode_paged_site(n, start))
     return out
 
 
@@ -4728,6 +5038,7 @@ def main() -> int:
         run("serve_frontend", phase_serve_frontend, *model)
         run("engine_prefix_chunk_sampled",
             phase_engine_prefix_chunk_sampled, *model)
+        run("engine_sharded", phase_engine_sharded, *model)
     moe = None
     try:            # qwen3-moe-235b-a22b at full width, MOE_LAYERS deep
         moe = _model("bfloat16", MOE_ARCH, MOE_LAYERS)
@@ -4823,6 +5134,8 @@ def main() -> int:
     run("train_parity", phase_train_parity)
     torch.cuda.empty_cache()
     run("parity", phase_parity)
+    torch.cuda.empty_cache()
+    run("shard_parity", phase_shard_parity)
     torch.cuda.empty_cache()
     run("prefix_chunk_parity", phase_prefix_chunk_parity)
     torch.cuda.empty_cache()
@@ -5044,6 +5357,25 @@ def main() -> int:
                       vap[case]["launches"]["flash_attention"],
                       name="flash_attention" + tag + "_fp32")
         row["launches_in"] = "vlm_audio_parity"
+    # the sharded engine's site slices: launches from engine_sharded's run
+    # at the shard whose slice the row takes (ring 128 / pool 512 of 2
+    # sites, ring 64 / pool 256 of 4)
+    sharded = results["engine_sharded"]
+    for key, (kind, n, start) in SITE_ROWS.items():
+        g = (SITE_RING if kind == "ring" else SHARD_POOL + 1) // n
+        name = DECODE_KERNELS[0 if kind == "ring" else 1]
+        row = add_row(key, "flash_decode.cu" if kind == "ring"
+                      else "flash_decode_paged.cu",
+                      "flash_decode.py:98" if kind == "ring"
+                      else "flash_decode.py:202",
+                      sharded[f"shard_{g}"]["launches"][name], name=key)
+        row.update(launches_in=f"engine_sharded shard {g}",
+                   device_launches_engine_sharded_step=sharded[
+                       f"shard_{g}"]["decode_kernels_per_replayed_step"][
+                       DECODE_CUDA_KERNELS[0 if kind == "ring" else 1]],
+                   **{f: kernels[key][f] for f in (
+                       "start", "block_offset", "nb_local",
+                       "view_rows_per_head") if f in kernels[key]})
     for row in rows:
         if "_bwd" in row["name"]:
             row["note"] = (f"gradient of {row['name'].split('_bwd')[0]}; "

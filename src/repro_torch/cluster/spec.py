@@ -11,8 +11,12 @@ syntax (``--devices hbm:1,cxl:2``).
 weights on the device, whatever the fleet's size. The device classes
 are the perf model's (``repro_torch.perfmodel.devices``): each engine
 gets its class's batch, pool and latency model, and all of them run on
-the one device given. Replica groups of more than one device
-(``shard > 1``) are not ported yet (ROADMAP Queue 1 item 9).
+the one device given. A replica group of ``g > 1`` devices is one
+engine sharded over ``g`` sites (``EngineSpec(shard=g)``: 1/g of the
+weights and of the KV a site), its pool rounded so that the block axis
+splits; ``from_cli("hbm:1,cxl:2", shard=2)`` forms a lone hbm engine
+beside one 2-way cxl group. The sites of every group share the one
+device too.
 """
 
 from __future__ import annotations

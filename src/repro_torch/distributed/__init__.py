@@ -1,3 +1,6 @@
-"""Distributed pieces of the port: so far the liveness and straggler
+"""Distributed pieces of the port: the liveness and straggler
 bookkeeping the serving cluster's watchdog runs on
-(``distributed.elastic``)."""
+(``distributed.elastic``), and the sharded serving engine's layout
+(``distributed.sharding``), its tensor-parallel weights
+(``distributed.tensor_parallel``) and its attention across sites
+(``distributed.pam_shard``)."""

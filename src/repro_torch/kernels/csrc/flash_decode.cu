@@ -1,4 +1,6 @@
-// Split-KV decode attention over a dense (B, Hkv, S, D) cache.
+// Split-KV decode attention over a dense (B, Hkv, S, D) cache, or over a
+// view of S consecutive rows of a longer one (a sharded engine's site
+// slice of its hot ring): consecutive kv heads start `stride` rows apart.
 //
 // Replaces the TPU kernel repro/kernels/flash_decode.py::_decode_kernel
 // (wrapper flash_decode, pl.pallas_call at :173). One CUDA block per
@@ -23,11 +25,12 @@ namespace pam {
 
 struct DenseArgs {
   const void* q;          // (B, H, D) fp32 or bf16
-  const void* k;          // (B, Hkv, S, D)
+  const void* k;          // (B, Hkv, stride, D), rows [0, S) of each head
   const void* v;
   const uint8_t* mask;    // (B, S) bool, or nullptr
   const int32_t* lens;    // (B,) int32, or nullptr
   Outputs out;
+  long stride;            // rows between kv heads in k / v (>= S)
   int B, H, Hkv, S, L, kv_len, tile;
   float scale;
 };
@@ -69,8 +72,8 @@ __global__ void __launch_bounds__(kThreads)
   const long t0 = (long)split * a.L;
   const long head = (long)b * a.Hkv + h;
   DenseSrc<T, D> src;
-  src.k = static_cast<const T*>(a.k) + (head * a.S + t0) * D;
-  src.v = static_cast<const T*>(a.v) + (head * a.S + t0) * D;
+  src.k = static_cast<const T*>(a.k) + (head * a.stride + t0) * D;
+  src.v = static_cast<const T*>(a.v) + (head * a.stride + t0) * D;
   src.mask = a.mask == nullptr ? nullptr : a.mask + (long)b * a.S + t0;
   src.len = a.lens == nullptr ? nullptr : a.lens + b;
   src.t0 = t0;
@@ -105,16 +108,19 @@ struct LaunchDense {
 // dtype / qtype: 0 = float32, 1 = bfloat16 (K/V storage, q). Stacked
 // (merged = 0): o (B, H, nsplit, D), m / l (B, H, nsplit) get every
 // split's partial. Merged (merged = 1, nsplit <= 8): o (B, H, D), m / l
-// (B, H) get the merged partial. scores (B, H, S) or null. Returns 0, a
-// CUDA error code, or -1 for an unsupported (dtype, qtype, D, rep) or
-// more than 8 merged splits.
+// (B, H) get the merged partial. scores (B, H, S) or null. kv_stride: rows
+// between kv heads in k / v (S for a whole cache). Returns 0, a CUDA
+// error code, or -1 for an unsupported (dtype, qtype, D, rep), more than
+// 8 merged splits or kv_stride below S.
 extern "C" int pam_flash_decode(const void* q, const void* k, const void* v,
                                 const void* mask, const void* lens, void* o,
                                 void* m, void* l, void* scores, int B, int H,
                                 int Hkv, int S, int D, int L, int nsplit,
-                                int merged, int kv_len, float scale,
-                                int dtype, int qtype, void* stream) {
+                                int merged, int kv_len, int kv_stride,
+                                float scale, int dtype, int qtype,
+                                void* stream) {
   if (merged && nsplit > pam::kMaxSplits) return -1;
+  if (kv_stride < S) return -1;
   pam::DenseArgs a;
   a.q = q;
   a.k = k;
@@ -128,6 +134,7 @@ extern "C" int pam_flash_decode(const void* q, const void* k, const void* v,
   a.H = H;
   a.Hkv = Hkv;
   a.S = S;
+  a.stride = kv_stride;
   a.L = L;
   a.kv_len = kv_len;
   a.scale = scale;

@@ -7,7 +7,9 @@ layouts, one CUDA kernel each, two contracts each:
 
 ``flash_decode`` / ``flash_decode_merged`` (dense): the partial ``(O, m,
 l)`` of the ``rep`` grouped query heads of each kv head over a (B, Hkv,
-S, d) cache. CUDA source: ``csrc/flash_decode.cu``.
+S, d) cache, or over a view of S consecutive rows of a longer cache (a
+sharded engine's site slice of its ring, ``cache[:, :, a:b]``). CUDA
+source: ``csrc/flash_decode.cu``.
 
 ``flash_decode_paged`` / ``flash_decode_paged_merged`` (paged): the same
 over a paged pool through a block table; dead table entries are skipped
@@ -188,10 +190,29 @@ def _dense_lib():
     fn = lib.pam_flash_decode
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
     return fn
+
+
+def _kv_stride(name: str, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Rows between kv heads of a (B, Hkv, S, d) K / V operand: S for a
+    contiguous cache, more for a view of S consecutive rows of a longer
+    one (a sharded engine's slice of its ring). Refuses any other layout,
+    and operands that are not 16-byte aligned CUDA tensors."""
+    B, Hkv, S, d = k.shape
+    for t in (k, v):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: all operands must be CUDA tensors")
+        st = t.stride()
+        if (t.shape != k.shape or st != k.stride() or st[3] != 1
+                or st[2] != d or st[1] % d or st[1] < S * d
+                or (B > 1 and st[0] != Hkv * st[1]) or t.data_ptr() % 16):
+            raise ValueError(f"{name}: K / V must be (B, Hkv, S, d) with "
+                             f"contiguous rows, 16-byte aligned, kv heads "
+                             f"a whole number of rows apart")
+    return k.stride(1) // d
 
 
 def _dense_live(mask, kv_len, kv_lens, B, S, device) -> torch.Tensor:
@@ -241,13 +262,14 @@ def _flash_decode_cuda(q, k, v, mask, kv_lens, kv_len, scale, L, *, merged,
     if k.dtype not in _DTYPE_CODE or v.dtype != k.dtype:
         raise ValueError(f"flash_decode: K/V dtype {k.dtype} not built")
     q = _q_operand(q)
-    check_launch("flash_decode", d, H // Hkv, q, k, v)
+    check_launch("flash_decode", d, H // Hkv, q)
+    stride = _kv_stride("flash_decode", k, v)
     mask = _byte_mask("flash_decode", mask)
     lens = _int32("flash_decode", kv_lens)
     bufs = _buffers(q, nsplit, S, merged, scores)
     rc = _dense_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), _addr(mask),
                       _addr(lens), *(_addr(t) for t in bufs), B, H, Hkv, S,
-                      d, L, nsplit, int(merged), min(kv_len, S),
+                      d, L, nsplit, int(merged), min(kv_len, S), stride,
                       float(scale), _DTYPE_CODE[k.dtype],
                       _DTYPE_CODE[q.dtype], _stream(q.device))
     if rc != 0:

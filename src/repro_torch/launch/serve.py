@@ -41,8 +41,11 @@ Requests then arrive with Poisson gaps (``--arrival-gap-ms``) on the
 modeled clock; ``--system pam`` (default) runs each engine's clock on
 its class's latency model, ``wallclock`` on the host's clock. Every
 engine runs on the one device given (``--device``), sharing one copy of
-the weights. ``--shard`` above 1 (ROADMAP Queue 1 item 9) is not ported
-yet and raises.
+the weights. ``--shard g`` shards each engine over ``g`` sites (the
+dense family on ``--block-size`` with a ring and a pool that split over
+``g``): one engine alone, or with ``--devices`` replica groups of ``g``
+same-class devices (``--devices hbm:1,cxl:2 --shard 2``: a lone hbm
+engine and one 2-way cxl group). The sites share the one device.
 
 Chaos mode injects a deterministic fault trace (kills, stalls, transfer
 drops and corruption, pool exhaustion) into a cluster run and serves
@@ -86,7 +89,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.perfmodel import PAM_LLAMA_7B, make_latency_model, make_system
 from repro_torch.serving import (EngineSpec, PAMManagerConfig, Request,
-                                 ServingConfig, ServingEngine)
+                                 ServingConfig)
 
 
 def main(argv=None) -> dict:
@@ -130,8 +133,9 @@ def main(argv=None) -> dict:
                     help="cluster mode: engine clocks on the device "
                          "classes' latency models, or the host's clock")
     ap.add_argument("--shard", type=int, default=1,
-                    help="devices per replica group (not ported yet above "
-                         "1: ROADMAP Queue 1 item 9)")
+                    help="sites an engine is sharded over (tensor-parallel "
+                         "weights, ring and pool split); with --devices, "
+                         "devices per replica group")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
                     help="cluster mode: fault trace, e.g. "
                          "'kill:hbm0@120,stall:cxl0@50x8,corrupt@30*2' "
@@ -163,10 +167,6 @@ def main(argv=None) -> dict:
                          "ticks or steps (0 = only the final snapshot; "
                          "any value enables the metrics registry)")
     args = ap.parse_args(argv)
-    if args.shard > 1:
-        raise NotImplementedError("--shard > 1 (one engine over several "
-                                  "devices) is not ported yet: ROADMAP "
-                                  "Queue 1 item 9")
     if args.chaos and not args.devices:
         ap.error("--chaos needs --devices (faults target cluster devices)")
     if args.metrics_interval and args.micro_steps > 1 and not (
@@ -244,7 +244,8 @@ def _finish_telemetry(args) -> None:
 
 def _engine_mode(args, cfg, params, scfg) -> dict:
     """One engine on the host's clock; returns the engine's summary."""
-    eng = ServingEngine(cfg, params, scfg, device=args.device)
+    eng = EngineSpec(model=cfg, serving=scfg, shard=args.shard).build(
+        params, device=args.device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         eng.submit(Request(id=i,
@@ -271,7 +272,7 @@ def _cluster(args, cfg, params, scfg, recovery_default: bool = False):
     if args.chaos or recovery_default:
         rec_cfg = RecoveryConfig()
     spec = ClusterSpec.from_cli(args.devices, model=cfg, serving=scfg,
-                                recovery=rec_cfg,
+                                shard=args.shard, recovery=rec_cfg,
                                 wallclock=args.system == "wallclock")
     return spec.build(params, balancer=KVBalancer(BalancerConfig()),
                       device=args.device, faults=faults)
@@ -369,7 +370,8 @@ def _serve_mode(args, cfg, params, scfg) -> dict:
         latency = (None if args.system == "wallclock" else
                    make_latency_model(make_system(args.system),
                                       PAM_LLAMA_7B))
-        backend = EngineSpec(model=cfg, serving=scfg).build(
+        backend = EngineSpec(model=cfg, serving=scfg,
+                             shard=args.shard).build(
             params, latency_model=latency, device=args.device)
     slo = SLOSpec(ttft_s=args.slo_ttft_ms / 1e3,
                   tpot_s=args.slo_tpot_ms / 1e3)

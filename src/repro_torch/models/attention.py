@@ -20,7 +20,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import apply_rope, linear, rms_norm
 
 DecodeAttnFn = Callable[..., tuple]
 
@@ -38,9 +38,9 @@ def _project_qkv(p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
                  n_heads: int, n_kv: int, d_head: int, rope_theta: float,
                  rms_eps: float):
     B, S, _ = x.shape
-    q = (x @ p.wq).reshape(B, S, n_heads, d_head)
-    k = (x @ p.wk).reshape(B, S, n_kv, d_head)
-    v = (x @ p.wv).reshape(B, S, n_kv, d_head)
+    q = linear(x, p.wq).reshape(B, S, n_heads, d_head)
+    k = linear(x, p.wk).reshape(B, S, n_kv, d_head)
+    v = linear(x, p.wv).reshape(B, S, n_kv, d_head)
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm, rms_eps)
         k = rms_norm(k, p.k_norm, rms_eps)
@@ -100,7 +100,7 @@ def attention_train(p: AttnParams, x: torch.Tensor, *, n_heads: int,
         out = torch.movedim(out, 1, 2)
     else:
         out = chunked_attention(q, k, v, causal=causal, chunk=q_chunk)
-    return out.reshape(B, S, n_heads * d_head) @ p.wo
+    return linear(out.reshape(B, S, n_heads * d_head), p.wo)
 
 
 def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,
@@ -114,7 +114,7 @@ def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,
     q, k, v = _project_qkv(p, x, positions, n_heads, n_kv, d_head,
                            rope_theta, rms_eps)
     out = chunked_attention(q, k, v, causal=causal, chunk=q_chunk)
-    out = out.reshape(B, S, n_heads * d_head) @ p.wo
+    out = linear(out.reshape(B, S, n_heads * d_head), p.wo)
     return out, torch.movedim(k, 2, 1), torch.movedim(v, 2, 1)
 
 
@@ -164,7 +164,7 @@ def attention_prefill_with_prefix(p: AttnParams, x: torch.Tensor,
            + torch.matmul(pr[..., P:], vh.float()[:, :, None]))
     out = out.to(x.dtype).reshape(B, n_heads, S, d_head)
     out = torch.movedim(out, 1, 2).reshape(B, S, n_heads * d_head)
-    return out @ p.wo, kh, vh
+    return linear(out, p.wo), kh, vh
 
 
 def grouped_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
@@ -220,9 +220,9 @@ def attention_decode(p: AttnParams, x: torch.Tensor, k_cache: torch.Tensor,
     v_cache, pk, pv).
     """
     B, d = x.shape
-    q = (x @ p.wq).reshape(B, n_heads, d_head)
-    k = (x @ p.wk).reshape(B, n_kv, d_head)
-    v = (x @ p.wv).reshape(B, n_kv, d_head)
+    q = linear(x, p.wq).reshape(B, n_heads, d_head)
+    k = linear(x, p.wk).reshape(B, n_kv, d_head)
+    v = linear(x, p.wv).reshape(B, n_kv, d_head)
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm, rms_eps)
         k = rms_norm(k, p.k_norm, rms_eps)
@@ -242,6 +242,7 @@ def attention_decode(p: AttnParams, x: torch.Tensor, k_cache: torch.Tensor,
         pv[dst_block.long(), dst_slot.long()] = v
         out, mass = decode_attn_fn(q, k_cache, v_cache, pk, pv, kv_lens + 1)
         out = out.reshape(B, n_heads * d_head)
-        return out @ p.wo, mass, k_cache, v_cache, pk, pv
+        return linear(out, p.wo), mass, k_cache, v_cache, pk, pv
     out, mass = decode_attn_fn(q, k_cache, v_cache, kv_lens + 1)
-    return out.reshape(B, n_heads * d_head) @ p.wo, mass, k_cache, v_cache
+    return (linear(out.reshape(B, n_heads * d_head), p.wo), mass,
+            k_cache, v_cache)

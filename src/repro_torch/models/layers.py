@@ -2,13 +2,17 @@
 
 Counterpart of ``repro.models.layers``: the same normalisation, init
 scales, SwiGLU and RoPE, with weights kept in the JAX ``x @ W``
-orientation so parameters cross the bridge as plain copies.
+orientation so parameters cross the bridge as plain copies. Weight
+products go through ``linear``, which also takes a sharded engine's
+per-site slices (``distributed.tensor_parallel``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.tensor_parallel import linear
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -37,9 +41,9 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = x @ w_gate
-    u = x @ w_up
-    return (F.silu(g) * u) @ w_down
+    g = linear(x, w_gate)
+    u = linear(x, w_up)
+    return linear(F.silu(g) * u, w_down)
 
 
 # ------------------------------------------------------------------- RoPE

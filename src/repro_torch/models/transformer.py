@@ -23,7 +23,11 @@ fields (zero-size shared leaves without shared experts),
 ``repro_torch.bridge`` moves weights as plain copies; the layer loop is
 a Python loop over per-layer views of that axis, each leaf unbound once
 (``_layers``, ``_hybrid_layers``; ``remat`` checkpoints each layer, and
-each whole hybrid group, with ``torch.utils.checkpoint``).
+each whole hybrid group, with ``torch.utils.checkpoint``). A sharded
+serving engine's tree holds the leaves it splits as per-site slices
+(``distributed.tensor_parallel.SiteSplit``); the weight products, the
+embedding lookups and the head reach every leaf through
+``tensor_parallel.linear`` / ``embedding``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -193,9 +198,11 @@ def _layers(params: Params) -> list[Params]:
     each leaf is unbound once (``torch.unbind(leaf, 0)``), so the
     backward writes each layer's gradient slice once. Indexing a leaf
     per layer instead would give every layer a zero gradient as large as
-    the whole stacked leaf, and autograd would add L of them."""
+    the whole stacked leaf, and autograd would add L of them. A sharded
+    engine's split leaf unbinds each site's slice
+    (``tensor_parallel.unbind``)."""
     lyr = params["layers"]
-    split = [torch.unbind(leaf, 0) for leaf in tree.leaves(lyr)]
+    split = [tp.unbind(leaf) for leaf in tree.leaves(lyr)]
     return [tree.unflatten(lyr, [s[i] for s in split])
             for i in range(len(split[0]))]
 
@@ -358,7 +365,7 @@ def _logits(cfg: ModelConfig, params: Params,
     """The final norm and the head over the residual stream; the vlm
     family drops its image-prefix positions."""
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = x @ _head(cfg, params)
+    logits = tp.linear(x, _head(cfg, params))
     if cfg.family == "vlm":      # strip the image-prefix positions
         logits = logits[:, cfg.num_patches:]
     return logits
@@ -371,7 +378,7 @@ def _embed_inputs(cfg: ModelConfig, params: Params,
     embeddings."""
     if cfg.family == "audio":
         return batch["frames"] @ params["frontend"]
-    x = params["embed"][batch["tokens"]]
+    x = tp.embedding(params["embed"], batch["tokens"])
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"] @ params["frontend"], x], dim=1)
     return x
@@ -501,7 +508,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """
     _require_ported(cfg)
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = tp.embedding(params["embed"], tokens)
     n_prefix = 0
     if cfg.family == "vlm" and patches is not None:
         x = torch.cat([patches @ params["frontend"], x], dim=1)
@@ -555,7 +562,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         last = x[:, -1]
     else:   # last REAL token of each (possibly bucket-padded) prompt
         last = x[torch.arange(B, device=x.device), (lens - 1).long()]
-    logits = last @ _head(cfg, params)
+    logits = tp.linear(last, _head(cfg, params))
     return logits, cache._replace(lengths=lens)
 
 
@@ -628,7 +635,7 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         return torch.full((B,), int(v), dtype=torch.int32, device=dev)
     plen = per_row(prefix_len)
     slen = per_row(S if true_len is None else true_len)
-    x = params["embed"][tokens]
+    x = tp.embedding(params["embed"], tokens)
     ks, vs = [], []
     for i, lp in enumerate(_layers(params)):
         hn = rms_norm(x, lp["ln1"], cfg.rms_eps)
@@ -645,7 +652,8 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     last = x[torch.arange(B, device=dev), (slen - 1).long()]
-    return last @ _head(cfg, params), torch.stack(ks), torch.stack(vs)
+    return (tp.linear(last, _head(cfg, params)), torch.stack(ks),
+            torch.stack(vs))
 
 
 # ============================================================ decode
@@ -680,7 +688,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         raise ValueError("cache has paged KV pools; decode_step requires "
                          "paged_append=(dst_block, dst_slot)")
     lens = cache.lengths
-    x = params["embed"][tokens]                           # (B, d)
+    x = tp.embedding(params["embed"], tokens)             # (B, d)
     layers = () if _hybrid(cfg) else _layers(params)
     if cfg.family == "ssm":
         for i, lp in enumerate(layers):
@@ -728,7 +736,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
         scores = torch.mean(torch.stack(masses), dim=0)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = x @ _head(cfg, params)
+    logits = tp.linear(x, _head(cfg, params))
     return logits, cache._replace(lengths=lens + 1), scores
 
 

@@ -89,8 +89,17 @@ ones included) reach the model in the reference's shapes:
   (``repro_torch.cluster``). Metrics and traces bind to
   ``repro_torch.obs`` as the reference's do.
 
-Not ported yet: sharding (``EngineSpec.shard > 1``, ROADMAP Queue 1
-item 9).
+* Sharding (``EngineSpec.shard = g > 1``, the dense family on the
+  paged + ring PAM path, as ``EngineSpec.validate`` admits): one engine
+  over ``g`` sites (``distributed.pam_shard.decode_sites``, every site
+  on the engine's device). Each site holds its slice of the weights
+  that ``distributed.sharding.param_specs`` splits (views:
+  ``distributed.tensor_parallel``), of the ring's slots and of the
+  pool's blocks; the cache stays one tensor a field, so admission,
+  chunks, copy-on-write, export and import write global coordinates as
+  unsharded. Each decode step attends per site and merges exactly across
+  the sites (``pam_shard.make_sharded_paged_decode_attn``); the dispatch,
+  its graph and its readback are the unsharded engine's.
 """
 
 from __future__ import annotations
@@ -108,6 +117,9 @@ import torch
 from repro_torch.core import pam_interface as pam_if
 from repro_torch.core import tiers as tiers_mod
 from repro_torch.device import resolve_device
+from repro_torch.distributed import pam_shard as psh
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.frontend.chunking import ChunkPlan, validate_budget
 from repro_torch.kernels.flash_decode import ring_position_map
 from repro_torch.models import transformer as tf
@@ -282,9 +294,7 @@ class ServingEngine:
                               name=name if name is not None else "dev0")
         if spec.shard > 1:
             spec.validate()
-            raise NotImplementedError(
-                f"EngineSpec.shard={spec.shard} (one engine over several "
-                f"devices) is not ported yet: ROADMAP Queue 1 item 9")
+            spec.require_shardable()
         cfg, scfg = spec.model, spec.serving
         tf._require_ported(cfg)
         if not cfg.has_decode:    # the reference asserts it
@@ -341,6 +351,15 @@ class ServingEngine:
         else:
             self.cache = tf.init_decode_cache(cfg, B, Smax, device=dev)
             self.pam_state = pm.init_pam_state(B, Smax, device=dev)
+        self.sites = self.cache_specs = None
+        if self.shard > 1:
+            # the sites, each holding its slice of the weights (views) and
+            # reading its slice of the ring and the pool
+            self.sites = psh.decode_sites(self.shard, dev)
+            self.params = tp.shard_params(
+                params, shd.param_specs(cfg, self.shard, params), self.shard)
+            self.cache_specs = shd.serving_cache_shardings(self.cache,
+                                                           self.shard)
 
         self.trie: Optional[PrefixTrie] = None
         if scfg.prefix_cache:
@@ -1047,8 +1066,12 @@ class ServingEngine:
             bt_eff = torch.where(block_live, st.block_table,
                                  torch.full_like(st.block_table,
                                                  self.sentinel))
-            d_fn = pm.make_paged_decode_attn(hot_m, pgd_m, bt_eff,
-                                             block_live)
+            if self.sites is not None:
+                d_fn = psh.make_sharded_paged_decode_attn(
+                    self.sites, hot_m, pgd_m, bt_eff, block_live)
+            else:
+                d_fn = pm.make_paged_decode_attn(hot_m, pgd_m, bt_eff,
+                                                 block_live)
             # append coordinates of the new token; inactive rows write the
             # sentinel trash page
             pos = cache.lengths
@@ -1636,6 +1659,14 @@ class ServingEngine:
         yield from self.as_router().serve(requests, max_ticks=max_ticks)
 
     # ------------------------------------------------------------ metrics
+    def params_bytes_per_device(self) -> int:
+        """Bytes of model parameters one site holds: every leaf at its
+        site shape (a split leaf's slice, a replicated leaf whole), as the
+        reference counts ``shard_shape``; the whole tree unsharded. On one
+        card the sites' slices are views of one allocation: this is what
+        a site would hold on a card of its own."""
+        return tp.site_nbytes(self.params)
+
     def summary(self) -> dict[str, Any]:
         """Run metrics: throughput, TPOT percentiles, step counts, tier
         reads and Alg. 2 moves, migrations; in paged mode also pages
@@ -1673,6 +1704,10 @@ class ServingEngine:
             "tier_reads": [int(x) for x in self.tier_reads_total],
             "moved_tokens": self.moved_tokens_total,
         }
+        if self.shard > 1:
+            out["shard"] = self.shard
+            out["sites"] = [str(d) for d in self.sites.devices]
+            out["param_bytes_per_device"] = self.params_bytes_per_device()
         if self.block_size:
             n = max(self.decode_device_steps, 1)
             out["blocks_touched_per_step"] = self.blocks_touched_total / n

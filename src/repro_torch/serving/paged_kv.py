@@ -457,6 +457,29 @@ def gather_logical(pool: torch.Tensor, block_table: torch.Tensor
     return pam_if.paged_gather_logical(pool, block_table)
 
 
+def shard_block_ranges(total_blocks: int, shard: int
+                       ) -> list[tuple[int, int]]:
+    """Physical-block ownership of a sharded engine's pool.
+
+    The pool's block axis (``NB + 1`` physical blocks, sentinel
+    included) splits evenly over the engine's sites: site ``r`` owns the
+    half-open range ``[r * nb_loc, (r + 1) * nb_loc)``. Block tables keep
+    global ids; a site localises an id by subtracting its range start and
+    masks out blocks it does not own (``flash_decode_paged_merged`` with
+    ``block_offset``), so the allocator, the trie and migration snapshots
+    never see site coordinates. The sentinel (global id ``NB``) lands on
+    the last site.
+
+    ``total_blocks`` counts the sentinel (pass ``NB + 1``) and must be
+    divisible by ``shard``, which ``EngineSpec.validate`` enforces.
+    """
+    if total_blocks % shard:
+        raise ValueError(f"{total_blocks} physical blocks (sentinel "
+                         f"included) do not split over {shard} shards")
+    nb_loc = total_blocks // shard
+    return [(r * nb_loc, (r + 1) * nb_loc) for r in range(shard)]
+
+
 @dataclasses.dataclass
 class PagedKVPool:
     """Paged KV storage for the memory hierarchy, as one object.

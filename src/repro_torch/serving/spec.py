@@ -6,9 +6,14 @@ name — apart from the runtime inputs (params, latency model, device)
 that ``build()`` takes. Frozen and hashable, so specs key caches and
 travel through the cluster and CLI layers by value.
 
-``shard > 1`` (one engine across several devices) is not ported yet:
-``validate()`` checks such a spec as the reference does, and ``build``
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 9).
+``shard > 1`` builds one engine over that many sites
+(``distributed.pam_shard``): the parameters tensor-parallel
+(``distributed.sharding.param_specs``), the hot ring split on its slot
+axis and the pool on its block axis, and each decode step merging the
+sites' attention partials with the exact Alg. 1 reduction. Token streams
+equal the unsharded engine's. ``validate()`` checks such a spec as the
+reference does; the dense family alone shards so far
+(``require_shardable``: ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -59,6 +64,18 @@ class EngineSpec:
                 f"+ 1 sentinel) does not split evenly — pass "
                 f"pool_blocks={-(-nb // s) * s - 1} instead of "
                 f"{nb - 1}")
+        return self
+
+    def require_shardable(self) -> "EngineSpec":
+        """Refuse ``shard > 1`` for a family other than dense: its sharded
+        engine is not ported yet (ROADMAP Queue 1 item 9)."""
+        m = self.model
+        if self.shard > 1 and not (m.family == "dense" and m.moe is None
+                                   and m.mla is None):
+            raise NotImplementedError(
+                f"EngineSpec.shard={self.shard} for the {m.family} family "
+                f"({m.name}) is not ported yet: ROADMAP Queue 1 item 9 "
+                f"(the dense family shards)")
         return self
 
     def total_pool_blocks(self) -> int:

@@ -213,11 +213,11 @@ def test_paged_cache_without_append_raises(model):
 
 
 def test_other_families_name_their_roadmap_item():
-    """A refusal that still stands (one engine sharded over several
-    devices) raises naming its ROADMAP item."""
+    """A refusal that still stands (an engine of a family other than
+    dense sharded over several sites) raises naming its ROADMAP item."""
     from repro_torch.serving.engine import ServingConfig
     from repro_torch.serving.spec import EngineSpec
-    cfg = tcfg.reduced(tcfg.get_config("qwen3-0.6b"))
+    cfg = tcfg.reduced(tcfg.get_config("qwen3-moe-235b-a22b"))
     pam = tpm.PAMManagerConfig(max_tokens=64, hot_capacity=8,
                                warm_capacity=16)
     scfg = ServingConfig(max_batch=2, max_len=64, pam=pam, block_size=8,
