@@ -64,11 +64,14 @@ final ``ok`` line:
             kernels execute beside those the bound counts, each
             gradient's error, and the errors against ``_fwd_rounded`` /
             ``_bwd_rounded``, the plain model of the wgmma kernels' bf16
-            roundings); and the sharded engine's site slices
+            roundings); and the sharded engines' site slices
             (``SITE_ROWS``): the merged dense kernel on a view of slots
             [128, 256) and [192, 256) of a 256-slot ring (kv heads 256
             rows apart) and the merged paged kernel on blocks [512, 1024)
-            and [256, 512) of the pool with ``block_offset``
+            and [256, 512) of the pool with ``block_offset``, at
+            qwen3-0.6b's heads and, on the kernels' wide path, at
+            qwen3-moe-235b-a22b's (64 / 4 of 128, keys ending ``_g16``)
+            and internvl2-1b's (14 / 2 of 64, ``_g7``)
   pam_core  the paper's core library at qwen3-0.6b decode shapes (B 8,
             H 16, Hkv 8, d 128, seed 0): ``pam_decode_attention`` over
             three tiers, HBM 256 and DDR 1,792 tokens dense and SSD 6,144
@@ -156,6 +159,16 @@ final ``ok`` line:
             step ms, kernel nodes, the cross-site merge's device ms, a
             site's parameter bytes, the modeled merge bytes, peak memory
             and the share of tokens equal to shard 1's
+  engine_sharded_moe   the same at qwen3-moe-235b-a22b's full width,
+            cut to 4 of 94 layers as engine_moe (the experts split on
+            their ffn dim, a site's slice of the whole SwiGLU, one fp32
+            sum across sites; the (128, 16) decode kernels on a site's
+            ring view and pool slice); adds the (token, expert)
+            assignments dropped at capacity at prefill and decode
+  engine_sharded_vlm   the same for internvl2-1b at full depth (the
+            (64, 7) decode kernels; its odd vocabulary of 151,655 splits
+            the embedding on d, so the tied head is a row-parallel product
+            whose per-site fp32 partial logits are summed)
   decode_graph   twin engines in this call, one replaying the decode
             dispatch's CUDA graphs and one running the eager in-place
             body, full-width qwen3-0.6b paged + ring, 8 requests of
@@ -369,10 +382,13 @@ final ``ok`` line:
   parity    full-width qwen3-0.6b in fp32: teacher-forced decode steps
             through the engine's kernel-backed attention vs attention
             built from plain tensor code, logits compared
-  shard_parity   fp32, TF32 off: reduced qwen3-0.6b engines at shard 2 and
-            4 give shard 1's greedy and sampled streams; one sharded
-            decode attention call equals the unsharded one (out, mass)
-            at the reduced shapes and at qwen3-0.6b's heads
+  shard_parity   fp32, TF32 off: reduced qwen3-0.6b, qwen3-moe-235b-a22b
+            and internvl2-1b at vocabulary 255 (the d-parallel embedding,
+            the row-parallel tied head): engines at shard 2 and 4 give
+            shard 1's greedy and sampled streams; one sharded decode
+            attention call equals the unsharded one (out, mass) at the
+            reduced shapes and at qwen3-0.6b's, qwen3-moe-235b-a22b's and
+            internvl2-1b's heads
   prefix_chunk_parity   fp32, TF32 off: (a) the sampler's keys, bits and
             tokens on the card equal its CPU run's ((8, 151936) logits, 16
             (seed, rid, pos) triples); (b) greedy streams of the shared-
@@ -923,25 +939,35 @@ def kernel_flash_decode_paged(merged: bool = False, heads=(16, 8),
         nbytes, n_live * H * d * 4, grid_blocks=nb * Hkv * B, **case)
 
 
-# a sharded engine's site slices (``engine_sharded``: qwen3-0.6b's ring of
-# 256 slots and pool of 1,024 blocks over 2 and 4 sites)
+# a sharded engine's site slices (a ring of 256 slots and a pool of 1,024
+# blocks over 2 and 4 sites), at the heads of each sharded engine phase:
+# tag -> (phase, (H, Hkv), head dim); the rows' keys end in the tag
 SITE_RING = 256
-SITE_ROWS = {"flash_decode_merged_site_w128": ("ring", 128, 128),
-             "flash_decode_merged_site_w64": ("ring", 64, 192),
-             "flash_decode_paged_merged_site_nb512": ("pool", 512, 512),
-             "flash_decode_paged_merged_site_nb256": ("pool", 256, 256)}
+SITE_HEADS = {"": ("engine_sharded", (16, 8), 128),
+              "_g16": ("engine_sharded_moe", (64, 4), 128),
+              "_g7": ("engine_sharded_vlm", (14, 2), 64)}
+SITE_ROWS = {f"{key}{tag}": (kind, n, start, tag)
+             for tag in SITE_HEADS
+             for key, (kind, n, start) in {
+                 "flash_decode_merged_site_w128": ("ring", 128, 128),
+                 "flash_decode_merged_site_w64": ("ring", 64, 192),
+                 "flash_decode_paged_merged_site_nb512": ("pool", 512, 512),
+                 "flash_decode_paged_merged_site_nb256": ("pool", 256,
+                                                          256)}.items()}
 
 
-def kernel_flash_decode_site(w_loc: int, start: int) -> dict:
+def kernel_flash_decode_site(w_loc: int, start: int, heads=(16, 8),
+                             d: int = 128) -> dict:
     """The merged dense kernel on one site's slice of a hot ring, as the
     sharded engine calls it: slots ``[start, start + w_loc)`` of a B 8,
-    16 / 8 heads of 128, 256-slot bf16 ring, a view whose kv heads lie
-    256 rows apart, the site's mask (half the slots), ``kv_len`` w_loc,
-    with scores; against its plain version on the same view."""
+    (H, Hkv) ``heads`` of ``d``, 256-slot bf16 ring, a view whose kv
+    heads lie 256 rows apart, the site's mask (half the slots),
+    ``kv_len`` w_loc, with scores; against its plain version on the same
+    view."""
     import torch
     from repro_torch.kernels import flash_decode as fd
     q, k, v, mask, _ = _dense_case(SITE_RING, seed=start + w_loc,
-                                   dead_split=False)
+                                   dead_split=False, heads=heads, d=d)
     B, H, d = q.shape
     Hkv = k.shape[1]
     ks, vs = k[:, :, start:start + w_loc], v[:, :, start:start + w_loc]
@@ -966,14 +992,16 @@ def kernel_flash_decode_site(w_loc: int, start: int) -> dict:
                 library_ms=_sdpa_ms(q, ks, vs, m, lens))
 
 
-def kernel_flash_decode_paged_site(nb_loc: int, offset: int) -> dict:
+def kernel_flash_decode_paged_site(nb_loc: int, offset: int, heads=(16, 8),
+                                   d: int = 128) -> dict:
     """The merged paged kernel on one site's slice of ``_paged_case``'s
-    pool, as the sharded engine calls it: the view of physical blocks
-    ``[offset, offset + nb_loc)``, the global block table with
-    ``block_offset``, entries outside the slice dead; against its plain
-    version. The bound counts the tokens of the site's own blocks."""
+    pool at (H, Hkv) ``heads`` of ``d``, as the sharded engine calls it:
+    the view of physical blocks ``[offset, offset + nb_loc)``, the global
+    block table with ``block_offset``, entries outside the slice dead;
+    against its plain version. The bound counts the tokens of the site's
+    own blocks."""
     from repro_torch.kernels import flash_decode as fd
-    q, kp, vp, table, mask, live_blk = _paged_case()
+    q, kp, vp, table, mask, live_blk = _paged_case(heads, d)
     B, H, d = q.shape
     bs, Hkv = kp.shape[1], kp.shape[2]
     nb = table.shape[1]
@@ -4687,11 +4715,12 @@ def _merge_ms(cfg, g: int) -> dict:
 
 
 def phase_engine_sharded(cfg, params) -> dict:
-    """The sharded engine on the card: full-width qwen3-0.6b (bf16,
-    random weights from seed 0) on the serving template (8 requests of
-    512-1024 prompt tokens, 64 new, batch 8, max_len 2048, block 16, ring
-    256) with a pool of 1,023 blocks, at shard 1, 2 and 4 in turn, every
-    site on this card. Each run is driven with the launch counts set to 0
+    """The sharded engine on the card: a full-width model (bf16, random
+    weights from seed 0: qwen3-0.6b, qwen3-moe-235b-a22b cut to
+    ``MOE_LAYERS`` layers, internvl2-1b) on the serving template (8
+    requests of 512-1024 prompt tokens, 64 new, batch 8, max_len 2048,
+    block 16, ring 256) with a pool of 1,023 blocks, at shard 1, 2 and 4
+    in turn, every site on this card. Each run is driven with the launch counts set to 0
     just before it and read just after: each merged decode wrapper must be
     called shard x n_layers x the host-run body steps, the stacked ones
     never, and in one profiled replayed step each merged decode kernel
@@ -4702,23 +4731,41 @@ def phase_engine_sharded(cfg, params) -> dict:
     merge bytes (``merge_collective_bytes``), peak memory, and the share
     of tokens equal to shard 1's stream with each request's first token
     apart (bf16: the row-parallel sums round apart, and a flipped token
-    changes the rest of its stream)."""
+    changes the rest of its stream). An MoE model adds the (token,
+    expert) assignments dropped at capacity at prefill and at decode
+    (``_Drops``; some decode assignments must be routed) and the weight
+    bytes a step reads (``_moe_weights``: the sites split the experts'
+    bytes)."""
     import numpy as np
     import torch
     from repro_torch.distributed import pam_shard as psh
+    from repro_torch.models.config import get_config
     group = cfg.n_heads // cfg.n_kv_heads
-    out, base = {"card": _card()}, None
+    published = get_config(cfg.name).n_layers
+    out, base = dict(
+        card=_card(), arch=cfg.name, n_layers=cfg.n_layers,
+        reduced=([] if cfg.n_layers == published else
+                 [f"n_layers {published} -> {cfg.n_layers}"]),
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+        group=group, vocab=cfg.vocab,
+        weights=_moe_weights(cfg) if cfg.moe else _dense_weights(cfg)), None
     for g in SHARDS:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
-        eng = _engine(cfg, params, 8, 64, max_batch=8, max_len=2048,
-                      pool_blocks=SHARD_POOL, shard=g, **PAGED_RING)
-        _warm_graphs(eng)
-        walls, span_s = _steady_steps(eng)
-        step = _step_events(eng.step)
-        summ = eng.run()
+        drops = _Drops(8) if cfg.moe is not None else None
+        try:
+            eng = _engine(cfg, params, 8, 64, max_batch=8, max_len=2048,
+                          pool_blocks=SHARD_POOL, shard=g, **PAGED_RING)
+            _warm_graphs(eng)
+            walls, span_s = _steady_steps(eng)
+            step = _step_events(eng.step)
+            summ = eng.run()
+        finally:
+            dropped = drops.close() if drops is not None else None
         launches = _launches()
+        if dropped is not None:
+            assert dropped["decode"]["assignments"] > 0, dropped
         streams = [eng.requests[i].outputs for i in range(8)]
         assert [len(t) for t in streams] == [64] * 8, "lost tokens"
         assert summ["decode_dispatches"] == summ["decode_device_steps"]
@@ -4757,7 +4804,7 @@ def phase_engine_sharded(cfg, params) -> dict:
             decode_device_steps=summ["decode_device_steps"],
             sites=summ.get("sites", [str(eng.device)]),
             capture_ms_per_graph=eng.capture_seconds * 1e3
-            / max(len(eng._graphs), 1))
+            / max(len(eng._graphs), 1), dropped=dropped)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -4795,57 +4842,85 @@ def _site_attention_inputs(seed: int, B=3, H=4, Hkv=2, d=16, W=16,
     return {k: torch.from_numpy(v).cuda() for k, v in x.items()}
 
 
+def _shard_parity_cfgs() -> dict:
+    """shard_parity's reduced models by tag: qwen3-0.6b, qwen3-moe (4
+    experts of 32, top-2) and internvl2-1b at vocabulary 255 (an odd
+    vocabulary, as its published 151,655: the d-parallel embedding and the
+    row-parallel tied head)."""
+    from repro_torch.models.config import get_config, reduced
+    return {"qwen3_0_6b": reduced(get_config("qwen3-0.6b")),
+            "moe": reduced(get_config(MOE_ARCH)),
+            "vlm_vocab255": dataclasses.replace(
+                reduced(get_config(VLM_ARCH)), vocab=255)}
+
+
+# one layer's sharded attention against the unsharded call, by tag: the
+# reduced shapes, and B 8 at each sharded engine's heads (ring 256, pool
+# 1,024 blocks of 16, a 2048-token window)
+SHARD_ATTENTION = {
+    "reduced": {},
+    **{name: dict(B=8, H=heads[0], Hkv=heads[1], d=d, W=256, smax=2048,
+                  bs=16, nb1=1024)
+       for name, (heads, d) in (("qwen3_0_6b_heads", ((16, 8), 128)),
+                                ("qwen3_moe_heads", ((64, 4), 128)),
+                                ("internvl2_1b_heads", ((14, 2), 64)))}}
+
+
 def phase_shard_parity() -> dict:
-    """fp32 (TF32 off) on the card: reduced qwen3-0.6b engines at shard 2
-    and 4 against shard 1 on the reference's sharded-engine config (pool
-    23 blocks, ring 16, 3 requests of 20 prompt tokens and 10 new):
-    greedy and sampled (temperature 1.0) streams equal; the merged decode
+    """fp32 (TF32 off) on the card: reduced engines (``_shard_parity_cfgs``:
+    qwen3-0.6b, qwen3-moe, internvl2-1b at vocabulary 255) at shard 2 and
+    4 against shard 1 on the reference's sharded-engine config (pool 23
+    blocks, ring 16, 3 requests of 20 prompt tokens and 10 new): greedy
+    and sampled (temperature 1.0) streams equal; the merged decode
     wrappers shard x n_layers x the host-run body steps. Then one sharded
     attention call (``make_sharded_paged_decode_attn``) against the
-    unsharded one (``make_paged_decode_attn``) on the same seeded layer,
-    at the reduced shapes and at qwen3-0.6b's heads (B 8, 16 / 8 of 128,
-    ring 256, pool 1,024 blocks): ``out`` and ``mass`` within atol 1e-5,
-    rtol 1e-5."""
+    unsharded one (``make_paged_decode_attn``) on the same seeded layer
+    at each ``SHARD_ATTENTION`` shape (the reduced one, and qwen3-0.6b's,
+    qwen3-moe-235b-a22b's and internvl2-1b's heads: the wide path at
+    groups 16 and 7): ``out`` and ``mass`` within atol 1e-5, rtol
+    1e-5."""
     import numpy as np
     import torch
     from repro_torch.distributed import pam_shard as psh
     from repro_torch.models import transformer as tf
-    from repro_torch.models.config import get_config, reduced
     from repro_torch.serving import (EngineSpec, PAMManagerConfig, Request,
                                      ServingConfig)
     from repro_torch.serving import pam_manager as pm
-    cfg = reduced(get_config("qwen3-0.6b"))
-    params = tf.init_params(cfg, 0, device="cuda")
     pam = PAMManagerConfig(max_tokens=64, hot_capacity=8, warm_capacity=16,
                            compression=4, recency_window=4,
                            schedule_interval=2)
     out = {"card": _card()}
-    for name, kw in (("greedy", {}),
-                     ("sampled", dict(temperature=1.0, sample_seed=11))):
-        scfg = ServingConfig(pam=pam, max_batch=2, max_len=64,
-                             block_size=8, pool_blocks=23, hot_window=16,
-                             **kw)
-        streams = {}
-        for g in SHARDS:
-            _reset_launches()
-            eng = EngineSpec(model=cfg, serving=scfg, shard=g).build(
-                params, device="cuda")
-            rng = np.random.default_rng(7)
-            for i in range(3):
-                eng.submit(Request(i + 1, rng.integers(1, cfg.vocab, 20),
-                                   10))
-            eng.run()
-            want = g * cfg.n_layers * eng.decode_body_steps
-            _assert_decode_launches(_launches(), dict.fromkeys(
-                DECODE_KERNELS[:2], want))
-            streams[g] = {r: s.outputs for r, s in eng.requests.items()}
-            assert eng.decode_dispatches == eng.decode_device_steps
-        for g in SHARDS[1:]:
-            assert streams[g] == streams[1], f"{name} shard {g} diverged"
-        out[name] = dict(tokens=sum(len(t) for t in streams[1].values()),
-                         equal_at=list(SHARDS[1:]))
-    big = dict(B=8, H=16, Hkv=8, d=128, W=256, smax=2048, bs=16, nb1=1024)
-    for tag, shape in (("reduced", {}), ("qwen3_0_6b_heads", big)):
+    for tag, cfg in _shard_parity_cfgs().items():
+        params = tf.init_params(cfg, 0, device="cuda")
+        for name, kw in (("greedy", {}),
+                         ("sampled", dict(temperature=1.0, sample_seed=11))):
+            scfg = ServingConfig(pam=pam, max_batch=2, max_len=64,
+                                 block_size=8, pool_blocks=23,
+                                 hot_window=16, **kw)
+            streams = {}
+            for g in SHARDS:
+                _reset_launches()
+                eng = EngineSpec(model=cfg, serving=scfg, shard=g).build(
+                    params, device="cuda")
+                rng = np.random.default_rng(7)
+                for i in range(3):
+                    eng.submit(Request(i + 1, rng.integers(1, cfg.vocab,
+                                                           20), 10))
+                eng.run()
+                want = g * cfg.n_layers * eng.decode_body_steps
+                _assert_decode_launches(_launches(), dict.fromkeys(
+                    DECODE_KERNELS[:2], want))
+                streams[g] = {r: s.outputs for r, s in eng.requests.items()}
+                assert eng.decode_dispatches == eng.decode_device_steps
+            for g in SHARDS[1:]:
+                assert streams[g] == streams[1], (
+                    f"{tag} {name} shard {g} diverged")
+            out[f"{tag}_{name}"] = dict(
+                arch=cfg.name, vocab=cfg.vocab,
+                tokens=sum(len(t) for t in streams[1].values()),
+                equal_at=list(SHARDS[1:]))
+        del params
+    for tag, shape in SHARD_ATTENTION.items():
         x = _site_attention_inputs(3, **shape)
         args = (x["q"], x["kc"], x["vc"], x["pk"], x["pv"], x["lens"])
         ref = pm.make_paged_decode_attn(x["hot"], x["pgd"], x["table"],
@@ -4864,7 +4939,9 @@ def phase_shard_parity() -> dict:
                 torch.testing.assert_close(a, b, **SHARD_PARITY_TOL,
                                            msg=f"{tag} shard {g} {key}")
             out[f"attention_{tag}_shard_{g}"] = dict(
-                max_abs_err_out=errs[0], max_abs_err_mass=errs[1])
+                heads=[x["q"].shape[1], x["kc"].shape[1]],
+                head_dim=x["q"].shape[2], max_abs_err_out=errs[0],
+                max_abs_err_mass=errs[1])
     out.update(tol=SHARD_PARITY_TOL, dtype="float32", tf32=False)
     return out
 
@@ -4949,11 +5026,14 @@ def phase_kernels() -> dict:
     out[ATTN_FP32_ROWS[AUDIO_ARCH]] = kernel_flash_attention_fwd(
         150, False, 2, (4, 4), d, "float32")
     out.update(kernel_ssd_scan())
-    # the sharded engine's site slices: the ring kernel on a view of 128
-    # and 64 of 256 slots, the paged kernel on 512 and 256 of 1,024 blocks
-    for key, (kind, n, start) in SITE_ROWS.items():
-        out[key] = (kernel_flash_decode_site(n, start) if kind == "ring"
-                    else kernel_flash_decode_paged_site(n, start))
+    # the sharded engines' site slices: the ring kernel on a view of 128
+    # and 64 of 256 slots, the paged kernel on 512 and 256 of 1,024 blocks,
+    # at each sharded engine's heads
+    for key, (kind, n, start, tag) in SITE_ROWS.items():
+        _, heads, d = SITE_HEADS[tag]
+        out[key] = (kernel_flash_decode_site(n, start, heads, d)
+                    if kind == "ring" else
+                    kernel_flash_decode_paged_site(n, start, heads, d))
     return out
 
 
@@ -5053,6 +5133,7 @@ def main() -> int:
         del model
     if moe is not None:
         run("engine_moe", phase_engine_moe, *moe)
+        run("engine_sharded_moe", phase_engine_sharded, *moe)
         del moe
     torch.cuda.empty_cache()
     run("moe_parity", phase_moe_parity)
@@ -5072,6 +5153,7 @@ def main() -> int:
                 *wide)
             if arch == VLM_ARCH:     # its patch prefix: forward, prefill
                 run("vlm_forward", phase_vlm_forward, *wide)
+                run("engine_sharded_vlm", phase_engine_sharded, *wide)
             del wide
         gc.collect()
         torch.cuda.empty_cache()
@@ -5357,11 +5439,12 @@ def main() -> int:
                       vap[case]["launches"]["flash_attention"],
                       name="flash_attention" + tag + "_fp32")
         row["launches_in"] = "vlm_audio_parity"
-    # the sharded engine's site slices: launches from engine_sharded's run
-    # at the shard whose slice the row takes (ring 128 / pool 512 of 2
-    # sites, ring 64 / pool 256 of 4)
-    sharded = results["engine_sharded"]
-    for key, (kind, n, start) in SITE_ROWS.items():
+    # the sharded engines' site slices: launches from the sharded engine
+    # phase of the row's heads, at the shard whose slice the row takes
+    # (ring 128 / pool 512 of 2 sites, ring 64 / pool 256 of 4)
+    for key, (kind, n, start, tag) in SITE_ROWS.items():
+        phase = SITE_HEADS[tag][0]
+        sharded = results[phase]
         g = (SITE_RING if kind == "ring" else SHARD_POOL + 1) // n
         name = DECODE_KERNELS[0 if kind == "ring" else 1]
         row = add_row(key, "flash_decode.cu" if kind == "ring"
@@ -5369,7 +5452,7 @@ def main() -> int:
                       "flash_decode.py:98" if kind == "ring"
                       else "flash_decode.py:202",
                       sharded[f"shard_{g}"]["launches"][name], name=key)
-        row.update(launches_in=f"engine_sharded shard {g}",
+        row.update(launches_in=f"{phase} shard {g}",
                    device_launches_engine_sharded_step=sharded[
                        f"shard_{g}"]["decode_kernels_per_replayed_step"][
                        DECODE_CUDA_KERNELS[0 if kind == "ring" else 1]],

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree
 from repro_torch.distributed.pam_shard import (site_all_gather,
@@ -47,6 +48,13 @@ class SiteSplit:
     @property
     def dtype(self) -> torch.dtype:
         return self.parts[0].dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        """The whole weight's shape (the sites' slices joined)."""
+        dims = list(self.parts[0].shape)
+        dims[self.axis] = sum(p.shape[self.axis] for p in self.parts)
+        return torch.Size(dims)
 
     @property
     def T(self) -> "SiteSplit":
@@ -75,12 +83,15 @@ def split(t: torch.Tensor, dim: int, shard: int) -> SiteSplit:
 def shard_params(params: Any, specs: dict[str, tuple], shard: int) -> Any:
     """The engine's parameter tree with every leaf whose spec splits
     (``sharding.param_specs``) as a ``SiteSplit`` of views; replicated
-    leaves stay as they are."""
+    leaves stay as they are, and so does a leaf with no elements (an
+    absent shared expert's ``(L, 0)`` placeholder, whose spec may name
+    the stacked layer axis: cutting it would cut the layer count)."""
     from repro_torch.distributed.sharding import split_axis
     leaves = []
     for path, leaf in tree.leaves_with_paths(params):
         ax = split_axis(specs[path])
-        leaves.append(leaf if ax is None else split(leaf, ax, shard))
+        whole = ax is None or leaf.numel() == 0
+        leaves.append(leaf if whole else split(leaf, ax, shard))
     return tree.unflatten(params, leaves)
 
 
@@ -108,6 +119,22 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     xs = torch.split(x, [p.shape[-2] for p in w.parts], dim=-1)
     partial = [(xi @ p).float() for xi, p in zip(xs, w.parts)]
     return site_all_reduce(partial).to(x.dtype)        # row parallel
+
+
+def expert_ffn(xe: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """The routed experts' SwiGLU on their batches xe (E, C, d):
+    ``silu(xe @ w_gate) * (xe @ w_up) @ w_down``, three ``torch.bmm``s.
+    With the weights as ``SiteSplit``s on the expert ffn dim (``w_gate``
+    / ``w_up`` its columns, ``w_down`` its rows), each site computes the
+    whole product on its ffn slice, and the sites' partials (E, C, d)
+    are summed in fp32 in site order and cast once."""
+    if not isinstance(w_gate, SiteSplit):
+        return torch.bmm(F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up),
+                         w_down)
+    partial = [torch.bmm(F.silu(torch.bmm(xe, g)) * torch.bmm(xe, u),
+                         dn).float()
+               for g, u, dn in zip(w_gate.parts, w_up.parts, w_down.parts)]
+    return site_all_reduce(partial).to(xe.dtype)
 
 
 def embedding(w, ids: torch.Tensor) -> torch.Tensor:

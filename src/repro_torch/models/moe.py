@@ -7,7 +7,10 @@ projection and combined by gate weight; an assignment past its expert's
 capacity is dropped. Every shape follows from (T, K, E, cap), so the
 function reads no tensor value on the host (a decode step's CUDA graph
 can hold it). The expert products are plain ``torch.bmm``, as the
-reference leaves its ``einsum``s to XLA; no TPU kernel is involved.
+reference leaves its ``einsum``s to XLA; no TPU kernel is involved. A
+sharded engine's weights reach them through
+``tensor_parallel.expert_ffn`` and ``linear`` (each site its slice of
+the expert ffn dim); the router stays replicated.
 
 Capacity couples the rows of a call: a token's output depends on every
 other token routed with it, so callers hand in exactly the reference's
@@ -24,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.layers import init_linear
 
@@ -182,16 +186,14 @@ def moe_forward(p: MoEParams, x: torch.Tensor, cfg: MoEConfig
     xf = x.reshape(B * S, d)
     r = route(p, xf, cfg)
     xe = xf[r.tok_table].reshape(E, r.cap, d)                    # (E, C, d)
-    g = torch.bmm(xe, p.w_gate)
-    u = torch.bmm(xe, p.w_up)
-    ye = torch.bmm(F.silu(g) * u, p.w_down)                      # (E, C, d)
+    ye = tp.expert_ffn(xe, p.w_gate, p.w_up, p.w_down)           # (E, C, d)
     gates = r.gate_table.reshape(E, r.cap).to(ye.dtype)
     y = combine((ye * gates[..., None]).reshape(E * r.cap, d), r.slot,
                 cfg.top_k)
     if p.shared_gate is not None:
-        sg = xf @ p.shared_gate
-        su = xf @ p.shared_up
-        y = y + (F.silu(sg) * su) @ p.shared_down
+        sg = tp.linear(xf, p.shared_gate)
+        su = tp.linear(xf, p.shared_up)
+        y = y + tp.linear(F.silu(sg) * su, p.shared_down)
     return y.reshape(B, S, d).to(x.dtype), r.aux
 
 

@@ -238,8 +238,11 @@ def _mlp(lp: Params, h: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_params(lp: Params) -> moe_mod.MoEParams:
+    """One layer's MoE weights (tensors or a sharded engine's
+    ``SiteSplit``s); an absent shared expert's size-0 placeholder, told
+    by its shape, gives None."""
     m = lp["moe"]
-    return moe_mod.MoEParams(**{f: m[f] if m[f].numel() else None
+    return moe_mod.MoEParams(**{f: None if 0 in m[f].shape else m[f]
                                 for f in moe_mod.MoEParams._fields})
 
 

@@ -89,8 +89,9 @@ ones included) reach the model in the reference's shapes:
   (``repro_torch.cluster``). Metrics and traces bind to
   ``repro_torch.obs`` as the reference's do.
 
-* Sharding (``EngineSpec.shard = g > 1``, the dense family on the
-  paged + ring PAM path, as ``EngineSpec.validate`` admits): one engine
+* Sharding (``EngineSpec.shard = g > 1`` on the paged + ring PAM path,
+  as ``EngineSpec.validate`` admits; the dense, vlm and GQA MoE families,
+  whose caches the paged pools take): one engine
   over ``g`` sites (``distributed.pam_shard.decode_sites``, every site
   on the engine's device). Each site holds its slice of the weights
   that ``distributed.sharding.param_specs`` splits (views:
@@ -292,9 +293,6 @@ class ServingEngine:
                                 "ServingConfig")
             spec = EngineSpec(model=spec, serving=scfg,
                               name=name if name is not None else "dev0")
-        if spec.shard > 1:
-            spec.validate()
-            spec.require_shardable()
         cfg, scfg = spec.model, spec.serving
         tf._require_ported(cfg)
         if not cfg.has_decode:    # the reference asserts it
@@ -353,6 +351,9 @@ class ServingEngine:
             self.pam_state = pm.init_pam_state(B, Smax, device=dev)
         self.sites = self.cache_specs = None
         if self.shard > 1:
+            # checked after the cache, as the reference: a family the
+            # pools refuse raises there first
+            spec.validate()
             # the sites, each holding its slice of the weights (views) and
             # reading its slice of the ring and the pool
             self.sites = psh.decode_sites(self.shard, dev)

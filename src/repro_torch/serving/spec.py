@@ -12,8 +12,11 @@ travel through the cluster and CLI layers by value.
 axis and the pool on its block axis, and each decode step merging the
 sites' attention partials with the exact Alg. 1 reduction. Token streams
 equal the unsharded engine's. ``validate()`` checks such a spec as the
-reference does; the dense family alone shards so far
-(``require_shardable``: ROADMAP Queue 1 item 9).
+reference does. Every family with a paged GQA k/v cache shards: dense,
+vlm and the GQA mixture-of-experts (its experts split on their ffn
+dim). The MLA, hybrid and SSM families keep no such cache: their engine
+raises the reference's ``ValueError`` from ``init_decode_cache`` on a
+paged spec, at any shard, before ``validate()`` runs.
 """
 
 from __future__ import annotations
@@ -64,18 +67,6 @@ class EngineSpec:
                 f"+ 1 sentinel) does not split evenly — pass "
                 f"pool_blocks={-(-nb // s) * s - 1} instead of "
                 f"{nb - 1}")
-        return self
-
-    def require_shardable(self) -> "EngineSpec":
-        """Refuse ``shard > 1`` for a family other than dense: its sharded
-        engine is not ported yet (ROADMAP Queue 1 item 9)."""
-        m = self.model
-        if self.shard > 1 and not (m.family == "dense" and m.moe is None
-                                   and m.mla is None):
-            raise NotImplementedError(
-                f"EngineSpec.shard={self.shard} for the {m.family} family "
-                f"({m.name}) is not ported yet: ROADMAP Queue 1 item 9 "
-                f"(the dense family shards)")
         return self
 
     def total_pool_blocks(self) -> int:

@@ -236,8 +236,8 @@ def test_serve_cli_devices_mode_on_cpu(capsys):
     assert '"makespan_s"' in capsys.readouterr().out
     wall = serve.main(args + ["--system", "wallclock", "--requests", "2"])
     assert wall["finished"] == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        serve.main(args + ["--arch", "qwen3-moe-235b-a22b", "--shard",
+    with pytest.raises(ValueError, match="paged KV pools require a GQA"):
+        serve.main(args + ["--arch", "deepseek-v2-lite-16b", "--shard",
                            "2"])
     chaos = serve.main(args + ["--chaos", "kill:cxl1@5"])
     assert chaos["finished"] == 6

@@ -213,14 +213,16 @@ def test_paged_cache_without_append_raises(model):
 
 
 def test_other_families_name_their_roadmap_item():
-    """A refusal that still stands (an engine of a family other than
-    dense sharded over several sites) raises naming its ROADMAP item."""
+    """A family whose cache the paged pools cannot hold (MLA's latent
+    cache) raises the reference's ``ValueError`` from its cache at any
+    shard, as the JAX engine does: its sharded engine builds the cache
+    before it checks the shard."""
     from repro_torch.serving.engine import ServingConfig
     from repro_torch.serving.spec import EngineSpec
-    cfg = tcfg.reduced(tcfg.get_config("qwen3-moe-235b-a22b"))
+    cfg = tcfg.reduced(tcfg.get_config("deepseek-v2-lite-16b"))
     pam = tpm.PAMManagerConfig(max_tokens=64, hot_capacity=8,
                                warm_capacity=16)
     scfg = ServingConfig(max_batch=2, max_len=64, pam=pam, block_size=8,
                          pool_blocks=23, hot_window=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="paged KV pools require a GQA"):
         EngineSpec(model=cfg, serving=scfg, shard=2).build({}, device="cpu")

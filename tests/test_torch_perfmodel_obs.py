@@ -280,17 +280,18 @@ def test_specs_are_frozen_and_hashable():
 
 
 def test_unported_options_raise_naming_their_items():
-    """Sharding a family other than dense is ROADMAP Queue 1 item 9 and
-    raises before any engine is built. The fault-tolerance options (item
+    """A sharded spec of a family whose cache the paged pools cannot hold
+    (MLA) raises the reference's ``ValueError`` from its cache, as an
+    engine and as a replica group. The fault-tolerance options (item
     8, ported) build the reference's wiring: a spec's ``RecoveryConfig``
     becomes a manager with the injector; a bare injector implies a
     default manager; a passed manager is used as it is."""
-    moe = tcfg.reduced(tcfg.get_config("qwen3-moe-235b-a22b"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        EngineSpec(model=moe, serving=_scfg(), shard=2).build(
+    mla = tcfg.reduced(tcfg.get_config("deepseek-v2-lite-16b"))
+    with pytest.raises(ValueError, match="paged KV pools require a GQA"):
+        EngineSpec(model=mla, serving=_scfg(), shard=2).build(
             None, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ClusterSpec.from_cli("cxl:2", model=moe, serving=_scfg(),
+    with pytest.raises(ValueError, match="paged KV pools require a GQA"):
+        ClusterSpec.from_cli("cxl:2", model=mla, serving=_scfg(),
                              shard=2).build(None, device="cpu")
     from repro_torch.models import transformer as ttf
     params = ttf.init_params(_TCF, 0, device="cpu")

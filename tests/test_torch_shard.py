@@ -46,7 +46,7 @@ from repro_torch.serving import paged_kv as tpkv  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-5, rtol=1e-5)
-ARCHS = ("qwen3-0.6b", "minicpm-2b", "internvl2-1b")
+ARCHS = ("qwen3-0.6b", "minicpm-2b", "internvl2-1b", "qwen3-moe-235b-a22b")
 
 
 @pytest.fixture(scope="module", autouse=True)

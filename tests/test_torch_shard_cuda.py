@@ -1,7 +1,8 @@
 """The sharded engine's kernel calls on the card, held to the plain
 versions: the merged dense kernel on a site's view of the hot ring (kv
 heads a whole ring apart, ``start`` past 0) and the merged paged kernel
-on a site's slice of the pool with ``block_offset``; the sharded decode
+on a site's slice of the pool with ``block_offset``, on the narrow path
+and on the wide one (groups 16 and 7); the sharded decode
 attention against the unsharded one; a reduced sharded engine's streams
 on the card against its CPU run. Every test here needs an NVIDIA GPU and
 skips without one; the file imports neither JAX nor the reference
@@ -49,12 +50,15 @@ def _close(got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,g", [(256, 2), (256, 4), (16, 4), (64, 2)])
-@pytest.mark.parametrize("d,H,Hkv", [(128, 16, 8), (16, 4, 2)])
+@pytest.mark.parametrize("d,H,Hkv", [(128, 16, 8), (16, 4, 2),
+                                     (128, 64, 4), (64, 14, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ring_site_view_matches_plain(cuda, dtype, d, H, Hkv, W, g):
     """Every site's view of the ring, the kernel reading kv heads W rows
     apart: (o, m, l) and the scores equal the plain version's on the same
-    view and on a contiguous copy."""
+    view and on a contiguous copy. Groups 16 (qwen3-moe-235b-a22b's 64 / 4
+    heads of 128) and 7 (internvl2-1b's 14 / 2 of 64) take the kernel's
+    wide path."""
     rng = np.random.default_rng(W + g)
     B = 3
     q = torch.from_numpy(rng.standard_normal((B, H, d), np.float32))
@@ -98,12 +102,15 @@ def test_ring_view_refuses_other_layouts(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [2, 4])
+@pytest.mark.parametrize("d,H,Hkv", [(128, 16, 8), (128, 64, 4),
+                                     (64, 14, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_pool_site_slice_matches_plain(cuda, dtype, g):
+def test_pool_site_slice_matches_plain(cuda, dtype, d, H, Hkv, g):
     """Each site's slice of a 64-block pool through the global table,
-    ``block_offset`` r NB_loc: equal to the plain version's."""
+    ``block_offset`` r NB_loc: equal to the plain version's, at
+    qwen3-0.6b's heads and on the wide path at groups 16 and 7."""
     rng = np.random.default_rng(g)
-    B, H, Hkv, d, bs, nb, NB1 = 3, 16, 8, 128, 16, 8, 64
+    B, bs, nb, NB1 = 3, 16, 8, 64
     q = torch.from_numpy(rng.standard_normal((B, H, d), np.float32))
     kp, vp = (torch.from_numpy(rng.standard_normal((NB1, bs, Hkv, d),
                                                    np.float32)).to(dtype)
@@ -167,11 +174,13 @@ def test_sharded_attention_equals_unsharded_on_card(cuda, g):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [2, 4])
-def test_reduced_sharded_engine_card_equals_cpu(cuda, g):
-    """Reduced qwen3-0.6b (fp32) at shard g, on the card (decode through
-    the graphs) and on the CPU: equal greedy streams, equal to shard 1's
-    on the card."""
-    cfg = reduced(get_config("qwen3-0.6b"))
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-moe-235b-a22b",
+                                  "internvl2-1b"])
+def test_reduced_sharded_engine_card_equals_cpu(cuda, arch, g):
+    """A reduced model (fp32; the dense, MoE and vlm families) at shard
+    g, on the card (decode through the graphs) and on the CPU: equal
+    greedy streams, equal to shard 1's on the card."""
+    cfg = reduced(get_config(arch))
     pam = PAMManagerConfig(max_tokens=64, hot_capacity=8, warm_capacity=16,
                            compression=4, recency_window=4,
                            schedule_interval=2)

@@ -18,12 +18,12 @@ The reference's ``tests/sharded_engine_checks.py`` (its ``CFG``, ``PAM``,
    site, its cluster streams are exact, ``from_cli("hbm:1,cxl:2",
    shard=2)`` forms groups [1, 2], and ``--shard 2`` serves on the CLI.
 
-A family other than dense refuses ``shard > 1`` naming ROADMAP Queue 1
-item 9. Reduced qwen3-0.6b (fp32), the JAX package's weights through
+A family whose cache the paged pools cannot hold (MLA, hybrid, SSM)
+raises the JAX engine's ``ValueError`` at any shard; the MoE and vlm
+families shard in ``tests/test_torch_sharded_families.py``. Reduced
+qwen3-0.6b (fp32), the JAX package's weights through
 ``repro_torch.bridge``; engines on the CPU.
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -244,18 +244,25 @@ def test_replica_group_and_cli(model, jax_streams, full_bytes, capsys):
     assert '"shard": 2' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "internvl2-1b",
-                                  "deepseek-v2-lite-16b", "zamba2-7b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-7b",
                                   "mamba2-780m"])
-def test_other_families_refuse_sharding(arch):
+@pytest.mark.parametrize("shard", [2, 4])
+def test_other_families_refuse_sharding(arch, shard):
+    """A family whose cache the paged pools cannot hold (MLA's latent
+    cache, the hybrid's and the SSM's state) raises from its cache, as the
+    JAX engine built from the same spec in this process does: the same
+    type and message, before any shard check."""
+    from repro.models.config import get_config as jget
+    from repro.models.config import reduced as jreduced
+    with pytest.raises(ValueError) as want:
+        JSpec(model=jreduced(jget(arch)), serving=JSC(
+            pam=JPAMConfig(**PAM), **SCFG), shard=shard).build(None)
+    assert "paged KV pools require a GQA" in str(want.value)
     cfg = tcfg.reduced(tcfg.get_config(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        EngineSpec(model=cfg, serving=_scfg(), shard=2).build(
+    with pytest.raises(type(want.value)) as got:
+        EngineSpec(model=cfg, serving=_scfg(), shard=shard).build(
             None, device="cpu")
-    spec = dataclasses.replace(EngineSpec(model=cfg, serving=_scfg()),
-                               shard=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        spec.require_shardable()
+    assert str(got.value) == str(want.value)
 
 
 def test_validate_refuses_what_does_not_split(model):
