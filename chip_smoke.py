@@ -71,7 +71,11 @@ final ``ok`` line:
             and [256, 512) of the pool with ``block_offset``, at
             qwen3-0.6b's heads and, on the kernels' wide path, at
             qwen3-moe-235b-a22b's (64 / 4 of 128, keys ending ``_g16``)
-            and internvl2-1b's (14 / 2 of 64, ``_g7``)
+            and internvl2-1b's (14 / 2 of 64, ``_g7``); and flash_attention
+            forward and backward on a train grid site's heads
+            (``SITE_ATTN_ROWS``: qwen3-0.6b's 16 / 8 heads of 128 over 2
+            and 4 model sites, 8 / 4 and 4 / 2, B 4, S 2048 causal, bf16
+            through the wgmma kernels), with SDPA at the same heads
   pam_core  the paper's core library at qwen3-0.6b decode shapes (B 8,
             H 16, Hkv 8, d 128, seed 0): ``pam_decode_attention`` over
             three tiers, HBM 256 and DDR 1,792 tokens dense and SSD 6,144
@@ -379,6 +383,35 @@ final ``ok`` line:
             loss and gradients through the kernels (the CUDA-core
             variant: no wgmma launch) vs through the plain chunked
             attention
+  train_sharded   the dense family trained on (data, model) site grids
+            on this card (``SHARD_TRAIN_GRIDS``): full-width, full-depth
+            qwen3-0.6b, bf16, B 4 x 2048, ``use_kernel``, 6 steps through
+            ``launch.train.run`` on the grids (1, 1), (1, 2), (2, 2) with
+            ZeRO-1 moments, (2, 2) with FSDP weights and (1, 4) with
+            ``activation_spec``; both attention kernels n_layers x (data
+            replicas x model sites) x steps times (each site on its own
+            8 / 4 or 4 / 2 heads), all wgmma; the losses within 2e-2
+            (relative, bf16) of (1, 1)'s; prints the step ms (median of
+            steps 2-6), the launches a step and the heads they ran at,
+            a site's parameter bytes against the whole, peak memory; and
+            one more steady step under ``torch.profiler``: device busy
+            ms and idle share, kernel launches, the cross-site
+            reductions' calls and the device ms of their kernels
+  train_shard_parity   fp32, TF32 off: qwen3-0.6b at full width cut to 2
+            layers, B 4 x 512: the grids (2, 2), (1, 4) and (2, 4)
+            against one site, loss, every gradient leaf (relative L2
+            error; the max-norm one reported) and the parameters after 3
+            AdamW steps (lr 1e-3, eps 1e-3) within 1e-5, through the CUDA-core attention kernels at
+            each site's heads; and the perf flags on a (1, 4) grid (sp_pin
+            and remat_dots with the kernels, sp_attn, sp_pin and
+            remat_dots on the plain attention) against one site without
+            them, within the same bounds
+  pipeline  GPipe (``distributed.pipeline``): full-width qwen3-0.6b's
+            28 blocks as 4 stages of 7, 4 microbatches of 1 x 2048 through
+            the (M + S - 1)-tick schedule, forward with the flash_attention
+            kernel (28 x 4 launches), bf16: equal to the unpipelined
+            forward of each microbatch; the error against the whole
+            batch's forward and both times reported
   parity    full-width qwen3-0.6b in fp32: teacher-forced decode steps
             through the engine's kernel-backed attention vs attention
             built from plain tensor code, logits compared
@@ -3558,6 +3591,378 @@ def phase_train_parity(arch: str = "qwen3-0.6b",
                 wgmma_launches=wgmma, **moe)
 
 
+# ------------------------------------------------- training on a site grid
+# qwen3-0.6b at full width and depth on the train CLI's (data, model) site
+# grids, every site on this card: (grid, run keywords)
+SHARD_TRAIN_GRIDS = {
+    "1x1": ((1, 1), {}),
+    "1x2": ((1, 2), {}),
+    "2x2": ((2, 2), {}),
+    "2x2_fsdp": ((2, 2), {"fsdp": True}),
+    "1x4_activation_spec": ((1, 4), {"activation_spec": (
+        "data", "model", None)}),
+}
+SHARD_TRAIN_STEPS = 6              # the step ms: the median of steps 2-6
+SHARD_LOSS_BAND = 2e-2             # bf16: |loss - loss (1, 1)| / loss (1, 1)
+TRAIN_SHARD_PARITY = dict(B=4, S=512, n_layers=2, steps=3, lr=1e-3, eps=1e-3)
+TRAIN_SHARD_TOL = 1e-5             # fp32 against one site (module docstring)
+TRAIN_SHARD_GRIDS = ((2, 2), (1, 4), (2, 4))
+# the site slices of flash_attention on train_sharded's path: qwen3-0.6b's
+# 16 / 8 heads of 128 over 2 and 4 model sites (key, heads, grid)
+SITE_ATTN_ROWS = {"flash_attention_site_8x4": ((8, 4), "1x2"),
+                  "flash_attention_site_4x2": ((4, 2), "1x4_activation_spec")}
+PIPELINE = dict(stages=4, microbatches=4, mb=1, S=2048)
+
+
+class _SiteRanges:
+    """Marks every cross-site reduction (``site_all_reduce`` /
+    ``site_all_gather``, by whichever module calls it) as a
+    ``torch.profiler`` range named ``NAME``, whose kernels the profiler
+    then attributes to it."""
+
+    NAME = "pam::site_reduction"
+
+    def __init__(self):
+        from repro_torch.distributed import pam_shard as ps
+        from repro_torch.distributed import tensor_parallel as tp
+        from repro_torch.models import attention as at
+        from repro_torch.training import train_step as ts
+        self._saved = []
+        for mod in (ps, tp, at, ts):
+            for name in ("site_all_reduce", "site_all_gather"):
+                if hasattr(mod, name):
+                    fn = getattr(mod, name)
+                    self._saved.append((mod, name, fn))
+                    setattr(mod, name, self._ranged(fn))
+
+    def _ranged(self, fn):
+        from torch.profiler import record_function
+
+        def wrapper(*args, **kw):
+            with record_function(self.NAME):
+                return fn(*args, **kw)
+        return wrapper
+
+    def close(self):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+class _AttnShapes:
+    """Records the (H, Hkv, d) of every flash_attention launch, forward
+    and backward, on the card."""
+
+    def __init__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self._fa = fa
+        self._fwd, self._bwd = fa._fwd_cuda, fa._bwd_cuda
+        self.shapes = {"fwd": set(), "bwd": set()}
+
+        def fwd(q, k, *a, **kw):
+            self.shapes["fwd"].add((q.shape[1], k.shape[1], q.shape[-1]))
+            return self._fwd(q, k, *a, **kw)
+
+        def bwd(q, k, *a, **kw):
+            self.shapes["bwd"].add((q.shape[1], k.shape[1], q.shape[-1]))
+            return self._bwd(q, k, *a, **kw)
+        fa._fwd_cuda, fa._bwd_cuda = fwd, bwd
+
+    def close(self):
+        self._fa._fwd_cuda, self._fa._bwd_cuda = self._fwd, self._bwd
+
+    def line(self) -> dict:
+        return {k: [dict(H=h, Hkv=kv, d=d, group=h // kv)
+                    for h, kv, d in sorted(v)]
+                for k, v in self.shapes.items()}
+
+
+def _site_param_bytes(cfg, grid, fsdp: bool) -> dict:
+    """Bytes of the parameters one site holds (its block of every leaf,
+    ``param_specs``' split) and of the whole model."""
+    import math
+    from repro_torch.distributed import sharding as shd
+    el = 2 if cfg.dtype == "bfloat16" else 4
+    shapes = shd.param_shapes(cfg)
+    site = whole = 0
+    for path, spec in shd.param_specs(cfg, grid, fsdp=fsdp).items():
+        whole += math.prod(shapes[path]) * el
+        site += math.prod(shd.GridSharding(grid, spec).shard_shape(
+            shapes[path])) * el
+    return dict(site_param_bytes=site, param_bytes=whole,
+                site_share=site / whole)
+
+
+def _sites_per_layer(cfg, grid) -> int:
+    """flash_attention launches a layer and step, each direction: one a
+    data replica, times the model sites when the heads split whole."""
+    from repro_torch.distributed import sharding as shd
+    g = grid.shape["model"]
+    dp = shd.batch_dp_spec(TRAIN_B, grid)
+    reps = 1 if dp is None else grid.shape["data"]
+    whole = cfg.n_heads % g == 0 and cfg.n_kv_heads % g == 0
+    return reps * (g if whole else 1)
+
+
+def _profile_grid_step(cfg, tcfg, grid, fsdp: bool) -> dict:
+    """One steady train step on ``grid`` (after two warm ones) under
+    ``torch.profiler``, the cross-site reductions marked
+    (``_SiteRanges``): the kernels' device ms and launches, the wall ms
+    (under the profiler) and the share of it the card was idle, and the
+    reductions' calls and the device ms of the kernels they issued."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.train_step import (build_train_step,
+                                                 init_train_state)
+    state = init_train_state(cfg, tcfg, 0, device="cuda")
+    step = build_train_step(cfg, tcfg, donate=True, grid=grid, fsdp=fsdp)
+    data = _FamilyData(cfg, TRAIN_B, TRAIN_S)
+    for s in range(2):
+        state, m = step(state, data.batch(s))
+        float(m["loss"])
+    b = data.batch(2)
+    ranges = _SiteRanges()
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        ranges.close()
+    del state
+    kernels = [ev for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")]
+    busy = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    # the CPU-side ranges (the profiler adds a GPU-side span of each,
+    # which would count the gaps between its kernels too)
+    red = [ev for ev in prof.events() if ev.name == _SiteRanges.NAME
+           and str(ev.device_type).endswith("CPU")]
+    return dict(profiled_wall_ms=wall, device_busy_ms=busy,
+                device_idle_share=1 - busy / wall,
+                kernel_launches=sum(ev.count for ev in kernels),
+                site_reductions=len(red),
+                site_reduction_device_ms=sum(
+                    ev.device_time_total for ev in red) / 1e3)
+
+
+def phase_train_sharded() -> dict:
+    """The dense family trained on site grids: full-width, full-depth
+    qwen3-0.6b, bf16, B 4 x 2048 through ``launch.train.run`` (the CLI's
+    loop and schedule, ``use_kernel``), ``SHARD_TRAIN_STEPS`` steps on
+    each grid of ``SHARD_TRAIN_GRIDS`` (ZeRO-1 moments; one with FSDP
+    weights, one with ``activation_spec``). For each: the step ms (the
+    median of steps 2-6), the flash_attention launches a step and the
+    heads they ran at, a site's parameter bytes, the peak GiB and the
+    losses against (1, 1)'s in ``SHARD_LOSS_BAND``; then one more steady
+    step profiled (``_profile_grid_step``): device busy ms and idle
+    share, kernel launches, and the cross-site reductions' calls and
+    device ms."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_grid
+    cfg, tcfg = _train_model()
+    out, base = {}, None
+    for key, (sizes, kw) in SHARD_TRAIN_GRIDS.items():
+        grid = make_grid(sizes, device="cuda")
+        fsdp = kw.get("fsdp", False)
+        t = dataclasses.replace(tcfg, activation_spec=kw.get(
+            "activation_spec"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        shapes = _AttnShapes()
+        _reset_launches()
+        try:
+            r = train_cli.run(cfg, t, steps=SHARD_TRAIN_STEPS, batch=TRAIN_B,
+                              seq=TRAIN_S, device="cuda", grid=grid,
+                              fsdp=fsdp, log=lambda _: None)
+        finally:
+            shapes.close()
+        launches, wgmma = _launches(), _wgmma_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_layer = _sites_per_layer(cfg, grid)
+        want = cfg.n_layers * per_layer * SHARD_TRAIN_STEPS
+        for name in ATTN_TRAIN_KERNELS:
+            assert launches[name] == want, (key, name, launches[name], want)
+            assert wgmma[name] == want, (key, name, wgmma[name], want)
+        losses = r["losses"]
+        assert all(math.isfinite(x) for x in losses), (key, losses)
+        if base is None:
+            base = losses
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base))
+        assert rel <= SHARD_LOSS_BAND, (key, rel, losses, base)
+        step_ms = statistics.median(r["step_s"][1:]) * 1e3
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = dict(
+            grid=dict(grid.shape), fsdp=fsdp,
+            activation_spec=kw.get("activation_spec"), step_ms=step_ms,
+            first_step_ms=r["step_s"][0] * 1e3,
+            tokens_per_s=TRAIN_B * TRAIN_S / (step_ms / 1e3),
+            attention_launches_per_step={
+                n: launches[n] // SHARD_TRAIN_STEPS
+                for n in ATTN_TRAIN_KERNELS},
+            attention_launches=launches, wgmma_launches=wgmma,
+            attention_heads=shapes.line(),
+            **_site_param_bytes(cfg, grid, fsdp), peak_mem_gb=peak,
+            losses=losses, grad_norms=r["grad_norms"],
+            max_rel_loss_vs_1x1=rel, loss_band=SHARD_LOSS_BAND,
+            profiled_step=_profile_grid_step(cfg, t, grid, fsdp))
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, B=TRAIN_B, S=TRAIN_S,
+                dtype=cfg.dtype, steps=SHARD_TRAIN_STEPS, grids=out)
+
+
+def _rel_tree(got, ref) -> dict:
+    """Per gradient leaf, the relative L2 error ||got - ref|| / ||ref||
+    and the max-norm one max |got - ref| / max |ref|: the largest of each
+    and its leaf."""
+    from repro_torch import tree
+    out = dict(l2=0.0, l2_leaf="", max=0.0, max_leaf="")
+    for (name, a), r in zip(tree.leaves_with_paths(got), tree.leaves(ref)):
+        if r.numel() == 0 or not float(r.abs().max()):
+            continue
+        for kind, rel in (
+                ("l2", float((a - r).double().norm() / r.double().norm())),
+                ("max", float((a - r).abs().max() / r.abs().max()))):
+            if rel > out[kind]:
+                out[kind], out[f"{kind}_leaf"] = rel, name
+    return out
+
+
+def phase_train_shard_parity() -> dict:
+    """fp32, TF32 off: qwen3-0.6b at full width, 2 layers, B 4 x 512, the
+    grids ``TRAIN_SHARD_GRIDS`` against one site: the loss (relative),
+    every gradient leaf (relative L2 error; the max-norm error is
+    reported beside it: a norm weight's gradient sums 2,048 positions
+    with cancellation, so one entry can part by more) and the parameters
+    after 3 AdamW steps (max |diff|; lr 1e-3, eps 1e-3: the update moves
+    at most lr / eps times a gradient's difference) within
+    ``TRAIN_SHARD_TOL``, through the CUDA-core
+    attention kernels at each site's heads; then the perf flags on a
+    (1, 4) grid (sp_pin and remat_dots with the kernels; sp_attn, sp_pin
+    and remat_dots on the plain attention) against one site with them
+    off, within the same bounds."""
+    import torch
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.models import perf_flags
+    from repro_torch.training import optim
+    from repro_torch.training.train_step import (TrainConfig, TrainState,
+                                                 build_grad_fn,
+                                                 build_train_step)
+    p = TRAIN_SHARD_PARITY
+    cfg, params = _model("float32", n_layers=p["n_layers"])
+    b = _FamilyData(cfg, p["B"], p["S"], seed=2).batch(0)
+
+    def run(grid, use_kernel=True, remat=False):
+        tcfg = TrainConfig(adamw=optim.AdamWConfig(lr=p["lr"], eps=p["eps"]),
+                           use_kernel=use_kernel, remat=remat)
+        loss, grads = build_grad_fn(cfg, tcfg, grid=grid)(params, b)
+        state = TrainState(params, optim.adamw_init(params), None)
+        step = build_train_step(cfg, tcfg, grid=grid)
+        for _ in range(p["steps"]):
+            state, _ = step(state, b)
+        return float(loss), grads, state.params
+
+    def compare(got, ref) -> dict:
+        from repro_torch import tree
+        loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+        grad = _rel_tree(got[1], ref[1])
+        param_abs = max(float((a - r).abs().max()) for a, r in zip(
+            tree.leaves(got[2]), tree.leaves(ref[2])) if r.numel())
+        ok = max(loss_rel, grad["l2"], param_abs) <= TRAIN_SHARD_TOL
+        assert ok, (loss_rel, grad, param_abs)
+        return dict(loss=got[0], loss_rel_diff=loss_rel,
+                    grad_rel_l2=grad["l2"], grad_rel_l2_leaf=grad["l2_leaf"],
+                    grad_rel_max=grad["max"],
+                    grad_rel_max_leaf=grad["max_leaf"],
+                    max_param_abs_diff_3_steps=param_abs)
+
+    out = {}
+    _reset_launches()
+    one = run(None)
+    launches_one = _launches()["flash_attention"]
+    for sizes in TRAIN_SHARD_GRIDS:
+        grid = make_grid(sizes, device="cuda")
+        _reset_launches()
+        got = run(grid)
+        out["x".join(map(str, sizes))] = dict(
+            compare(got, one), flash_attention_launches=_launches()[
+                "flash_attention"])
+    grid = make_grid((1, 4), device="cuda")
+    for key, flags, use_kernel in (
+            ("flags_kernel_1x4", ("sp_pin", "remat_dots"), True),
+            ("flags_plain_1x4", ("sp_attn", "sp_pin", "remat_dots"), False)):
+        ref = one if use_kernel else run(None, use_kernel=False)
+        perf_flags.set_flags(*flags)
+        try:
+            got = run(grid, use_kernel=use_kernel, remat=True)
+        finally:
+            perf_flags.set_flags()
+        out[key] = dict(compare(got, ref), flags=list(flags))
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, B=p["B"], S=p["S"],
+                dtype="float32", tf32=False, steps=p["steps"], lr=p["lr"],
+                eps=p["eps"], tol=TRAIN_SHARD_TOL,
+                flash_attention_launches_one_site=launches_one, **out)
+
+
+def phase_pipeline() -> dict:
+    """GPipe on the card: full-width qwen3-0.6b's 28 blocks as 4 stages of
+    7 (``distributed.pipeline``), M 4 microbatches of 1 x 2048 through
+    the (M + S - 1)-tick schedule, forward with the flash_attention
+    kernel, bf16; against the unpipelined forward of each microbatch
+    (the same blocks in the same order: equal) and of the whole batch
+    (other matmul shapes: reported); ms of each."""
+    import torch
+    from repro_torch.distributed.pipeline import (pipeline_apply,
+                                                  stages_from_layers)
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.models import transformer as tf
+    n_st, M = PIPELINE["stages"], PIPELINE["microbatches"]
+    cfg, params = _model("bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (M, PIPELINE["mb"], PIPELINE["S"]),
+                         generator=g, device="cuda")
+    xs = params["embed"][toks]                        # (M, mb, S, d)
+
+    def blocks(layers, h):
+        for lp in tf._layers({"layers": layers}):
+            h = tf._dense_block(cfg, lp, h, True)
+        return h
+    stacked = stages_from_layers(params["layers"], n_st)
+    run = pipeline_apply(make_grid((n_st,), ("stage",), device="cuda"),
+                         blocks, n_st)
+    with torch.no_grad():
+        _reset_launches()
+        got = run(stacked, xs)
+        torch.cuda.synchronize()
+        launches = _launches()["flash_attention"]
+        want = torch.stack([blocks(params["layers"], x) for x in xs])
+        whole = blocks(params["layers"], xs.reshape(
+            (M * PIPELINE["mb"],) + tuple(xs.shape[2:]))).reshape(got.shape)
+        err = float((got.float() - want.float()).abs().max())
+        err_whole = float((got.float() - whole.float()).abs().max())
+        pipe_ms = _time_ms(lambda: run(stacked, xs), iters=3, flush_bytes=0)
+        seq_ms = _time_ms(lambda: [blocks(params["layers"], x) for x in xs],
+                          iters=3, flush_bytes=0)
+    assert launches == cfg.n_layers * M, launches
+    assert err == 0.0, err
+    assert torch.isfinite(got).all()
+    return dict(arch=cfg.name, stages=n_st, layers_per_stage=cfg.n_layers
+                // n_st, microbatches=M, mb=PIPELINE["mb"], S=PIPELINE["S"],
+                ticks=M + n_st - 1, dtype=cfg.dtype,
+                flash_attention_launches=launches,
+                max_abs_err_vs_unpipelined=err,
+                max_abs_err_vs_whole_batch=err_whole,
+                scale=float(want.float().abs().max()),
+                pipelined_ms=pipe_ms, unpipelined_ms=seq_ms)
+
+
 MOE_ARCH = "qwen3-moe-235b-a22b"
 MOE_LAYERS = 4      # of 94: about 22 GB of bf16 weights on the 80 GB card
 
@@ -5026,6 +5431,14 @@ def phase_kernels() -> dict:
     out[ATTN_FP32_ROWS[AUDIO_ARCH]] = kernel_flash_attention_fwd(
         150, False, 2, (4, 4), d, "float32")
     out.update(kernel_ssd_scan())
+    # flash_attention on a train grid's site: qwen3-0.6b's heads over 2 and
+    # 4 model sites (8 / 4 and 4 / 2 of 128), bf16 through the wgmma
+    # kernels at the train shape
+    for key, (heads, _) in SITE_ATTN_ROWS.items():
+        r = kernel_flash_attention(TRAIN_S, True, TRAIN_B, "bfloat16", heads)
+        out[key] = r["fwd"]
+        out[key.replace("flash_attention_", "flash_attention_bwd_")] = r[
+            "bwd"]
     # the sharded engines' site slices: the ring kernel on a view of 128
     # and 64 of 256 slots, the paged kernel on 512 and 256 of 1,024 blocks,
     # at each sharded engine's heads
@@ -5214,6 +5627,12 @@ def main() -> int:
     run("profile_train", phase_profile_train)
     torch.cuda.empty_cache()
     run("train_parity", phase_train_parity)
+    torch.cuda.empty_cache()
+    run("train_sharded", phase_train_sharded)
+    torch.cuda.empty_cache()
+    run("train_shard_parity", phase_train_shard_parity)
+    torch.cuda.empty_cache()
+    run("pipeline", phase_pipeline)
     torch.cuda.empty_cache()
     run("parity", phase_parity)
     torch.cuda.empty_cache()
@@ -5459,6 +5878,27 @@ def main() -> int:
                    **{f: kernels[key][f] for f in (
                        "start", "block_offset", "nb_local",
                        "view_rows_per_head") if f in kernels[key]})
+    # flash_attention on a train grid's site slice of the heads: launches
+    # from train_sharded's grid at those heads (1 x 2: 8 / 4, 1 x 4: 4 / 2),
+    # and from the 2 x 2 grids (8 / 4 heads at B 2 a replica)
+    grids = results["train_sharded"]["grids"]
+    for key, (_, grid_key) in SITE_ATTN_ROWS.items():
+        bwd_key = key.replace("flash_attention_", "flash_attention_bwd_")
+        for k, src, name in ((key, "flash_attention_sm90.cu",
+                              "flash_attention"),
+                             (bwd_key, "flash_attention_bwd_sm90.cu",
+                              "flash_attention_bwd")):
+            row = add_row(k, src, "flash_attention.py:31",
+                          grids[grid_key]["attention_launches"][name],
+                          name=k)
+            row["launches_in"] = f"train_sharded {grid_key}"
+            row["wgmma_launches"] = grids[grid_key]["wgmma_launches"][name]
+            if grid_key == "1x2":
+                for other in ("2x2", "2x2_fsdp"):
+                    row[f"launches_train_sharded_{other}"] = grids[other][
+                        "attention_launches"][name]
+    rows[3]["launches_pipeline"] = results["pipeline"][
+        "flash_attention_launches"]
     for row in rows:
         if "_bwd" in row["name"]:
             row["note"] = (f"gradient of {row['name'].split('_bwd')[0]}; "

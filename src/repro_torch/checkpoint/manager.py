@@ -11,9 +11,10 @@
     ``latest_step()`` for auto-resume, and removes orphaned ``.tmp``
     directories.
 
-Restore places each leaf on its template leaf's device and dtype. The
-reference's mesh-elastic resharding (``shardings``) is not ported
-(ROADMAP Queue 1 item 10).
+Restore places each leaf on its template leaf's device and dtype, or,
+given ``shardings``, in a grid's layout: the same bytes on a new grid,
+as the reference's mesh-elastic restore (a job restarted on fewer sites
+after a failure reads the checkpoint its old grid wrote).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import Tree, leaves, leaves_with_paths, unflatten
+from repro_torch.tree import Tree, leaves_with_paths, unflatten
 
 _NUMPY_KEEP = (np.float32, np.float64, np.int32, np.int64, np.int8,
                np.uint8, np.bool_, np.int16, np.uint16, np.uint32,
@@ -68,27 +69,35 @@ def save_pytree(tree: Tree, directory: str) -> None:
     os.rename(tmp, directory)
 
 
-def restore_pytree(template: Tree, directory: str) -> Tree:
+def restore_pytree(template: Tree, directory: str,
+                   shardings: Optional[dict] = None) -> Tree:
     """Restore into the structure of ``template``: each leaf takes its
-    template leaf's dtype and device."""
+    template leaf's dtype and device. ``shardings`` (dotted leaf path ->
+    ``distributed.sharding.GridSharding``; a path it lacks stays
+    replicated) places each leaf on its grid's device instead, checked
+    against its spec: the elastic path, same bytes on a new grid."""
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
-    flat_t = leaves(template)
+    flat_t = leaves_with_paths(template)
     assert len(flat_t) == len(manifest["leaves"]), (
         f"checkpoint has {len(manifest['leaves'])} leaves, "
         f"template has {len(flat_t)}")
 
-    def load(meta, tleaf):
+    def load(meta, path, tleaf):
         arr = np.load(os.path.join(directory, meta["file"]))
         want = tuple(tleaf.shape)
         assert tuple(arr.shape) == want, (
             f"{meta['name']}: ckpt {arr.shape} vs template {want}")
-        if isinstance(tleaf, torch.Tensor):
-            return torch.from_numpy(arr).to(device=tleaf.device,
-                                            dtype=tleaf.dtype)
-        return arr.astype(np.asarray(tleaf).dtype)
+        if not isinstance(tleaf, torch.Tensor):
+            return arr.astype(np.asarray(tleaf).dtype)
+        dev = tleaf.device
+        sh = (shardings or {}).get(path)
+        if sh is not None:
+            sh.shard_shape(want)
+            dev = sh.device
+        return torch.from_numpy(arr).to(device=dev, dtype=tleaf.dtype)
 
-    return unflatten(template, (load(m, t) for m, t in
+    return unflatten(template, (load(m, p, t) for m, (p, t) in
                                 zip(manifest["leaves"], flat_t)))
 
 
@@ -122,14 +131,17 @@ class CheckpointManager:
         self._gc()
         return d
 
-    def restore(self, step: int, template: Tree) -> Tree:
-        return restore_pytree(template, self._dir(step))
+    def restore(self, step: int, template: Tree,
+                shardings: Optional[dict] = None) -> Tree:
+        return restore_pytree(template, self._dir(step), shardings)
 
-    def restore_latest(self, template: Tree) -> tuple[Optional[int], Tree]:
+    def restore_latest(self, template: Tree,
+                       shardings: Optional[dict] = None
+                       ) -> tuple[Optional[int], Tree]:
         step = self.latest_step()
         if step is None:
             return None, template
-        return step, self.restore(step, template)
+        return step, self.restore(step, template, shardings)
 
     def _gc(self) -> None:
         steps = self.steps()

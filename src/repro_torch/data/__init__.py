@@ -1,5 +1,7 @@
 """Token pipelines (numpy; the port's own copy of ``repro.data``)."""
 
-from repro_torch.data.pipeline import FileCorpus, SyntheticLM, shard_for_rank
+from repro_torch.data.pipeline import (FileCorpus, SyntheticLM,
+                                      make_batch_specs, shard_for_rank)
 
-__all__ = ["FileCorpus", "SyntheticLM", "shard_for_rank"]
+__all__ = ["FileCorpus", "SyntheticLM", "make_batch_specs",
+           "shard_for_rank"]

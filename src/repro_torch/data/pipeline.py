@@ -5,7 +5,8 @@ batches are bit-equal to the reference's).
 periodic Markov-ish stream). ``FileCorpus`` memory-maps a flat .bin of
 token ids (numpy uint16/uint32) and serves fixed-length windows. Both
 shard by (dp_rank, dp_size) and are restart-safe: state is just the
-step. ``make_batch_specs`` (JAX shape stand-ins) has no counterpart.
+step. ``make_batch_specs`` gives one batch's shapes and dtypes as meta
+tensors (the reference's ``ShapeDtypeStruct`` stand-ins).
 """
 
 from __future__ import annotations
@@ -84,3 +85,25 @@ class FileCorpus:
                                   (r + 1) * self.seq_len + 1], np.int32)
             for r in rows])
         return {"tokens": toks, "labels": labels}
+
+
+def make_batch_specs(cfg, batch: int, seq: int) -> dict:
+    """Meta-tensor stand-ins (shape and dtype, no storage) for one
+    training batch of ``seq`` positions: frames (bf16) for the audio
+    family, else tokens and labels (int32) behind the vlm's
+    ``num_patches`` patches (bf16)."""
+    import torch
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if cfg.family == "audio":
+        return {"frames": meta((batch, seq, cfg.frontend_dim),
+                               torch.bfloat16),
+                "labels": meta((batch, seq), torch.int32)}
+    text = seq - (cfg.num_patches if cfg.family == "vlm" else 0)
+    specs = {"tokens": meta((batch, text), torch.int32),
+             "labels": meta((batch, text), torch.int32)}
+    if cfg.family == "vlm":
+        specs["patches"] = meta((batch, cfg.num_patches, cfg.frontend_dim),
+                                torch.bfloat16)
+    return specs

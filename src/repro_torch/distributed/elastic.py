@@ -7,17 +7,21 @@
 2. ``HeartbeatLedger`` — liveness: hosts silent for ``dead_after``
    (in whatever units ``beat`` is driven with) are presumed dead.
 
+3. ``plan_recovery`` — the surviving sites after host failures, cut to
+   whole model replicas; ``rescale_batch`` — the elastic batch policy.
+
 The serving cluster's watchdog (``repro_torch.cluster.recovery``) feeds
 the monitor step times normalized to slowdown factors by each device's
-own latency model, and the ledger with modeled clock seconds. The
-training side's re-mesh (``plan_recovery``, ``rescale_batch``) is not
-ported yet (ROADMAP Queue 1 item 10).
+own latency model, and the ledger with modeled clock seconds; the train
+CLI records each step's wall time. A re-meshed run restores its
+checkpoint onto the new grid (``checkpoint.restore_pytree(shardings=)``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
+from typing import Sequence
 
 import numpy as np
 
@@ -84,3 +88,40 @@ class HeartbeatLedger:
     def dead_hosts(self) -> list[int]:
         return [h for h, s in self._last_seen.items()
                 if self._step - s >= self.dead_after]
+
+
+def plan_recovery(all_devices: Sequence, failed_hosts: set[int],
+                  model_parallel: int, devices_per_host: int = 8
+                  ) -> tuple[list, dict]:
+    """Surviving-site plan after failures.
+
+    Drops every device (or site index) on a failed host, truncates to a
+    whole number of data replicas (each replica = ``model_parallel``
+    sites), and reports what was sacrificed. Returns (devices_for_new_grid,
+    info)."""
+    survivors = [d for i, d in enumerate(all_devices)
+                 if (i // devices_per_host) not in failed_hosts]
+    replicas = len(survivors) // model_parallel
+    if replicas == 0:
+        raise RuntimeError("not enough devices for one model replica")
+    kept = survivors[: replicas * model_parallel]
+    info = {
+        "lost_devices": len(all_devices) - len(survivors),
+        "idle_devices": len(survivors) - len(kept),
+        "new_dp": replicas,
+        "model_parallel": model_parallel,
+    }
+    return kept, info
+
+
+def rescale_batch(global_batch: int, old_dp: int, new_dp: int,
+                  keep_global: bool = True) -> tuple[int, int]:
+    """Elastic batch policy: keep the global batch (more grad-accum per
+    replica) or keep per-replica batch (smaller global). Returns
+    (per_replica_batch, accum_steps)."""
+    per = global_batch // old_dp
+    if keep_global:
+        total_per_replica = global_batch // new_dp
+        accum = max(1, -(-total_per_replica // per))
+        return per, accum
+    return per, 1

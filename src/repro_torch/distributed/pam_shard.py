@@ -12,7 +12,9 @@ PIM site that holds a KV partition. One decode step:
 
 The merge moves H x (d + 2) floats a site whatever the context length
 (``merge_collective_bytes``); a gather-based scheme would move the whole
-KV slice (``make_gather_based_decode_attn``).
+KV slice (``make_gather_based_decode_attn``). ``fused_update_decode``
+(the ``pam_shard_decode`` perf flag) also writes the new token into the
+site that owns its position, over the ambient grid's sites.
 
 One Python controller drives every site, as the reference's one program
 drives its mesh: a site's local stage runs on its own slice of the
@@ -262,6 +264,66 @@ def make_sequence_sharded_decode_attn(sites: DecodeSites):
         return out, site_all_gather(masses, dim=1)
 
     return d_fn
+
+
+def fused_update_decode(q, k_cache, v_cache, k_new, v_new, kv_lens, *,
+                        axis: str = "model"):
+    """The ``pam_shard_decode`` perf flag: the new token's cache write
+    and PAMattention over the sequence-sharded cache in one pass over
+    the ambient grid's ``axis`` sites (``perf_flags.abstract_mesh``; one
+    site without a grid).
+
+    Site ``r`` owns positions ``[r S / g, (r + 1) S / g)`` of the caches
+    (B, Hkv, S, dh). It writes the new token into its view in place only
+    for the rows whose ``kv_lens`` (pre-append lengths) falls in its
+    range, a masked local write that keeps the old value elsewhere, as
+    the reference does; then its grouped partial over its live positions
+    (plain tensor code, fp32 products); then the exact merge through
+    ``site_all_reduce`` and each site's mass under the global ``(m*,
+    l)``, joined in site order. The batch rows are every data replica's
+    at once: a data split changes no number. q: (B, H, dh); k_new /
+    v_new: (B, Hkv, dh). Returns (out, mass (B, S), k_cache, v_cache)."""
+    from repro_torch.models import perf_flags
+    g = perf_flags.abstract_mesh().shape.get(axis, 1)
+    B, H, dh = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    bidx = torch.arange(B, device=q.device)
+    qg = q.float().reshape(B, Hkv, rep, dh)
+    local = []
+    for sl in _site_ranges(S, g):
+        n = sl.stop - sl.start
+        kc, vc = k_cache[:, :, sl], v_cache[:, :, sl]
+        pos_local = kv_lens.long() - sl.start
+        in_range = ((pos_local >= 0) & (pos_local < n))[:, None, None]
+        safe = pos_local.clamp(0, n - 1)
+        kc[bidx, :, safe] = torch.where(in_range, k_new, kc[bidx, :, safe])
+        vc[bidx, :, safe] = torch.where(in_range, v_new, vc[bidx, :, safe])
+        pos = torch.arange(sl.start, sl.stop, device=q.device)
+        live = pos[None, :] < (kv_lens + 1)[:, None]         # (B, n)
+        s = torch.matmul(qg, kc.float().transpose(-1, -2)) * scale
+        s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+        m = torch.amax(s, dim=-1)                            # (B, Hkv, rep)
+        m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(live[:, None, None, :], p, torch.zeros_like(p))
+        local.append((osm.AttnPartial(torch.matmul(p, vc.float()), m,
+                                      torch.sum(p, dim=-1)), p, live))
+    m_star = site_all_reduce([x[0].m for x in local], "max")
+    m_star_safe = torch.where(torch.isfinite(m_star), m_star,
+                              torch.zeros_like(m_star))
+    ws = [torch.where(torch.isfinite(x[0].m), torch.exp(x[0].m - m_star_safe),
+                      torch.zeros_like(x[0].m)) for x in local]
+    o = site_all_reduce([w[..., None] * x[0].o for w, x in zip(ws, local)])
+    l = site_all_reduce([w * x[0].l for w, x in zip(ws, local)])
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    out = (o / l_safe[..., None]).reshape(B, H, dh).to(q.dtype)
+    n_live = site_all_reduce([torch.sum(x[2], dim=-1) for x in local])
+    masses = [torch.mean(x[1] * w[..., None] / l_safe[..., None],
+                         dim=(1, 2)) * n_live[:, None].float()
+              for w, x in zip(ws, local)]
+    return out, site_all_gather(masses, dim=1), k_cache, v_cache
 
 
 def make_gather_based_decode_attn(sites: DecodeSites):

@@ -25,11 +25,17 @@ counted kernel. Neither fits one H100 at full depth: a donated step holds
 for deepseek-v2-lite-16b's 16.2 B, so the card trains them cut, as
 ``chip_smoke.py``'s ``train_qwen3_moe_235b_a22b`` and
 ``train_deepseek_v2_lite_16b`` do. Counterpart of
-``repro.launch.train`` with the same flags; multi-device sharding and the
-loop's straggler monitoring are not ported (ROADMAP Queue 1 item 10;
-``distributed.elastic.StragglerMonitor`` itself is). Prints one
-line per 10 steps and a JSON summary; step times are the host's wall
-clock, each step ending in a device readback of its loss.
+``repro.launch.train`` with the same flags, and ``--shard g`` in place of
+the reference's device count: the dense family trains on the reference's
+``(1, g)`` grid over ``("data", "model")``, every site on the one device
+(``launch.mesh.SiteGrid``), the weights split by ``param_specs`` and the
+moments by ``opt_state_specs`` (``training.train_step``; ``run`` also
+takes any grid and ``fsdp``); a resumed run restores its checkpoint onto
+the grid. ``--shard 1`` is the one-site run. The perf flags come from
+``REPRO_PERF`` (``models.perf_flags.from_env``), and a
+``StragglerMonitor`` records every step's time. Prints one line per 10
+steps and a JSON summary; step times are the host's wall clock, each
+step ending in a device readback of its loss.
 """
 
 from __future__ import annotations
@@ -43,6 +49,10 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.elastic import StragglerMonitor
+from repro_torch.launch.mesh import make_grid
+from repro_torch.models import perf_flags
 from repro_torch.models.config import ModelConfig, get_config, reduced
 from repro_torch.training import optim
 from repro_torch.training.train_step import (TrainConfig, build_train_step,
@@ -75,25 +85,47 @@ def device_batch(ds: SyntheticLM, step: int, microbatches: int,
     return out
 
 
+def state_shardings(cfg: ModelConfig, grid, *, fsdp: bool = False
+                    ) -> dict:
+    """Each train-state leaf's layout on ``grid`` by dotted path: the
+    params by ``param_specs``, the moments by ``opt_state_specs``, the
+    rest replicated."""
+    out = {}
+    for kind, specs in (("params", shd.param_specs(cfg, grid, fsdp=fsdp)),
+                        ("opt.mu", shd.opt_state_specs(cfg, grid,
+                                                       fsdp=fsdp)),
+                        ("opt.nu", shd.opt_state_specs(cfg, grid,
+                                                       fsdp=fsdp))):
+        out.update({f"{kind}.{p}": shd.GridSharding(grid, s)
+                    for p, s in specs.items()})
+    return out
+
+
 def run(cfg: ModelConfig, tcfg: TrainConfig, *, steps: int, batch: int,
         seq: int, device: str | torch.device | None = None, seed: int = 0,
-        ckpt_dir: str = "", ckpt_every: int = 50, log=print) -> dict:
+        ckpt_dir: str = "", ckpt_every: int = 50, grid=None,
+        fsdp: bool = False, log=print) -> dict:
     """Train ``steps`` steps (resuming from the newest checkpoint in
-    ``ckpt_dir``, if any). Returns the per-step losses, grad norms and
-    wall seconds of the steps run, the first step run and tokens/s."""
+    ``ckpt_dir``, if any), on ``grid`` (a ``SiteGrid`` on ``device``;
+    None: one site) with FSDP weights if ``fsdp``. Returns the per-step
+    losses, grad norms and wall seconds of the steps run, the first step
+    run and tokens/s."""
     dev = resolve_device(device)
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch)
     state = init_train_state(cfg, tcfg, seed, device=dev)
     # the state is donated to the step, as the reference's CLI jits it
     # with donate_argnums=(0,): one copy of it on the device
-    step_fn = build_train_step(cfg, tcfg, donate=True)
+    step_fn = build_train_step(cfg, tcfg, donate=True, grid=grid, fsdp=fsdp)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     if mgr is not None:
-        latest, restored = mgr.restore_latest(state)
+        shardings = (None if grid is None
+                     else state_shardings(cfg, grid, fsdp=fsdp))
+        latest, restored = mgr.restore_latest(state, shardings)
         if latest is not None:
             log(f"[resume] from step {latest}")
             state, start = restored, latest
+    mon = StragglerMonitor()
     losses, gnorms, secs = [], [], []
     t_all = time.perf_counter()
     for s in range(start, steps):
@@ -103,6 +135,7 @@ def run(cfg: ModelConfig, tcfg: TrainConfig, *, steps: int, batch: int,
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
         secs.append(time.perf_counter() - t0)
+        mon.record(0, secs[-1])
         if s % 10 == 0 or s == steps - 1:
             log(f"step {s:5d} loss {losses[-1]:.4f} gnorm {gnorms[-1]:.3f} "
                 f"{secs[-1] * 1e3:.0f}ms")
@@ -133,7 +166,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--shard", type=int, default=1,
+                    help="model sites of the (1, shard) (data, model) "
+                         "grid, all on the one device (dense family)")
     args = ap.parse_args(argv)
+    perf_flags.from_env()
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -141,11 +178,14 @@ def main(argv=None) -> dict:
     tcfg = train_config(steps=args.steps, lr=args.lr,
                         microbatches=args.microbatches, wsd=args.wsd,
                         compress_grads=args.compress_grads)
+    grid = (make_grid((1, args.shard), device=args.device)
+            if args.shard > 1 else None)
     out = run(cfg, tcfg, steps=args.steps, batch=args.batch, seq=args.seq,
               device=args.device, ckpt_dir=args.ckpt_dir,
-              ckpt_every=args.ckpt_every)
+              ckpt_every=args.ckpt_every, grid=grid)
     print(json.dumps(dict(out, final_loss=(out["losses"] or [None])[-1],
-                          device=str(resolve_device(args.device)))))
+                          device=str(resolve_device(args.device)),
+                          shard=args.shard, perf_flags=perf_flags.active())))
     return out
 
 

@@ -9,7 +9,9 @@ does, and so does the suffix prefill over a cached prefix
 through ``decode_attn_fn`` (the PAM manager's tiered attention in the
 engine); the default is dense grouped attention. Decode appends write
 the caches in place: the ring slot ``pos % W`` of the dense buffer
-and, in paged mode, the token's (block, slot) in the pool.
+and, in paged mode, the token's (block, slot) in the pool. The perf
+flags (``models.perf_flags``) ``bf16_probs``, ``sp_attn`` and
+``pam_shard_decode`` are read here, as in the reference.
 """
 
 from __future__ import annotations
@@ -19,7 +21,11 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.pam_shard import (site_all_gather,
+                                               site_all_reduce)
 from repro_torch.kernels import ops as kops
+from repro_torch.models import perf_flags
 from repro_torch.models.layers import apply_rope, linear, rms_norm
 
 DecodeAttnFn = Callable[..., tuple]
@@ -53,7 +59,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, chunk: int = 512,
                       scale: float | None = None) -> torch.Tensor:
     """q: (B, S, H, dk); k: (B, S, Hkv, dk); v: (B, S, Hkv, dv).
-    fp32 softmax, q-chunked (peak intermediate (B, H, chunk, S))."""
+    fp32 softmax, q-chunked (peak intermediate (B, H, chunk, S)). With
+    ``bf16_probs`` the PV product takes bf16 probabilities and values
+    (the max and sum stay fp32)."""
     B, S, H, dh = q.shape
     Hkv, dv = k.shape[2], v.shape[-1]
     rep = H // Hkv
@@ -73,9 +81,63 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             s = s.masked_fill(~mask, float("-inf"))
         p = torch.softmax(s, dim=-1)
         p = torch.nan_to_num(p, nan=0.0)
-        outs.append(torch.matmul(p, vh[:, :, None]).to(q.dtype))
+        if perf_flags.enabled("bf16_probs"):
+            outs.append(torch.matmul(p.bfloat16(), vh[:, :, None].bfloat16())
+                        .to(q.dtype))
+        else:
+            outs.append(torch.matmul(p, vh[:, :, None]).to(q.dtype))
     out = torch.cat(outs, dim=3).reshape(B, H, S, dv)
     return torch.movedim(out, 1, 2)                      # (B, S, H, dv)
+
+
+def sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool) -> torch.Tensor:
+    """The ``sp_attn`` perf flag: q-sequence-split attention. Under a
+    grid with ``model`` sites that divide S, each model site attends its
+    slice of the queries against the whole K/V (the reference gathers
+    the small GQA K/V once and keeps scores, softmax and PV local), and
+    the sites' outputs are joined in site order; otherwise one pass over
+    every query. fp32 scores and products (the reference's
+    ``preferred_element_type``); ``bf16_probs`` rounds the
+    probabilities to bf16. q: (B, S, H, dk), k / v: (B, S, Hkv, d*)."""
+    B, S, H, dh = q.shape
+    Hkv, dv = k.shape[2], v.shape[-1]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    g = perf_flags.abstract_mesh().shape.get("model", 1)
+    g = g if S % g == 0 else 1
+    kf = torch.movedim(k, 1, 2).float()[:, :, None]      # (B, Hkv, 1, S, d)
+    vf = torch.movedim(v, 1, 2).float()[:, :, None]
+    kpos = torch.arange(S, device=q.device)
+    outs = []
+    for r in range(g):
+        lo, n = r * S // g, S // g
+        qg = q[:, lo:lo + n].reshape(B, n, Hkv, rep, dh)
+        qg = qg.permute(0, 2, 3, 1, 4).float()          # (B, Hkv, rep, n, d)
+        s = torch.matmul(qg, kf.transpose(-1, -2)) * scale
+        if causal:
+            qpos = lo + torch.arange(n, device=q.device)
+            s = s.masked_fill(~(kpos[None, :] <= qpos[:, None]),
+                              float("-inf"))
+        pr = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+        if perf_flags.enabled("bf16_probs"):
+            pr = pr.bfloat16().float()
+        o = torch.matmul(pr, vf)                         # (B, Hkv, rep, n, dv)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, n, H, dv))
+    return site_all_gather(outs, dim=1).to(q.dtype)
+
+
+def _attend(q, k, v, *, causal: bool, use_kernel: bool, q_chunk: int):
+    """Attention over (B, S, H, d) q and (B, S, Hkv, d) k / v, by the
+    reference's route: the kernels, else ``sp_attn``, else chunked."""
+    if use_kernel:
+        out = kops.fused_attention(torch.movedim(q, 2, 1),
+                                   torch.movedim(k, 2, 1),
+                                   torch.movedim(v, 2, 1), causal=causal)
+        return torch.movedim(out, 1, 2)
+    if perf_flags.enabled("sp_attn"):
+        return sp_attention(q, k, v, causal=causal)
+    return chunked_attention(q, k, v, causal=causal, chunk=q_chunk)
 
 
 def attention_train(p: AttnParams, x: torch.Tensor, *, n_heads: int,
@@ -86,20 +148,31 @@ def attention_train(p: AttnParams, x: torch.Tensor, *, n_heads: int,
 
     ``use_kernel`` runs ``fused_attention`` on (B, H, S, d) (the heads
     moved in front of the sequence, copied to contiguous by the wrapper);
-    otherwise ``chunked_attention``. The reference's ``sp_attn`` and
-    ``bf16_probs`` perf flags are not ported (ROADMAP Queue 1 item 10).
+    otherwise ``sp_attention`` under the ``sp_attn`` flag, else
+    ``chunked_attention``. With the projections split whole heads a site
+    (``tensor_parallel.head_sites``), each site projects, attends (its
+    own kernel launch on H / g and Hkv / g heads) and multiplies by its
+    rows of ``wo``, and the sites' partial outputs are summed in fp32 in
+    site order and cast once.
     """
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    g = tp.head_sites(p.wq, p.wk, p.wv, p.wo, n_heads, n_kv)
+    if g:
+        partial = []
+        for r in range(g):
+            site = AttnParams(p.wq.parts[r], p.wk.parts[r], p.wv.parts[r],
+                              p.wo.parts[r], p.q_norm, p.k_norm)
+            q, k, v = _project_qkv(site, x, positions, n_heads // g,
+                                   n_kv // g, d_head, rope_theta, rms_eps)
+            out = _attend(q, k, v, causal=causal, use_kernel=use_kernel,
+                          q_chunk=q_chunk)
+            partial.append((out.reshape(B, S, -1) @ site.wo).float())
+        return site_all_reduce(partial).to(x.dtype)
     q, k, v = _project_qkv(p, x, positions, n_heads, n_kv, d_head,
                            rope_theta, rms_eps)
-    if use_kernel:
-        out = kops.fused_attention(torch.movedim(q, 2, 1),
-                                   torch.movedim(k, 2, 1),
-                                   torch.movedim(v, 2, 1), causal=causal)
-        out = torch.movedim(out, 1, 2)
-    else:
-        out = chunked_attention(q, k, v, causal=causal, chunk=q_chunk)
+    out = _attend(q, k, v, causal=causal, use_kernel=use_kernel,
+                  q_chunk=q_chunk)
     return linear(out.reshape(B, S, n_heads * d_head), p.wo)
 
 
@@ -218,6 +291,12 @@ def attention_decode(p: AttnParams, x: torch.Tensor, k_cache: torch.Tensor,
     routed to the sentinel block) and calls ``decode_attn_fn(q, k_cache,
     v_cache, pk, pv, kv_lens)``; the return grows to (out, mass, k_cache,
     v_cache, pk, pv).
+
+    The ``pam_shard_decode`` perf flag writes the token and attends in
+    one sequence-sharded pass over the ambient grid's ``model`` sites
+    (``pam_shard.fused_update_decode``; the cache is the full-window
+    buffer, W == Smax), in place of ``decode_attn_fn``; it refuses paged
+    pools, as the reference does.
     """
     B, d = x.shape
     q = linear(x, p.wq).reshape(B, n_heads, d_head)
@@ -229,6 +308,16 @@ def attention_decode(p: AttnParams, x: torch.Tensor, k_cache: torch.Tensor,
     pos = kv_lens
     q = apply_rope(q[:, None], pos[:, None], rope_theta)[:, 0]
     k = apply_rope(k[:, None], pos[:, None], rope_theta)[:, 0]
+
+    if perf_flags.enabled("pam_shard_decode"):
+        if paged is not None:
+            raise ValueError("paged KV pools and the pam_shard_decode "
+                             "perf flag are mutually exclusive")
+        from repro_torch.distributed.pam_shard import fused_update_decode
+        out, mass, k_cache, v_cache = fused_update_decode(
+            q, k_cache, v_cache, k, v, kv_lens)
+        return (linear(out.reshape(B, n_heads * d_head), p.wo), mass,
+                k_cache, v_cache)
 
     # ring append: one write at pos % W is also the ring eviction (the
     # overwritten token lives on in its mapped pool block)

@@ -10,9 +10,10 @@ per-site slices (``distributed.tensor_parallel``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.distributed.tensor_parallel import linear
+from repro_torch.distributed import tensor_parallel as tp
+# the models import ``linear`` from here
+from repro_torch.distributed.tensor_parallel import linear  # noqa: F401
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -41,9 +42,7 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = linear(x, w_gate)
-    u = linear(x, w_up)
-    return linear(F.silu(g) * u, w_down)
+    return tp.swiglu(x, w_gate, w_up, w_down)
 
 
 # ------------------------------------------------------------------- RoPE

@@ -15,8 +15,10 @@ the expert ffn dim); the router stays replicated.
 Capacity couples the rows of a call: a token's output depends on every
 other token routed with it, so callers hand in exactly the reference's
 shapes (padded prefill buckets, every decode slot). The reference's
-``moe_pin`` (expert-parallel sharding constraints, a numerical no-op) is
-not ported: it waits with the perf flags, ROADMAP Queue 1 item 10.
+``moe_pin`` perf flag (expert-parallel sharding constraints on the
+dispatch intermediates) is accepted and changes no number, as there:
+this family trains on one site until its 2-D expert split is ported
+(ROADMAP Queue 1 item 10), so there is nothing to pin.
 """
 
 from __future__ import annotations

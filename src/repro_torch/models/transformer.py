@@ -27,17 +27,23 @@ each whole hybrid group, with ``torch.utils.checkpoint``). A sharded
 serving engine's tree holds the leaves it splits as per-site slices
 (``distributed.tensor_parallel.SiteSplit``); the weight products, the
 embedding lookups and the head reach every leaf through
-``tensor_parallel.linear`` / ``embedding``.
+``tensor_parallel.linear`` / ``embedding``. A train step on a (data,
+model) grid hands the dense family's forward its leaves the same way,
+the stacked ones as ``tensor_parallel.GridLeaf``s that ``_layers``
+unbinds (``training.train_step``); the other families train on one
+site until their sharded training is ported (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
@@ -45,6 +51,7 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import perf_flags
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (init_embedding, init_linear,
@@ -76,6 +83,21 @@ def _hybrid(cfg: ModelConfig) -> bool:
     attention block)."""
     return (cfg.family == "hybrid" and cfg.hybrid is not None
             and cfg.ssm is not None)
+
+
+def dense_family(cfg: ModelConfig) -> bool:
+    """The dense GQA family (no MoE, no MLA, no frontend): the one whose
+    training takes a (data, model) grid and ``activation_spec``."""
+    return cfg.family == "dense" and cfg.moe is None and cfg.mla is None
+
+
+def require_grid_training(cfg: ModelConfig, what: str) -> None:
+    """Raise for a family whose sharded training is not ported yet."""
+    if not dense_family(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is ported for the dense family only; the "
+            f"{cfg.family} family's sharded training is not ported yet "
+            f"(ROADMAP Queue 1 item 10)")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -199,8 +221,8 @@ def _layers(params: Params) -> list[Params]:
     backward writes each layer's gradient slice once. Indexing a leaf
     per layer instead would give every layer a zero gradient as large as
     the whole stacked leaf, and autograd would add L of them. A sharded
-    engine's split leaf unbinds each site's slice
-    (``tensor_parallel.unbind``)."""
+    engine's split leaf unbinds each site's slice, and a train grid's
+    ``GridLeaf`` each layer's placed weight (``tensor_parallel.unbind``)."""
     lyr = params["layers"]
     split = [tp.unbind(leaf) for leaf in tree.leaves(lyr)]
     return [tree.unflatten(lyr, [s[i] for s in split])
@@ -268,13 +290,22 @@ def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
 
 
 # ============================================================ train forward
+def _sp_pin(h: torch.Tensor) -> torch.Tensor:
+    """The ``sp_pin`` perf flag: a dense block's input or output held
+    split on the sequence over the ambient grid's model sites
+    (``tensor_parallel.pin``)."""
+    if not perf_flags.enabled("sp_pin") or h.dim() != 3:
+        return h
+    return tp.pin(h, (None, "model", None))
+
+
 def _dense_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                  use_kernel: bool) -> torch.Tensor:
     """Pre-norm attention + SwiGLU (or the routed FFN) of one layer
     (``lp``: its views). MLA runs the plain chunked attention of
     ``mla_train`` whatever ``use_kernel`` says, as the reference does
     (it has no MLA kernel)."""
-    h = rms_norm(x, lp["ln1"], cfg.rms_eps)
+    h = _sp_pin(rms_norm(x, lp["ln1"], cfg.rms_eps))
     if cfg.mla is not None:
         x = x + mla_mod.mla_train(
             _mla_params(lp), h, cfg.mla, n_heads=cfg.n_heads,
@@ -286,11 +317,25 @@ def _dense_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
             n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=cfg.causal,
             rope_theta=cfg.rope_theta, rms_eps=cfg.rms_eps,
             use_kernel=use_kernel)
+    h = _sp_pin(rms_norm(x, lp["ln2"], cfg.rms_eps))
     if cfg.moe is not None:     # (x, the layer's aux loss)
-        y, aux = moe_mod.moe_forward(
-            _moe_params(lp), rms_norm(x, lp["ln2"], cfg.rms_eps), cfg.moe)
-        return x + y, aux
-    return x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_eps))
+        y, aux = moe_mod.moe_forward(_moe_params(lp), h, cfg.moe)
+        return x + _sp_pin(y), aux
+    return x + _sp_pin(_mlp(lp, h))
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_dots``' policy: keep the weight products (``mm`` /
+    ``addmm``: no batch dims, the reference's
+    ``dots_with_no_batch_dims_saveable``), recompute everything else
+    (the attention's batched products included)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                               _save_dots)
 
 
 def _ssm_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
@@ -326,22 +371,31 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
     shared block's gradient sums over its sites.
     ``remat`` recomputes each layer in the backward
     pass (``torch.utils.checkpoint``, non-reentrant), so the forward
-    kernel runs twice per layer and step; a hybrid group is checkpointed
-    whole, as the reference's ``group_body``, and each tail layer on its
-    own. The stacked leaves are unbound once, outside the checkpoints
-    (``_layers``, ``_hybrid_layers``)."""
-    _require_ported(cfg)
+    kernel runs twice per layer and step (with the ``remat_dots`` flag
+    the checkpoint keeps the weight products: ``_save_dots``); a hybrid
+    group is checkpointed whole, as the reference's ``group_body``, and
+    each tail layer on its own. The stacked leaves are unbound once,
+    outside the checkpoints (``_layers``, ``_hybrid_layers``).
+    ``activation_spec`` (the dense family's): a spec over the residual
+    stream's (B, S, d) dims that holds it split between layers as the
+    ambient grid's sites do (``tensor_parallel.pin``; its data entries
+    are the train step's replica split)."""
     if activation_spec is not None:
-        raise NotImplementedError(
-            "activation_spec (sequence-parallel residual sharding) is not "
-            "ported yet (ROADMAP Queue 1 item 9, sharding)")
+        require_grid_training(cfg, "activation_spec")
+        activation_spec = tuple(activation_spec)
+    _require_ported(cfg)
 
     def run(fn, *args):
         if remat:
+            kw = ({"context_fn": _SAVE_DOTS}
+                  if perf_flags.enabled("remat_dots") else {})
             return checkpoint(fn, cfg, *args, use_kernel,
-                              use_reentrant=False)
+                              use_reentrant=False, **kw)
         return fn(cfg, *args, use_kernel)
-    x = _embed_inputs(cfg, params, batch)
+
+    def pin(h):
+        return h if activation_spec is None else tp.pin(h, activation_spec)
+    x = pin(_embed_inputs(cfg, params, batch))
     if _hybrid(cfg):
         groups, tail = _hybrid_layers(cfg, params)
         for layers in groups:
@@ -357,6 +411,7 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
         if cfg.moe is not None:
             x, aux = x
             auxes.append(aux)
+        x = pin(x)
     logits = _logits(cfg, params, x)
     if cfg.moe is not None:
         return logits, torch.sum(torch.stack(auxes))
@@ -389,8 +444,12 @@ def _embed_inputs(cfg: ModelConfig, params: Params,
 
 def loss_fn(cfg: ModelConfig, params: Params,
             batch: dict[str, torch.Tensor], *, use_kernel: bool = False,
-            remat: bool = False, activation_spec=None) -> torch.Tensor:
-    """Mean next-token NLL over labels >= 0 (fp32 log-softmax) + aux."""
+            remat: bool = False, activation_spec=None,
+            count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL over labels >= 0 (fp32 log-softmax) + aux.
+    ``count``: the number of labels >= 0 of the whole batch when
+    ``batch`` is one data replica's slice of it (the replicas' losses
+    then sum to the whole batch's)."""
     logits, aux = forward(cfg, params, batch, use_kernel=use_kernel,
                           remat=remat, activation_spec=activation_spec)
     labels = batch["labels"].long()
@@ -398,7 +457,8 @@ def loss_fn(cfg: ModelConfig, params: Params,
     keep = labels >= 0
     nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     nll = torch.where(keep, nll, torch.zeros_like(nll))
-    count = torch.clamp(torch.sum(keep).float(), min=1.0)
+    if count is None:
+        count = torch.clamp(torch.sum(keep).float(), min=1.0)
     return torch.sum(nll) / count + aux
 
 

@@ -48,22 +48,34 @@ def adamw_init(params: Tree) -> AdamWState:
                                           device=p.device), params))
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """fp32 L2 norm over every leaf."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(tree)))
+def global_norm(tree: Tree, blocks=None) -> torch.Tensor:
+    """fp32 L2 norm over every leaf; with ``blocks`` (each leaf's
+    ``tensor_parallel.site_blocks``) the squares are summed block by
+    block, leaves in order and blocks in site order."""
+    if blocks is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves(tree)))
+    return torch.sqrt(sum(torch.sum(torch.square(g[b].float()))
+                          for g, bl in zip(leaves(tree), blocks)
+                          for b in bl))
 
 
 def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
-                 params: Tree, *, donate: bool = False
+                 params: Tree, *, donate: bool = False, blocks=None
                  ) -> tuple[Tree, AdamWState, torch.Tensor]:
     """Returns (new_params, new_state, grad_norm); the norm is taken
     before clipping. With ``donate`` the moments of ``state`` and the
     leaves of ``params`` are updated in place and returned (the caller
     gives them up), so no second copy of them is made: the counterpart
-    of the reference CLI's ``jit(..., donate_argnums=(0,))``."""
+    of the reference CLI's ``jit(..., donate_argnums=(0,))``.
+
+    ``blocks`` (one list of index tuples a leaf, in leaf order:
+    ``tensor_parallel.site_blocks`` of the moments' specs) is ZeRO-1 on
+    a grid: each site updates its block of the moments and of the
+    parameter, and the grad norm sums the blocks' squares in site order.
+    AdamW is elementwise, so the blocks' updates are the whole leaf's."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, blocks)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = (cfg.lr(step) if callable(cfg.lr)
@@ -71,9 +83,9 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
     bc1 = 1 - torch.pow(cfg.b1, step.float())
     bc2 = 1 - torch.pow(cfg.b2, step.float())
 
-    def upd(g, m, v, p):
+    def upd(g, m, v, p, inplace):
         g = g.float() * scale
-        if donate:
+        if inplace:
             m = m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
             v = v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         else:
@@ -83,10 +95,20 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         delta = delta + cfg.weight_decay * p.float()
         new = (p.float() - lr * delta).to(p.dtype)
-        return (p.copy_(new) if donate else new), m, v
+        return (p.copy_(new) if inplace else new), m, v
 
-    out = [upd(*x) for x in zip(leaves(grads), leaves(state.mu),
-                                 leaves(state.nu), leaves(params))]
+    def upd_blocks(g, m, v, p, bl):
+        """The sites' blocks of one leaf, each updated on its own."""
+        if not donate:
+            m, v, p = m.clone(), v.clone(), p.clone()
+        for b in bl:
+            upd(g[b], m[b], v[b], p[b], True)
+        return p, m, v
+
+    flat = zip(leaves(grads), leaves(state.mu), leaves(state.nu),
+               leaves(params))
+    out = ([upd(*x, donate) for x in flat] if blocks is None
+           else [upd_blocks(*x, bl) for x, bl in zip(flat, blocks)])
     new_p, new_m, new_v = ([o[i] for o in out] for i in range(3))
     return (unflatten(params, new_p),
             AdamWState(step, unflatten(params, new_m),

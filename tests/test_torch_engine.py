@@ -143,13 +143,14 @@ bad = sorted(n for n in sys.modules
              if n in ("jax", "repro", "ml_dtypes")
              or n.startswith(("jax.", "repro.", "ml_dtypes.")))
 assert not bad, bad
-# the fault-tolerance layer, the front end and the paper's core library
-# are among those walked
+# the fault-tolerance layer, the front end, the paper's core library and
+# the training grid's modules are among those walked
 want = {"repro_torch.distributed.elastic", "repro_torch.cluster.faults",
         "repro_torch.cluster.recovery", "repro_torch.frontend.loadgen",
         "repro_torch.frontend.admission", "repro_torch.frontend.server",
         "repro_torch.core.pam_attention", "repro_torch.core.sparsity",
-        "repro_torch.core.mapping"}
+        "repro_torch.core.mapping", "repro_torch.launch.mesh",
+        "repro_torch.models.perf_flags", "repro_torch.distributed.pipeline"}
 assert want <= set(sys.modules), sorted(want - set(sys.modules))
 print("clean", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """

@@ -20,7 +20,7 @@ own, then a Mamba-2 tail) against the JAX reference.
   ``micro_steps`` 1 and 4 (one request filling ``max_len`` exactly), and
   one sampled run;
 - the refusals (pools, ``true_len``, the training forward's
-  ``activation_spec`` naming ROADMAP Queue 1 item 9, migration) and the
+  ``activation_spec`` naming ROADMAP Queue 1 item 10, migration) and the
   serve CLI (training: ``tests/test_torch_hybrid_train.py``).
 
 Inputs are fixed-seed numpy draws, fp32 throughout. Tolerances: logits
@@ -401,15 +401,15 @@ def test_engine_prefills_at_exact_length():
 # ------------------------------------------------------------ refusals
 def test_model_refusals():
     """``forward`` / ``loss_fn`` with ``activation_spec`` raise naming
-    ROADMAP Queue 1 item 9 (the hybrid trains since item 17 was ported;
-    sequence-parallel sharding is not); ``true_len`` and paged pools
+    ROADMAP Queue 1 item 10 (the hybrid trains since item 17 was ported;
+    its sharded training is not); ``true_len`` and paged pools
     raise the reference's ``ValueError``, as the suffix prefill does."""
     _, _, tcf, tparams = _models()
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
              "labels": torch.zeros((1, 4), dtype=torch.int64)}
     for fn in (ttf.forward, ttf.loss_fn):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 9"):
+                           match="ROADMAP Queue 1 item 10"):
             fn(tcf, tparams, batch, activation_spec=("data",))
     toks = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="absorbs padding"):

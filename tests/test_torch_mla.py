@@ -312,14 +312,15 @@ def test_bridged_cache_decodes_as_reference():
 def test_training_forward_and_pools_refuse():
     """``forward`` / ``loss_fn`` with ``activation_spec`` (the
     sequence-parallel residual, a refusal that still stands) raise
-    naming ROADMAP Queue 1 item 9; paged pools raise the reference's
+    naming ROADMAP Queue 1 item 10 (this family's sharded
+    training); paged pools raise the reference's
     ``ValueError``, as the suffix prefill does."""
     _, _, tcf, tparams = _models()
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
              "labels": torch.zeros((1, 4), dtype=torch.int64)}
     for fn in (ttf.forward, ttf.loss_fn):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 9"):
+                           match="ROADMAP Queue 1 item 10"):
             fn(tcf, tparams, batch, activation_spec=object())
     with pytest.raises(ValueError, match="paged KV pools require a GQA"):
         ttf.init_decode_cache(tcf, 2, 32, paged_blocks=4, block_size=8,

@@ -457,11 +457,11 @@ def test_params_from_jax_carries_the_moe_subtree(num_shared):
 
 def test_mla_moe_names_its_roadmap_item():
     """A refusal that still stands (the sequence-parallel
-    ``activation_spec`` of the training forward) raises naming ROADMAP
-    Queue 1 item 9."""
+    ``activation_spec`` of the training forward, which waits with this
+    family's sharded training) raises naming ROADMAP Queue 1 item 10."""
     cfg = tcfg.reduced(tcfg.get_config(ARCH))
     toks = torch.zeros(1, 4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
         ttf.forward(cfg, {}, {"tokens": toks}, activation_spec=object())
 
 

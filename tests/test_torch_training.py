@@ -123,11 +123,19 @@ def test_remat_gives_the_same_grads(model):
                                    atol=1e-7)
 
 
-def test_activation_spec_is_not_ported(model):
-    _, _, tcf, tparams = model
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hubert-xlarge"])
+def test_activation_spec_is_not_ported(arch):
+    """The dense family takes ``activation_spec`` (tests/
+    test_torch_train_shard.py); the families whose sharded training is
+    still to port refuse it, naming their ROADMAP item."""
+    tcf = tcfg.reduced(tcfg.get_config(arch))
+    tparams = ttf.init_params(tcf, 0, device="cpu")
+    b = _tb(_batch(tcf.vocab))
+    if tcf.family == "audio":
+        b = {"frames": torch.zeros((B, S, tcf.frontend_dim)),
+             "labels": b["labels"]}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.forward(tcf, tparams, _tb(_batch(tcf.vocab)),
-                    activation_spec=("data",))
+        ttf.forward(tcf, tparams, b, activation_spec=("data",))
 
 
 # ---------------------------------------------------------------- AdamW
