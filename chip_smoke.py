@@ -19,7 +19,13 @@ final ``ok`` line:
             libraries (attention and SSD scan) must hold HGMMA
             instructions in their SASS (``cuobjdump -sass``) and their
             kernels must not spill (the SSD ones at d_state 128 and 64,
-            keyed ``<template arguments>``)
+            keyed ``<template arguments>``); the two fp32 attention
+            libraries on the tensor cores (``flash_attention_tf32x3``,
+            ``flash_attention_bwd_tf32x3``: 3xTF32 by mma.sync) must
+            hold HMMA instructions, their forward, dK / dV and dQ
+            kernels must exist at every built pair and not spill, and
+            no fp32 instantiation may remain in the CUDA-core
+            ``flash_attention`` / ``flash_attention_bwd``
   kernels   each kernel against its plain PyTorch version on the card at
             main-path shapes (decode: B=8, H=16, Hkv=8, d=128, bf16
             storage, each kernel under the reference's stacked contract
@@ -34,7 +40,7 @@ final ``ok`` line:
             32, d 112 (zamba2-7b's group 1 at head dim 112, ``_d112``;
             the paged row lies on no model's path); attention:
             the train shape in bf16 through the wgmma
-            kernels, also S 1000 non-causal, and the CUDA-core kernels in
+            kernels, also S 1000 non-causal, and the tf32x3 kernels in
             fp32 at train_parity's B 2, S 500; forward and backward at
             the train pairs of the vlm, audio and wider dense families
             (``TRAIN_ROWS``), in bf16 through the wgmma kernels at their
@@ -44,8 +50,15 @@ final ``ok`` line:
             40 / 8 of 128; deepseek-67b B 1, 64 / 8 of 128; zamba2-7b's
             shared block B 2, 32 / 32 of 112, keys ending ``_d112``;
             qwen3-moe-235b-a22b B 2, 64 / 4 of 128, keys ending ``_g16``;
-            S 2048 causal) and in fp32 through the CUDA-core kernels at
-            their train_parity_* shapes (B 2, S 500); the forward alone in fp32
+            S 2048 causal) and in fp32 through the tf32x3 kernels at
+            their train_parity_* shapes (B 2, S 500; each fp32 row also
+            gives its variant, its error against ``_fwd_tf32x3`` /
+            ``_bwd_tf32x3``, the plain model of the 3xTF32 split, both
+            bounds, SDPA's mean over ``ATTN_REPEATS`` calls with their
+            min and max and SDPA's kernels' device time by the profiler
+            (``library_device_ms``, beside the kernel's
+            ``kernel_device_ms``), and the backward's bit-equality across
+            two calls); the forward alone in fp32
             at vlm_audio_parity's shapes: ``flash_attention_vlm_fp32_100``
             (B 2, 14 / 2 of 64, S 100 causal) and
             ``flash_attention_audio_fp32_150_noncausal`` (B 2, 4 / 4 of
@@ -364,9 +377,9 @@ final ``ok`` line:
             path)   the same at full width and 2 layers (zamba2-7b: 2
             groups of 1 Mamba-2 layer and a tail of 1;
             qwen3-moe-235b-a22b: 1 layer) in fp32 (TF32 off), B 2 x 500
-            positions: loss and gradients through the CUDA-core kernels
-            (ssd_scan at (64, 64), flash_attention at (112, 1) for the
-            hybrid, at (128, 16) for the MoE) vs the plain chunked
+            positions: loss and gradients through the fp32 kernels
+            (ssd_scan at (64, 64) on the CUDA cores, flash_attention at
+            (112, 1) for the hybrid, at (128, 16) for the MoE, tf32x3) vs the plain chunked
             attention and scan, as train_parity; the MoE also reports the
             expert ids the two paths route apart
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
@@ -380,9 +393,9 @@ final ``ok`` line:
             PyTorch's elementwise kernels' share (where gradient
             accumulation shows), the device's idle share
   train_parity    full-width qwen3-0.6b in fp32 (TF32 off), B 2, S 500:
-            loss and gradients through the kernels (the CUDA-core
-            variant: no wgmma launch) vs through the plain chunked
-            attention
+            loss and gradients through the kernels (the tf32x3
+            variant: every attention launch a tf32x3 one, no wgmma
+            launch) vs through the plain chunked attention
   train_sharded   the dense family trained on (data, model) site grids
             on this card (``SHARD_TRAIN_GRIDS``): full-width, full-depth
             qwen3-0.6b, bf16, B 4 x 2048, ``use_kernel``, 6 steps through
@@ -401,7 +414,7 @@ final ``ok`` line:
             layers, B 4 x 512: the grids (2, 2), (1, 4) and (2, 4)
             against one site, loss, every gradient leaf (relative L2
             error; the max-norm one reported) and the parameters after 3
-            AdamW steps (lr 1e-3, eps 1e-3) within 1e-5, through the CUDA-core attention kernels at
+            AdamW steps (lr 1e-3, eps 1e-3) within 1e-5, through the tf32x3 attention kernels at
             each site's heads; and the perf flags on a (1, 4) grid (sp_pin
             and remat_dots with the kernels, sp_attn, sp_pin and
             remat_dots on the plain attention) against one site without
@@ -468,9 +481,11 @@ Tolerances (each kernel against its plain version on the same inputs):
       2^-8 relative; the kernels also round P and dS to bf16 as
       tensor-core operands, whose effect tests/test_torch_flash_attention_
       sm90.py bounds on the CPU); the forward's fp32 log-sum-exp at rtol
-      1e-4, atol 1e-3; fp32 operands (CUDA-core kernels): the forward at
+      1e-4, atol 1e-3; fp32 operands (tf32x3 kernels): the forward at
       rtol 1e-4, atol 1e-3, the backward at rtol / atol 1e-3 (sums over
-      up to S products in another order)
+      up to S products in another order, and the 3xTF32 split's 2^-22
+      relative per operand, which tests/test_torch_flash_attention_
+      tf32x3.py bounds on the CPU)
   ssd_scan forward and backward: bf16 operands at rtol / atol 2e-2 (one
       bf16 rounding of the outputs, and the wgmma kernels' bf16 operands,
       whose effect tests/test_torch_ssd_scan_sm90.py bounds on the CPU;
@@ -499,10 +514,12 @@ Tolerances (each kernel against its plain version on the same inputs):
       plans and tags exactly
 
 Bounds: bytes over 3.35 TB/s (HBM3), and operations over 67 TFLOP/s
-(fp32, CUDA cores) for the decode kernels and the fp32 attention rows,
-or 989 TFLOP/s (bf16 dense tensor cores) for bf16 flash_attention and
-ssd_scan, whose bf16 work a tensor-core kernel can do; NVIDIA's H100 SXM
-data sheet.
+(fp32, CUDA cores) for the decode kernels and fp32 ssd_scan, 989 TFLOP/s
+(bf16 dense tensor cores) for bf16 flash_attention and ssd_scan, whose
+bf16 work a tensor-core kernel can do, and 3 x the FLOPs over 495 TFLOP/s
+(TF32 dense tensor cores, three TF32 products a product) for the fp32
+attention rows, with the fp32-FMA bound (the FLOPs over 67 TFLOP/s)
+beside it; NVIDIA's H100 SXM data sheet.
 
 Every engine on the card dispatches its decode steps as CUDA graphs
 (``serving/engine.py``): a hook that runs inside the decode body (the
@@ -533,10 +550,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM TF32 dense tensor cores
 BF16_FLOPS = 989e12              # H100 SXM bf16 dense tensor cores
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-3)
 ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 ATTN_FP32_BWD_TOL = dict(rtol=1e-3, atol=1e-3)
+ATTN_REPEATS = 10                # timed calls a kernel-phase attention row
 PARITY_TOL = 1e-3                # max |dlogit| / max(1, max |logit|)
 TRAIN_LOSS_TOL = 1e-5            # relative loss difference
 TRAIN_GRAD_TOL = 1e-3            # per leaf: max |diff| / max |plain|
@@ -553,15 +572,16 @@ def emit(phase: str, **kw) -> None:
 
 
 # ---------------------------------------------------------------- timing
-def _time_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
-    """Mean ms per call on the card: CUDA events around each call, the
-    50 MB L2 flushed before each (the engine's 28 layers never find
-    their KV in L2)."""
+def _time_stats(fn, iters: int = 20,
+                flush_bytes: int = 64 << 20) -> tuple[float, float, float]:
+    """(mean, min, max) ms per call on the card: CUDA events around each
+    of ``iters`` calls after 3 untimed ones, the 50 MB L2 flushed before
+    each (the engine's 28 layers never find their KV in L2)."""
     import torch
     scratch = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         scratch.zero_()
         start = torch.cuda.Event(enable_timing=True)
@@ -570,8 +590,13 @@ def _time_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return sum(times) / iters, min(times), max(times)
+
+
+def _time_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
+    """Mean ms per call on the card (``_time_stats``)."""
+    return _time_stats(fn, iters, flush_bytes)[0]
 
 
 def _device_ms_by_kernel(fn, iters: int = 20,
@@ -609,6 +634,36 @@ def _device_ms_by_kernel(fn, iters: int = 20,
     # the profiler saw none of the port's kernels: the call's time by
     # CUDA events, under a name that says so
     return {"cuda_events_whole_call": _time_ms(fn, iters, flush_bytes)}
+
+
+def _device_ms_all(fn, iters: int = 20,
+                   flush_bytes: int = 64 << 20) -> float | None:
+    """Mean device time (ms) a call of every CUDA kernel ``fn`` launches
+    (a library call's own kernels, not only the port's), from
+    torch.profiler, L2 flushed before each call as in ``_time_ms``: the
+    capture of flush + call less a capture of the flush alone. None if
+    no capture holds a kernel (``PROFILE_ATTEMPTS`` tries)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    scratch = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+
+    def total(body) -> float:
+        for _ in range(PROFILE_ATTEMPTS):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    body()
+                torch.cuda.synchronize()
+            ms = sum(ev.self_device_time_total
+                     for ev in prof.key_averages()) / iters / 1e3
+            if ms > 0:
+                return ms
+        return 0.0
+
+    fn()
+    torch.cuda.synchronize()
+    both = total(lambda: (scratch.zero_(), fn()))
+    flush = total(scratch.zero_)
+    return both - flush if both > 0 and flush > 0 else None
 
 
 def _device_ms(fn, iters: int = 20, flush_bytes: int = 64 << 20) -> float:
@@ -656,6 +711,8 @@ def phase_env() -> dict:
 
 SM90_LIBS = ("flash_attention_sm90", "flash_attention_bwd_sm90",
              "ssd_scan_sm90", "ssd_scan_bwd_sm90")
+# the fp32 attention libraries on the tensor cores (3xTF32 by mma.sync)
+TF32_LIBS = ("flash_attention_tf32x3", "flash_attention_bwd_tf32x3")
 # the wgmma kernels of the SSD scan at both built d_states, keyed as
 # phase_build reads them from the -Xptxas -v logs (template arguments in
 # angle brackets)
@@ -742,6 +799,21 @@ def phase_build() -> dict:
     assert not spills, f"bf16 attention backward kernels spill: {spills}"
     hgmma = {name: _sass_count(name) for name in SM90_LIBS}
     assert all(n > 0 for n in hgmma.values()), f"no HGMMA in {hgmma}"
+    # fp32: the tf32x3 kernels at every built pair (HMMA in their SASS, no
+    # spills), and no fp32 instantiation left in the CUDA-core libraries
+    tf32 = {**attn, **attn_bwd}
+    main = ([f"flash_attention_fwd_tf32x3_kernel<fp32, {d}, {rep}>"
+             for d, rep in fa.BUILT]
+            + [f"flash_attention_{k}_tf32x3_kernel<fp32, {d}, {rep}>"
+               for d, rep in fa.BUILT_BWD for k in ("dkdv", "dq")])
+    assert set(main) <= set(tf32), sorted(tf32)
+    spills = {k: tf32[k] for k in main if re.search(
+        r"[1-9]\d* bytes spill (stores|loads)", tf32[k])}
+    assert not spills, f"tf32x3 attention kernels spill: {spills}"
+    gone = [k for k in tf32 if "<fp32" in k and "tf32x3" not in k]
+    assert not gone, f"fp32 CUDA-core attention kernels remain: {gone}"
+    hmma = {name: _sass_count(name, "HMMA") for name in TF32_LIBS}
+    assert all(n > 0 for n in hmma.values()), f"no HMMA in {hmma}"
     spills = {k: v for k, v in regs.items() if ("sm90" in k or "ssd90" in k)
               and re.search(r"[1-9]\d* bytes spill (stores|loads)", v)}
     assert not spills, f"wgmma kernels spill: {spills}"
@@ -752,7 +824,7 @@ def phase_build() -> dict:
                 decode_registers_bf16_kv=decode,
                 attention_forward_registers=attn,
                 attention_backward_registers=attn_bwd,
-                hgmma_in_sass=hgmma)
+                hgmma_in_sass=hgmma, hmma_in_sass=hmma)
 
 
 def _decode_registers() -> dict:
@@ -784,25 +856,29 @@ def _decode_registers() -> dict:
 
 def _attention_registers(backward: bool = False) -> dict:
     """Registers, shared memory and spills from the ``-Xptxas -v`` logs of
-    every instantiation of the two ``flash_attention`` forwards (with
-    ``backward``: of the two backwards' dK / dV and dQ kernels), keyed
-    ``kernel<dtype, head dim, group>``: the CUDA-core kernels (fp32 at
-    every pair, run by the parity phases; bf16 at head dim 16) and the
-    wgmma kernels (bf16 at the built pairs of head dims 64, 80 and 128:
-    the main paths', none may spill)."""
+    every instantiation of the three ``flash_attention`` forwards (with
+    ``backward``: of the three backwards' dK / dV and dQ kernels), keyed
+    ``kernel<dtype, head dim, group>``: the CUDA-core kernels (bf16 at
+    head dim 16), the wgmma kernels (bf16 at the built pairs of head dims
+    64-128: the main paths', none may spill) and the tf32x3 kernels (fp32
+    at every pair, run by the parity phases; none may spill)."""
     import re
     from repro_torch.kernels import build
     names = (r"(flash_attention_(?:dkdv|dq)_kernel)",
-             r"(flash_attention_(?:dkdv|dq)_sm90_kernel)") if backward else (
+             r"(flash_attention_(?:dkdv|dq)_sm90_kernel)",
+             r"(flash_attention_(?:dkdv|dq)_tf32x3_kernel)") if backward else (
              r"(flash_attention_fwd_kernel)",
-             r"(flash_attention_fwd_sm90_kernel)")
+             r"(flash_attention_fwd_sm90_kernel)",
+             r"(flash_attention_fwd_tf32x3_kernel)")
     suffix = "_bwd" if backward else ""
     out = {}
     for lib, pattern in (
             (f"flash_attention{suffix}",
              names[0] + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"),
             (f"flash_attention{suffix}_sm90",
-             names[1] + r"I()Li(\d+)ELi(\d+)E")):
+             names[1] + r"I()Li(\d+)ELi(\d+)E"),
+            (f"flash_attention{suffix}_tf32x3",
+             names[2] + r"I()Li(\d+)ELi(\d+)E")):
         lines = build.build_log(lib).splitlines()
         for i, line in enumerate(lines):
             m = re.search(pattern, line)
@@ -815,7 +891,7 @@ def _attention_registers(backward: bool = False) -> dict:
                 if "Used" in x or "spill" in x:
                     info.append(x.split(":", 1)[-1].strip())
             kern, dt, d, rep = m.groups()
-            dt = "fp32" if dt == "f" else "bf16"
+            dt = "fp32" if dt == "f" or "tf32x3" in kern else "bf16"
             out[f"{kern}<{dt}, {d}, {rep}>"] = "; ".join(info)
     return out
 
@@ -1082,17 +1158,42 @@ def _attn_work(q, k, causal: bool) -> tuple[int, int]:
 
 
 def _attn_timed(fn, flops, bound) -> dict:
-    dev = _device_ms(fn, iters=10)
-    return dict(ms=_time_ms(fn, iters=10), kernel_device_ms=dev,
+    dev = _device_ms(fn, iters=ATTN_REPEATS)
+    ms, lo, hi = _time_stats(fn, iters=ATTN_REPEATS)
+    return dict(ms=ms, ms_spread=[lo, hi], kernel_device_ms=dev,
                 tflops=flops / (dev * 1e-3) / 1e12,
                 pct_of_bound=100.0 * bound / dev)
 
 
+def _attn_bounds(nbytes: float, flops: float, bf16: bool) -> dict:
+    """The row's bound: bf16 FLOPs over the bf16 tensor-core peak; fp32
+    (the tf32x3 kernels) 3 x the FLOPs (three TF32 products a product)
+    over the TF32 peak, with the fp32-FMA bound (the FLOPs over the fp32
+    peak, the bound of the CUDA-core kernels this route replaced) beside
+    it."""
+    if bf16:
+        bound, by = _bound_ms(nbytes, flops, BF16_FLOPS)
+        return dict(bound_ms=bound, bound_by=by)
+    bound, by = _bound_ms(nbytes, 3 * flops, TF32_FLOPS)
+    fma, fma_by = _bound_ms(nbytes, flops, FP32_FLOPS)
+    return dict(bound_ms=bound, bound_by=by, bound_fp32_fma_ms=fma,
+                bound_fp32_fma_by=fma_by)
+
+
+def _library_stats(fn) -> dict:
+    """SDPA's yardstick: mean ms over ``ATTN_REPEATS`` calls (CUDA events,
+    L2 flushed) with their min and max."""
+    ms, lo, hi = _time_stats(fn, iters=ATTN_REPEATS)
+    return dict(library_ms=ms, library_ms_spread=[lo, hi],
+                library_repeats=ATTN_REPEATS)
+
+
 def _attn_fwd_row(q, k, v, causal: bool) -> tuple[dict, object, object]:
     """The forward kernel against its plain version on q, k, v (bf16
-    through wgmma also against ``_fwd_rounded``), its times, bound and
-    the SDPA yardstick with SDPA's own error against the same plain
-    version. Returns (row, o, lse)."""
+    through wgmma also against ``_fwd_rounded``, fp32 through tf32x3
+    against ``_fwd_tf32x3``), its times, bounds and the SDPA yardstick
+    with SDPA's own error against the same plain version. Returns (row,
+    o, lse)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1100,12 +1201,15 @@ def _attn_fwd_row(q, k, v, causal: bool) -> tuple[dict, object, object]:
     variant = fa._variant(q.dtype, q.shape[-1])
     bf16 = q.dtype == torch.bfloat16
     tol = ATTN_BF16_TOL if bf16 else KERNEL_TOL
-    n0 = fa.flash_attention.wgmma_launches
+    n0 = (fa.flash_attention.wgmma_launches,
+          fa.flash_attention.tf32x3_launches)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     ref_o, ref_lse = fa._fwd_plain(q, k, v, causal, scale)
     torch.cuda.synchronize()
-    ran = fa.flash_attention.wgmma_launches - n0
-    assert ran == (1 if variant == "wgmma" else 0), (variant, ran)
+    ran = (fa.flash_attention.wgmma_launches - n0[0],
+           fa.flash_attention.tf32x3_launches - n0[1])
+    assert ran == (int(variant == "wgmma"), int(variant == "tf32x3")), (
+        variant, ran)
     err_o, ok_o = _compare([o], [ref_o], tol)
     err_l, ok_l = _compare([lse], [ref_lse])
     extra = {}
@@ -1113,19 +1217,25 @@ def _attn_fwd_row(q, k, v, causal: bool) -> tuple[dict, object, object]:
         rnd_o, _ = fa._fwd_rounded(q, k, v, causal, scale)
         extra["max_abs_err_vs_rounded"] = _compare([o], [rnd_o])[0]
         del rnd_o
+    if variant == "tf32x3":
+        extra["max_abs_err_vs_model"] = _compare(
+            [o, lse], fa._fwd_tf32x3(q, k, v, causal, scale))[0]
 
     def sdpa():
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
     with torch.no_grad():
         sdpa_err = _compare([sdpa()], [ref_o])[0]
-        sdpa_ms = _time_ms(sdpa, iters=10)
+        library = _library_stats(sdpa)
+        if not bf16:    # SDPA's kernels' own device time, as the kernel's
+            library["library_device_ms"] = _device_ms_all(
+                sdpa, iters=ATTN_REPEATS)
     del ref_o, ref_lse
     pairs, d = _attn_work(q, k, causal)
     el = q.element_size()
     nbytes = (q.numel() * 2 + k.numel() * 2) * el + lse.numel() * 4
     flops = 4 * d * pairs
-    bound, by = _bound_ms(nbytes, flops, BF16_FLOPS if bf16 else FP32_FLOPS)
+    bounds = _attn_bounds(nbytes, flops, bf16)
     row = dict(S=q.shape[2], causal=causal, B=q.shape[0], H=q.shape[1],
                Hkv=k.shape[1], d=d, dtype=str(q.dtype).split(".")[-1],
                variant=variant, live_pairs=pairs, name="flash_attention",
@@ -1133,11 +1243,13 @@ def _attn_fwd_row(q, k, v, causal: bool) -> tuple[dict, object, object]:
                max_abs_err_o=err_o, max_abs_err_lse=err_l, tol=tol,
                sdpa_max_abs_err=sdpa_err, **extra,
                **_attn_timed(lambda: fa.flash_attention_fwd(
-                   q, k, v, causal=causal), flops, bound),
+                   q, k, v, causal=causal), flops, bounds["bound_ms"]),
                plain_ms=_time_ms(lambda: fa._fwd_plain(q, k, v, causal,
                                                        scale), iters=5),
-               bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
-               library_ms=sdpa_ms)
+               **bounds, bytes=nbytes, flops=flops, **library)
+    if not bf16:
+        row["pct_of_fp32_fma_bound"] = (
+            100.0 * bounds["bound_fp32_fma_ms"] / row["kernel_device_ms"])
     return row, o, lse
 
 
@@ -1149,7 +1261,9 @@ def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
     their times, bounds and the SDPA yardstick, whose own error against
     the same plain versions is reported beside the kernels'. bf16 runs
     the wgmma kernels (also held to ``_fwd_rounded`` / ``_bwd_rounded``,
-    the plain model of their bf16 roundings), fp32 the CUDA-core ones.
+    the plain model of their bf16 roundings), fp32 the tf32x3 ones (their
+    error against ``_fwd_tf32x3`` / ``_bwd_tf32x3``, the plain model of
+    the 3xTF32 split, reported; two backward calls bit-equal).
     (H, Hkv) ``heads`` and head dim ``d``: qwen3-0.6b's by default."""
     import torch
     import torch.nn.functional as F
@@ -1162,18 +1276,30 @@ def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
     fwd, o, lse = _attn_fwd_row(q, k, v, causal)
     bf16 = q.dtype == torch.bfloat16
     bwd_tol = ATTN_BF16_TOL if bf16 else ATTN_FP32_BWD_TOL
-    n0 = fa.flash_attention_bwd.wgmma_launches
+    n0 = (fa.flash_attention_bwd.wgmma_launches,
+          fa.flash_attention_bwd.tf32x3_launches)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     ref_g = fa._bwd_plain(q, k, v, o, lse, do, causal, scale)
     torch.cuda.synchronize()
-    ran = fa.flash_attention_bwd.wgmma_launches - n0
-    assert ran == (1 if fwd["variant"] == "wgmma" else 0), ran
+    variant = fa._variant(q.dtype, q.shape[-1], backward=True)
+    ran = (fa.flash_attention_bwd.wgmma_launches - n0[0],
+           fa.flash_attention_bwd.tf32x3_launches - n0[1])
+    assert ran == (int(variant == "wgmma"), int(variant == "tf32x3")), (
+        variant, ran)
     err_g, ok_g = _compare(grads, ref_g, bwd_tol)
     extra_b = {}
     if bf16:
         rnd_g = fa._bwd_rounded(q, k, v, o, lse, do, causal, scale)
         extra_b["max_abs_err_vs_rounded"] = _compare(grads, rnd_g)[0]
         del rnd_g
+    else:
+        extra_b["max_abs_err_vs_model"] = _compare(grads, fa._bwd_tf32x3(
+            q, k, v, o, lse, do, causal, scale))[0]
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        extra_b["bit_equal_across_calls"] = all(
+            bool(torch.equal(a, b)) for a, b in zip(grads, again))
+        assert extra_b["bit_equal_across_calls"], "backward not deterministic"
+        del again
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
 
     def sdpa_fb():
@@ -1190,9 +1316,8 @@ def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
     bwd_bytes = ((q.numel() * 3 + k.numel() * 2) * el + lse.numel() * 4
                  + (q.numel() + k.numel() * 2) * el)
     bwd_flops = 10 * d * pairs
-    bwd_bound, bwd_by = _bound_ms(bwd_bytes, bwd_flops,
-                                  BF16_FLOPS if bf16 else FP32_FLOPS)
-    sdpa_fb_ms = _time_ms(sdpa_fb, iters=10)
+    bounds = _attn_bounds(bwd_bytes, bwd_flops, bf16)
+    fb_ms, fb_lo, fb_hi = _time_stats(sdpa_fb, iters=ATTN_REPEATS)
     case = {f: fwd[f] for f in ("S", "causal", "B", "H", "Hkv", "d",
                                 "dtype", "variant", "live_pairs")}
     bwd = dict(case, name="flash_attention_bwd", ok=ok_g,
@@ -1200,12 +1325,21 @@ def kernel_flash_attention(S: int, causal: bool, B: int = TRAIN_B,
                **extra_b,
                **_attn_timed(lambda: fa.flash_attention_bwd(
                    q, k, v, o, lse, do, causal=causal), bwd_flops,
-                   bwd_bound),
+                   bounds["bound_ms"]),
                plain_ms=_time_ms(lambda: fa._bwd_plain(
                    q, k, v, o, lse, do, causal, scale), iters=5),
-               bound_ms=bwd_bound, bound_by=bwd_by, bytes=bwd_bytes,
-               flops=bwd_flops,
-               library_ms=max(sdpa_fb_ms - fwd["library_ms"], 0.0))
+               **bounds, bytes=bwd_bytes, flops=bwd_flops,
+               library_ms=max(fb_ms - fwd["library_ms"], 0.0),
+               library_ms_fwd_bwd_spread=[fb_lo, fb_hi],
+               library_repeats=ATTN_REPEATS)
+    if not bf16:
+        bwd["pct_of_fp32_fma_bound"] = (
+            100.0 * bounds["bound_fp32_fma_ms"] / bwd["kernel_device_ms"])
+        fb_dev = _device_ms_all(sdpa_fb, iters=ATTN_REPEATS)
+        bwd["library_device_ms"] = (
+            fb_dev - fwd["library_device_ms"]
+            if fb_dev is not None and fwd["library_device_ms"] is not None
+            else None)
     return dict(fwd=fwd, bwd=bwd)
 
 
@@ -1213,7 +1347,7 @@ def kernel_flash_attention_fwd(S: int, causal: bool, B: int, heads,
                                d: int, dtype: str = "bfloat16") -> dict:
     """The forward alone at (H, Hkv) ``heads``, head dim ``d`` (the
     shapes of ``vlm_audio_parity``, which runs no backward): bf16 through
-    the wgmma kernel, fp32 through the CUDA-core one."""
+    the wgmma kernel, fp32 through the tf32x3 one."""
     q, k, v, _ = _attn_case(S, causal, seed=S + d, B=B, dtype=dtype,
                             heads=heads, d=d)
     return _attn_fwd_row(q, k, v, causal)[0]
@@ -3395,6 +3529,8 @@ def _reset_launches() -> None:
         fn.launches = 0
     for fn in _wgmma_counted().values():
         fn.wgmma_launches = 0
+    for fn in _tf32x3_counted().values():
+        fn.tf32x3_launches = 0
 
 
 def _launches() -> dict:
@@ -3412,6 +3548,19 @@ def _wgmma_counted():
 
 def _wgmma_launches() -> dict:
     return {name: fn.wgmma_launches for name, fn in _wgmma_counted().items()}
+
+
+def _tf32x3_counted():
+    """The wrappers that also count their tf32x3 (fp32 tensor-core)
+    launches."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd}
+
+
+def _tf32x3_launches() -> dict:
+    return {name: fn.tf32x3_launches
+            for name, fn in _tf32x3_counted().items()}
 
 
 # the attention kernels of a train path (``_train_launches`` counts
@@ -3560,8 +3709,10 @@ def phase_train_parity(arch: str = "qwen3-0.6b",
     _reset_launches()
     (lk, gk), ids_k = grads(True)
     launches = _launches()
-    wgmma = _wgmma_launches()          # fp32: the CUDA-core kernels
+    wgmma = _wgmma_launches()          # fp32: the tf32x3 attention kernels
     assert not any(wgmma.values()), f"fp32 ran wgmma kernels: {wgmma}"
+    tf32x3 = _tf32x3_launches()
+    assert tf32x3 == {n: launches[n] for n in tf32x3}, (tf32x3, launches)
     (lp, gp), ids_p = grads(False)
     moe = {} if cfg.moe is None else dict(expert_ids_routed_apart=sum(
         int((a != c).sum()) for a, c in zip(ids_k, ids_p)),
@@ -3588,7 +3739,7 @@ def phase_train_parity(arch: str = "qwen3-0.6b",
                 loss_rel_diff=loss_rel, loss_tol=TRAIN_LOSS_TOL,
                 max_grad_rel_diff=worst, worst_leaf=worst_leaf,
                 grad_tol=TRAIN_GRAD_TOL, launches=launches,
-                wgmma_launches=wgmma, **moe)
+                wgmma_launches=wgmma, tf32x3_launches=tf32x3, **moe)
 
 
 # ------------------------------------------------- training on a site grid
@@ -3843,7 +3994,7 @@ def phase_train_shard_parity() -> dict:
     with cancellation, so one entry can part by more) and the parameters
     after 3 AdamW steps (max |diff|; lr 1e-3, eps 1e-3: the update moves
     at most lr / eps times a gradient's difference) within
-    ``TRAIN_SHARD_TOL``, through the CUDA-core
+    ``TRAIN_SHARD_TOL``, through the tf32x3
     attention kernels at each site's heads; then the perf flags on a
     (1, 4) grid (sp_pin and remat_dots with the kernels; sp_attn, sp_pin
     and remat_dots on the plain attention) against one site with them
@@ -3887,6 +4038,7 @@ def phase_train_shard_parity() -> dict:
     _reset_launches()
     one = run(None)
     launches_one = _launches()["flash_attention"]
+    assert _tf32x3_launches()["flash_attention"] == launches_one
     for sizes in TRAIN_SHARD_GRIDS:
         grid = make_grid(sizes, device="cuda")
         _reset_launches()
@@ -4312,7 +4464,7 @@ VLM_FORWARD = dict(B=4, text=1792, seq=2048)  # 256 patches + 1792 tokens
 VLM_PREFILL = dict(B=8, text=512, max_len=2048, steps=16)
 ENCODER = dict(B=8, frames=1500, iters=5)   # 30 s clips at 50 frames / s
 ENCODER_PHASE = "encoder_hubert_xlarge"
-# the kernels-phase rows of the fp32 flash_attention forward (the CUDA-core
+# the kernels-phase rows of the fp32 flash_attention forward (the tf32x3
 # kernel) at vlm_audio_parity's shapes
 ATTN_FP32_ROWS = {VLM_ARCH: "flash_attention_vlm_fp32_100",
                   AUDIO_ARCH: "flash_attention_audio_fp32_150_noncausal"}
@@ -4642,11 +4794,15 @@ def phase_vlm_audio_parity() -> dict:
         for name, n in want.items():
             assert launches[name] == n, (key, name, launches[name], n)
             total[name] += n
+        # fp32: every attention launch a tf32x3 one
+        tf32x3 = _tf32x3_launches()["flash_attention"]
+        assert tf32x3 == cfg.n_layers, (key, tf32x3)
         bad = {k: v for k, v in line.items() if v > PARITY_TOL}
         assert not bad, f"{key}: card and CPU differ: {bad}"
         out[key] = dict(line, heads=[cfg.n_heads, cfg.n_kv_heads],
                         head_dim=cfg.head_dim, causal=cfg.causal,
-                        launches={k: launches[k] for k in want})
+                        launches={k: launches[k] for k in want},
+                        tf32x3_launches=tf32x3)
         del host, dev
     out["launches"] = total
     return out
@@ -5398,7 +5554,7 @@ def phase_kernels() -> dict:
         tag = "2048" if causal else "ragged_1000_noncausal"
         out[f"flash_attention_{tag}"] = r["fwd"]
         out[f"flash_attention_bwd_{tag}"] = r["bwd"]
-    # the CUDA-core variant at its main path's shape (train_parity: fp32,
+    # the tf32x3 variant at its main path's shape (train_parity: fp32,
     # B 2, S 500, causal)
     r = kernel_flash_attention(PARITY_S, True, B=PARITY_B, dtype="float32")
     out["flash_attention_fp32_500"] = r["fwd"]
@@ -5408,7 +5564,7 @@ def phase_kernels() -> dict:
     # phase's attention shape (internvl2-1b's (64, 7) causal at B 4 x
     # (256 patches + 1792 tokens), hubert-xlarge's (80, 1) bidirectional
     # at B 8 x 1500 frames: a ragged last tile; the wider dense models at
-    # their phases' batch x 2048), and fp32 through the CUDA-core kernels
+    # their phases' batch x 2048), and fp32 through the tf32x3 kernels
     # at their train_parity_* shape (B 2, S 500)
     for arch, (tag, causal) in TRAIN_ROWS.items():
         H, Hkv, d = _wide_heads(arch)
@@ -5421,7 +5577,7 @@ def phase_kernels() -> dict:
                                    (H, Hkv), d)
         fwd_key, bwd_key = _attn_keys(arch, fp32=True)
         out[fwd_key], out[bwd_key] = r["fwd"], r["bwd"]
-    # the forward alone in fp32 through the CUDA-core kernel at
+    # the forward alone in fp32 through the tf32x3 kernel at
     # vlm_audio_parity's shapes (B 2; 4 patches + 96 tokens at 14 / 2
     # heads of 64, 150 frames at 4 / 4 of 80)
     H, Hkv, d = _wide_heads(VLM_ARCH)
@@ -5688,7 +5844,11 @@ def main() -> int:
             bound_by=k["bound_by"], library_ms=k["library_ms"])
         for extra in ("S", "split", "variant", "dtype", "tflops", "causal",
                       "pct_of_bound", "executed_tflops", "sdpa_max_abs_err",
-                      "H", "Hkv", "d"):
+                      "H", "Hkv", "d", "ms_spread", "library_ms_spread",
+                      "library_ms_fwd_bwd_spread", "library_repeats",
+                      "max_abs_err_vs_model", "bound_fp32_fma_ms",
+                      "pct_of_fp32_fma_bound", "bit_equal_across_calls",
+                      "library_device_ms"):
             if extra in k:
                 row[extra] = k[extra]
         stacked = STACKED_ROWS.get(key)
@@ -5711,9 +5871,9 @@ def main() -> int:
              "flash_attention.py:31", train_run["flash_attention"]),
             ("flash_attention_bwd_2048", "flash_attention_bwd_sm90.cu",
              "flash_attention.py:31", train_run["flash_attention_bwd"]),
-            ("flash_attention_fp32_500", "flash_attention.cu",
+            ("flash_attention_fp32_500", "flash_attention_tf32x3.cu",
              "flash_attention.py:31", fp32_run["flash_attention"]),
-            ("flash_attention_bwd_fp32_500", "flash_attention_bwd.cu",
+            ("flash_attention_bwd_fp32_500", "flash_attention_bwd_tf32x3.cu",
              "flash_attention.py:31", fp32_run["flash_attention_bwd"]),
             ("ssd_scan", "ssd_scan_sm90.cu", "ssd_scan.py:36",
              ssm_run["ssd_scan"]),
@@ -5729,6 +5889,10 @@ def main() -> int:
              "flash_decode.py:202", moe_run["flash_decode_paged_merged"])):
         add_row(key, src, replaces, launches)
     rows[1]["launches_in"] = "engine_dense_pam"
+    for row, name in ((rows[5], "flash_attention"),
+                      (rows[6], "flash_attention_bwd")):
+        row["tf32x3_launches"] = results["train_parity"][
+            "tf32x3_launches"][name]
     dg = results["decode_graph"]
     rows[1]["launches_decode_graph"] = dg["dense_launches"][
         "flash_decode_merged"]
@@ -5807,7 +5971,7 @@ def main() -> int:
                    "(head dim, group) list and held to its plain version")
     # the train pairs of the vlm, audio and wider dense families: bf16
     # forward and backward (the wgmma kernels) with launches from each
-    # train_* phase, fp32 (the CUDA-core kernels) from its train_parity_*
+    # train_* phase, fp32 (the tf32x3 kernels) from its train_parity_*
     # phase; internvl2-1b's and hubert-xlarge's forwards also run in
     # vlm_forward and the encoder phase, and in fp32 at vlm_audio_parity's
     # shapes
@@ -5825,12 +5989,13 @@ def main() -> int:
             row["max_abs_err_vs_rounded"] = kernels[key][
                 "max_abs_err_vs_rounded"]
         for key, src, name in zip(_attn_keys(arch, fp32=True), (
-                "flash_attention.cu", "flash_attention_bwd.cu"),
+                "flash_attention_tf32x3.cu", "flash_attention_bwd_tf32x3.cu"),
                 ATTN_TRAIN_KERNELS):
             row = add_row(key, src, "flash_attention.py:31",
                           parity["launches"][name],
                           name=name + tag + "_fp32_train")
             row["launches_in"] = _train_phase(arch, parity=True)
+            row["tf32x3_launches"] = parity["tf32x3_launches"][name]
     # zamba2-7b's Mamba-2 layers: the SSD scan at d_state 64, bf16 (wgmma)
     # with launches from train_zamba2_7b, fp32 (CUDA cores) from
     # train_parity_zamba2_7b
@@ -5853,11 +6018,12 @@ def main() -> int:
             "flash_attention"]
         row[f"wgmma_launches_{phase}"] = results[phase]["wgmma_launches"][
             "flash_attention"]
-        row = add_row(ATTN_FP32_ROWS[arch], "flash_attention.cu",
+        row = add_row(ATTN_FP32_ROWS[arch], "flash_attention_tf32x3.cu",
                       "flash_attention.py:31",
                       vap[case]["launches"]["flash_attention"],
                       name="flash_attention" + tag + "_fp32")
         row["launches_in"] = "vlm_audio_parity"
+        row["tf32x3_launches"] = vap[case]["tf32x3_launches"]
     # the sharded engines' site slices: launches from the sharded engine
     # phase of the row's heads, at the shard whose slice the row takes
     # (ring 128 / pool 512 of 2 sites, ring 64 / pool 256 of 4)

@@ -9,10 +9,10 @@
 // and sums are 4-step shuffles. Tiles live in shared memory as fp32 with a
 // padded row stride (D + 1), so a half-warp reading one column of 16
 // different rows touches 16 different banks. All products run on the CUDA
-// cores in fp32: these kernels serve fp32 operands (whose tensor-core
-// product would be TF32) and bf16 at head dim 16 (the reduced configs);
-// bf16 at the head dims of PAM_ATTN_WGMMA_FWD_DIMS / _BWD_DIMS below runs
-// the wgmma kernels of attention_sm90.cuh instead.
+// cores in fp32: these kernels serve bf16 at head dim 16 (the reduced
+// configs); bf16 at the head dims of PAM_ATTN_WGMMA_FWD_DIMS / _BWD_DIMS
+// below runs the wgmma kernels of attention_sm90.cuh instead, and fp32 at
+// every built pair the 3xTF32 tensor-core kernels of attention_tf32.cuh.
 #pragma once
 
 #include "decode_common.cuh"
@@ -31,17 +31,12 @@ constexpr int kTile = 64;      // query rows and key rows per tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kPLd = kTile + 1;  // padded stride of the 64 x 64 score tile
 
-__device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
@@ -131,9 +126,11 @@ __device__ __forceinline__ void mul_tile(const float* __restrict__ P,
 // groups 1 and 2). The two lists
 // are equal. kernels/flash_attention.py's BUILT and BUILT_BWD hold the
 // same lists (a CPU test compares them) and refuse any other pair before
-// a launch; here another pair returns -1. Each pair is an fp32 and, at a
-// head dim whose bf16 kernel is not a wgmma one, a bf16 instantiation, so
-// the lists are kept short.
+// a launch; here another pair returns -1. Each pair is an fp32
+// instantiation of the tf32x3 kernels (flash_attention_tf32x3.cu,
+// flash_attention_bwd_tf32x3.cu) and, at a head dim whose bf16 kernel is
+// not a wgmma one, a bf16 one of the CUDA-core kernels, so the lists are
+// kept short.
 #define PAM_ATTN_FWD_BUILT(X) \
   X(16, 1) X(16, 2) \
   X(64, 1) X(64, 7) \
@@ -163,21 +160,20 @@ constexpr bool wgmma_bwd_dim(int d) {
 }
 #undef PAM_ATTN_IS_DIM
 
-// One built pair: Launch<T, D, REP>::run(args, stream) for dtype 0 (fp32)
-// or, unless the wgmma kernels take bf16 at D (kWgmma), 1 (bf16); 0 or a
-// CUDA error code, -1 for another dtype.
+// One built pair of the CUDA-core kernels: Launch<T, D, REP>::run(args,
+// stream) for dtype 1 (bf16) unless the wgmma kernels take bf16 at D
+// (kWgmma); 0 or a CUDA error code, -1 for fp32 (the tf32x3 kernels),
+// another dtype, or bf16 at a wgmma head dim.
 template <template <typename, int, int> class Launch, int D, int REP,
           bool kWgmma, typename Args>
 int launch_pair(int dtype, const Args& a, cudaStream_t stream) {
-  if (dtype == 0) {
-    Launch<float, D, REP>::run(a, stream);
-  } else if constexpr (!kWgmma) {
+  if constexpr (kWgmma) {
+    return -1;
+  } else {
     if (dtype != 1) return -1;
     Launch<__nv_bfloat16, D, REP>::run(a, stream);
-  } else {
-    return -1;
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 #define PAM_ATTN_FWD_CASE(D, REP) \

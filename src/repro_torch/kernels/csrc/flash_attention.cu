@@ -14,17 +14,14 @@
 // Sq are computed on zero rows and never written.
 //
 // Bound on the H100: operations. This kernel runs the products on the
-// CUDA cores in fp32 (exact to the plain version up to the order of sums),
-// with causal tiles past the diagonal skipped, bound by their FLOPs over
-// the 67 TFLOP/s fp32 peak. It serves fp32 operands at every built pair
-// (the fp32 parity paths: a tensor-core product would be TF32; at head dim
-// 80 the fp32 tiles, three of 64 x 81 and the 64 x 65 score tile, 77 KB,
-// take the dynamic shared memory opt-in above 48 KB, as at 112 (101 KB)
-// and 128) and bf16 at head dim 16 (the reduced configs). bf16 at head
-// dims 64, 80, 112 and 128 (PAM_ATTN_WGMMA_FWD_DIMS: internvl2-1b,
-// hubert-xlarge, zamba2-7b's shared block and the full-width text models)
-// runs flash_attention_sm90.cu (wgmma on TMA-staged bf16
-// tiles) instead; kernels/flash_attention.py::_variant chooses.
+// CUDA cores in fp32, with causal tiles past the diagonal skipped, bound
+// by their FLOPs over the 67 TFLOP/s fp32 peak. It serves bf16 at head
+// dim 16 (the reduced configs) only. bf16 at head dims 64, 80, 112 and
+// 128 (PAM_ATTN_WGMMA_FWD_DIMS: internvl2-1b, hubert-xlarge, zamba2-7b's
+// shared block and the full-width text models) runs
+// flash_attention_sm90.cu (wgmma on TMA-staged bf16 tiles), and fp32 at
+// every built pair flash_attention_tf32x3.cu (3xTF32 on the tensor
+// cores); kernels/flash_attention.py::_variant chooses.
 #include "attention_common.cuh"
 
 namespace pam {
@@ -152,10 +149,10 @@ struct LaunchFwd {
 
 }  // namespace pam
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o). Returns 0, a CUDA
-// error code from cudaGetLastError(), or -1 for an unsupported
-// (dtype, D, H / Hkv): a pair outside PAM_ATTN_FWD_BUILT, or bf16 at a
-// head dim of PAM_ATTN_WGMMA_FWD_DIMS (flash_attention_sm90.cu).
+// dtype: 1 = bfloat16 (q, k, v and o). Returns 0, a CUDA error code from
+// cudaGetLastError(), or -1 for an unsupported (dtype, D, H / Hkv): fp32
+// (flash_attention_tf32x3.cu), a pair outside PAM_ATTN_FWD_BUILT, or
+// bf16 at a head dim of PAM_ATTN_WGMMA_FWD_DIMS (flash_attention_sm90.cu).
 extern "C" int pam_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int H, int Hkv, int Sq, int Sk,

@@ -21,10 +21,10 @@
 //
 // Bound on the H100: operations, as for the forward: five 64-wide products
 // per tile pair (2.5x the forward's FLOPs). Products run on the CUDA cores
-// in fp32. This backward serves fp32 operands (the parity paths) and
-// bf16 at head dim 16, like flash_attention.cu (at head dim 112 the fp32
-// tiles take 130 KB of shared memory); bf16 at head dims 64, 80, 112 and
-// 128 runs flash_attention_bwd_sm90.cu (wgmma), chosen by
+// in fp32. This backward serves bf16 at head dim 16 only, like
+// flash_attention.cu; bf16 at head dims 64, 80, 112 and 128 runs
+// flash_attention_bwd_sm90.cu (wgmma) and fp32 at every built pair
+// flash_attention_bwd_tf32x3.cu (3xTF32), chosen by
 // kernels/flash_attention.py::_variant.
 #include "attention_common.cuh"
 
@@ -282,11 +282,11 @@ struct LaunchBwd {
 
 }  // namespace pam
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout and the gradients).
-// delta is an fp32 (B, H, Sq) scratch buffer. Returns 0, a CUDA error code
-// from cudaGetLastError(), or -1 for an unsupported (dtype, D, H / Hkv),
-// bf16 at a head dim of PAM_ATTN_WGMMA_BWD_DIMS among them
-// (flash_attention_bwd_sm90.cu).
+// dtype: 1 = bfloat16 (q, k, v, o, dout and the gradients). delta is an
+// fp32 (B, H, Sq) scratch buffer. Returns 0, a CUDA error code from
+// cudaGetLastError(), or -1 for an unsupported (dtype, D, H / Hkv): fp32
+// (flash_attention_bwd_tf32x3.cu), and bf16 at a head dim of
+// PAM_ATTN_WGMMA_BWD_DIMS (flash_attention_bwd_sm90.cu) among them.
 extern "C" int pam_flash_attention_bwd(const void* q, const void* k,
                                        const void* v, const void* o,
                                        const void* dout, const void* lse,

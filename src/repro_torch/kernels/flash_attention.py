@@ -12,7 +12,7 @@ the reference trains with its jnp attention. ``FlashAttentionFn`` ties
 the two into a ``torch.autograd.Function``; ``flash_attention`` is the
 entry point.
 
-Two kernel variants, one per (dtype, head dim, direction), chosen by
+Three kernel variants, one per (dtype, head dim, direction), chosen by
 ``_variant``:
 
 - ``"wgmma"``: bf16 at the head dims of ``WGMMA_FWD_DIMS`` and
@@ -24,18 +24,25 @@ Two kernel variants, one per (dtype, head dim, direction), chosen by
   tiles), P and dS rounded to bf16 as the
   second product's operand (``_fwd_rounded`` and ``_bwd_rounded`` model
   those rounding points in plain PyTorch);
-- ``"cuda_core"``: fp32 at every built pair, and bf16 at the other head
-  dims (16: the reduced configs), ``csrc/flash_attention.cu`` and
-  ``csrc/flash_attention_bwd.cu``: fp32 products on the CUDA cores,
-  exact to the plain versions up to the order of sums (fp32 wgmma would
-  be TF32).
+- ``"tf32x3"``: fp32 at every built pair, ``csrc/flash_attention_tf32x3.cu``
+  and ``csrc/flash_attention_bwd_tf32x3.cu``: mma.sync on the tensor
+  cores in 3xTF32 (each operand split into two TF32 halves, three
+  products a pair, fp32 accuracy to a few ulps) on cp.async-staged tiles,
+  the backward's dK / dV pass a CTA per query head with the GQA group
+  summed in a second pass (``_split_tf32`` and ``_fwd_tf32x3`` /
+  ``_bwd_tf32x3`` model the split in plain PyTorch);
+- ``"cuda_core"``: bf16 at the other head dims (16: the reduced
+  configs), ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``:
+  fp32 products on the CUDA cores.
 
 Each wrapper takes the plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches its variant's kernel or raises. The
 forward counts kernel launches in ``flash_attention.launches``, the
-backward in ``flash_attention_bwd.launches``; the wgmma launches among
-them also in ``flash_attention.wgmma_launches`` and
-``flash_attention_bwd.wgmma_launches``.
+backward in ``flash_attention_bwd.launches``; the wgmma and tf32x3
+launches among them also in ``flash_attention.wgmma_launches`` /
+``flash_attention.tf32x3_launches`` and
+``flash_attention_bwd.wgmma_launches`` /
+``flash_attention_bwd.tf32x3_launches``.
 """
 
 from __future__ import annotations
@@ -50,12 +57,14 @@ from repro_torch.kernels.flash_decode import (_DTYPE_CODE, _ptr, _stream,
 
 NEG_INF = -1e30
 # (head dim, GQA group) pairs the forward kernels are built for, whatever
-# the dtype: csrc/attention_common.cuh's PAM_ATTN_FWD_BUILT (the wgmma
-# forward, flash_attention_sm90.cu, takes those at WGMMA_FWD_DIMS: its
-# PAM_ATTN_FWD90_BUILT): the reduced configs' head dim 16, and minicpm-2b
-# (64, 1), internvl2-1b (64, 7), hubert-xlarge (80, 1), zamba2-7b's shared
-# block (112, 1), pam-llama-7b (128, 1), qwen3-0.6b (128, 2), qwen3-14b
-# (128, 5), deepseek-67b (128, 8) and qwen3-moe-235b-a22b (128, 16)
+# the dtype: csrc/attention_common.cuh's PAM_ATTN_FWD_BUILT (fp32: every
+# pair, flash_attention_tf32x3.cu; bf16: the wgmma forward,
+# flash_attention_sm90.cu, takes those at WGMMA_FWD_DIMS, its
+# PAM_ATTN_FWD90_BUILT, and flash_attention.cu the rest): the reduced
+# configs' head dim 16, and minicpm-2b (64, 1), internvl2-1b (64, 7),
+# hubert-xlarge (80, 1), zamba2-7b's shared block (112, 1), pam-llama-7b
+# (128, 1), qwen3-0.6b (128, 2), qwen3-14b (128, 5), deepseek-67b (128, 8)
+# and qwen3-moe-235b-a22b (128, 16)
 BUILT = ((16, 1), (16, 2),
          (64, 1), (64, 7),
          (80, 1),
@@ -76,14 +85,16 @@ SM90_PAD = 128          # row padding of the wgmma backward's fp32 scratch
 
 def _variant(dtype: torch.dtype, d: int, backward: bool = False) -> str:
     """The kernel variant of the forward (or, with ``backward``, the
-    backward) on operands of ``dtype`` and head dim ``d``: ``"wgmma"``
-    for bf16 at a head dim of ``WGMMA_FWD_DIMS`` (``WGMMA_BWD_DIMS``),
-    ``"cuda_core"`` otherwise. Each (dtype, d, group) of a direction has
-    exactly one kernel; a (d, group) pair outside ``BUILT`` (forward) or
-    ``BUILT_BWD`` (backward) raises in the wrapper before any launch."""
+    backward) on operands of ``dtype`` and head dim ``d``: ``"tf32x3"``
+    for fp32, ``"wgmma"`` for bf16 at a head dim of ``WGMMA_FWD_DIMS``
+    (``WGMMA_BWD_DIMS``), ``"cuda_core"`` for bf16 at the others. Each
+    (dtype, d, group) of a direction has exactly one kernel; a (d, group)
+    pair outside ``BUILT`` (forward) or ``BUILT_BWD`` (backward) raises in
+    the wrapper before any launch."""
+    if dtype == torch.float32:
+        return "tf32x3"
     dims = WGMMA_BWD_DIMS if backward else WGMMA_FWD_DIMS
-    return ("wgmma" if dtype == torch.bfloat16 and d in dims
-            else "cuda_core")
+    return "wgmma" if d in dims else "cuda_core"
 
 
 def _fwd_lib():
@@ -126,6 +137,52 @@ def _bwd_sm90_lib():
     return fn
 
 
+def _fwd_tf32x3_lib():
+    from repro_torch.kernels import build
+    fn = build.load(
+        "flash_attention_tf32x3").pam_flash_attention_fwd_tf32x3
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _bwd_tf32x3_lib():
+    from repro_torch.kernels import build
+    fn = build.load(
+        "flash_attention_bwd_tf32x3").pam_flash_attention_bwd_tf32x3
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on fp32 ``x`` with the low 13 mantissa bits
+    zeroed: on the int32 view, add 2^12 (round to nearest, ties away from
+    zero; a carry runs into the exponent as the rounding does) and clear
+    the 13 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``x`` as (hi, lo) = (tf32(x), tf32(x - hi)), the 3xTF32 split
+    of ``csrc/attention_tf32.cuh``: hi + lo holds x to 2^-22 relative."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the tf32x3 kernels take it: lo_a hi_b + hi_a lo_b, then
+    + hi_a hi_b (each elementary product exact in fp32, the sums fp32)."""
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
 def _live(Sq: int, Sk: int, causal: bool, device) -> torch.Tensor:
     """(Sq, Sk) bool: the keys each query row attends."""
     if not causal:
@@ -150,20 +207,21 @@ def _grouped(q, k, v):
 
 
 # ------------------------------------------------------------ forward
-def _fwd_math(q, k, v, causal, scale, round_p):
+def _fwd_math(q, k, v, causal, scale, round_p, mm=torch.matmul):
     """One masked softmax with the kernels' sentinel and ``l_safe``; with
-    ``round_p`` P is rounded to bf16 before P V (the row sums stay fp32)."""
+    ``round_p`` P is rounded to bf16 before P V (the row sums stay fp32);
+    ``mm`` takes both products."""
     B, H, Sq, d = q.shape
     qg, kg, vg = _grouped(q, k, v)
     live = _live(Sq, k.shape[2], causal, q.device)
-    s = torch.matmul(qg, kg.transpose(-1, -2)) * scale
+    s = mm(qg, kg.transpose(-1, -2)) * scale
     s = torch.where(live, s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1)
     p = torch.where(live, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = torch.sum(p, dim=-1)
     l_safe = torch.where(l > 0, l, torch.ones_like(l))
     pv = _acc(p.bfloat16()) if round_p else p
-    o = torch.matmul(pv, vg) / l_safe[..., None]
+    o = mm(pv, vg) / l_safe[..., None]
     lse = m + torch.log(l_safe)
     return o.reshape(B, H, Sq, d).to(q.dtype), lse.reshape(B, H, Sq)
 
@@ -182,6 +240,15 @@ def _fwd_rounded(q, k, v, causal, scale):
     final max, where the kernel rounds against the running max and
     rescales in fp32: the same rounding, one bf16 step of each P entry."""
     return _fwd_math(q, k, v, causal, scale, round_p=True)
+
+
+def _fwd_tf32x3(q, k, v, causal, scale):
+    """Plain PyTorch model of the tf32x3 forward's split (tests and
+    ``chip_smoke.py`` only, never on the main path): S = Q K^T and P V in
+    3xTF32 (``_mm_tf32x3``), P split against each row's final max where
+    the kernel splits it against the running max (the same split up to
+    one rounding of lo, 2^-22 relative)."""
+    return _fwd_math(q, k, v, causal, scale, round_p=False, mm=_mm_tf32x3)
 
 
 def _check_args(name, q, k, v):
@@ -203,6 +270,10 @@ def _fwd_cuda(q, k, v, causal, scale):
         rc = _fwd_sm90_lib()(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse),
                              B, H, Hkv, Sq, Sk, d, int(causal), float(scale),
                              _stream(q.device))
+    elif variant == "tf32x3":
+        rc = _fwd_tf32x3_lib()(_ptr(q), _ptr(k), _ptr(v), _ptr(o),
+                               _ptr(lse), B, H, Hkv, Sq, Sk, d, int(causal),
+                               float(scale), _stream(q.device))
     else:
         rc = _fwd_lib()(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), B,
                         H, Hkv, Sq, Sk, d, int(causal), float(scale),
@@ -213,6 +284,8 @@ def _fwd_cuda(q, k, v, causal, scale):
     flash_attention.launches += 1
     if variant == "wgmma":
         flash_attention.wgmma_launches += 1
+    elif variant == "tf32x3":
+        flash_attention.tf32x3_launches += 1
     return o, lse
 
 
@@ -229,11 +302,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ------------------------------------------------------------ backward
-def _bwd_math(q, k, v, o, lse, do, causal, scale, rounded):
+def _bwd_math(q, k, v, o, lse, do, causal, scale, rounded,
+              mm=torch.matmul):
     """P = exp(S - LSE), Delta = rowsum(dO * O), dV = P^T dO, dP = dO V^T,
     dS = P (dP - Delta), dQ = scale dS K, dK = scale dS^T Q, with the GQA
     group's query heads summed into their kv head; with ``rounded`` P is
-    rounded to bf16 before dV and dS before dQ and dK."""
+    rounded to bf16 before dV and dS before dQ and dK; ``mm`` takes the
+    five products."""
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -243,16 +318,16 @@ def _bwd_math(q, k, v, o, lse, do, causal, scale, rounded):
     delta = torch.sum(dog * _acc(o).reshape(B, Hkv, rep, Sq, d), dim=-1,
                       keepdim=True)
     live = _live(Sq, Sk, causal, q.device)
-    s = torch.matmul(qg, kg.transpose(-1, -2)) * scale
+    s = mm(qg, kg.transpose(-1, -2)) * scale
     p = torch.where(live, torch.exp(s - lse_g), torch.zeros_like(s))
     pv = _acc(p.bfloat16()) if rounded else p
-    dv = torch.sum(torch.matmul(pv.transpose(-1, -2), dog), dim=2)
-    dp = torch.matmul(dog, vg.transpose(-1, -2))
+    dv = torch.sum(mm(pv.transpose(-1, -2), dog), dim=2)
+    dp = mm(dog, vg.transpose(-1, -2))
     ds = p * (dp - delta)
     if rounded:
         ds = _acc(ds.bfloat16())
-    dq = torch.matmul(ds, kg) * scale
-    dk = torch.sum(torch.matmul(ds.transpose(-1, -2), qg), dim=2) * scale
+    dq = mm(ds, kg) * scale
+    dk = torch.sum(mm(ds.transpose(-1, -2), qg), dim=2) * scale
     return (dq.reshape(B, H, Sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
@@ -269,6 +344,15 @@ def _bwd_rounded(q, k, v, o, lse, do, causal, scale):
     dS rounded to bf16 before dQ = dS K and dK = dS^T Q; every product
     accumulates in fp32."""
     return _bwd_math(q, k, v, o, lse, do, causal, scale, rounded=True)
+
+
+def _bwd_tf32x3(q, k, v, o, lse, do, causal, scale):
+    """Plain PyTorch model of the tf32x3 backward's split (tests and
+    ``chip_smoke.py`` only): the five products in 3xTF32
+    (``_mm_tf32x3``, P and dS split as operands), Delta in plain fp32 as
+    the kernels' delta pass takes it."""
+    return _bwd_math(q, k, v, o, lse, do, causal, scale, rounded=False,
+                     mm=_mm_tf32x3)
 
 
 def _bwd_cuda(q, k, v, o, lse, do, causal, scale):
@@ -292,6 +376,19 @@ def _bwd_cuda(q, k, v, o, lse, do, causal, scale):
                              _ptr(dq), _ptr(dk), _ptr(dv), B, H, Hkv, Sq,
                              Sk, pad, d, int(causal), float(scale),
                              _stream(q.device))
+    elif variant == "tf32x3":
+        delta = torch.empty((B, H, Sq), dtype=torch.float32,
+                            device=q.device)
+        # the dK / dV pass's per-query-head partials, summed over the group
+        # by a second pass (group 1 writes dk, dv directly)
+        part = (torch.empty((2, B, H, Sk, d), dtype=torch.float32,
+                            device=q.device) if H > Hkv else None)
+        rc = _bwd_tf32x3_lib()(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+            _ptr(delta), None if part is None else _ptr(part[0]),
+            None if part is None else _ptr(part[1]), _ptr(dq), _ptr(dk),
+            _ptr(dv), B, H, Hkv, Sq, Sk, d, int(causal), float(scale),
+            _stream(q.device))
     else:
         delta = torch.empty((B, H, Sq), dtype=torch.float32,
                             device=q.device)
@@ -305,6 +402,8 @@ def _bwd_cuda(q, k, v, o, lse, do, causal, scale):
     flash_attention_bwd.launches += 1
     if variant == "wgmma":
         flash_attention_bwd.wgmma_launches += 1
+    elif variant == "tf32x3":
+        flash_attention_bwd.tf32x3_launches += 1
     return dq, dk, dv
 
 
@@ -325,6 +424,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.wgmma_launches = 0
+flash_attention_bwd.tf32x3_launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -370,3 +470,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
+flash_attention.tf32x3_launches = 0

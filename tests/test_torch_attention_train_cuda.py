@@ -5,9 +5,10 @@ hubert-xlarge's (80, 1), qwen3-14b's (128, 5) and deepseek-67b's (128,
 8). bf16 runs the wgmma kernels (``csrc/flash_attention_sm90.cu``,
 ``csrc/flash_attention_bwd_sm90.cu``: one wgmma launch each a call, held
 to the plain versions and to ``_fwd_rounded`` / ``_bwd_rounded``, the
-plain model of their bf16 roundings of P and dS), fp32 the CUDA-core ones
-(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``), causal
-and bidirectional, over sequences that end in a ragged tile. Every test
+plain model of their bf16 roundings of P and dS), fp32 the 3xTF32
+tensor-core ones (``csrc/flash_attention_tf32x3.cu``,
+``csrc/flash_attention_bwd_tf32x3.cu``), causal and bidirectional, over
+sequences that end in a ragged tile. Every test
 needs an NVIDIA GPU and skips without one; the file imports neither JAX
 nor the reference package:
 
@@ -70,7 +71,7 @@ def test_train_pair_forward_backward_match_plain(cuda, arch, dtype, causal,
                                                  S):
     """``flash_attention``'s autograd Function on the card against the
     plain versions on the same inputs: one forward and one backward
-    launch a call, both wgmma ones in bf16, none in fp32."""
+    launch a call, both wgmma ones in bf16, both tf32x3 ones in fp32."""
     H, Hkv, d = PAIRS[arch]
     assert (d, H // Hkv) in tfa.BUILT_BWD
     rng = np.random.default_rng(S + d + H)
@@ -82,7 +83,7 @@ def test_train_pair_forward_backward_match_plain(cuda, arch, dtype, causal,
     scale = d ** -0.5
     wgmma = dtype == torch.bfloat16
     assert tfa._variant(dtype, d, backward=True) == (
-        "wgmma" if wgmma else "cuda_core")
+        "wgmma" if wgmma else "tf32x3")
     qc, kc, vc = (t.detach().requires_grad_() for t in (q, k, v))
     n0 = _counts()
     out = tfa.flash_attention(qc, kc, vc, causal=causal)

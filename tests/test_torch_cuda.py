@@ -374,7 +374,9 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, H, Hkv,
                                     causal=causal)
     n0 = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches,
           tfa.flash_attention.wgmma_launches,
-          tfa.flash_attention_bwd.wgmma_launches)
+          tfa.flash_attention_bwd.wgmma_launches,
+          tfa.flash_attention.tf32x3_launches,
+          tfa.flash_attention_bwd.tf32x3_launches)
     qc, kc, vc = (t.to(cuda).requires_grad_() for t in (q, k, v))
     o, lse = tfa.flash_attention_fwd(qc.detach(), kc.detach(), vc.detach(),
                                      causal=causal)
@@ -383,12 +385,16 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, H, Hkv,
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == n0[0] + 2
     assert tfa.flash_attention_bwd.launches == n0[1] + 1
-    # bf16 with head dim 128 runs the wgmma kernels, the rest the CUDA-core
-    # ones
+    # bf16 with head dim 128 runs the wgmma kernels, bf16 at 16 the
+    # CUDA-core ones, fp32 the 3xTF32 tensor-core ones
     wgmma = dtype == torch.bfloat16 and d == 128
-    assert tfa._variant(dtype, d) == ("wgmma" if wgmma else "cuda_core")
+    tf32x3 = dtype == torch.float32
+    assert tfa._variant(dtype, d) == ("wgmma" if wgmma else "tf32x3"
+                                      if tf32x3 else "cuda_core")
     assert tfa.flash_attention.wgmma_launches == n0[2] + 2 * wgmma
     assert tfa.flash_attention_bwd.wgmma_launches == n0[3] + wgmma
+    assert tfa.flash_attention.tf32x3_launches == n0[4] + 2 * tf32x3
+    assert tfa.flash_attention_bwd.tf32x3_launches == n0[5] + tf32x3
     assert out.dtype == dtype and qc.grad.dtype == dtype
     np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.numpy(), **TOL)
     for got, ref in ((o, ref_o), (out, ref_o)):

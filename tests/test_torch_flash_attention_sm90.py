@@ -63,15 +63,15 @@ def _inputs(S, seed, heads=QWEN_HEADS):
 
 @pytest.mark.parametrize("dtype,d,variant", [
     (torch.bfloat16, 128, "wgmma"),
-    (torch.float32, 128, "cuda_core"),
+    (torch.float32, 128, "tf32x3"),
     (torch.bfloat16, 16, "cuda_core"),
-    (torch.float32, 16, "cuda_core"),
+    (torch.float32, 16, "tf32x3"),
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 80, "wgmma"),
-    (torch.float32, 64, "cuda_core"),
-    (torch.float32, 80, "cuda_core"),
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 80, "tf32x3"),
     (torch.bfloat16, 112, "wgmma"),
-    (torch.float32, 112, "cuda_core"),
+    (torch.float32, 112, "tf32x3"),
 ])
 def test_variant_routes_each_dtype_and_head_dim(dtype, d, variant):
     """The forward's route by (dtype, head dim)."""
@@ -83,15 +83,15 @@ def test_variant_routes_each_dtype_and_head_dim(dtype, d, variant):
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 80, "wgmma"),
     (torch.bfloat16, 16, "cuda_core"),
-    (torch.float32, 64, "cuda_core"),
-    (torch.float32, 80, "cuda_core"),
-    (torch.float32, 128, "cuda_core"),
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 80, "tf32x3"),
+    (torch.float32, 128, "tf32x3"),
     (torch.bfloat16, 112, "wgmma"),
 ])
 def test_backward_variant_keeps_wgmma_at_head_dim_128(dtype, d, variant):
     """The backward's route: wgmma for bf16 at head dims 64, 80, 112 and
-    128 (the forward's wgmma dims), the CUDA cores for fp32 and for bf16
-    at head dim 16."""
+    128 (the forward's wgmma dims), the 3xTF32 tensor-core kernels for
+    fp32 at every head dim, the CUDA cores for bf16 at head dim 16."""
     assert tfa._variant(dtype, d, backward=True) == variant
 
 

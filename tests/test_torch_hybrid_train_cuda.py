@@ -5,7 +5,8 @@ narrowed hybrid's train step, card against CPU.
 
 bf16 runs the wgmma kernels (``csrc/ssd_scan_sm90.cu``,
 ``csrc/ssd_scan_bwd_sm90.cu``, ``csrc/flash_attention_sm90.cu``,
-``csrc/flash_attention_bwd_sm90.cu``), fp32 the CUDA-core ones; every
+``csrc/flash_attention_bwd_sm90.cu``), fp32 the CUDA-core SSD kernels and
+the 3xTF32 tensor-core attention ones; every
 call's launches are counted by variant. Each kernel is held to its plain
 version on the same inputs. The head dim 112 products read the second
 swizzle atom of their MN-major operand in part (m64n112k16); they are also
@@ -271,8 +272,9 @@ def _to(tree_, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("remat", [False, True])
 def test_narrowed_hybrid_train_step_card_equals_cpu(cuda, remat):
-    """The narrowed hybrid's loss and gradients (fp32, the CUDA-core
-    kernels: 3 Mamba-2 layers and the shared block at 2 sites) and one
+    """The narrowed hybrid's loss and gradients (fp32: the CUDA-core SSD
+    kernels in 3 Mamba-2 layers, the tf32x3 attention kernels in the
+    shared block at 2 sites) and one
     train step on the card against the same on the CPU from one state
     (drawn on the CPU, copied to the card); with remat each forward
     kernel runs twice."""

@@ -4,8 +4,8 @@
 the reduced MLA MoE, card against CPU.
 
 bf16 runs the wgmma kernels (``csrc/flash_attention_sm90.cu``,
-``csrc/flash_attention_bwd_sm90.cu``), fp32 the CUDA-core ones
-(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``); every
+``csrc/flash_attention_bwd_sm90.cu``), fp32 the 3xTF32 tensor-core ones
+(``csrc/flash_attention_tf32x3.cu``, ``csrc/flash_attention_bwd_tf32x3.cu``); every
 call's launches are counted by variant, and each kernel is held to its
 plain version on the same inputs. The MLA model's attention is the plain
 chunked one of ``mla_train`` (no counted launch), as in the reference.
@@ -165,7 +165,7 @@ def _routed(cfg, tc, params, batch):
 @pytest.mark.parametrize("case", ["g16", "mla"])
 def test_moe_train_step_card_equals_cpu(cuda, case):
     """The model's loss and gradients (fp32: the GQA model through the
-    CUDA-core attention kernels, 1 forward and 1 backward launch a
+    tf32x3 attention kernels, 1 forward and 1 backward launch a
     layer; the MLA model through no counted kernel) and one train step
     on the card against the same on the CPU from one state (drawn on the
     CPU, copied to the card): every layer's expert ids equal, then the

@@ -122,7 +122,7 @@ def test_flash_decode_paged_group7_matches_plain(cuda, dtype):
 def test_flash_attention_forward_matches_plain(cuda, H, Hkv, d, S, causal,
                                                dtype):
     """The forward at (64, 7) and (80, 1), ragged last tiles: fp32 on the
-    CUDA-core kernel, bf16 on the wgmma kernel (one wgmma launch a call,
+    3xTF32 tensor-core kernel, bf16 on the wgmma kernel (one wgmma launch a call,
     also held to ``_fwd_rounded``, the plain model of its bf16 rounding
     of P); o and the fp32 log-sum-exp against the plain version, one
     launch a call."""
@@ -131,7 +131,7 @@ def test_flash_attention_forward_matches_plain(cuda, H, Hkv, d, S, causal,
     q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(dtype)
                for s in ((B, H, S, d), (B, Hkv, S, d), (B, Hkv, S, d)))
     wgmma = dtype == torch.bfloat16
-    assert tfa._variant(dtype, d) == ("wgmma" if wgmma else "cuda_core")
+    assert tfa._variant(dtype, d) == ("wgmma" if wgmma else "tf32x3")
     ref = tfa.flash_attention_fwd(q, k, v, causal=causal)
     n0 = (tfa.flash_attention.launches, tfa.flash_attention.wgmma_launches)
     got = tfa.flash_attention_fwd(*(t.to(cuda) for t in (q, k, v)),
