@@ -25,7 +25,13 @@ final ``ok`` line:
             hold HMMA instructions, their forward, dK / dV and dQ
             kernels must exist at every built pair and not spill, and
             no fp32 instantiation may remain in the CUDA-core
-            ``flash_attention`` / ``flash_attention_bwd``
+            ``flash_attention`` / ``flash_attention_bwd``; the two fp32
+            SSD libraries (``ssd_scan_tf32x3``, ``ssd_scan_bwd_tf32x3``)
+            must hold HMMA instructions and their chunk-state, output,
+            C B^T and three side kernels must exist at d_state 128 and 64
+            and not spill (but for the side kernels, capped at 128
+            registers for two CTAs an SM; their spills are in
+            ``registers``)
   kernels   each kernel against its plain PyTorch version on the card at
             main-path shapes (decode: B=8, H=16, Hkv=8, d=128, bf16
             storage, each kernel under the reference's stacked contract
@@ -65,7 +71,7 @@ final ``ok`` line:
             80, S 150); ssd_scan: the wgmma kernels
             in bf16 at mamba2-780m's train shape B 4, L 2048, H 48, P 64,
             N 128, chunk 128, x / B / C as views of the conv output, and
-            the CUDA-core kernels in fp32 at train_parity_ssm's B 2, L
+            the tf32x3 kernels in fp32 at train_parity_ssm's B 2, L
             500; the same two at zamba2-7b's H 112, N 64, bf16 at B 2, L
             2048 and fp32 at B 2, L 500, keys ending ``_n64``:
             ``SSD_ROWS``), with its time, the plain version's time, the
@@ -73,11 +79,18 @@ final ``ok`` line:
             function, that call's time (for attention also SDPA's own
             error against the same plain versions; for both the
             kernel's TFLOP/s and its share of the bound; for the SSD scan
-            the device time of each of its kernels, the FLOPs the wgmma
+            the device time of each of its kernels, the FLOPs the
             kernels execute beside those the bound counts, each
             gradient's error, and the errors against ``_fwd_rounded`` /
             ``_bwd_rounded``, the plain model of the wgmma kernels' bf16
-            roundings); and the sharded engines' site slices
+            roundings, or in fp32 against ``_fwd_tf32x3`` /
+            ``_bwd_tf32x3``, the plain model of the 3xTF32 split, with
+            both bounds, the device time as the mean of ``ATTN_REPEATS``
+            calls with their min and max, the backward's bit-equality
+            across two calls, and each result's norm-wise error against
+            the float64 plain versions beside the fp32 plain versions',
+            held within ``F64_RATIO`` times); and the sharded engines'
+            site slices
             (``SITE_ROWS``): the merged dense kernel on a view of slots
             [128, 256) and [192, 256) of a 256-slot ring (kv heads 256
             rows apart) and the merged paged kernel on blocks [512, 1024)
@@ -378,8 +391,9 @@ final ``ok`` line:
             groups of 1 Mamba-2 layer and a tail of 1;
             qwen3-moe-235b-a22b: 1 layer) in fp32 (TF32 off), B 2 x 500
             positions: loss and gradients through the fp32 kernels
-            (ssd_scan at (64, 64) on the CUDA cores, flash_attention at
-            (112, 1) for the hybrid, at (128, 16) for the MoE, tf32x3) vs the plain chunked
+            (ssd_scan at (64, 64) and flash_attention at (112, 1) for
+            the hybrid, at (128, 16) for the MoE, all tf32x3: every SSD
+            and attention launch a tf32x3 one) vs the plain chunked
             attention and scan, as train_parity; the MoE also reports the
             expert ids the two paths route apart
   train     full-width qwen3-0.6b (random weights from seed 0, bf16)
@@ -464,8 +478,8 @@ final ``ok`` line:
   profile_train_ssm   torch.profiler over 2 of those train steps
   train_parity_ssm    full-width mamba2-780m in fp32 (TF32 off), B 2,
             S 500: loss and gradients through the ssd_scan kernels (the
-            CUDA-core variant: no wgmma launch) vs through the plain
-            chunked scan
+            tf32x3 variant: every launch a tf32x3 one, no wgmma launch)
+            vs through the plain chunked scan
   engine_ssm  the same model served by the PAM engine (dense cache, greedy,
             PAM on): 8 requests of 512-1024 prompt tokens, each prefilled
             at its exact length, 64 new tokens through the recurrent state
@@ -514,12 +528,15 @@ Tolerances (each kernel against its plain version on the same inputs):
       plans and tags exactly
 
 Bounds: bytes over 3.35 TB/s (HBM3), and operations over 67 TFLOP/s
-(fp32, CUDA cores) for the decode kernels and fp32 ssd_scan, 989 TFLOP/s
-(bf16 dense tensor cores) for bf16 flash_attention and ssd_scan, whose
-bf16 work a tensor-core kernel can do, and 3 x the FLOPs over 495 TFLOP/s
-(TF32 dense tensor cores, three TF32 products a product) for the fp32
-attention rows, with the fp32-FMA bound (the FLOPs over 67 TFLOP/s)
-beside it; NVIDIA's H100 SXM data sheet.
+(fp32, CUDA cores) for the decode kernels, 989 TFLOP/s (bf16 dense
+tensor cores) for bf16 flash_attention and ssd_scan, whose bf16 work a
+tensor-core kernel can do, and 3 x the FLOPs over 495 TFLOP/s (TF32
+dense tensor cores, three TF32 products a product) for the fp32
+attention and ssd_scan rows, with the fp32-FMA bound (the FLOPs over 67
+TFLOP/s) beside it; NVIDIA's H100 SXM data sheet. The SSD rows count
+the FLOPs the scan's function needs at the run's chunking
+(``_ssd_work``): C B^T once per group and every masked product over its
+causal half, in both dtypes.
 
 Every engine on the card dispatches its decode steps as CUDA graphs
 (``serving/engine.py``): a hook that runs inside the decode body (the
@@ -711,8 +728,24 @@ def phase_env() -> dict:
 
 SM90_LIBS = ("flash_attention_sm90", "flash_attention_bwd_sm90",
              "ssd_scan_sm90", "ssd_scan_bwd_sm90")
-# the fp32 attention libraries on the tensor cores (3xTF32 by mma.sync)
-TF32_LIBS = ("flash_attention_tf32x3", "flash_attention_bwd_tf32x3")
+# the fp32 attention and SSD libraries on the tensor cores (3xTF32 by
+# mma.sync)
+TF32_LIBS = ("flash_attention_tf32x3", "flash_attention_bwd_tf32x3",
+             "ssd_scan_tf32x3", "ssd_scan_bwd_tf32x3")
+# the tf32x3 SSD kernels at both built d_states, keyed as phase_build
+# reads them from the -Xptxas -v logs
+SSD_TF32_KERNELS = {key for n in (128, 64) for key in (
+    f"ssd_state_tf32x3_kernel<true, {n}>",
+    f"ssd_state_tf32x3_kernel<false, {n}>", f"ssd_out_tf32x3_kernel<{n}>",
+    f"ssd_cb_tf32x3_kernel<{n}>", f"ssd_bwd_t_tf32x3_kernel<{n}>",
+    f"ssd_bwd_u_tf32x3_kernel<{n}>", f"ssd_bwd_db_tf32x3_kernel<{n}>")}
+# the backward's side kernels run two CTAs an SM, their registers capped
+# at 128 (csrc/ssd_scan_bwd_tf32x3.cu's kSideCtas): they may spill a
+# little, at most SSD_TF32_SPILL_MAX bytes of stores and of loads each
+# (112 at most when the cap was set), and build reports how much
+SSD_TF32_CAPPED = {f"ssd_bwd_{k}_tf32x3_kernel<{n}>" for n in (128, 64)
+                   for k in ("t", "u", "db")}
+SSD_TF32_SPILL_MAX = 128
 # the wgmma kernels of the SSD scan at both built d_states, keyed as
 # phase_build reads them from the -Xptxas -v logs (template arguments in
 # angle brackets)
@@ -751,12 +784,13 @@ def phase_build() -> dict:
                     ("bfloat16" in line and "Li128E" in line
                      and "Li1E" not in line)
                     or ("sm90" in line and "Li2E" in line)
-                    or "ssd90" in line):
+                    or "ssd90" in line
+                    or ("ssd" in line and "tf32x3_kernel" in line)):
                 kern = re.search(
-                    r"\d+((?:flash_|ssd90_)[a-z0-9_]*?_kernel)", line)
+                    r"\d+((?:flash_|ssd90_|ssd_)[a-z0-9_]*?_kernel)", line)
                 key = kern.group(1) if kern else name
                 targs = re.findall(r"L([bi])(\d+)E", line)
-                if "ssd90" in key and targs:     # <bool, d_state>, <d_state>
+                if key.startswith("ssd") and targs:  # <bool, N>, <N>
                     key += "<" + ", ".join(
                         ("true" if v == "1" else "false") if t == "b" else v
                         for t, v in targs) + ">"
@@ -814,6 +848,16 @@ def phase_build() -> dict:
     assert not gone, f"fp32 CUDA-core attention kernels remain: {gone}"
     hmma = {name: _sass_count(name, "HMMA") for name in TF32_LIBS}
     assert all(n > 0 for n in hmma.values()), f"no HMMA in {hmma}"
+    assert SSD_TF32_KERNELS <= set(regs), sorted(regs)
+    spills = {k: regs[k] for k in SSD_TF32_KERNELS - SSD_TF32_CAPPED
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", regs[k])}
+    assert not spills, f"tf32x3 SSD kernels spill: {spills}"
+    spills = {k: regs[k] for k in SSD_TF32_CAPPED if any(
+        int(n) > SSD_TF32_SPILL_MAX
+        for n in re.findall(r"(\d+) bytes spill", regs[k]))}
+    assert not spills, (
+        f"capped tf32x3 SSD kernels spill over {SSD_TF32_SPILL_MAX} "
+        f"bytes: {spills}")
     spills = {k: v for k, v in regs.items() if ("sm90" in k or "ssd90" in k)
               and re.search(r"[1-9]\d* bytes spill (stores|loads)", v)}
     assert not spills, f"wgmma kernels spill: {spills}"
@@ -1378,18 +1422,20 @@ def _ssd_case(dtype, seed: int = 0, B: int = TRAIN_B, L: int = TRAIN_S,
 
 
 def _ssd_work(x, b, chunk: int) -> tuple[int, int]:
-    """FLOPs of the SSD scan forward and backward as the TPU kernel's
-    function needs them (the yardstick of the bound): per (batch, head,
-    chunk) the forward's 2Q^2N + 2Q^2P + 4QNP (C B^T, the masked product
-    with x, C h_in, the state update) and the backward's 6Q^2N + 4Q^2P +
-    10QNP (C B^T and g x^T again, dx, dC and dB inside the chunk; C^T g,
-    B dh, C h_in, g h_in^T, x dh^T)."""
+    """FLOPs the SSD scan's function needs at this run's chunking (the
+    yardstick of the bound; the last chunk may be short), forward and
+    backward. Per (batch, group, chunk) of q rows, C B^T once, over its
+    causal half (q (q + 1) N); per (batch, head, chunk) the causal half
+    of every masked q x q product, the forward's with x (q (q + 1) P) and
+    the backward's g x^T, dx, dC and dB products (2 q (q + 1) (N + P)),
+    and the state products: the forward's B^T (w x) and C h_in (4 q N P),
+    the backward's C^T g, B dh, C h_in, g h_in^T and x dh^T (10 q N P)."""
     B, L, H, P = x.shape
-    N = b.shape[3]
-    Q = min(chunk, max(L, 8))
-    n = B * H * -(-L // Q)
-    return (n * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * N * P),
-            n * (6 * Q * Q * N + 4 * Q * Q * P + 10 * Q * N * P))
+    G, N = b.shape[2], b.shape[3]
+    Q = min(chunk, L)
+    tri = sum(q * (q + 1) for q in [Q] * (L // Q) + [L % Q])
+    return (B * (G * tri * N + H * (tri * P + 4 * L * N * P)),
+            B * (G * tri * N + H * (2 * tri * (N + P) + 10 * L * N * P)))
 
 
 def _ssd_executed(x, b, chunk: int, hb: int) -> tuple[int, int]:
@@ -1405,6 +1451,31 @@ def _ssd_executed(x, b, chunk: int, hb: int) -> tuple[int, int]:
     qnp, qqp, qqn = Q * N * P, Q * Q * P, Q * Q * N
     return (n * (2 * qqn // hb + 4 * qnp + 4 * qnp + 4 * qqp),
             n * (4 * qqn // hb + 10 * qnp + 6 * qqp + 4 * qqn))
+
+
+# the share of a 128-row chunk's (row, column) tiles of 16 x 8 that a
+# tf32x3 kernel's causal products visit: warp w's 16 rows take 2 w + 2
+# of the 16 column tiles (or 16 - 2 w), 72 of 128
+TF32_CAUSAL = 72 / 128
+
+
+def _ssd_executed_tf32x3(x, b, chunk: int, hb: int) -> tuple[int, int]:
+    """FLOPs the tf32x3 kernels execute (tiles of 128 rows, three TF32
+    products a product, the causal products over the tiles they visit):
+    the forward's C B^T once per block of ``hb`` heads, and per head B^T
+    (w x), C h_in and M x; the backward's causal C B^T once per group,
+    and per head C^T (exp(s) g), g h_in^T, B dh and x dh^T, the causal
+    g x^T, x g^T and (S'^T o E^T) g, and the causal Pb B and Pb^T C (the
+    causal products over 32-row blocks visit the same tiles)."""
+    B, L, H, P = x.shape
+    N = b.shape[3]
+    Q = 128
+    n = B * H * -(-L // min(chunk, max(L, 8)))
+    rep = H // b.shape[2]
+    qnp, qqp, qqn = 2 * Q * N * P, 2 * Q * Q * P, 2 * Q * Q * N
+    fwd = qqn * TF32_CAUSAL / hb + 2 * qnp + qqp * TF32_CAUSAL
+    bwd = 4 * qnp + (3 * qqp + 2 * qqn + qqn / rep) * TF32_CAUSAL
+    return int(3 * n * fwd), int(3 * n * bwd)
 
 
 def _grad_compare(got, ref, tol) -> tuple[float, bool]:
@@ -1426,11 +1497,17 @@ SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd")
 
 def _ssd_variant(dtype, B: int, L: int, chunk: int, H: int = 48,
                  N: int = 128) -> dict:
-    """One variant of the ssd_scan kernels against the plain versions (and,
-    for bf16, the plain model of the wgmma kernels' roundings) on the same
-    inputs, the backward fed the kernel forward's chunk-start states; the
-    wgmma launch counts of the calls; times, the per-kernel device time of
-    each pass, and the bounds."""
+    """One variant of the ssd_scan kernels against the plain versions (and
+    the plain model of the variant: for bf16 the wgmma kernels'
+    roundings, for fp32 the 3xTF32 split) on the same inputs, the
+    backward fed the kernel forward's chunk-start states; the wgmma and
+    tf32x3 launch counts of the calls (fp32: two backward calls must give
+    equal bits, and every result's norm-wise error against the float64
+    plain versions must be within ``ss.F64_RATIO`` times the fp32 plain
+    versions', ``ss._f64_witness``: [error, plain error] a leaf); times
+    (``ATTN_REPEATS`` calls: mean, min and max), the per-kernel device
+    time of each pass, and the bounds (fp32: 3xTF32, the fp32-FMA bound
+    beside it)."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     bf16 = dtype == torch.bfloat16
@@ -1438,13 +1515,18 @@ def _ssd_variant(dtype, B: int, L: int, chunk: int, H: int = 48,
     ins, dy = _ssd_case(dtype, B=B, L=L, H=H, N=N)
     x, dt, a, b, c, d = ins
     variant = ss._variant(x.dtype, b.shape[3], x.shape[3])
-    n0 = (ss.ssd_scan.wgmma_launches, ss.ssd_scan_bwd.wgmma_launches)
+
+    def counts():
+        return (ss.ssd_scan.wgmma_launches, ss.ssd_scan_bwd.wgmma_launches,
+                ss.ssd_scan.tf32x3_launches,
+                ss.ssd_scan_bwd.tf32x3_launches)
+    n0 = counts()
     y, st = ss.ssd_scan_fwd(*ins, chunk=chunk)
     grads = ss.ssd_scan_bwd(*ins, st, dy, chunk=chunk)
     torch.cuda.synchronize()
-    ran = (ss.ssd_scan.wgmma_launches - n0[0],
-           ss.ssd_scan_bwd.wgmma_launches - n0[1])
-    assert ran == ((1, 1) if variant == "wgmma" else (0, 0)), (variant, ran)
+    ran = tuple(v - u for u, v in zip(n0, counts()))
+    assert ran == ((1, 1, 0, 0) if variant == "wgmma" else (0, 0, 1, 1)), (
+        variant, ran)
     ref_y, ref_st, _ = ss.ssd_chunked_states(*ins, chunk)
     err_y, ok_y = _compare([y], [ref_y], tol)
     err_s, ok_s = _grad_compare([st], [ref_st], SSD_FP32_TOL)
@@ -1468,6 +1550,27 @@ def _ssd_variant(dtype, B: int, L: int, chunk: int, H: int = 48,
             n: _compare([g], [r])[0]
             for n, g, r in zip(SSD_GRADS, grads, rnd_g)}
         del rnd_g
+    else:
+        mod_y, mod_st = ss._fwd_tf32x3(*ins, chunk)
+        out["max_abs_err_y_vs_model"] = _compare([y], [mod_y])[0]
+        out["max_abs_err_states_vs_model"] = _compare([st], [mod_st])[0]
+        del mod_y, mod_st
+        mod_g = ss._bwd_tf32x3(*ins, st, dy, chunk)
+        out["max_abs_err_per_grad_vs_model"] = {
+            n: _compare([g], [r])[0]
+            for n, g, r in zip(SSD_GRADS, grads, mod_g)}
+        del mod_g
+        wit = ss._f64_witness(ins, dy, chunk, y, st, grads)
+        out["f64_fwd"] = {n: wit[n] for n in ss.WITNESS_FWD}
+        out["f64_bwd"] = {n: wit[n] for n in ss.WITNESS_BWD}
+        out["ok_fwd"] = out["ok_fwd"] and ss._f64_within(wit,
+                                                         ss.WITNESS_FWD)
+        again = ss.ssd_scan_bwd(*ins, st, dy, chunk=chunk)
+        out["bit_equal_across_calls"] = all(
+            bool(torch.equal(u, v)) for u, v in zip(grads, again))
+        out["ok_bwd"] = (out["ok_bwd"] and out["bit_equal_across_calls"]
+                         and ss._f64_within(wit, ss.WITNESS_BWD))
+        del again
     del grads
 
     def fwd():
@@ -1488,25 +1591,29 @@ def _ssd_variant(dtype, B: int, L: int, chunk: int, H: int = 48,
     state_bytes = st.numel() * 4
     bwd_bytes = (io + state_bytes + dy.numel() * el         # + states, dy
                  + io)                           # the six gradients
-    peak = BF16_FLOPS if bf16 else FP32_FLOPS
-    fwd_bound, fwd_by = _bound_ms(fwd_bytes, fwd_flops, peak)
-    bwd_bound, bwd_by = _bound_ms(bwd_bytes, bwd_flops, peak)
+    rep = x.shape[2] // b.shape[2]
     if variant == "wgmma":
-        ex = _ssd_executed(x, b, chunk, ss._head_block(x.shape[2]
-                                                       // b.shape[2]))
+        ex = _ssd_executed(x, b, chunk, ss._head_block(rep))
     else:
-        ex = (fwd_flops, bwd_flops)
-    for tag, fn, flops, exe, bound, by, nbytes in (
-            ("fwd", fwd, fwd_flops, ex[0], fwd_bound, fwd_by, fwd_bytes),
-            ("bwd", bwd, bwd_flops, ex[1], bwd_bound, bwd_by, bwd_bytes)):
-        per = _device_ms_by_kernel(fn, iters=10)
+        nc = -(-L // min(chunk, max(L, 8)))
+        ex = _ssd_executed_tf32x3(x, b, chunk, ss._tf32x3_head_block(
+            rep, B * nc * b.shape[2], ss._n_sm(x.device.index)))
+    for tag, fn, flops, exe, nbytes in (
+            ("fwd", fwd, fwd_flops, ex[0], fwd_bytes),
+            ("bwd", bwd, bwd_flops, ex[1], bwd_bytes)):
+        bounds = _attn_bounds(nbytes, flops, bf16)
+        per = _device_ms_by_kernel(fn, iters=ATTN_REPEATS)
         dev = sum(per.values())
-        out[tag] = dict(ms=_time_ms(fn, iters=10), kernel_device_ms=dev,
+        ms, lo, hi = _time_stats(fn, iters=ATTN_REPEATS)
+        out[tag] = dict(ms=ms, ms_spread=[lo, hi], kernel_device_ms=dev,
                         per_launch_ms=per, flops=flops, executed_flops=exe,
                         tflops=flops / (dev * 1e-3) / 1e12,
                         executed_tflops=exe / (dev * 1e-3) / 1e12,
-                        pct_of_bound=100.0 * bound / dev, bound_ms=bound,
-                        bound_by=by, bytes=nbytes)
+                        pct_of_bound=100.0 * bounds["bound_ms"] / dev,
+                        bytes=nbytes, repeats=ATTN_REPEATS, **bounds)
+        if not bf16:
+            out[tag]["pct_of_fp32_fma_bound"] = (
+                100.0 * bounds["bound_fp32_fma_ms"] / dev)
     out["fwd"]["state_bytes"] = state_bytes
     out["fwd"]["state_write_bound_ms"] = state_bytes / HBM_BYTES_PER_S * 1e3
     out["fwd"]["plain_ms"] = _time_ms(
@@ -1528,8 +1635,8 @@ SSD_ROWS = {"": ("bfloat16", TRAIN_B, TRAIN_S, 48, 128),
 
 def kernel_ssd_scan() -> dict:
     """Both variants of the ssd_scan kernels at their main paths' shapes
-    (``SSD_ROWS``): wgmma in bf16 at the train shapes, CUDA cores in fp32
-    at the train_parity_* ones; one row for each kernel."""
+    (``SSD_ROWS``): wgmma in bf16 at the train shapes, tf32x3 in fp32 at
+    the train_parity_* ones; one row for each kernel."""
     import torch
     chunk = 128
     rows = {}
@@ -1539,17 +1646,31 @@ def kernel_ssd_scan() -> dict:
                     dtype=r["dtype"], variant=r["variant"],
                     x_bc=f"views of a (B, L, {H * 64 + 2 * N}) tensor")
         common = {k: r[k] for k in r if k.startswith("max_abs_err_per")}
+        fwd_model = {}
+        if "max_abs_err_y_vs_model" in r:
+            fwd_model["max_abs_err_vs_model"] = max(
+                r["max_abs_err_y_vs_model"], r["max_abs_err_states_vs_model"])
+        if "f64_fwd" in r:
+            fwd_model["f64_rel_err_and_plain"] = r["f64_fwd"]
+        bwd_model = {k: r[k] for k in ("bit_equal_across_calls",) if k in r}
+        if "f64_bwd" in r:
+            bwd_model["f64_rel_err_and_plain"] = r["f64_bwd"]
+        if "max_abs_err_per_grad_vs_model" in r:
+            bwd_model["max_abs_err_vs_model"] = max(
+                r["max_abs_err_per_grad_vs_model"].values())
         rows["ssd_scan" + key] = dict(
             case, name="ssd_scan", ok=r["ok_fwd"],
             max_abs_err=r["max_abs_err_y"],
             max_abs_err_states=r["max_abs_err_states"], tol=r["tol"],
-            library_ms=None, **r["fwd"],
+            library_ms=None, **r["fwd"], **fwd_model,
             **{k: r[k] for k in ("max_abs_err_y_vs_rounded",
-                                 "max_abs_err_states_vs_rounded") if k in r})
+                                 "max_abs_err_states_vs_rounded",
+                                 "max_abs_err_y_vs_model",
+                                 "max_abs_err_states_vs_model") if k in r})
         rows["ssd_scan_bwd" + key] = dict(
             case, name="ssd_scan_bwd", ok=r["ok_bwd"],
             max_abs_err=r["max_abs_err_grads"], tol=r["tol"],
-            library_ms=None, **r["bwd"], **common)
+            library_ms=None, **r["bwd"], **common, **bwd_model)
         torch.cuda.empty_cache()
     return rows
 
@@ -3554,8 +3675,10 @@ def _tf32x3_counted():
     """The wrappers that also count their tf32x3 (fp32 tensor-core)
     launches."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
     return {"flash_attention": fa.flash_attention,
-            "flash_attention_bwd": fa.flash_attention_bwd}
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "ssd_scan": ss.ssd_scan, "ssd_scan_bwd": ss.ssd_scan_bwd}
 
 
 def _tf32x3_launches() -> dict:
@@ -5848,7 +5971,7 @@ def main() -> int:
                       "library_ms_fwd_bwd_spread", "library_repeats",
                       "max_abs_err_vs_model", "bound_fp32_fma_ms",
                       "pct_of_fp32_fma_bound", "bit_equal_across_calls",
-                      "library_device_ms"):
+                      "library_device_ms", "f64_rel_err_and_plain"):
             if extra in k:
                 row[extra] = k[extra]
         stacked = STACKED_ROWS.get(key)
@@ -5879,10 +6002,10 @@ def main() -> int:
              ssm_run["ssd_scan"]),
             ("ssd_scan_bwd", "ssd_scan_bwd_sm90.cu", "ssd_scan.py:36",
              ssm_run["ssd_scan_bwd"]),
-            ("ssd_scan_fp32_500", "ssd_scan.cu", "ssd_scan.py:36",
+            ("ssd_scan_fp32_500", "ssd_scan_tf32x3.cu", "ssd_scan.py:36",
              ssm_fp32_run["ssd_scan"]),
-            ("ssd_scan_bwd_fp32_500", "ssd_scan_bwd.cu", "ssd_scan.py:36",
-             ssm_fp32_run["ssd_scan_bwd"]),
+            ("ssd_scan_bwd_fp32_500", "ssd_scan_bwd_tf32x3.cu",
+             "ssd_scan.py:36", ssm_fp32_run["ssd_scan_bwd"]),
             ("flash_decode_merged_ring_g16", "flash_decode.cu",
              "flash_decode.py:98", moe_run["flash_decode_merged"]),
             ("flash_decode_paged_merged_g16", "flash_decode_paged.cu",
@@ -5892,6 +6015,9 @@ def main() -> int:
     for row, name in ((rows[5], "flash_attention"),
                       (rows[6], "flash_attention_bwd")):
         row["tf32x3_launches"] = results["train_parity"][
+            "tf32x3_launches"][name]
+    for row, name in ((rows[9], "ssd_scan"), (rows[10], "ssd_scan_bwd")):
+        row["tf32x3_launches"] = results["train_parity_ssm"][
             "tf32x3_launches"][name]
     dg = results["decode_graph"]
     rows[1]["launches_decode_graph"] = dg["dense_launches"][
@@ -5997,19 +6123,20 @@ def main() -> int:
             row["launches_in"] = _train_phase(arch, parity=True)
             row["tf32x3_launches"] = parity["tf32x3_launches"][name]
     # zamba2-7b's Mamba-2 layers: the SSD scan at d_state 64, bf16 (wgmma)
-    # with launches from train_zamba2_7b, fp32 (CUDA cores) from
+    # with launches from train_zamba2_7b, fp32 (tf32x3) from
     # train_parity_zamba2_7b
     for key, src in (("ssd_scan_n64", "ssd_scan_sm90.cu"),
                      ("ssd_scan_bwd_n64", "ssd_scan_bwd_sm90.cu"),
-                     ("ssd_scan_fp32_500_n64", "ssd_scan.cu"),
-                     ("ssd_scan_bwd_fp32_500_n64", "ssd_scan_bwd.cu")):
+                     ("ssd_scan_fp32_500_n64", "ssd_scan_tf32x3.cu"),
+                     ("ssd_scan_bwd_fp32_500_n64",
+                      "ssd_scan_bwd_tf32x3.cu")):
         phase = _train_phase(HYBRID_ARCH, parity="fp32" in key)
         name = "ssd_scan_bwd" if "_bwd" in key else "ssd_scan"
         row = add_row(key, src, "ssd_scan.py:36",
                       results[phase]["launches"][name], name=key)
         row["launches_in"] = phase
-        if "fp32" not in key:
-            row["wgmma_launches"] = results[phase]["wgmma_launches"][name]
+        kind = "tf32x3_launches" if "fp32" in key else "wgmma_launches"
+        row[kind] = results[phase][kind][name]
     for arch, phase, case in ((VLM_ARCH, "vlm_forward", "vlm_g7"),
                               (AUDIO_ARCH, ENCODER_PHASE, "audio_d80")):
         tag = TRAIN_ROWS[arch][0]

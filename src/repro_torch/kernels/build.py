@@ -29,14 +29,15 @@ SOURCES = {
     "flash_attention_bwd_sm90": CSRC / "flash_attention_bwd_sm90.cu",
     "flash_attention_tf32x3": CSRC / "flash_attention_tf32x3.cu",
     "flash_attention_bwd_tf32x3": CSRC / "flash_attention_bwd_tf32x3.cu",
-    "ssd_scan": CSRC / "ssd_scan.cu",
-    "ssd_scan_bwd": CSRC / "ssd_scan_bwd.cu",
     "ssd_scan_sm90": CSRC / "ssd_scan_sm90.cu",
     "ssd_scan_bwd_sm90": CSRC / "ssd_scan_bwd_sm90.cu",
+    "ssd_scan_tf32x3": CSRC / "ssd_scan_tf32x3.cu",
+    "ssd_scan_bwd_tf32x3": CSRC / "ssd_scan_bwd_tf32x3.cu",
 }
 HEADERS = (CSRC / "decode_common.cuh", CSRC / "attention_common.cuh",
-           CSRC / "attention_sm90.cuh", CSRC / "attention_tf32.cuh",
-           CSRC / "ssd_common.cuh", CSRC / "ssd_sm90.cuh")
+           CSRC / "attention_sm90.cuh", CSRC / "tf32_common.cuh",
+           CSRC / "attention_tf32.cuh", CSRC / "ssd_sm90.cuh",
+           CSRC / "ssd_tf32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

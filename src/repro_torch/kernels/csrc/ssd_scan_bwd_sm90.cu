@@ -9,7 +9,7 @@
 // The TPU package has no backward for repro/kernels/ssd_scan.py::
 // _ssd_kernel (JAX cannot differentiate the Pallas call). This keeps the
 // port's derivation (kernels/ssd_scan.py::_bwd_plain), its five outputs
-// and its stages; fp32 keeps ssd_scan_bwd.cu, and
+// and its stages; fp32 runs ssd_scan_bwd_tf32x3.cu, and
 // kernels/ssd_scan.py::_variant picks one of the two. Per chunk, with g =
 // dy, S' = C B^T, E the masked exp(s_t - s_u), G = g x^T, A' = S' o E o G,
 // Pb = G o E dt_u and dh the gradient of the chunk's final state:
@@ -527,74 +527,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                 a.Q, wg, t);
 }
 
-// ------------------------------------------------------------ 4. ds
-// One block of kQ threads per (chunk, batch x head), thread t the chunk's
-// token t: ds_t from the four row terms of the two side kernels, its
-// reverse cumsum dla over the chunk, ddt, and the chunk's da part; the
-// template on N sets how many parts of <dh, h_in> the pass wrote.
-__device__ __forceinline__ float sum128(float v, float* tmp) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) tmp[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return tmp[0] + tmp[1] + tmp[2] + tmp[3];
-}
-
-template <int N>
-__global__ void __launch_bounds__(kQ) ssd90_ds_kernel(Args a) {
-  constexpr int kFrobParts = Dims<N>::kFrobParts;
-  __shared__ float dsv[kQ];
-  __shared__ float tmp[8];
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int ic = blockIdx.x;
-  const long long bh = blockIdx.y;
-  const int b = static_cast<int>(bh / a.H), h = static_cast<int>(bh % a.H);
-  const long long bhc = bh * a.nc + ic;
-  const long long n = (long long)a.B * a.H * a.nc * kQ;
-  const int Q = a.Q, p0 = ic * Q;
-  const int valid = min(Q, a.L - p0);
-  const float* row = a.rows + bhc * kQ + tid;
-  const float rowA = row[0], dsi = row[n], colA = row[2 * n],
-              beta = row[3 * n];
-  const float s = a.dec[bhc * kQ + tid], dt = a.dec[n + bhc * kQ + tid];
-  const float sq = a.dec[bhc * kQ + Q - 1];
-  float frob = 0.f;
-  for (int k = 0; k < kFrobParts; ++k) frob += a.frob[bhc * kFrobParts + k];
-  const float wb = expf(sq - s) * dt * beta;
-  const float wb_sum = sum128(wb, tmp);
-  float ds = 0.f;
-  if (tid < Q) {
-    ds = expf(s) * dsi + rowA - dt * colA - wb;
-    if (tid == Q - 1) ds += expf(sq) * frob + wb_sum;
-  }
-  dsv[kQ - 1 - tid] = ds;  // reversed, for an inclusive prefix sum
-  __syncthreads();
-  float run = dsv[tid];
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, run, o);
-    if (lane >= o) run += y;
-  }
-  if (lane == 31) tmp[4 + (tid >> 5)] = run;
-  __syncthreads();
-  float off = 0.f;
-  for (int w = 0; w < (tid >> 5); ++w) off += tmp[4 + w];
-  const int tt = kQ - 1 - tid;  // dla_t = sum_{t' >= t} ds_t'
-  const float dla = run + off;
-  float dla_dt = 0.f;
-  if (tt < valid) {
-    const float* rt = a.rows + bhc * kQ + tt;
-    const float stt = a.dec[bhc * kQ + tt];
-    a.ddt[((long long)b * a.L + p0 + tt) * a.H + h] =
-        rt[2 * n] + expf(sq - stt) * rt[3 * n] + a.a[h] * dla;
-    dla_dt = dla * a.dec[n + bhc * kQ + tt];
-  }
-  __syncthreads();  // tmp is reused
-  const float da_sum = sum128(dla_dt, tmp);
-  if (tid == 0) a.da_part[bhc] = da_sum;
-}
-
 // ------------------------------------------------------------ 5. reductions
 // out[b, l, g, n] = sum of the group's rep / hb head-block parts.
 template <int N>
@@ -616,19 +548,6 @@ __global__ void ssd90_reduce_bc_kernel(const float* __restrict__ part,
     for (int r = 0; r < per; ++r) s += p[(long long)r * Lp * N];
     out[idx] = __float2bfloat16(s);
   }
-}
-
-__global__ void ssd90_reduce_heads_kernel(Args a) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= a.H) return;
-  float sa = 0.f, sd = 0.f;
-  for (int b = 0; b < a.B; ++b)
-    for (int c = 0; c < a.nc; ++c) {
-      sa += a.da_part[((long long)b * a.H + h) * a.nc + c];
-      sd += a.dd_part[((long long)b * a.H + h) * a.nc + c];
-    }
-  a.da[h] = sa;
-  a.dd[h] = sd;
 }
 
 template <int N>

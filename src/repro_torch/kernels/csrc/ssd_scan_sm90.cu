@@ -4,10 +4,10 @@
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan.py::_ssd_kernel (:36; wrapper
 // ssd_scan, pl.pallas_call at :121) for bf16 operands with (N, P) = (128, 64)
-// or (64, 64). fp32 keeps the CUDA-core kernel of ssd_scan.cu;
+// or (64, 64). fp32 runs the 3xTF32 tensor-core kernel of ssd_scan_tf32x3.cu;
 // kernels/ssd_scan.py::_variant picks one of the two, and another (N, P) raises
 // there, with no fallback. Computes what _ssd_kernel computes (formulas in
-// ssd_sm90.cuh and ssd_scan.cu), and also writes the fp32 chunk-start states
+// ssd_sm90.cuh), and also writes the fp32 chunk-start states
 // h_in, (B, H, nc, N, P), that the backward (ssd_scan_bwd_sm90.cu) reads.
 //
 // Bound on the H100: operations. At the training shape (B 4, L 2048, H 48,

@@ -25,7 +25,12 @@
 //                        x) and the backward's V_c (M = C, r = exp(s), S =
 //                        dy);
 //   ssd90_pass_kernel    the elementwise pass over chunks, forward (h) or
-//                        reverse (dh), in place over the per-chunk terms.
+//                        reverse (dh), in place over the per-chunk terms;
+//   ssd90_ds_kernel, ssd90_reduce_heads_kernel   the backward's ds, ddt and
+//                        da parts from its row terms, and da and dD over
+//                        batch and chunks (both backwards run them: the
+//                        wgmma one in bf16 and the tf32x3 one in fp32,
+//                        which also runs the pass and the decay kernel).
 //
 // Tiles. x, dy, B and C reach the kernels through 4-D TMA tensor maps
 // (columns, heads or groups, sequence, batch) with their own strides, so
@@ -441,6 +446,90 @@ __global__ void __launch_bounds__(kPassThreads)
                         el[k] * run.z + v[k].z, el[k] * run.w + v[k].w);
     }
   }
+}
+
+// ------------------------------------------------------------ 4. ds
+// (backward; ssd_scan_bwd_sm90.cu and ssd_scan_bwd_tf32x3.cu)
+// One block of kQ threads per (chunk, batch x head), thread t the chunk's
+// token t: ds_t from the four row terms of the two side kernels, its
+// reverse cumsum dla over the chunk, ddt, and the chunk's da part; the
+// template on N sets how many parts of <dh, h_in> the pass wrote.
+__device__ __forceinline__ float sum128(float v, float* tmp) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) tmp[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return tmp[0] + tmp[1] + tmp[2] + tmp[3];
+}
+
+template <int N>
+__global__ void __launch_bounds__(kQ) ssd90_ds_kernel(Args a) {
+  constexpr int kFrobParts = Dims<N>::kFrobParts;
+  __shared__ float dsv[kQ];
+  __shared__ float tmp[8];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ic = blockIdx.x;
+  const long long bh = blockIdx.y;
+  const int b = static_cast<int>(bh / a.H), h = static_cast<int>(bh % a.H);
+  const long long bhc = bh * a.nc + ic;
+  const long long n = (long long)a.B * a.H * a.nc * kQ;
+  const int Q = a.Q, p0 = ic * Q;
+  const int valid = min(Q, a.L - p0);
+  const float* row = a.rows + bhc * kQ + tid;
+  const float rowA = row[0], dsi = row[n], colA = row[2 * n],
+              beta = row[3 * n];
+  const float s = a.dec[bhc * kQ + tid], dt = a.dec[n + bhc * kQ + tid];
+  const float sq = a.dec[bhc * kQ + Q - 1];
+  float frob = 0.f;
+  for (int k = 0; k < kFrobParts; ++k) frob += a.frob[bhc * kFrobParts + k];
+  const float wb = expf(sq - s) * dt * beta;
+  const float wb_sum = sum128(wb, tmp);
+  float ds = 0.f;
+  if (tid < Q) {
+    ds = expf(s) * dsi + rowA - dt * colA - wb;
+    if (tid == Q - 1) ds += expf(sq) * frob + wb_sum;
+  }
+  dsv[kQ - 1 - tid] = ds;  // reversed, for an inclusive prefix sum
+  __syncthreads();
+  float run = dsv[tid];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, run, o);
+    if (lane >= o) run += y;
+  }
+  if (lane == 31) tmp[4 + (tid >> 5)] = run;
+  __syncthreads();
+  float off = 0.f;
+  for (int w = 0; w < (tid >> 5); ++w) off += tmp[4 + w];
+  const int tt = kQ - 1 - tid;  // dla_t = sum_{t' >= t} ds_t'
+  const float dla = run + off;
+  float dla_dt = 0.f;
+  if (tt < valid) {
+    const float* rt = a.rows + bhc * kQ + tt;
+    const float stt = a.dec[bhc * kQ + tt];
+    a.ddt[((long long)b * a.L + p0 + tt) * a.H + h] =
+        rt[2 * n] + expf(sq - stt) * rt[3 * n] + a.a[h] * dla;
+    dla_dt = dla * a.dec[n + bhc * kQ + tt];
+  }
+  __syncthreads();  // tmp is reused
+  const float da_sum = sum128(dla_dt, tmp);
+  if (tid == 0) a.da_part[bhc] = da_sum;
+}
+
+// ------------------------------------------------------------ 5. da, dD
+// da and dD over batch and chunks, in a fixed order (both backwards).
+__global__ void ssd90_reduce_heads_kernel(Args a) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= a.H) return;
+  float sa = 0.f, sd = 0.f;
+  for (int b = 0; b < a.B; ++b)
+    for (int c = 0; c < a.nc; ++c) {
+      sa += a.da_part[((long long)b * a.H + h) * a.nc + c];
+      sd += a.dd_part[((long long)b * a.H + h) * a.nc + c];
+    }
+  a.da[h] = sa;
+  a.dd[h] = sd;
 }
 
 }  // namespace ssd90

@@ -2,8 +2,7 @@
 kernels, forward and backward.
 
 Counterpart of ``repro.kernels.ssd_scan``, whose Pallas kernel
-``_ssd_kernel`` the forward replaces (CUDA source ``csrc/ssd_scan.cu``).
-The selective-state recurrence
+``_ssd_kernel`` the forward replaces. The selective-state recurrence
 
     h_t = exp(dt_t * A_h) * h_{t-1} + dt_t * outer(B_t, x_t)     [N, P]
     y_t = C_t @ h_t + D_h * x_t                                  [P]
@@ -21,19 +20,22 @@ the two into a ``torch.autograd.Function`` and ``ssd_scan`` is the entry
 point.
 
 Two kernel variants, both for (d_state N, head dim P) = (128, 64)
-(mamba2-780m) and (64, 64) (zamba2-7b), chosen by dtype in ``_variant``:
+(mamba2-780m) and (64, 64) (zamba2-7b), chosen by dtype in ``_variant``.
+Both run Mamba-2's chunked SSD decomposition with every chunk in
+parallel (chunk states, an elementwise state pass, chunk outputs with C
+B^T shared by a block of heads; backward the chunk terms of dh, a
+reverse pass, a t-side and a u-side of every chunk):
 
 - ``"wgmma"``: bf16,
-  ``csrc/ssd_scan_sm90.cu`` and ``csrc/ssd_scan_bwd_sm90.cu``: the chunked
-  SSD decomposition on wgmma (chunk states, an elementwise state pass,
-  chunk outputs with C B^T shared by a block of heads), bf16 operands
-  into fp32 products (``_fwd_rounded`` and ``_bwd_rounded`` model its
-  rounding points in plain PyTorch, at either N: d_state changes the
-  kernels' tile counts and k-steps, not where they round);
-- ``"cuda_core"``: fp32 (the parity runs), ``csrc/ssd_scan.cu`` and
-  ``csrc/ssd_scan_bwd.cu``: fp32 products on the CUDA cores, exact to the
-  plain versions up to the order of sums (the chip's fp32 parity
-  tolerances would not admit bf16 operands).
+  ``csrc/ssd_scan_sm90.cu`` and ``csrc/ssd_scan_bwd_sm90.cu``: wgmma,
+  bf16 operands into fp32 products (``_fwd_rounded`` and ``_bwd_rounded``
+  model its rounding points in plain PyTorch, at either N: d_state changes
+  the kernels' tile counts and k-steps, not where they round);
+- ``"tf32x3"``: fp32 (the parity runs), ``csrc/ssd_scan_tf32x3.cu`` and
+  ``csrc/ssd_scan_bwd_tf32x3.cu``: mma.sync on the tensor cores in 3xTF32
+  (each operand split into two TF32 halves, three products a pair, fp32
+  accuracy to a few ulps) on cp.async-staged tiles (``_fwd_tf32x3`` and
+  ``_bwd_tf32x3`` model the split in plain PyTorch).
 
 The wrapper keeps the reference's contract: ``chunk = min(chunk, max(L,
 8))``, the sequence padded to a chunk multiple with padded tokens at
@@ -41,17 +43,20 @@ The wrapper keeps the reference's contract: ``chunk = min(chunk, max(L,
 wrapper takes the plain PyTorch version only for tensors on the CPU; for
 CUDA tensors it launches its variant's kernel or raises. The forward
 counts its launches in ``ssd_scan.launches``, the backward in
-``ssd_scan_bwd.launches``; the wgmma launches among them also in
-``ssd_scan.wgmma_launches`` and ``ssd_scan_bwd.wgmma_launches``.
+``ssd_scan_bwd.launches``; the wgmma and tf32x3 launches among them also
+in ``ssd_scan.wgmma_launches`` / ``ssd_scan.tf32x3_launches`` and
+``ssd_scan_bwd.wgmma_launches`` / ``ssd_scan_bwd.tf32x3_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import _split_tf32
 from repro_torch.kernels.flash_decode import _ptr, _stream
 
 DEFAULT_CHUNK = 128
@@ -59,13 +64,13 @@ MAX_CHUNK = 128                  # rows of the kernels' chunk tiles
 SUPPORTED_NP = ((128, 64), (64, 64))   # (d_state N, head dim P) built
 HEAD_BLOCKS = (6, 4, 3, 2, 1)    # heads of one group per wgmma CTA
 DEC_ROWS = 128                   # row stride of the wgmma kernels' scratch
-VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
+VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 
 
 def _variant(dtype: torch.dtype, N: int, P: int) -> str:
     """The kernel variant of operands of ``dtype`` with d_state ``N`` and
     head dim ``P``: at an (N, P) of ``SUPPORTED_NP``, ``"wgmma"`` for bf16
-    and ``"cuda_core"`` for fp32. Each (dtype, N, P) has exactly one
+    and ``"tf32x3"`` for fp32. Each (dtype, N, P) has exactly one
     kernel; any other case was not built and raises."""
     if (N, P) not in SUPPORTED_NP or dtype not in VARIANTS:
         raise ValueError(f"ssd_scan: {dtype} with (d_state, head dim) "
@@ -83,25 +88,42 @@ def _head_block(rep: int) -> int:
     return next(hb for hb in HEAD_BLOCKS if rep % hb == 0)
 
 
-def _fwd_lib():
+def _tf32x3_head_block(rep: int, ctas_per_head: int, n_sm: int) -> int:
+    """Heads per CTA of the tf32x3 forward's output kernel: the divisor hb
+    of the group size ``rep`` with the least ``waves x (1 + hb)``, a CTA's
+    time being C B^T (about one head's products) and hb heads, and
+    ``waves`` its grid of ``ctas_per_head x rep / hb`` CTAs (``ctas_per_head``
+    = batch x chunks x groups) over ``n_sm`` SMs at one CTA an SM; the
+    smaller hb on a tie. At B 2, L 500 on 132 SMs: mamba2-780m's 48 heads
+    take 3 (128 CTAs), zamba2-7b's 112 take 7 (128 CTAs)."""
+    def cost(hb):
+        return -(-ctas_per_head * rep // hb // n_sm) * (1 + hb)
+    return min((hb for hb in range(1, rep + 1) if rep % hb == 0),
+               key=lambda hb: (cost(hb), hb))
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fwd_tf32x3_lib():
     from repro_torch.kernels import build
-    fn = build.load("ssd_scan").pam_ssd_scan_fwd
+    fn = build.load("ssd_scan_tf32x3").pam_ssd_scan_fwd_tf32x3
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 6
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     return fn
 
 
-def _bwd_lib():
+def _bwd_tf32x3_lib():
     from repro_torch.kernels import build
-    fn = build.load("ssd_scan_bwd").pam_ssd_scan_bwd
+    fn = build.load("ssd_scan_bwd_tf32x3").pam_ssd_scan_bwd_tf32x3
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 6
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     return fn
 
 
@@ -241,8 +263,22 @@ def _bf16_pair(t: torch.Tensor, on: bool) -> torch.Tensor:
     return hi + _bf16(t - hi, True)
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+            tf32: bool) -> torch.Tensor:
+    """``einsum(eq, a, b)``, or with ``tf32`` as the tf32x3 kernels take the
+    product: every operand split into TF32 halves (``_split_tf32``), lo_a
+    hi_b + hi_a lo_b, then + hi_a hi_b (each elementary product exact in
+    fp32, the sums fp32)."""
+    if not tf32:
+        return torch.einsum(eq, a, b)
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    return ((torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl))
+            + torch.einsum(eq, ah, bh))
+
+
 def _decay(dtf, af):
-    """The wgmma kernels' decay terms per (batch, chunk, token, head): s
+    """The tensor-core kernels' decay terms per (batch, chunk, token, head): s
     (in-chunk inclusive prefix sum of dt a), exp(s), w = exp(s_Q - s) dt
     and exp(s_Q) per chunk."""
     s = torch.cumsum(dtf * af, dim=2)                    # (B, nc, Q, H)
@@ -250,10 +286,13 @@ def _decay(dtf, af):
         torch.exp(s[:, :, -1])
 
 
-def _fwd_rounded(x, dt, a, b, c, d_skip, chunk, round_bf16: bool = True):
+def _fwd_rounded(x, dt, a, b, c, d_skip, chunk, round_bf16: bool = True,
+                 tf32: bool = False):
     """Plain PyTorch model of the wgmma forward (``csrc/ssd_scan_sm90.cu``;
     tests and ``chip_smoke.py`` only, never on the main path), in its
-    decomposition and with its bf16 operands when ``round_bf16``:
+    decomposition and with its bf16 operands when ``round_bf16``; with
+    ``tf32`` (and ``round_bf16`` off) every product in 3xTF32 as the tf32x3
+    forward (``csrc/ssd_scan_tf32x3.cu``) takes it (``_einsum``):
 
     1. decay terms s, exp(s), w, exp(s_Q) per chunk (``_decay``);
     2. chunk states U_c = sum_u B_u (w_u x_u)^T, w x a hi / lo bf16 pair;
@@ -271,21 +310,32 @@ def _fwd_rounded(x, dt, a, b, c, d_skip, chunk, round_bf16: bool = True):
     B, L, H, P = x.shape
     xf, dtf, bh, ch, Q, nc = _chunks(x, dt, b, c, chunk)
     s, es, w, e_last = _decay(dtf, _acc(a))
-    u = torch.einsum("bcqhn,bcqhp->bchnp", bh,
-                     _bf16_pair(w[..., None] * xf, round_bf16))
+
+    def ein(eq, p, q):
+        return _einsum(eq, p, q, tf32)
+    u = ein("bcqhn,bcqhp->bchnp", bh,
+            _bf16_pair(w[..., None] * xf, round_bf16))
     h = torch.zeros_like(u[:, 0])
     states = []
     for ic in range(nc):
         states.append(h)
         h = e_last[:, ic, :, None, None] * h + u[:, ic]
     states = torch.stack(states, dim=2)                  # (B, H, nc, N, P)
-    m = _bf16_pair(torch.einsum("bcthn,bcuhn->bctuh", ch, bh)
+    m = _bf16_pair(ein("bcthn,bcuhn->bctuh", ch, bh)
                    * segsum_decay(s) * dtf[:, :, None], round_bf16)
-    y = (es[..., None] * torch.einsum("bcthn,bhcnp->bcthp", ch,
-                                      _bf16_pair(states, round_bf16))
-         + torch.einsum("bctuh,bcuhp->bcthp", m, xf)
+    y = (es[..., None] * ein("bcthn,bhcnp->bcthp", ch,
+                             _bf16_pair(states, round_bf16))
+         + ein("bctuh,bcuhp->bcthp", m, xf)
          + _acc(d_skip)[:, None] * xf)
     return y.reshape(B, nc * Q, H, P)[:, :L].to(x.dtype), states
+
+
+def _fwd_tf32x3(x, dt, a, b, c, d_skip, chunk):
+    """Plain PyTorch model of the tf32x3 forward's split (tests and
+    ``chip_smoke.py`` only): ``_fwd_rounded`` with every product in
+    3xTF32 and no bf16 rounding. Returns (y, chunk-start states)."""
+    return _fwd_rounded(x, dt, a, b, c, d_skip, chunk, round_bf16=False,
+                        tf32=True)
 
 
 def _check_cuda(name: str, x, dt, a, b, c, d_skip, chunk) -> str:
@@ -312,14 +362,15 @@ def _check_cuda(name: str, x, dt, a, b, c, d_skip, chunk) -> str:
     for t in (dt, a, d_skip):
         if not t.is_contiguous():
             raise ValueError(f"{name}: dt, a and d_skip must be contiguous")
-    if variant == "wgmma":
-        for t in (x, b, c):   # TMA: base and strides in 16-byte units
-            if t.data_ptr() % 16 or any(t.stride(i) * 2 % 16
-                                        for i in (0, 1)):
-                raise ValueError(f"{name}: the wgmma kernels read x, b and "
-                                 f"c by TMA: base address and batch / "
-                                 f"sequence strides must be multiples of "
-                                 f"16 bytes")
+    # wgmma: TMA; tf32x3: 16-byte cp.async copies. Either way base
+    # addresses and batch / sequence strides in 16-byte units.
+    how = "by TMA" if variant == "wgmma" else "in 16-byte copies"
+    for t in (x, b, c):
+        if t.data_ptr() % 16 or any(t.stride(i) * t.element_size() % 16
+                                    for i in (0, 1)):
+            raise ValueError(f"{name}: the {variant} kernels read x, b and "
+                             f"c {how}: base address and batch / sequence "
+                             f"strides must be multiples of 16 bytes")
     return variant
 
 
@@ -338,23 +389,25 @@ def _fwd_cuda(x, dt, a, b, c, d_skip, chunk):
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=x.device)
     states = torch.empty((B, H, nc, N, P), dtype=torch.float32,
                          device=x.device)
+    dec = torch.empty((2, B, H, nc, DEC_ROWS), dtype=torch.float32,
+                      device=x.device)               # s_t, masked dt
+    rep = H // G
     if variant == "wgmma":
-        dec = torch.empty((2, B, H, nc, DEC_ROWS), dtype=torch.float32,
-                          device=x.device)           # s_t, masked dt
-        rc = _fwd_sm90_lib()(_ptr(x), _ptr(dt), _ptr(a), _ptr(b), _ptr(c),
-                             _ptr(d_skip), _ptr(y), _ptr(states), _ptr(dec),
-                             B, L, H, G, Q, nc, _head_block(H // G), N,
-                             *_strides(x, b, c), _stream(x.device))
+        hb, lib = _head_block(rep), _fwd_sm90_lib()
     else:
-        rc = _fwd_lib()(_ptr(x), _ptr(dt), _ptr(a), _ptr(b), _ptr(c),
-                        _ptr(d_skip), _ptr(y), _ptr(states), B, L, H, G, Q,
-                        nc, *_strides(x, b, c), N, P, _stream(x.device))
+        hb = _tf32x3_head_block(rep, B * nc * G, _n_sm(x.device.index))
+        lib = _fwd_tf32x3_lib()
+    rc = lib(_ptr(x), _ptr(dt), _ptr(a), _ptr(b), _ptr(c), _ptr(d_skip),
+             _ptr(y), _ptr(states), _ptr(dec), B, L, H, G, Q, nc, hb, N,
+             *_strides(x, b, c), _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"ssd_scan {variant} kernel launch failed "
                            f"(code {rc})")
     ssd_scan.launches += 1
     if variant == "wgmma":
         ssd_scan.wgmma_launches += 1
+    else:
+        ssd_scan.tf32x3_launches += 1
     return y, states
 
 
@@ -452,10 +505,14 @@ def _bwd_plain(x, dt, a, b, c, d_skip, states, dy, chunk):
 
 
 def _bwd_rounded(x, dt, a, b, c, d_skip, states, dy, chunk,
-                 round_bf16: bool = True):
+                 round_bf16: bool = True, tf32: bool = False):
     """Plain PyTorch model of the wgmma backward
     (``csrc/ssd_scan_bwd_sm90.cu``; tests and ``chip_smoke.py`` only), in
-    its decomposition and with its bf16 roundings when ``round_bf16``:
+    its decomposition and with its bf16 roundings when ``round_bf16``; with
+    ``tf32`` (and ``round_bf16`` off) every product in 3xTF32 as the tf32x3
+    backward (``csrc/ssd_scan_bwd_tf32x3.cu``) takes it (``_einsum``; that
+    kernel takes g . (C h_in) as C . (g h_in^T), the same products in
+    another order of fp32 sums):
 
     1. dstate: V_c = sum_t C_t (exp(s_t) g_t)^T, exp(s) g rounded, then the
        reverse pass dh_{c-1} = exp(s_Q) dh_c + V_c in fp32;
@@ -478,8 +535,11 @@ def _bwd_rounded(x, dt, a, b, c, d_skip, states, dy, chunk,
     af, df = _acc(a), _acc(d_skip)
     hin = _acc(states)                                   # (B, H, nc, N, P)
     s, es, w, e_last = _decay(dtf, af)
+
+    def ein(eq, p, q):
+        return _einsum(eq, p, q, tf32)
     # 1. dstate
-    v = torch.einsum("bcqhn,bcqhp->bchnp", ch, _bf16(es[..., None] * g, r))
+    v = ein("bcqhn,bcqhp->bchnp", ch, _bf16(es[..., None] * g, r))
     dh = torch.zeros_like(hin[:, :, 0])
     dhs = [None] * nc
     for ic in range(nc - 1, -1, -1):
@@ -490,21 +550,19 @@ def _bwd_rounded(x, dt, a, b, c, d_skip, states, dy, chunk,
     # 2. t-side
     E = segsum_decay(s)                                  # (B, nc, Q, Q, H)
     dt_u = dtf[:, :, None]
-    SE = torch.einsum("bcthn,bcuhn->bctuh", ch, bh) * E
-    Gm = torch.einsum("bcthp,bcuhp->bctuh", g, xf)
+    SE = ein("bcthn,bcuhn->bctuh", ch, bh) * E
+    Gm = ein("bcthp,bcuhp->bctuh", g, xf)
     Ap = SE * Gm
     Pb = _bf16(Gm * E * dt_u, r)
-    dc = (torch.einsum("bcthp,bhcnp->bcthn", _bf16(es[..., None] * g, r),
-                       hin_r)
-          + torch.einsum("bctuh,bcuhn->bcthn", Pb, bh))
-    chin = torch.einsum("bcthn,bhcnp->bcthp", ch, hin_r)
+    dc = (ein("bcthp,bhcnp->bcthn", _bf16(es[..., None] * g, r), hin_r)
+          + ein("bctuh,bcuhn->bcthn", Pb, bh))
+    chin = ein("bcthn,bhcnp->bcthp", ch, hin_r)
     # 3. u-side
-    db = (torch.einsum("bcuhp,bhcnp->bcuhn", _bf16(w[..., None] * xf, r),
-                       dh_r)
-          + torch.einsum("bctuh,bcthn->bcuhn", Pb, ch))
-    bdh = torch.einsum("bcuhn,bhcnp->bcuhp", bh, dh_r)
+    db = (ein("bcuhp,bhcnp->bcuhn", _bf16(w[..., None] * xf, r), dh_r)
+          + ein("bctuh,bcthn->bcuhn", Pb, ch))
+    bdh = ein("bcuhn,bhcnp->bcuhp", bh, dh_r)
     beta = torch.sum(xf * bdh, dim=-1)                   # (B, nc, Q, H)
-    dx = (torch.einsum("bctuh,bcthp->bcuhp", _bf16(SE * dt_u, r), g)
+    dx = (ein("bctuh,bcthp->bcuhp", _bf16(SE * dt_u, r), g)
           + w[..., None] * bdh + df[:, None] * g)
     colp = torch.sum(Ap, dim=2)                          # over t
     # 4. ds, dla, ddt, da, dD
@@ -527,17 +585,73 @@ def _bwd_rounded(x, dt, a, b, c, d_skip, states, dy, chunk,
             dd.to(d_skip.dtype))
 
 
+def _bwd_tf32x3(x, dt, a, b, c, d_skip, states, dy, chunk):
+    """Plain PyTorch model of the tf32x3 backward's split (tests and
+    ``chip_smoke.py`` only): ``_bwd_rounded`` with every product in
+    3xTF32 and no bf16 rounding. Returns (dx, ddt, da, db, dc, dd)."""
+    return _bwd_rounded(x, dt, a, b, c, d_skip, states, dy, chunk,
+                        round_bf16=False, tf32=True)
+
+
+# A tf32x3 result's norm-wise error against the plain versions in float64
+# may be at most this many times the fp32 plain versions' own (floored at
+# the split's 2^-22). Kernel and model differ from the fp32 plain versions
+# by fp32 sums in another order, elementwise as much as the plain versions
+# differ from float64, so only the float64 reference tells the 2^-22 of a
+# 3xTF32 product from the 2^-11 of one TF32 product or of a split that
+# drops a cross term: those put y, the states, dx, ddt, dB and dC tens to
+# hundreds of times the fp32 plain versions' error.
+F64_RATIO = 10.0
+WITNESS_FWD = ("y", "states")
+WITNESS_BWD = ("dx", "ddt", "da", "db", "dc", "dd")
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """||got - ref|| / ||ref||, in float64 (the absolute norm where ref
+    is zero)."""
+    ref = ref.double()
+    num = float((got.double() - ref).norm())
+    den = float(ref.norm())
+    return num / den if den else num
+
+
+def _f64_witness(ins, dy, chunk, y, states, grads) -> dict:
+    """A fp32 scan result (y, the chunk-start states, and the six
+    gradients of the backward fed those states) against the plain
+    versions in float64, norm-wise, beside the plain versions in fp32
+    against the same (tests and ``chip_smoke.py`` only). Returns {leaf:
+    (error, the fp32 plain version's error)} over ``WITNESS_FWD`` and
+    ``WITNESS_BWD``."""
+    ins64 = [t.double() for t in ins]
+    y64, st64, _ = ssd_chunked_states(*ins64, chunk)
+    g64 = _bwd_plain(*ins64, st64, dy.double(), chunk)
+    y32, st32, _ = ssd_chunked_states(*ins, chunk)
+    g32 = _bwd_plain(*ins, st32, dy, chunk)
+    return {n: (_rel_err(got, ref), _rel_err(plain, ref))
+            for n, got, plain, ref in zip(
+                WITNESS_FWD + WITNESS_BWD, (y, states, *grads),
+                (y32, st32, *g32), (y64, st64, *g64))}
+
+
+def _f64_within(witness: dict, leaves) -> bool:
+    """Every leaf of ``witness`` among ``leaves`` within ``F64_RATIO``
+    times the fp32 plain versions' error (at least 2^-22)."""
+    return all(err <= F64_RATIO * max(plain, 2.0 ** -22)
+               for n, (err, plain) in witness.items() if n in leaves)
+
+
 def _bwd_cuda(x, dt, a, b, c, d_skip, states, dy, chunk):
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     variant = _check_cuda("ssd_scan_bwd", x, dt, a, b, c, d_skip, chunk)
     Q, Lp = chunk_len(L, chunk)
     nc = Lp // Q
-    if dy.dtype != x.dtype or not dy.is_contiguous() \
+    if dy.dtype != x.dtype or not dy.is_contiguous() or dy.data_ptr() % 16 \
             or states.shape != (B, H, nc, N, P) \
             or states.dtype != torch.float32 or not states.is_contiguous():
-        raise ValueError("ssd_scan_bwd: dy must be contiguous in x's dtype "
-                         "and states the forward's (B, H, nc, N, P) fp32")
+        raise ValueError("ssd_scan_bwd: dy must be contiguous in x's dtype, "
+                         "16-byte aligned, and states the forward's (B, H, "
+                         "nc, N, P) fp32")
     dev, f32 = x.device, torch.float32
     dx = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
     ddt = torch.empty((B, L, H), dtype=f32, device=dev)
@@ -545,43 +659,45 @@ def _bwd_cuda(x, dt, a, b, c, d_skip, states, dy, chunk):
     dd = torch.empty((H,), dtype=f32, device=dev)
     db = torch.empty((B, L, G, N), dtype=b.dtype, device=dev)
     dc = torch.empty((B, L, G, N), dtype=c.dtype, device=dev)
-    # scratch: state gradients, partials of dB / dC (reduced over each
-    # group's heads, or head blocks, in the kernels' last pass), per-chunk
-    # partials of da / dD
+    # scratch: decay rows, state gradients, the side kernels' row terms,
+    # parts of <dh, h_in> (a warp's), partials of dB / dC (reduced over
+    # each group's head blocks, or heads, in the kernels' last pass),
+    # per-chunk partials of da / dD
+    dec = torch.empty((2, B, H, nc, DEC_ROWS), dtype=f32, device=dev)
     dstates = torch.empty_like(states)
+    rows = torch.empty((4, B, H, nc, DEC_ROWS), dtype=f32, device=dev)
+    frob = torch.empty((B, H, nc, N * P // 128), dtype=f32, device=dev)
     da_part = torch.empty((B, H, nc), dtype=f32, device=dev)
     dd_part = torch.empty((B, H, nc), dtype=f32, device=dev)
+    ptrs = [_ptr(t) for t in (x, dt, a, b, c, d_skip, states, dy, dx, ddt,
+                              da, db, dc, dd, dec, dstates, frob, rows)]
     if variant == "wgmma":
         hb = _head_block(H // G)
         db_part = torch.empty((B, H // hb, Lp, N), dtype=f32, device=dev)
         dc_part = torch.empty_like(db_part)
-        dec = torch.empty((2, B, H, nc, DEC_ROWS), dtype=f32, device=dev)
-        rows = torch.empty((4, B, H, nc, DEC_ROWS), dtype=f32,
-                           device=dev)        # the side kernels' row terms
-        frob = torch.empty((B, H, nc, N * P // 128), dtype=f32,
-                           device=dev)        # parts of <dh, h_in>, a warp's
         rc = _bwd_sm90_lib()(
-            _ptr(x), _ptr(dt), _ptr(a), _ptr(b), _ptr(c), _ptr(d_skip),
-            _ptr(states), _ptr(dy), _ptr(dx), _ptr(ddt), _ptr(da), _ptr(db),
-            _ptr(dc), _ptr(dd), _ptr(dec), _ptr(dstates), _ptr(frob),
-            _ptr(rows), _ptr(db_part), _ptr(dc_part), _ptr(da_part),
+            *ptrs, _ptr(db_part), _ptr(dc_part), _ptr(da_part),
             _ptr(dd_part), B, L, H, G, Q, nc, hb, N, *_strides(x, b, c),
             _stream(dev))
     else:
+        # S' = C B^T of each (batch, group, chunk) and its transpose, read
+        # by both side kernels
+        sbuf = torch.empty((2, B, G, nc, DEC_ROWS, DEC_ROWS), dtype=f32,
+                           device=dev)
         db_part = torch.empty((B, H, Lp, N), dtype=f32, device=dev)
-        dc_part = torch.empty((B, H, Lp, N), dtype=f32, device=dev)
-        rc = _bwd_lib()(
-            _ptr(x), _ptr(dt), _ptr(a), _ptr(b), _ptr(c), _ptr(d_skip),
-            _ptr(states), _ptr(dy), _ptr(dx), _ptr(ddt), _ptr(da), _ptr(db),
-            _ptr(dc), _ptr(dd), _ptr(dstates), _ptr(db_part), _ptr(dc_part),
-            _ptr(da_part), _ptr(dd_part), B, L, H, G, Q, nc,
-            *_strides(x, b, c), N, P, _stream(dev))
+        dc_part = torch.empty_like(db_part)
+        rc = _bwd_tf32x3_lib()(
+            *ptrs, _ptr(sbuf), _ptr(db_part), _ptr(dc_part), _ptr(da_part),
+            _ptr(dd_part), B, L, H, G, Q, nc, N, *_strides(x, b, c),
+            _stream(dev))
     if rc != 0:
         raise RuntimeError(f"ssd_scan_bwd {variant} kernel launch failed "
                            f"(code {rc})")
     ssd_scan_bwd.launches += 1
     if variant == "wgmma":
         ssd_scan_bwd.wgmma_launches += 1
+    else:
+        ssd_scan_bwd.tf32x3_launches += 1
     return dx, ddt, da, db, dc, dd
 
 
@@ -597,6 +713,7 @@ def ssd_scan_bwd(x, dt, a, b, c, d_skip, states, dy, *,
 
 ssd_scan_bwd.launches = 0
 ssd_scan_bwd.wgmma_launches = 0
+ssd_scan_bwd.tf32x3_launches = 0
 
 
 def ssd_scan_plain_grads(x, dt, a, b, c, d_skip, dy, *,
@@ -649,3 +766,4 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 ssd_scan.launches = 0
 ssd_scan.wgmma_launches = 0
+ssd_scan.tf32x3_launches = 0

@@ -487,6 +487,7 @@ def test_ssd_scan_kernels_match_plain(cuda, dtype, B, L, H, G, chunk, view):
     ref_g = tss.ssd_scan_bwd(x, dt, a, b, c, d, ref_st, dy, chunk=chunk)
     n0 = (tss.ssd_scan.launches, tss.ssd_scan_bwd.launches)
     w0 = (tss.ssd_scan.wgmma_launches, tss.ssd_scan_bwd.wgmma_launches)
+    f0 = (tss.ssd_scan.tf32x3_launches, tss.ssd_scan_bwd.tf32x3_launches)
     xc, dtc, ac, bc, cc, dc = (t.to(cuda).requires_grad_()
                                for t in (x, dt, a, b, c, d))
     y, st = tss.ssd_scan_fwd(xc.detach(), dtc.detach(), ac.detach(),
@@ -501,6 +502,10 @@ def test_ssd_scan_kernels_match_plain(cuda, dtype, B, L, H, G, chunk, view):
     assert (tss.ssd_scan.wgmma_launches - w0[0],
             tss.ssd_scan_bwd.wgmma_launches - w0[1]) == (
                 (2, 1) if wgmma else (0, 0))
+    # fp32: the 3xTF32 tensor-core pair, 1 / 1 a call
+    assert (tss.ssd_scan.tf32x3_launches - f0[0],
+            tss.ssd_scan_bwd.tf32x3_launches - f0[1]) == (
+                (0, 0) if wgmma else (2, 1))
     assert out.dtype == dtype and xc.grad.dtype == dtype
     _ssd_close(y, ref_y, dtype)
     _ssd_close(out.detach(), ref_y, dtype)

@@ -5,8 +5,9 @@ narrowed hybrid's train step, card against CPU.
 
 bf16 runs the wgmma kernels (``csrc/ssd_scan_sm90.cu``,
 ``csrc/ssd_scan_bwd_sm90.cu``, ``csrc/flash_attention_sm90.cu``,
-``csrc/flash_attention_bwd_sm90.cu``), fp32 the CUDA-core SSD kernels and
-the 3xTF32 tensor-core attention ones; every
+``csrc/flash_attention_bwd_sm90.cu``), fp32 the 3xTF32 tensor-core SSD
+kernels (``csrc/ssd_scan_tf32x3.cu``, ``csrc/ssd_scan_bwd_tf32x3.cu``) and
+attention ones; every
 call's launches are counted by variant. Each kernel is held to its plain
 version on the same inputs. The head dim 112 products read the second
 swizzle atom of their MN-major operand in part (m64n112k16); they are also
@@ -109,14 +110,15 @@ def test_ssd_scan_n64_kernels_match_plain(cuda, dtype, B, L, H, G, chunk,
                                           view):
     """The forward (y and the chunk-start states) and the six gradients
     of ``ssd_scan`` at d_state 64 against the plain versions; one launch
-    of each direction a call, wgmma in bf16 and CUDA cores in fp32."""
+    of each direction a call, wgmma in bf16 and tf32x3 in fp32."""
     x, dt, a, b, c, d, dy = _ssd_case(L + H, B, L, H, G, view, dtype)
     wgmma = dtype == torch.bfloat16
-    assert tss._variant(dtype, N, P) == ("wgmma" if wgmma else "cuda_core")
+    assert tss._variant(dtype, N, P) == ("wgmma" if wgmma else "tf32x3")
     ref_y, ref_st = tss.ssd_scan_fwd(x, dt, a, b, c, d, chunk=chunk)
     ref_g = tss.ssd_scan_bwd(x, dt, a, b, c, d, ref_st, dy, chunk=chunk)
     n0 = (tss.ssd_scan.launches, tss.ssd_scan_bwd.launches,
-          tss.ssd_scan.wgmma_launches, tss.ssd_scan_bwd.wgmma_launches)
+          tss.ssd_scan.wgmma_launches, tss.ssd_scan_bwd.wgmma_launches,
+          tss.ssd_scan.tf32x3_launches, tss.ssd_scan_bwd.tf32x3_launches)
     xc, dtc, ac, bc, cc, dc = (t.to(cuda).requires_grad_()
                                for t in (x, dt, a, b, c, d))
     y, st = tss.ssd_scan_fwd(xc.detach(), dtc.detach(), ac.detach(),
@@ -126,9 +128,10 @@ def test_ssd_scan_n64_kernels_match_plain(cuda, dtype, B, L, H, G, chunk,
     out.backward(dy.to(cuda))
     torch.cuda.synchronize()
     n1 = (tss.ssd_scan.launches, tss.ssd_scan_bwd.launches,
-          tss.ssd_scan.wgmma_launches, tss.ssd_scan_bwd.wgmma_launches)
+          tss.ssd_scan.wgmma_launches, tss.ssd_scan_bwd.wgmma_launches,
+          tss.ssd_scan.tf32x3_launches, tss.ssd_scan_bwd.tf32x3_launches)
     assert tuple(v - u for u, v in zip(n0, n1)) == (
-        2, 1, 2 * wgmma, int(wgmma))
+        2, 1, 2 * wgmma, int(wgmma), 2 * (not wgmma), int(not wgmma))
     assert st.shape == (B, H, -(-L // min(chunk, L)), N, P)
     _ssd_close(y, ref_y, dtype)
     _ssd_close(out.detach(), ref_y, dtype)
@@ -182,7 +185,7 @@ def _counts():
 def test_flash_attention_d112_matches_plain(cuda, dtype, causal, S):
     """``flash_attention``'s autograd Function at (112, 1) against the
     plain versions on the same inputs: one forward and one backward
-    launch a call, both wgmma ones in bf16, none in fp32; bf16 also
+    launch a call, both wgmma ones in bf16, tf32x3 ones in fp32; bf16 also
     against ``_bwd_rounded``, the plain model of the wgmma backward's
     roundings."""
     q, k, v, do = _attn_inputs(S + 7, 2, 4, S, dtype, cuda)
@@ -272,7 +275,7 @@ def _to(tree_, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("remat", [False, True])
 def test_narrowed_hybrid_train_step_card_equals_cpu(cuda, remat):
-    """The narrowed hybrid's loss and gradients (fp32: the CUDA-core SSD
+    """The narrowed hybrid's loss and gradients (fp32: the tf32x3 SSD
     kernels in 3 Mamba-2 layers, the tf32x3 attention kernels in the
     shared block at 2 sites) and one
     train step on the card against the same on the CPU from one state

@@ -104,9 +104,9 @@ def _j(arrs):
 
 @pytest.mark.parametrize("dtype,N,P,variant", [
     (torch.bfloat16, 128, 64, "wgmma"),
-    (torch.float32, 128, 64, "cuda_core"),
+    (torch.float32, 128, 64, "tf32x3"),
     (torch.bfloat16, 64, 64, "wgmma"),
-    (torch.float32, 64, 64, "cuda_core"),
+    (torch.float32, 64, 64, "tf32x3"),
     (torch.bfloat16, 16, 8, None),          # None: not built, raises
     (torch.float32, 8, 16, None),
     (torch.float16, 128, 64, None),
